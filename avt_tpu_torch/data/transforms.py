@@ -1,16 +1,23 @@
-"""Device-side video preprocessing, eval path.
+"""Device-side video preprocessing, eval and train paths.
 
 Counterpart of avt_tpu/data/transforms.py (`_interp_taps`,
-`resize_bilinear_torch`, `_parse_size`, `VideoPreprocessor.eval_fn`):
-uint8 (B, T, H, W, 3) frames -> normalised (B, #crops, 3, T, crop, crop),
-with the reference's eval pipeline: /255 -> Resize (torch-exact bilinear,
-no antialias) -> scale/reverse/Normalize -> 1 or 3 crops (+ flipped
-copies). The train path comes with training.
+`resize_bilinear_torch`, `_parse_size`, `color_jitter`,
+`VideoPreprocessor.eval_fn` and `train_fn`): uint8 (B, T, H, W, 3) frames ->
+  eval:  /255 -> Resize (torch-exact bilinear, no antialias) ->
+         scale/reverse/Normalize -> 1 or 3 crops (+ flipped copies),
+         (B, #crops, 3, T, crop, crop);
+  train: a random smaller-side scale and crop offset per clip, fused into
+         one resize+crop as jax.image.scale_and_translate(method='linear')
+         computes it (a triangle kernel widened by 1/scale when it
+         downscales) -> /255 -> random flip -> optional color jitter ->
+         scale/reverse/Normalize, (B, 3, T, crop, crop).
+`random_resized_crop` is not ported yet (no shipped pipeline uses it).
 """
 from __future__ import annotations
 
 import functools
-from typing import Optional, Sequence, Tuple, Union
+import math
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -60,6 +67,66 @@ def resize_bilinear_torch(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tens
     return _resize_axis_torch(x, out_w, x.dim() - 2)
 
 
+def _scale_weights(in_size: int, out_size: int, scale: torch.Tensor,
+                   translation: torch.Tensor) -> torch.Tensor:
+    """(B, in, out) resampling weights of jax.image.scale_and_translate's
+    'linear' kernel with antialiasing (jax/_src/image/scale.py
+    `compute_weight_mat`), one matrix per clip. Computed, like JAX's, in the
+    type of `scale` and `translation` ((B,) each): every operation rounds to
+    it, except the column sums, which are taken in f32."""
+    dt, dev = scale.dtype, scale.device
+    inv_scale = (1.0 / scale)[:, None]
+    kernel_scale = torch.clamp_min(inv_scale, 1.0)[:, None]
+    sample_f = ((torch.arange(out_size, dtype=dt, device=dev) + 0.5) * inv_scale
+                - translation[:, None] * inv_scale - 0.5)  # (B, out)
+    x = (sample_f[:, None, :] - torch.arange(in_size, dtype=dt, device=dev)[None, :, None]).abs()
+    w = torch.clamp_min(1.0 - (x / kernel_scale).abs(), 0.0)  # triangle
+    total = w.float().sum(dim=1, keepdim=True).to(dt)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return torch.where(inside[:, None, :], w, torch.zeros_like(w))
+
+
+def _grayscale(x: torch.Tensor) -> torch.Tensor:
+    """ITU-R 601 luma of (..., 3), torchvision's rgb_to_grayscale."""
+    return (0.2989 * x[..., 0] + 0.587 * x[..., 1] + 0.114 * x[..., 2])[..., None]
+
+
+_YIQ = torch.tensor([[0.299, 0.587, 0.114], [0.596, -0.274, -0.322], [0.211, -0.523, 0.312]])
+_IYIQ = torch.tensor([[1.0, 0.956, 0.621], [1.0, -0.272, -0.647], [1.0, -1.106, 1.703]])
+
+
+def color_jitter(x: torch.Tensor, brightness=None, contrast=None, saturation=None,
+                 hue=None) -> torch.Tensor:
+    """Per-clip color jitter of (B, T, H, W, 3) in [0, 1] with explicit
+    factors, (B,) tensors or None for an adjustment left out: brightness ->
+    contrast -> saturation -> hue (a YIQ rotation), in that fixed order,
+    then clipped to [0, 1]; the same factors for every frame of a clip."""
+    def per_clip(f):
+        return f.to(x.dtype).reshape(-1, 1, 1, 1, 1)
+
+    if brightness is not None:
+        x = x * per_clip(brightness)
+    if contrast is not None:
+        f = per_clip(contrast)
+        x = f * x + (1 - f) * _grayscale(x).mean(dim=(1, 2, 3, 4), keepdim=True)
+    if saturation is not None:
+        f = per_clip(saturation)
+        x = f * x + (1 - f) * _grayscale(x)
+    if hue is not None:
+        theta = 2 * math.pi * hue.float()
+        cos, sin = torch.cos(theta), torch.sin(theta)
+        one, zero = torch.ones_like(cos), torch.zeros_like(cos)
+        rot = torch.stack([torch.stack([one, zero, zero], -1),
+                           torch.stack([zero, cos, -sin], -1),
+                           torch.stack([zero, sin, cos], -1)], -2)  # (B, 3, 3)
+        m = _IYIQ.to(x.device) @ rot @ _YIQ.to(x.device)
+        x = torch.einsum("bthwc,bdc->bthwd", x, m.to(x.dtype))
+    return x.clamp(0.0, 1.0)
+
+
 def _parse_size(size: Union[int, str]) -> Tuple[int, int]:
     """'248-280' -> (248, 280); 224 -> (224, 224) (a fixed 'range')."""
     if isinstance(size, str):
@@ -69,7 +136,8 @@ def _parse_size(size: Union[int, str]) -> Tuple[int, int]:
 
 
 class VideoPreprocessor:
-    """Eval-time preprocessing on `device` (CUDA unless device="cpu")."""
+    """Train- and eval-time preprocessing on `device` (CUDA unless
+    device="cpu")."""
 
     def __init__(
         self,
@@ -78,6 +146,11 @@ class VideoPreprocessor:
         scale_w: Union[int, str] = -1,
         mean: Sequence[float] = (0.43216, 0.394666, 0.37645),
         std: Sequence[float] = (0.22803, 0.22145, 0.216989),
+        flip_p: float = 0.5,
+        color_jitter_brightness: float = 0.0,
+        color_jitter_contrast: float = 0.0,
+        color_jitter_saturation: float = 0.0,
+        color_jitter_hue: float = 0.0,
         scale_pix_val: float = 1.0,
         reverse_channels: bool = False,
         eval_num_crops: int = 1,
@@ -86,15 +159,20 @@ class VideoPreprocessor:
         out_dtype: torch.dtype = torch.float32,
         device=None,
     ):
-        """compute_dtype: type of the full-resolution frames the resize
-        gathers from (bf16 holds 0..255 exactly and halves the traffic; the
-        interpolation itself is f32). out_dtype: type of the returned video."""
+        """compute_dtype: type of the full-resolution frames the resize reads
+        (bf16 holds 0..255 exactly and halves the traffic). The eval resize
+        interpolates in f32; the train resize+crop, like JAX's, computes its
+        weights and products in compute_dtype. out_dtype: type of the
+        returned video."""
         self.device = resolve_device(device)
         self.crop_size = crop_size
         self.scale_h = scale_h
         self.scale_w = scale_w
         self.mean = torch.tensor(mean, dtype=torch.float32, device=self.device)
         self.std = torch.tensor(std, dtype=torch.float32, device=self.device)
+        self.flip_p = flip_p
+        self.jitter = (color_jitter_brightness, color_jitter_contrast,
+                       color_jitter_saturation, color_jitter_hue)
         self.scale_pix_val = scale_pix_val
         self.reverse_channels = reverse_channels
         self.eval_num_crops = eval_num_crops
@@ -109,6 +187,65 @@ class VideoPreprocessor:
             x = x.flip(-1)
         return ((x - self.mean) / self.std).to(self.out_dtype)
 
+    # -------------------------------------------------------------- train
+    def train_draws(self, frames_shape, generator: Optional[torch.Generator] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """The random draws of `train_fn` for (B, T, H, W, 3) frames, (B,)
+        f32 tensors in JAX's order: the smaller side s = floor(U[smin,
+        smax + 1)); the crop offsets i, j = floor(U * max(new side - crop,
+        0)); flip = U < flip_p; and, for each color jitter > 0, its factor
+        (brightness, contrast, saturation ~ U[max(0, 1 - v), 1 + v]; hue ~
+        U[-v, v])."""
+        B, _, H, W, _ = frames_shape
+        smin, smax = _parse_size(self.scale_h)
+        if not (self.scale_w == -1 or self.scale_w == self.scale_h):
+            raise NotImplementedError("the train path resizes the smaller side (scale_w=-1) only")
+
+        def uniform(lo=0.0, hi=1.0):
+            u = torch.rand(B, generator=generator, device=self.device, dtype=torch.float32)
+            return u * (hi - lo) + lo
+
+        s = torch.floor(uniform(smin, smax + 1.0))
+        f = s / min(H, W)
+        i = torch.floor(uniform() * torch.clamp_min(H * f - self.crop_size, 0.0))
+        j = torch.floor(uniform() * torch.clamp_min(W * f - self.crop_size, 0.0))
+        draws = {"s": s, "i": i, "j": j, "flip": uniform() < self.flip_p}
+        for name, v in zip(("brightness", "contrast", "saturation"), self.jitter[:3]):
+            if v > 0:
+                draws[name] = uniform(max(0.0, 1 - v), 1 + v)
+        if self.jitter[3] > 0:
+            draws["hue"] = uniform(-self.jitter[3], self.jitter[3])
+        return draws
+
+    def train_crop(self, frames, s: torch.Tensor, i: torch.Tensor, j: torch.Tensor,
+                   flip: torch.Tensor, **jitter) -> torch.Tensor:
+        """The deterministic part of `train_fn`: (B, T, H, W, 3) uint8 and
+        per-clip draws -> (B, 3, T, crop, crop). The resize to smaller side
+        s and the crop at (i, j) are one resampling, contracting the width
+        first and rounding the intermediate to compute_dtype, as XLA runs
+        JAX's einsum."""
+        frames = torch.as_tensor(frames).to(self.device)
+        B, T, H, W, _ = frames.shape
+        cs, dt = self.crop_size, self.compute_dtype
+        f = (s.float() / min(H, W)).to(dt)
+        w_h = _scale_weights(H, cs, f, (-i.float()).to(dt))  # (B, H, cs)
+        w_w = _scale_weights(W, cs, f, (-j.float()).to(dt))  # (B, W, cs)
+        x = torch.einsum("bthwc,bwj->bthjc", frames.to(dt), w_w)
+        x = torch.einsum("bthjc,bhi->btijc", x, w_h)  # (B, T, cs, cs, 3)
+        x = x.float() / 255.0
+        x = torch.where(flip.reshape(-1, 1, 1, 1, 1), x.flip(3), x)
+        if jitter:
+            x = color_jitter(x, **jitter)
+        return self._finalize(x).permute(0, 4, 1, 2, 3)
+
+    def train_fn(self, frames, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, T, H, W, 3) uint8 -> (B, 3, T, crop, crop): random scale,
+        crop, flip (and color jitter) per clip, drawn from `generator` (on
+        this preprocessor's device; torch's default when None)."""
+        frames = torch.as_tensor(frames).to(self.device)
+        return self.train_crop(frames, **self.train_draws(frames.shape, generator))
+
+    # --------------------------------------------------------------- eval
     def _eval_resize_shape(self, H: int, W: int) -> Tuple[int, int]:
         if self.scale_w == -1:
             target = _parse_size(self.scale_h)[0]

@@ -22,6 +22,8 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
+from avt_tpu_torch.models.layers import dropout
+
 PAST_LOGITS_PREFIX = "past_"
 
 
@@ -46,7 +48,7 @@ class AVTModel(nn.Module):
         self.num_classes = tuple(num_classes)
         self.backbone_dim = backbone_dim
         self.classifier_on_past = classifier_on_past
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = dropout
         missing = [task for task, _ in self.num_classes if task not in self.classifiers]
         if missing:
             raise NotImplementedError(
@@ -57,7 +59,11 @@ class AVTModel(nn.Module):
         return {f"{prefix}logits/{task}": self.classifiers[task](feat)
                 for task, _ in self.num_classes}
 
-    def forward_singlecrop(self, video, target_shape=None
+    def _dropout(self, x, generator):
+        return dropout(x, self.dropout, generator, self.training)
+
+    def forward_singlecrop(self, video, target_shape=None,
+                           generator: Optional[torch.Generator] = None
                            ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         """video: (B, #clips, C, T, H, W)."""
         outputs: Dict[str, torch.Tensor] = {}
@@ -86,31 +92,34 @@ class AVTModel(nn.Module):
                 feats_agg = feats_agg.reshape(
                     (B, num_clips * feats_agg.shape[2]) + tuple(feats_agg.shape[3:]))
         feats_past, feats_future, fut_losses, endpoints = self.future_predictor(
-            feats_agg, target_shape)
+            feats_agg, target_shape, generator=generator)
         aux_losses.update(fut_losses)
         outputs.update(endpoints)
         outputs["future"] = feats_future
         outputs["past"] = feats_past
         if self.classifier_on_past:
-            outputs.update(self._apply_classifier(self.dropout(feats_past), PAST_LOGITS_PREFIX))
+            outputs.update(self._apply_classifier(self._dropout(feats_past, generator),
+                                                  PAST_LOGITS_PREFIX))
         outputs["future_projected"] = feats_agg  # reference quirk: the PAST
         feats_future_agg, fagg_losses = self.temporal_aggregator_after_future_pred(feats_future)
         aux_losses.update(fagg_losses)
         outputs["future_agg"] = feats_future_agg
-        outputs.update(self._apply_classifier(self.dropout(feats_future_agg)))
+        outputs.update(self._apply_classifier(self._dropout(feats_future_agg, generator)))
         return outputs, aux_losses
 
-    def forward(self, video, target_shape: Optional[tuple] = None):
-        """video: (B, #clips, C, T, H, W) or (B, #clips, #crops, C, T, H, W)."""
+    def forward(self, video, target_shape: Optional[tuple] = None,
+                generator: Optional[torch.Generator] = None):
+        """video: (B, #clips, C, T, H, W) or (B, #clips, #crops, C, T, H, W).
+        `generator` draws the train-mode dropout masks."""
         if video.dim() == 6:
-            return self.forward_singlecrop(video, target_shape)
+            return self.forward_singlecrop(video, target_shape, generator)
         if video.dim() == 7 and video.shape[2] == 1:
-            return self.forward_singlecrop(video[:, :, 0], target_shape)
+            return self.forward_singlecrop(video[:, :, 0], target_shape, generator)
         if video.dim() != 7:
             raise NotImplementedError(f"Unsupported video shape {tuple(video.shape)}")
         B, num_clips, n = video.shape[:3]
         stacked = torch.cat([video[:, :, i] for i in range(n)], dim=0)  # crop-major
-        outputs, losses = self.forward_singlecrop(stacked, target_shape)
+        outputs, losses = self.forward_singlecrop(stacked, target_shape, generator)
         # leading dims that carry the crop factor: n*B, or n*B*num_clips
         # before the clips are unfolded (e.g. 'backbone')
         crop_leading = (n * B, n * B * num_clips)

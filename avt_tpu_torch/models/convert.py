@@ -141,3 +141,13 @@ def load_jax_params(model: nn.Module, params: Mapping) -> nn.Module:
     sd = params_from_jax(params)
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def opt_state_from_jax(trace: Mapping, count: int = 0) -> dict:
+    """An optax momentum tree (`TraceState.trace`) -> the port's SGD state
+    (`{"count": count, "momentum": {name: f32 tensor}}`, for
+    `SGD.load_state_dict`, which rounds into the buffers' own type). A trace
+    has the parameters' tree, so `params_from_jax`'s re-layout applies; the
+    leaves of frozen parameters, which optax masks out, are filled in by the
+    caller."""
+    return {"count": int(count), "momentum": params_from_jax(trace)}

@@ -43,9 +43,10 @@ class AVTh(nn.Module):
 
     output_dim = property(lambda self: self.in_features)
 
-    def forward(self, feats, target_shape=None):
+    def forward(self, feats, target_shape=None, generator: Optional[torch.Generator] = None):
         """feats (B, T, C) or (B, C) -> (updated past (B, T, C), final
-        feature, losses, endpoints)."""
+        feature, losses, endpoints). `generator` draws the train-mode
+        dropout masks."""
         if feats.dim() == 2:
             feats = feats[:, None, :]
         if target_shape is not None and len(target_shape) == 3:
@@ -62,7 +63,7 @@ class AVTh(nn.Module):
             raise NotImplementedError("AVTh rollouts longer than one step are not ported yet")
         T0 = feats.shape[1]
 
-        hidden = self.gpt_model(self.encoder(feats))  # (B, T0, inter_dim)
+        hidden = self.gpt_model(self.encoder(feats), generator=generator)  # (B, T0, inter_dim)
         decoded = self.decoder(hidden)
 
         losses = {}

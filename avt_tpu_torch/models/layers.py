@@ -1,8 +1,9 @@
 """Shared transformer building blocks: the GPT-2 decoder of AVT-h.
 
 Counterpart of avt_tpu/models/layers.py (`gelu_new`, `SelfAttention`,
-`GPT2Block`, `GPT2Core`) for the recompute forward; the KV cache,
-`output_attentions` and position-stable dropout come later. Parameter names
+`GPT2Block`, `GPT2Core`) for the recompute forward, in eval and train mode;
+the KV cache, `output_attentions` and position-stable dropout (rollouts
+longer than one step) come later. Parameter names
 are HF transformers' GPT2Model ones (Conv1D weights laid out (in, out)), so
 a reference GPT-2 state_dict loads unchanged.
 
@@ -41,6 +42,21 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: Optional[torch.dtype]) 
     return y if dtype is None else y.to(dtype)
 
 
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
+            training: bool) -> torch.Tensor:
+    """flax Dropout: in training, keep each element with probability 1 - p
+    and divide it by 1 - p, both in x's type (a weakly typed float takes
+    the array's type); the mask is drawn from `generator` (torch's default
+    when None), which nn.Dropout cannot take."""
+    if not training or p == 0.0:
+        return x
+    if p >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    keep_prob = torch.tensor(1.0 - p, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
 def gelu_new(x: torch.Tensor) -> torch.Tensor:
     """GPT-2's tanh-approximated GELU."""
     return F.gelu(x, approximate="tanh")
@@ -72,17 +88,18 @@ class SelfAttention(nn.Module):
         self.dtype = dtype
         self.c_attn = Conv1D(dim, 3 * dim, device=device)
         self.c_proj = Conv1D(dim, dim, device=device)
-        self.attn_dropout = nn.Dropout(attn_dropout)
-        self.resid_dropout = nn.Dropout(resid_dropout)
+        self.attn_dropout = attn_dropout
+        self.resid_dropout = resid_dropout
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         B, T, C = x.shape
         qkv = self.c_attn(x, self.dtype)
         q, k, v = (t.reshape(B, T, self.num_heads, C // self.num_heads)
                    for t in qkv.split(C, dim=-1))
         out = dot_product_attention(q, k, v, causal=self.causal)
-        out = self.attn_dropout(out).reshape(B, T, C)
-        return self.resid_dropout(self.c_proj(out, self.dtype))
+        out = dropout(out, self.attn_dropout, generator, self.training).reshape(B, T, C)
+        return dropout(self.c_proj(out, self.dtype), self.resid_dropout, generator,
+                       self.training)
 
 
 class GPT2MLP(nn.Module):
@@ -105,14 +122,14 @@ class GPT2Block(nn.Module):
                                   resid_dropout=resid_dropout, dtype=dtype, device=device)
         self.ln_2 = nn.LayerNorm(dim, eps=ln_eps, device=device)
         self.mlp = GPT2MLP(dim, mlp_ratio * dim, device=device)
-        self.mlp_dropout = nn.Dropout(resid_dropout)
+        self.resid_dropout = resid_dropout
 
-    def forward(self, x):
-        x = x + self.attn(layer_norm(x, self.ln_1, self.dtype))
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        x = x + self.attn(layer_norm(x, self.ln_1, self.dtype), generator)
         h = layer_norm(x, self.ln_2, self.dtype)
         h = gelu_new(self.mlp.c_fc(h, self.dtype))
         h = self.mlp.c_proj(h, self.dtype)
-        return x + self.mlp_dropout(h)
+        return x + dropout(h, self.resid_dropout, generator, self.training)
 
 
 class GPT2Core(nn.Module):
@@ -127,7 +144,7 @@ class GPT2Core(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.wpe = nn.Embedding(n_positions, dim, device=device)
-        self.drop = nn.Dropout(embd_dropout)
+        self.embd_dropout = embd_dropout
         self.h = nn.ModuleList(
             GPT2Block(dim, n_head, attn_dropout=attn_dropout, resid_dropout=resid_dropout,
                       ln_eps=ln_eps, dtype=dtype, device=device)
@@ -135,14 +152,15 @@ class GPT2Core(nn.Module):
         )
         self.ln_f = nn.LayerNorm(dim, eps=ln_eps, device=device)
 
-    def forward(self, inputs_embeds, position_offset: int = 0):
+    def forward(self, inputs_embeds, position_offset: int = 0,
+                generator: Optional[torch.Generator] = None):
         T = inputs_embeds.shape[1]
         x = inputs_embeds + self.wpe.weight[position_offset:position_offset + T][None]
         if self.dtype is not None:
             x = x.to(self.dtype)
-        x = self.drop(x)
+        x = dropout(x, self.embd_dropout, generator, self.training)
         for block in self.h:
-            x = block(x)
+            x = block(x, generator)
         x = layer_norm(x, self.ln_f, self.dtype)
         return x.float() if self.dtype is not None else x
 

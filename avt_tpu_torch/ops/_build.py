@@ -37,6 +37,13 @@ KERNELS: Dict[str, Dict[str, str]] = {
         "replaces": "avt_tpu/ops/flash_attention.py:551 (_short_fwd_kernel_paired, "
                     "via _short_attention_fwd_call :814)",
     },
+    "short_attention_bwd": {
+        "route": "cuda",
+        "source": "avt_tpu_torch/ops/csrc/short_attention_bwd.cu",
+        "replaces": "avt_tpu/ops/flash_attention.py:599 (_short_bwd_kernel_paired with db_ref, "
+                    "via _short_attention_bwd_db_call :884; without db and _short_bwd_kernel "
+                    ":486 via _short_attention_bwd_call :848)",
+    },
 }
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -4,17 +4,30 @@
     python3 chip_smoke.py        # from the repo root, on a machine with a GPU
 
 1. Card and build: prints the card's name and power limit, turns TF32 off,
-   builds every kernel from the sources in the checkout (nvcc, sm_90a).
+   builds every kernel from the sources in the checkout (nvcc, sm_90a, one
+   process per source, all at once).
 2. Kernels: holds each kernel against its plain PyTorch version at the
-   serving path's shapes (tolerances below) and times both, the library call
-   that computes the same function, and the card's bound for the work.
+   serving and training paths' shapes (tolerances below) and times both,
+   the library call that computes the same function, and the card's bound
+   for the work: the attention forward, and the attention backward (dqkv
+   and the qkv-bias gradient db).
 3. Serving: the full-width flagship (ViT-B/16 + AVT-h, 3806 actions, bf16)
    answers requests of uint8 clips through `batch_predict` at batch 4, 3
    crops + flips each; the logits must be finite, (n, 3806), the same for a
    clip in a full batch and in a padded tail, and close to the same model
    with plain attention; every kernel of the path must have been launched.
+4. Training: the full-width flagship takes train steps through
+   `make_train_step` (train_fn -> ViT-B/16 bf16 -> AVT-h -> cls + past-cls +
+   feat losses -> nesterov SGD with a bf16 momentum buffer under warmup +
+   cosine) on 16 uint8 clips, bench.py's train step. Every loss is finite;
+   step 0 (LR 0) leaves the parameters as they were and step 1 changes
+   them; each step launches each attention kernel once per ViT block; every
+   parameter of the attention branch gets a finite gradient; on one clip,
+   gradients with the kernels and with the plain versions agree. Prints step
+   ms, clips/s, MFU, peak memory and a profile of one step.
+5. A depth-2 ViT with 24 heads of 32 takes a train step: its attention goes
+   through `packed_short_attention`, the backward kernel's no-db form.
 Prints one JSON line of kernel results, then {"ok": true, "device": ...}.
-It also prints the device time of one batch-32 forward by kernel group.
 Exits non-zero on any failure, and without a CUDA device.
 """
 import json
@@ -27,9 +40,21 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from avt_tpu_torch import VideoPreprocessor, batch_predict, build_avt, make_eval_forward
+from avt_tpu_torch import (
+    VideoPreprocessor,
+    basic_loss_accuracy,
+    batch_predict,
+    build_avt,
+    build_optimizer,
+    make_eval_forward,
+    make_train_step,
+)
+from avt_tpu_torch.losses import mse
+from avt_tpu_torch.models import AVTh, AVTModel, IdentityAgg, LinearClassifier, ViT
+from avt_tpu_torch.models.flagship import init_weights
 from avt_tpu_torch.ops import _build
 from avt_tpu_torch.ops import flash_attention as fa
+from avt_tpu_torch.train import weighted_loss_sum
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound is the larger of
 # bytes over memory rate and operations over the type's peak rate
@@ -40,6 +65,13 @@ NUM_ACTIONS = 3806
 VIT_BLOCKS = 12  # one packed-attention launch per ViT block per forward
 BATCH = 4
 CLIP = (10, 256, 342, 3)  # frames of one clip: T, H, W, RGB (bench.py's eval input)
+TRAIN_CLIPS = 16  # bench.py's train batch: 16 clips x 10 frames = 160 ViT frames
+# bench.py's model cost per clip, forward + backward: ViT-B/16 35.2 GFLOP a
+# frame x 10 frames, AVT-h 9.7, heads 1.6, x3
+TRAIN_FLOPS_PER_CLIP = (35.2e9 * 10 + 9.7e9 + 1.6e9) * 3
+LOSS_WTS = {"cls_action": 1.0, "past_cls_action": 1.0, "feat": 1.0}
+TIMED_STEPS = 10
+GRAD_TOL = 5e-2  # kernels vs plain attention, of each gradient's max |value|
 
 
 def log(msg):
@@ -110,14 +142,121 @@ def time_attention(N, T, H, D, dtype):
     bound_ms, bound_by = attention_bound_ms(N, T, H, D, dtype)
     res = dict(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=bound_ms, bound_by=bound_by)
-    log(f"short_attention_fwd timing N={N} T={T} H={H} D={D}: "
-        + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in res.items()))
+    log(f"short_attention_fwd timing N={N} T={T} H={H} D={D}: " + fmt(res))
+    return res
+
+
+def fmt(res):
+    return " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+                    for k, v in res.items())
+
+
+def time_unpaired_fwd(N, T, H, D, dtype):
+    """The forward's D=32 / D=128 templates (the TPU's unpaired kernel),
+    without bias, as packed_attention calls them."""
+    qkv = torch.randn(N, T, 3 * H * D, generator=torch.Generator(device="cuda").manual_seed(2),
+                      device="cuda", dtype=dtype)
+    q, k, v = (x.view(N, T, H, D).transpose(1, 2) for x in qkv.split(H * D, dim=-1))
+    out = fa.packed_short_attention(qkv, H)
+    ref = fa.packed_short_attention_reference(qkv, H)
+    err = (out.float() - ref.float()).abs().max().item()
+    torch.testing.assert_close(out, ref, atol=TOL[dtype], rtol=TOL[dtype])
+    bound_ms, bound_by = attention_bound_ms(N, T, H, D, dtype)
+    bound_ms -= 1e3 * 3 * H * D * (torch.finfo(dtype).bits // 8) / HBM_BYTES_PER_S  # no bias
+    res = dict(ms=cuda_ms(lambda: fa.packed_short_attention(qkv, H)),
+               plain_ms=cuda_ms(lambda: fa.packed_short_attention_reference(qkv, H),
+                                iters=2, reps=3),
+               library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+               bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+    log(f"short_attention_fwd unpaired N={N} T={T} H={H} D={D}: " + fmt(res))
+    return res
+
+
+def bwd_inputs(N, T, H, D, dtype, seed):
+    """qkv (N, T, 3C), dout (N, T, C), bias (3C), in the storage type."""
+    rng = np.random.default_rng(seed)
+    shapes = ((N, T, 3 * H * D), (N, T, H * D), (3 * H * D,))
+    return [torch.from_numpy(rng.standard_normal(s, np.float32)).to("cuda", dtype)
+            for s in shapes]
+
+
+def rel_err(out, ref):
+    """max |out - ref| / max |ref|"""
+    return ((out.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp_min(1e-30)).item()
+
+
+def check_attention_bwd(N, T, H, D, dtype, causal, with_db, seed):
+    """The backward kernel (with db: the bias form the ViT's autograd calls;
+    without: packed_short_attention's) against the plain version."""
+    qkv, dout, bias = bwd_inputs(N, T, H, D, dtype, seed)
+    if not with_db:
+        bias = None
+    dqkv, db = fa._launch_bwd(qkv, bias, dout, H, causal, with_db)
+    torch.cuda.synchronize()
+    ref, ref_db = fa.packed_short_attention_bwd_reference(
+        qkv if bias is None else qkv + bias, dout, H, causal, with_db)
+    err = rel_err(dqkv, ref)
+    max_abs = (dqkv.float() - ref.float()).abs().max().item()
+    msg = (f"short_attention_bwd N={N} T={T} H={H} D={D} {str(dtype)[6:]} causal={causal} "
+           f"db={with_db}: dqkv max_abs_err={max_abs:.3g}, {err:.3g} of max|ref|")
+    check(err <= TOL[dtype], msg)
+    if with_db:
+        db_err = rel_err(db, ref_db)
+        msg += f"; db {db_err:.3g} of max|ref|"
+        check(db_err <= TOL[dtype], msg)
+    log(msg + f" (tolerance {TOL[dtype]})")
+    return max_abs
+
+
+def attention_bwd_bound_ms(N, T, H, D, dtype, with_db=True):
+    s = torch.finfo(dtype).bits // 8
+    C = H * D
+    nbytes = (N * T * 3 * C + N * T * C + N * T * 3 * C) * s  # qkv, dout in; dqkv out
+    if with_db:
+        nbytes += 2 * 3 * C * s  # bias in, db out
+    flops = 10 * N * H * T * T * D  # s, dp, dq, dk, dv: five T x T x D products
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_attention_bwd(N, T, H, D, dtype, with_db=True):
+    """Kernel (with db: the bias form; without: packed_short_attention's),
+    plain version, and the library yardstick: the backward of
+    F.scaled_dot_product_attention on the split q/k/v views, timed as
+    (forward + backward) - forward (it sums no bias gradient)."""
+    qkv, dout, bias = bwd_inputs(N, T, H, D, dtype, seed=11)
+    if not with_db:
+        bias = None
+    C = H * D
+    kernel_ms = cuda_ms(lambda: fa._launch_bwd(qkv, bias, dout, H, False, with_db))
+    plain_ms = cuda_ms(
+        lambda: fa.packed_short_attention_bwd_reference(
+            qkv if bias is None else qkv + bias, dout, H, False, with_db),
+        iters=2, reps=3)
+    x = qkv.detach().requires_grad_(True)
+    do4 = dout.view(N, T, H, D).transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            *(t.view(N, T, H, D).transpose(1, 2) for t in x.split(C, dim=-1)))
+
+    fwd_ms = cuda_ms(sdpa)
+    fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa(), x, do4))
+    bound_ms, bound_by = attention_bwd_bound_ms(N, T, H, D, dtype, with_db)
+    res = dict(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=fwd_bwd_ms - fwd_ms,
+               library_fwd_bwd_ms=fwd_bwd_ms, library_fwd_ms=fwd_ms,
+               bound_ms=bound_ms, bound_by=bound_by)
+    log(f"short_attention_bwd timing N={N} T={T} H={H} D={D} db={with_db}: " + fmt(res))
     return res
 
 
 def kernel_group(name):
     low = name.lower()
-    for key, group in (("short_attn", "attention kernel"), ("gemm", "matmul"),
+    for key, group in (("short_attn", "attention kernel"), ("bwd_query", "attention bwd kernel"),
+                       ("bwd_key", "attention bwd kernel"), ("db_reduce", "attention bwd kernel"),
+                       ("foreach", "optimizer"), ("multi_tensor", "optimizer"),
+                       ("gemm", "matmul"),
                        ("nvjet", "matmul"), ("xmma", "matmul"), ("fprop", "conv"),
                        ("nchwtonhwc", "conv"), ("layer_norm", "layer norm"),
                        ("gelu", "gelu"), ("index", "resize gather"),
@@ -128,15 +267,16 @@ def kernel_group(name):
     return "other elementwise"
 
 
-def profile_forward(fwd, batch):
-    """Device time by kernel group over one forward (torch.profiler)."""
+def profile_run(fn, label):
+    """Device time by kernel group over one fn() call (torch.profiler), after
+    one call outside the profile."""
     from torch.profiler import ProfilerActivity, profile
 
-    batch_predict(fwd, batch, len(batch))
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        batch_predict(fwd, batch, len(batch))
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -145,12 +285,14 @@ def profile_forward(fwd, batch):
     for e in kernels:
         g = kernel_group(e.key)
         groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
-    log(f"profile, batch {len(batch)}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+    log(f"profile, {label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
         f"({100 * busy_ms / wall_ms:.1f}%)")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"  {g}: {ms:.2f} ms ({100 * ms / busy_ms:.1f}% of device time)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<4d} {e.key[:90]}")
+    log(f"  {sum(e.count for e in kernels)} kernel launches")
+    return busy_ms
 
 
 def main():
@@ -182,8 +324,64 @@ def main():
     check_attention(4, 100, 4, 32, torch.bfloat16, True, seed=2)
     timing = time_attention(240, 197, 12, 64, torch.bfloat16)  # one serving batch
     bench_timing = time_attention(1920, 197, 12, 64, torch.bfloat16)  # bench eval batch
+    train_timing = time_attention(160, 197, 12, 64, torch.bfloat16)  # one train batch
+    unpaired = {f"D{D}": time_unpaired_fwd(160, 197, 768 // D, D, torch.bfloat16)
+                for D in (32, 128)}
+    # the backward at the train batch (16 clips x 10 frames): the bias form
+    # with db, as the ViT's autograd calls it, then the no-db form of
+    # packed_short_attention at the other head dims
+    bwd_err = check_attention_bwd(160, 197, 12, 64, torch.bfloat16, False, True, seed=3)
+    check_attention_bwd(160, 197, 12, 64, torch.float32, False, True, seed=3)
+    for causal in (False, True):
+        check_attention_bwd(160, 197, 24, 32, torch.bfloat16, causal, False, seed=4)
+    check_attention_bwd(160, 197, 6, 128, torch.bfloat16, False, False, seed=5)
+    bwd_timing = time_attention_bwd(160, 197, 12, 64, torch.bfloat16)
+    bwd_timing_240 = time_attention_bwd(240, 197, 12, 64, torch.bfloat16)
+    no_db = {f"D{D}": time_attention_bwd(160, 197, 768 // D, D, torch.bfloat16, with_db=False)
+             for D in (32, 128)}
 
     # 3. serving: the full-width flagship through its entry points ----------
+    serve_launches = serve_phase()
+
+    # 4. training: the full-width flagship, bench.py's train step -------------
+    train_launches = train_phase()
+
+    # 5. the no-db form on a train step: 24 heads of 32 ----------------------
+    d32_launches = small_train_phase()
+
+    fwd_spec, bwd_spec = _build.KERNELS["short_attention_fwd"], _build.KERNELS["short_attention_bwd"]
+    kernels = [
+        dict(name="short_attention_fwd", route=fwd_spec["route"], source=fwd_spec["source"],
+             replaces=fwd_spec["replaces"], launches=train_launches["short_attention_fwd"],
+             launches_by_path={"serve": serve_launches["short_attention_fwd"],
+                               "train": train_launches["short_attention_fwd"],
+                               "train_d32": d32_launches["short_attention_fwd"]},
+             shape=[240, 197, 12, 64], dtype="bfloat16", max_abs_err=main_err,
+             ms=timing["kernel_ms"], **timing,
+             train_shape={"shape": [160, 197, 12, 64], **train_timing},
+             bench_shape={"shape": [1920, 197, 12, 64], **bench_timing},
+             unpaired_shape={k: {"shape": [160, 197, 768 // int(k[1:]), int(k[1:])], **v}
+                             for k, v in unpaired.items()}),
+        dict(name="short_attention_bwd", route=bwd_spec["route"], source=bwd_spec["source"],
+             replaces=bwd_spec["replaces"], launches=train_launches["short_attention_bwd"],
+             launches_by_path={"serve": serve_launches["short_attention_bwd"],
+                               "train": train_launches["short_attention_bwd"],
+                               "train_d32": d32_launches["short_attention_bwd"]},
+             shape=[160, 197, 12, 64], dtype="bfloat16", max_abs_err=bwd_err,
+             ms=bwd_timing["kernel_ms"], **bwd_timing,
+             serve_batch_shape={"shape": [240, 197, 12, 64], **bwd_timing_240},
+             no_db_shape={k: {"shape": [160, 197, 768 // int(k[1:]), int(k[1:])], **v}
+                          for k, v in no_db.items()}),
+    ]
+    log(f"total {time.time() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+
+
+def serve_phase():
+    """Requests through batch_predict at batch 4; returns the launch counts
+    of the counted requests."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = build_avt(num_actions=NUM_ACTIONS, vit_dtype=torch.bfloat16, generator=gen)
     pp = VideoPreprocessor(crop_size=224, scale_h=248, scale_w=-1, mean=(0.5,) * 3,
@@ -216,8 +414,7 @@ def main():
         check(np.isfinite(logits).all(), f"non-finite logits for clips {lo}:{hi}")
     want = VIT_BLOCKS * forwards[0]
     check(launches["short_attention_fwd"] == want, f"launches {launches}, want {want}")
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched on the serving path")
+    check(launches["short_attention_bwd"] == 0, f"a backward launch while serving: {launches}")
     # the same clip in a full batch and in a padded tail (and in two batches)
     tail_vs_full = np.abs(results[2][4:6] - results[3][2:4]).max()
     np.testing.assert_allclose(results[2][4:6], results[3][2:4], atol=1e-2, rtol=2e-2)
@@ -235,11 +432,7 @@ def main():
 
     # the same model with plain attention in place of the kernel, one clip
     logits = batch_predict(fwd, clips[:1], 1)["logits/action"]
-
-    def plain(qkv, bias, num_heads, causal=False):
-        return fa.packed_short_attention_reference(qkv + bias.to(qkv.dtype), num_heads, causal)
-
-    with mock.patch.object(fa, "packed_qkv_bias_attention", plain):
+    with mock.patch.object(fa, "packed_qkv_bias_attention", plain_bias_attention):
         plain_logits = batch_predict(fwd, clips[:1], 1)["logits/action"]
     scale = np.abs(plain_logits).max()
     diff = np.abs(logits - plain_logits).max()
@@ -257,20 +450,190 @@ def main():
             batch_predict(fwd, batch, bs)
         dt = (time.time() - t0) / 3
         log(f"steady forward, batch {bs}: {dt * 1e3:.2f} ms, {bs / dt:.2f} clips/s")
-    profile_forward(fwd, np.concatenate([clips] * 4)[:32])
+    batch32 = np.concatenate([clips] * 4)[:32]
+    profile_run(lambda: batch_predict(fwd, batch32, 32), "serving forward, batch 32")
+    return launches
 
-    spec = _build.KERNELS["short_attention_fwd"]
-    kernels = [dict(
-        name="short_attention_fwd", route=spec["route"], source=spec["source"],
-        replaces=spec["replaces"], launches=launches["short_attention_fwd"],
-        launches_per_forward=VIT_BLOCKS, shape=[240, 197, 12, 64], dtype="bfloat16",
-        max_abs_err=main_err, ms=timing["kernel_ms"], **timing,
-        bench_shape={"shape": [1920, 197, 12, 64], **bench_timing},
-    )]
-    log(f"total {time.time() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                             "count": torch.cuda.device_count()}}))
+
+def plain_bias_attention(qkv, bias, num_heads, causal=False):
+    """The plain version in place of the kernels; autograd differentiates it."""
+    return fa.packed_short_attention_reference(qkv + bias.to(qkv.dtype), num_heads, causal)
+
+
+def train_pipeline(model, clips):
+    """bench.py's train step on `model`: (optimizer, step, batch on the card)."""
+    pp = VideoPreprocessor(crop_size=224, scale_h="248-280", scale_w=-1, mean=(0.5,) * 3,
+                           std=(0.5,) * 3, flip_p=0.5, compute_dtype=torch.bfloat16,
+                           out_dtype=torch.bfloat16)
+    opt, _ = build_optimizer(
+        model, lr_wd=[["__all__", 1e-4, 1e-5]], optimizer_name="sgd", scheduler_name="cosine",
+        iters_per_epoch=1000, num_epochs=30, warmup_epochs=20,
+        optimizer_kwargs={"nesterov": True, "momentum_dtype": "bfloat16"})
+
+    def preprocess(frames, generator):
+        video = pp.train_fn(frames, generator)  # (B, 3, T, 224, 224)
+        return video.transpose(1, 2)[:, :, :, None]  # T clips of 1 frame, as bench.py
+
+    step = make_train_step(model, opt, LOSS_WTS, {"action": NUM_ACTIONS}, preprocess_fn=preprocess)
+    rng = np.random.default_rng(1)
+    B, T = clips, CLIP[0]
+    batch = {
+        "video": torch.from_numpy(rng.integers(0, 256, size=(B,) + CLIP, dtype=np.uint8)).cuda(),
+        "target": {"action": torch.from_numpy(rng.integers(0, NUM_ACTIONS, size=B)).cuda()},
+        "target_subclips": {"action": torch.from_numpy(
+            rng.integers(-1, NUM_ACTIONS, size=(B, T, 1))).cuda()},
+    }
+    return opt, step, preprocess, batch
+
+
+def attention_branch(name):
+    """A parameter of the ViT blocks' attention branch (norm1, qkv, proj)."""
+    return name.startswith("backbone.") and (".attn." in name or ".norm1." in name)
+
+
+def train_phase():
+    """Full-width flagship train steps; returns the launch counts of the
+    checked and timed steps."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = build_avt(num_actions=NUM_ACTIONS, vit_dtype=torch.bfloat16, generator=gen)
+    opt, step, preprocess, batch = train_pipeline(model, TRAIN_CLIPS)
+    params = dict(model.named_parameters())
+    branch = [n for n in params if attention_branch(n)]
+    check(len(branch) == 6 * VIT_BLOCKS, f"attention branch params {len(branch)}")
+    before = {n: p.detach().clone() for n, p in params.items()}
+    step_gen = torch.Generator(device="cuda").manual_seed(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    steps = 0
+    for k in range(2):  # step 0 runs at LR 0, step 1 at the first warmup LR
+        t0 = time.time()
+        metrics = step(batch, step_gen)
+        torch.cuda.synchronize()
+        steps += 1
+        first_ms = (time.time() - t0) * 1e3
+        launches = dict(_build.launch_counts)
+        want = VIT_BLOCKS * steps
+        check(launches == {"short_attention_fwd": want, "short_attention_bwd": want},
+              f"step {k}: launches {launches}, want {want} of each")
+        values = {key: v.item() for key, v in metrics.items()}
+        for key in ("loss", "loss/cls_action", "loss/past_cls_action", "loss/feat"):
+            check(np.isfinite(values[key]), f"step {k}: {key} = {values[key]}")
+        missing = [n for n in branch if params[n].grad is None]
+        check(not missing, f"step {k}: no gradient for {missing[:4]}")
+        bad = [n for n in branch if not torch.isfinite(params[n].grad).all()]
+        check(not bad, f"step {k}: non-finite gradient for {bad[:4]}")
+        changed = [n for n, p in params.items() if not torch.equal(p, before[n])]
+        lr = opt.groups[0].schedule(k)
+        log(f"train step {k} ({first_ms:.1f} ms with first-call costs): lr {lr:.3g}, "
+            + ", ".join(f"{key} {v:.4f}" for key, v in values.items())
+            + f"; {len(changed)} of {len(params)} parameter tensors changed; launches {launches}")
+        if k == 0:
+            check(not changed, f"step 0 at LR 0 changed {changed[:4]}")
+            moving = sum(bool(b.any()) for b in opt.momentum_buffers.values())
+            check(moving > 0, "step 0 left every momentum buffer at 0")
+        else:
+            check(changed, "step 1 changed no parameter")
+    # steady steps, host clock around TIMED_STEPS back-to-back steps
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(TIMED_STEPS):
+        metrics = step(batch, step_gen)
+    torch.cuda.synchronize()
+    step_s = (time.time() - t0) / TIMED_STEPS
+    steps += TIMED_STEPS
+    launches = dict(_build.launch_counts)
+    want = VIT_BLOCKS * steps
+    check(launches == {"short_attention_fwd": want, "short_attention_bwd": want},
+          f"launches {launches} after {steps} steps, want {want} of each")
+    check(np.isfinite(metrics["loss"].item()), "non-finite loss in the timed steps")
+    clips_s = TRAIN_CLIPS / step_s
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"train step, {TRAIN_CLIPS} clips x {CLIP[0]} frames: {step_s * 1e3:.2f} ms a step "
+        f"(mean of {TIMED_STEPS} after 2), {clips_s:.2f} clips/s, "
+        f"MFU {clips_s * TRAIN_FLOPS_PER_CLIP / PEAK_FLOPS[torch.bfloat16]:.4f} "
+        f"of {PEAK_FLOPS[torch.bfloat16] / 1e12:.0f} TFLOP/s "
+        f"({TRAIN_FLOPS_PER_CLIP / 1e12:.4f} TFLOP a clip); peak memory {peak_gb:.2f} GB")
+    busy_ms = profile_run(lambda: step(batch, step_gen), f"train step, {TRAIN_CLIPS} clips")
+    log(f"device busy {busy_ms:.2f} ms of the steady step's {step_s * 1e3:.2f} ms: "
+        f"idle share {1 - busy_ms / (step_s * 1e3):.3f}")
+
+    # gradients on one clip, with the kernels and with the plain versions
+    names = ["backbone.model.blocks.0.attn.qkv.bias", "backbone.model.blocks.11.attn.qkv.weight",
+             "backbone.model.patch_embed.proj.weight", "classifiers.action.weight"]
+    one = {"video": batch["video"][:1], "target": {"action": batch["target"]["action"][:1]},
+           "target_subclips": {"action": batch["target_subclips"]["action"][:1]}}
+    kernel_grads = one_clip_grads(model, preprocess, one, names)
+    with mock.patch.object(fa, "packed_qkv_bias_attention", plain_bias_attention):
+        plain_grads = one_clip_grads(model, preprocess, one, names)
+    for name, gk, gp in zip(names, kernel_grads, plain_grads):
+        scale = gp.float().abs().max().item()
+        diff = (gk.float() - gp.float()).abs().max().item()
+        log(f"grad {name}, kernels vs plain, 1 clip: max |diff| {diff:.3g} of scale "
+            f"{scale:.3g} (limit {GRAD_TOL} of the scale)")
+        check(scale > 0 and diff <= GRAD_TOL * scale, f"grad {name} differs by {diff}")
+    return launches
+
+
+def one_clip_grads(model, preprocess, batch, names):
+    """Gradients of the step's loss on a one-clip batch, with the dropout
+    masks and crop draws of a fixed seed."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    model.train()
+    video = preprocess(batch["video"], gen)
+    target = batch["target"]
+    outputs, aux = model(video, tuple(target["action"].shape), generator=gen)
+    tsub = {k: v.reshape(v.shape[0], v.shape[1], -1) for k, v in batch["target_subclips"].items()}
+    losses, _ = basic_loss_accuracy(outputs, target, tsub, num_classes={"action": NUM_ACTIONS})
+    losses.update(aux)
+    total, _ = weighted_loss_sum(losses, LOSS_WTS)
+    params = dict(model.named_parameters())
+    return torch.autograd.grad(total, [params[n] for n in names])
+
+
+def small_train_phase():
+    """One train step of a depth-2 ViT with 24 heads of 32: no head pairs, so
+    fused_qkv_attention adds the bias itself and calls packed_short_attention,
+    whose backward is the kernel's no-db form. Returns the step's launches."""
+    dim, dt = 768, torch.bfloat16
+    model = AVTModel(
+        backbone=ViT(depth=2, num_heads=24, dtype=dt, device="cuda"),
+        temporal_aggregator=IdentityAgg(in_features=dim),
+        future_predictor=AVTh(in_features=dim, inter_dim=256, n_layer=1, n_head=2, output_len=1,
+                              avg_last_n=1, return_past_too=True,
+                              future_pred_loss=lambda p, t: mse(p, t, reduction="none"),
+                              dtype=dt, device="cuda"),
+        temporal_aggregator_after_future_pred=IdentityAgg(in_features=dim),
+        classifiers={"action": LinearClassifier(dim, NUM_ACTIONS, device="cuda")},
+        num_classes=(("action", NUM_ACTIONS),), backbone_dim=dim, dropout=0.2,
+        classifier_on_past=True)
+    init_weights(model, torch.Generator(device="cuda").manual_seed(3))
+    _, step, _, batch = train_pipeline(model, 2)
+    wrapped = {name: mock.patch.object(fa, name, wraps=getattr(fa, name))
+               for name in ("packed_short_attention", "packed_qkv_bias_attention")}
+    calls = {name: patch.start() for name, patch in wrapped.items()}
+    try:
+        _build.reset_launch_counts()
+        metrics = step(batch, torch.Generator(device="cuda").manual_seed(4))
+        torch.cuda.synchronize()
+        launches = dict(_build.launch_counts)
+    finally:
+        for patch in wrapped.values():
+            patch.stop()
+    loss = metrics["loss"].item()
+    log(f"24 heads of 32, depth 2, one train step: loss {loss:.4f}; launches {launches}; "
+        f"packed_short_attention calls {calls['packed_short_attention'].call_count}, "
+        f"packed_qkv_bias_attention calls {calls['packed_qkv_bias_attention'].call_count}")
+    check(np.isfinite(loss), f"24-head step: loss {loss}")
+    check(launches == {"short_attention_fwd": 2, "short_attention_bwd": 2},
+          f"24-head step: launches {launches}, want 2 of each")
+    check(calls["packed_short_attention"].call_count == 2
+          and calls["packed_qkv_bias_attention"].call_count == 0,
+          "24-head step did not go through packed_short_attention")
+    grads = [p.grad for n, p in model.named_parameters() if attention_branch(n)]
+    check(all(g is not None and torch.isfinite(g).all() for g in grads),
+          "24-head step: an attention-branch gradient is missing or non-finite")
+    return launches
 
 
 if __name__ == "__main__":

@@ -59,3 +59,53 @@ def test_cuda_kernel_raises_on_unbuilt_head_dim(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         tfa.packed_short_attention(torch.zeros(1, 70, 2 * 3 * 64, dtype=torch.bfloat16,
                                                device=cuda_device)[:, ::2], 1)
+
+
+def _rel_err(out, ref):
+    return ((out.float() - ref.float()).abs().max() / ref.float().abs().max().clamp_min(1e-6)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D,T,causal,bias", [
+    ("bfloat16", 64, 197, False, True), ("float32", 64, 197, False, True),
+    ("bfloat16", 32, 197, False, False), ("bfloat16", 32, 197, True, False),
+    ("bfloat16", 128, 197, False, False), ("float32", 128, 197, True, True),
+    ("float32", 32, 197, True, False),
+    # several query and key tiles per sequence; a sequence shorter than a tile
+    ("bfloat16", 64, 600, True, True), ("bfloat16", 64, 600, False, False),
+    ("float32", 64, 600, True, True), ("bfloat16", 64, 5, False, True),
+    ("float32", 32, 5, True, True),
+])
+def test_cuda_backward_matches_plain_version(cuda_device, dtype, D, T, causal, bias):
+    H = 768 // D
+    x = _qkv(6, T, H, D, dtype, cuda_device, seed=5)
+    do = _qkv(6, T, H, D, dtype, cuda_device, seed=6)[..., : H * D].contiguous()
+    b = (torch.randn(3 * H * D, generator=torch.Generator().manual_seed(7)) if bias
+         else torch.zeros(3 * H * D)).to(cuda_device, x.dtype)
+    _build.reset_launch_counts()
+    dqkv, db = tfa._launch_bwd(x, b, do, H, causal, with_db=True)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[tfa.BWD_KERNEL] == 1
+    ref, ref_db = tfa.packed_short_attention_bwd_reference(x + b, do, H, causal, with_db=True)
+    assert _rel_err(dqkv, ref) <= TOL[dtype]
+    assert _rel_err(db, ref_db) <= TOL[dtype]
+    again, db_again = tfa._launch_bwd(x, b, do, H, causal, with_db=True)
+    assert torch.equal(again, dqkv) and torch.equal(db_again, db)  # no atomics: same bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 32])
+def test_cuda_grads_reach_qkv_and_bias(cuda_device, D):
+    H = 768 // D
+    x = _qkv(4, 197, H, D, "bfloat16", cuda_device, seed=8).requires_grad_(True)
+    b = torch.randn(3 * H * D, device=cuda_device, requires_grad=True)
+    _build.reset_launch_counts()
+    out = tfa.packed_qkv_bias_attention(x, b, H)
+    out.float().square().sum().backward()
+    assert x.grad is not None and b.grad is not None and b.grad.dtype == torch.float32
+    assert torch.isfinite(x.grad).all() and torch.isfinite(b.grad).all()
+    y = x.detach().clone().requires_grad_(True)
+    tfa.packed_short_attention(y, H, causal=True).float().sum().backward()
+    assert y.grad is not None and torch.isfinite(y.grad).all()
+    torch.cuda.synchronize()
+    assert _build.launch_counts == {tfa.KERNEL: 2, tfa.BWD_KERNEL: 2}

@@ -28,6 +28,9 @@ def test_import_with_jax_blocked():
         "    sys.modules[name] = None\n"
         "import avt_tpu_torch, avt_tpu_torch.models, avt_tpu_torch.ops, avt_tpu_torch.serve\n"
         "import avt_tpu_torch.data.transforms, avt_tpu_torch.models.convert\n"
+        "import avt_tpu_torch.train, avt_tpu_torch.train.optim, avt_tpu_torch.train.step\n"
+        "import avt_tpu_torch.train.ops, avt_tpu_torch.losses, avt_tpu_torch.losses.xent\n"
+        "import avt_tpu_torch.utils.metrics, avt_tpu_torch.ops.flash_attention\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

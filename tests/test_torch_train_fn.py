@@ -1,0 +1,106 @@
+"""The port's train-time preprocessing (avt_tpu_torch/data/transforms.py
+`VideoPreprocessor.train_fn`) against avt_tpu's on the CPU: JAX's random
+draws are replayed from the key exactly as its train_fn makes them and fed to
+the port's deterministic `train_crop`, whose output must match JAX's
+`train_fn(frames, key)` (the fused antialiased resize+crop of
+jax.image.scale_and_translate, the flip and the color jitter). The port's own
+draws are checked for their ranges and shares."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from avt_tpu.data import transforms as jtf
+from avt_tpu_torch.data import transforms as ttf
+
+CROP = 224
+FRAMES = (3, 2, 256, 342, 3)  # bench.py's clips, 2 frames each
+NORM = dict(mean=(0.5,) * 3, std=(0.5,) * 3)
+# After (x/255 - 0.5)/0.5: f32, the same resampling summed in another order;
+# bf16, two pixel units (bf16 weights and products, rounded at the same
+# places, but summed in another order).
+TOL = {"float32": 1e-4, "bfloat16": 2 / 127.5}
+
+
+def _jax_draws(pp, key, shape):
+    """JAX train_fn's per-clip draws, replayed from `key` (transforms.py
+    per_clip: split(key, B), then split(clip key, 5), then the jitter's
+    split(kc, 4))."""
+    B, _, H, W, _ = shape
+    smin, smax = jtf._parse_size(pp.scale_h)
+    draws = {k: [] for k in ("s", "i", "j", "flip", "brightness", "contrast", "saturation",
+                              "hue")}
+    for key_b in jax.random.split(key, B):
+        ks, ki, kj, kf, kc = jax.random.split(key_b, 5)
+        s = jnp.floor(jax.random.uniform(ks, (), minval=smin, maxval=smax + 1.0))
+        f = s / min(H, W)
+        draws["s"].append(s)
+        draws["i"].append(jnp.floor(jax.random.uniform(ki, ()) * jnp.maximum(H * f - CROP, 0)))
+        draws["j"].append(jnp.floor(jax.random.uniform(kj, ()) * jnp.maximum(W * f - CROP, 0)))
+        draws["flip"].append(jax.random.uniform(kf, ()) < pp.flip_p)
+        b, c, sat, hue = pp.jitter
+        for name, k, lo, hi in zip(("brightness", "contrast", "saturation", "hue"),
+                                   jax.random.split(kc, 4),
+                                   (max(0.0, 1 - b), max(0.0, 1 - c), max(0.0, 1 - sat), -hue),
+                                   (1 + b, 1 + c, 1 + sat, hue)):
+            draws[name].append(jax.random.uniform(k, (), minval=lo, maxval=hi))
+    out = {k: torch.from_numpy(np.asarray(v)) for k, v in draws.items() if k in ("s", "i", "j",
+                                                                                  "flip")}
+    for name, v in zip(("brightness", "contrast", "saturation", "hue"), pp.jitter):
+        if v > 0:
+            out[name] = torch.from_numpy(np.asarray(draws[name]))
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scale_h,jitter", [
+    pytest.param("248-280", (0.0,) * 4, id="down-and-up"),
+    pytest.param(256, (0.0,) * 4, id="identity"),
+    pytest.param("248-280", (0.4, 0.4, 0.4, 0.1), id="jitter"),
+])
+def test_train_crop_matches_jax_train_fn(scale_h, jitter, dtype):
+    frames = np.random.default_rng(0).integers(0, 256, size=FRAMES, dtype=np.uint8)
+    kw = dict(crop_size=CROP, scale_h=scale_h, scale_w=-1, flip_p=0.5, **NORM,
+              **dict(zip(("color_jitter_brightness", "color_jitter_contrast",
+                          "color_jitter_saturation", "color_jitter_hue"), jitter)))
+    jpp = jtf.VideoPreprocessor(**kw, compute_dtype=getattr(jnp, dtype))
+    tpp = ttf.VideoPreprocessor(**kw, compute_dtype=getattr(torch, dtype), device="cpu")
+    key = jax.random.PRNGKey(3)
+    ref = np.asarray(jpp.train_fn(jnp.asarray(frames), key), np.float32)
+    draws = _jax_draws(jpp, key, FRAMES)
+    if scale_h == "248-280":  # the draws cover down- and up-scaling
+        assert draws["s"].min() < 256 < draws["s"].max()
+    out = tpp.train_crop(torch.from_numpy(frames), **draws)
+    assert out.shape == ref.shape == (FRAMES[0], 3, FRAMES[1], CROP, CROP)
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=TOL[dtype], rtol=0)
+
+
+def test_train_draws_ranges_and_flip_share():
+    pp = ttf.VideoPreprocessor(crop_size=CROP, scale_h="248-280", flip_p=0.3,
+                               color_jitter_brightness=0.4, color_jitter_hue=0.1, device="cpu")
+    B, H, W = 4000, 256, 342
+    d = pp.train_draws((B, 1, H, W, 3), torch.Generator().manual_seed(0))
+    s = d["s"]
+    assert torch.equal(s, s.floor()) and s.min() == 248 and s.max() == 280
+    for name, side in (("i", H), ("j", W)):
+        x = d[name]
+        assert torch.equal(x, x.floor()) and (x >= 0).all()
+        assert (x <= torch.clamp_min(side * s / H - CROP, 0)).all()
+    assert abs(d["flip"].float().mean().item() - 0.3) < 0.03
+    assert d["brightness"].min() >= 0.6 and d["brightness"].max() <= 1.4
+    assert d["hue"].abs().max() <= 0.1
+    assert "contrast" not in d and "saturation" not in d
+    again = pp.train_draws((B, 1, H, W, 3), torch.Generator().manual_seed(0))
+    assert all(torch.equal(d[k], again[k]) for k in d)
+
+
+def test_train_fn_shape_and_flip():
+    frames = torch.from_numpy(
+        np.random.default_rng(1).integers(0, 256, size=(2, 2, 64, 86, 3), dtype=np.uint8))
+    pp = ttf.VideoPreprocessor(crop_size=56, scale_h=64, flip_p=0.0, device="cpu", **NORM)
+    out = pp.train_fn(frames, torch.Generator().manual_seed(0))
+    assert out.shape == (2, 3, 2, 56, 56) and out.dtype == torch.float32
+    d = pp.train_draws(frames.shape, torch.Generator().manual_seed(0))
+    flipped = pp.train_crop(frames, d["s"], d["i"], d["j"], torch.ones(2, dtype=torch.bool))
+    torch.testing.assert_close(flipped, out.flip(-1))
