@@ -7,7 +7,11 @@ Ported so far: the 3-crop serving forward of the AVT-b + AVT-h flagship
 `batch_predict`), with its ViT attention on a hand-written sm_90a kernel
 (ops/csrc/short_attention_fwd.cu); and the flagship train step
 (`VideoPreprocessor.train_fn`, `build_optimizer`, `make_train_step`), whose
-attention backward is a second one (ops/csrc/short_attention_bwd.cu).
+attention backward is a second one (ops/csrc/short_attention_bwd.cu); and the
+feature path of expts/02 (`build_avt(backbone="identity")`, its train step
+and `make_eval_step`), whose AVT-h attention over 128 or more observed
+features runs on the blocked flash kernels (ops/csrc/flash_attention_fwd.cu
+and flash_attention_bwd.cu).
 """
 from avt_tpu_torch.data.transforms import VideoPreprocessor
 from avt_tpu_torch.losses import multidim_cross_entropy
@@ -18,6 +22,7 @@ from avt_tpu_torch.train import (
     basic_loss_accuracy,
     build_optimizer,
     build_schedule,
+    make_eval_step,
     make_train_step,
 )
 
@@ -30,6 +35,7 @@ __all__ = [
     "build_schedule",
     "load_jax_params",
     "make_eval_forward",
+    "make_eval_step",
     "make_train_step",
     "multidim_cross_entropy",
     "params_from_jax",

@@ -120,7 +120,9 @@ def avt_from_jax(p: Mapping) -> Dict[str, np.ndarray]:
 
 def params_from_jax(params: Mapping) -> StateDict:
     """A JAX package parameter tree (full AVTModel, ViT, GPT2Core or AVTh)
-    -> the port's state_dict of f32 CPU tensors."""
+    -> the port's state_dict of f32 CPU tensors. An AVTModel on the identity
+    backbone (the feature path) has no `backbone` subtree and maps to no
+    `backbone.` names."""
     if set(params) == {"params"}:
         params = params["params"]
     if "backbone" in params or "future_predictor" in params:

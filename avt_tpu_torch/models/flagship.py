@@ -1,8 +1,9 @@
-"""The flagship: AVT-b (ViT-B/16) backbone + AVT-h head, expts/01.
+"""The flagship: AVT-b (ViT-B/16) backbone + AVT-h head, expts/01, and its
+feature-path variant, the identity backbone + AVT-h of expts/02.
 
-Counterpart of avt_tpu/models/flagship.py:build_avt for backbone="avt_b".
-Weights are drawn from the JAX package's distributions (not its values):
-N(0, 0.01) for the ViT, AVT-h encoder/decoder and classifier linears,
+Counterpart of avt_tpu/models/flagship.py:build_avt. Weights are drawn from
+the JAX package's distributions (not its values): N(0, 0.01) for the ViT,
+AVT-h encoder/decoder and classifier linears,
 trunc-normal(0.02) for cls_token and pos_embed, flax's lecun-normal for the
 patch embedding, N(0, 0.02) for the GPT-2 weights and wpe; biases 0,
 LayerNorms at weight 1, bias 0.
@@ -15,6 +16,7 @@ import torch
 from torch import nn
 
 from avt_tpu_torch.losses.mse import mse
+from avt_tpu_torch.models.backbones import IdentityBackbone
 from avt_tpu_torch.models.base import AVTModel
 from avt_tpu_torch.models.classifiers import LinearClassifier
 from avt_tpu_torch.models.future import AVTh
@@ -29,15 +31,17 @@ def _feat_loss(pred, tgt):
 
 
 def init_weights(model: AVTModel, generator: torch.Generator) -> None:
-    """Draws every parameter of a flagship-shaped model afresh."""
+    """Draws every parameter of a flagship-shaped model afresh (the ViT's
+    only when the backbone is one)."""
     with torch.no_grad():
         vit = model.backbone["model"]
-        init_normal_(vit, 0.01, generator)
-        trunc_normal_(vit.cls_token, 0.02, generator)
-        trunc_normal_(vit.pos_embed, 0.02, generator)
-        w = vit.patch_embed.proj.weight
-        lecun_normal_(w, w[0].numel(), generator)
-        nn.init.zeros_(vit.patch_embed.proj.bias)
+        if isinstance(vit, ViT):
+            init_normal_(vit, 0.01, generator)
+            trunc_normal_(vit.cls_token, 0.02, generator)
+            trunc_normal_(vit.pos_embed, 0.02, generator)
+            w = vit.patch_embed.proj.weight
+            lecun_normal_(w, w[0].numel(), generator)
+            nn.init.zeros_(vit.patch_embed.proj.bias)
         fp = model.future_predictor
         init_normal_(fp.gpt_model, 0.02, generator)
         nn.init.normal_(fp.encoder.weight, std=0.01, generator=generator)
@@ -49,6 +53,7 @@ def build_avt(
     *,
     num_actions: int = 3806,
     backbone: str = "avt_b",
+    backbone_dim: Optional[int] = None,
     inter_dim: int = 2048,
     n_layer: int = 6,
     n_head: int = 4,
@@ -61,10 +66,12 @@ def build_avt(
     generator: Optional[torch.Generator] = None,
     seed: Optional[int] = None,
 ) -> AVTModel:
-    """The AVT-b + AVT-h flagship, in eval mode, on `device` (CUDA unless
-    device="cpu" is asked for). `generator` (on that device) or `seed` makes
-    the weights reproducible."""
-    if backbone != "avt_b":
+    """The AVT-b + AVT-h flagship (backbone="avt_b") or its feature-path
+    variant (backbone="identity": `backbone_dim`-d features, 1024 by
+    default), in eval mode, on `device` (CUDA unless device="cpu" is asked
+    for). `generator` (on that device) or `seed` makes the weights
+    reproducible."""
+    if backbone not in ("avt_b", "identity"):
         raise NotImplementedError(f"backbone {backbone!r} is not ported yet")
     device = resolve_device(device)
     if generator is None:
@@ -73,9 +80,12 @@ def build_avt(
             generator.seed()
         else:
             generator.manual_seed(seed)
-    bb_dim = 768
+    if backbone == "avt_b":
+        bb, bb_dim = ViT(dtype=vit_dtype, device=device), 768
+    else:
+        bb, bb_dim = IdentityBackbone(), backbone_dim or 1024
     model = AVTModel(
-        backbone=ViT(dtype=vit_dtype, device=device),
+        backbone=bb,
         temporal_aggregator=IdentityAgg(in_features=bb_dim),
         future_predictor=AVTh(
             in_features=bb_dim, inter_dim=inter_dim, n_layer=n_layer, n_head=n_head,

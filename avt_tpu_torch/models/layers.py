@@ -77,7 +77,9 @@ class Conv1D(nn.Module):
 class SelfAttention(nn.Module):
     """Multi-head self-attention with a fused qkv projection (c_attn) and an
     output projection (c_proj). As in the JAX package, attention dropout
-    acts on the attention output, which keeps the attention fused."""
+    acts on the attention output, which keeps the attention fused. q, k and
+    v are strided (B, T, H, D) views of the c_attn output, which the flash
+    kernels read in place (no split, pad or transpose copy)."""
 
     def __init__(self, dim: int, num_heads: int, causal: bool = False,
                  attn_dropout: float = 0.0, resid_dropout: float = 0.0,

@@ -1,5 +1,5 @@
-"""Attention ops: dispatch (attention.py) and the packed CUDA kernel
-(flash_attention.py, csrc/)."""
+"""Attention ops: dispatch (attention.py) and the CUDA kernels, packed and
+flash (flash_attention.py, csrc/)."""
 from avt_tpu_torch.ops.attention import (
     dot_product_attention,
     fused_qkv_attention,

@@ -3,8 +3,9 @@
 Each kernel is one `csrc/<name>.cu` with a plain C interface. At first use it
 is compiled by `nvcc` for sm_90a into a shared library under
 `avt_tpu_torch/_build/` (listed in .gitignore), named by a hash of the
-source, so an edited source rebuilds; the library is loaded with ctypes.
-Nothing here runs when the package is imported.
+source and the shared headers (`csrc/*.cuh`), so an edit rebuilds; the
+library is loaded with ctypes. Nothing here runs when the package is
+imported.
 
 `KERNELS` names every kernel of the port with the TPU kernel it replaces,
 and `launch_counts` counts, per kernel, the launches its wrapper made: a run
@@ -44,6 +45,18 @@ KERNELS: Dict[str, Dict[str, str]] = {
                     "via _short_attention_bwd_db_call :884; without db and _short_bwd_kernel "
                     ":486 via _short_attention_bwd_call :848)",
     },
+    "flash_attention_fwd": {
+        "route": "cuda",
+        "source": "avt_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+        "replaces": "avt_tpu/ops/flash_attention.py:43 (_flash_kernel, via "
+                    "_flash_attention_fwd :227)",
+    },
+    "flash_attention_bwd": {
+        "route": "cuda",
+        "source": "avt_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+        "replaces": "avt_tpu/ops/flash_attention.py:92 (_dq_kernel) + :133 (_dkv_kernel), "
+                    "via _flash_attention_bwd :305",
+    },
 }
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -72,9 +85,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Named by a hash of the source and of every header in csrc/."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _start_build(name: str):

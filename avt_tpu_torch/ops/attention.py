@@ -1,11 +1,14 @@
-"""Attention dispatch: the hand-written CUDA kernel where the JAX package
+"""Attention dispatch: the hand-written CUDA kernels where the JAX package
 picks Pallas, plain tensor math elsewhere.
 
 Counterpart of avt_tpu/ops/attention.py, with "CUDA" in place of "TPU". The
 ViT backbone (frames x 197 tokens) goes through the packed kernel
-(ops/flash_attention.py); the AVT-h head runs 10-token sequences, which the
-JAX package leaves to XLA and the port to plain tensor code mirroring
-`jax.nn.dot_product_attention` (f32 logits and softmax).
+(ops/flash_attention.py). AVT-h attends over one token per observed
+feature: at 128 tokens or more without a mask it goes through the blocked
+flash kernel (`flash_attention`), as the JAX package takes `_flash_kernel`;
+the shipped 10-token contexts, which the JAX package leaves to XLA, run
+plain tensor code mirroring `jax.nn.dot_product_attention` (f32 logits and
+softmax).
 """
 from __future__ import annotations
 
@@ -15,6 +18,10 @@ from typing import Optional
 import torch
 
 from avt_tpu_torch.ops import flash_attention as fa
+
+# Below this many query tokens the plain path runs (the JAX package's
+# _PALLAS_MIN_SEQ).
+KERNEL_MIN_SEQ = 128
 
 
 def _plain_attention(q, k, v, causal: bool, mask: Optional[torch.Tensor]):
@@ -45,13 +52,17 @@ def dot_product_attention(
     """Scaled dot-product attention over (B, T, H, D) tensors.
 
     mask: optional boolean mask broadcastable to (B, H, Tq, Tk); True=keep.
-    use_kernel: the counterpart of `use_pallas`. The blocked flash kernel it
-    would select is not ported yet, so only None/False run.
+    use_kernel: the counterpart of `use_pallas`. None selects the flash
+    kernel on CUDA for 128 or more query tokens and no mask; True runs
+    `flash_attention` on any device (its plain version on the CPU, as the
+    JAX package interprets its kernel off the TPU), and takes no mask.
     """
+    if use_kernel is None:
+        use_kernel = q.device.type == "cuda" and q.shape[1] >= KERNEL_MIN_SEQ and mask is None
     if use_kernel:
-        raise NotImplementedError(
-            "the blocked flash-attention kernel (avt_tpu _flash_kernel) is not "
-            "ported yet; use_kernel=True has no CUDA kernel to run")
+        if mask is not None:
+            raise ValueError("the flash-attention kernel takes no mask")
+        return fa.flash_attention(q, k, v, causal)
     return _plain_attention(q, k, v, causal, mask)
 
 

@@ -1,7 +1,8 @@
-"""Packed short-sequence attention, forward and backward: the ViT hot path.
+"""Attention kernels: the packed short-sequence attention of the ViT and the
+blocked flash attention of AVT-h, forward and backward.
 
-Counterpart of avt_tpu/ops/flash_attention.py's packed kernels: the forward
-(`_short_fwd_kernel_paired`, `_short_fwd_kernel`, launched by
+Counterpart of avt_tpu/ops/flash_attention.py. The packed kernels: the
+forward (`_short_fwd_kernel_paired`, `_short_fwd_kernel`, launched by
 `_short_attention_fwd_call`) and the recompute backward
 (`_short_bwd_kernel_paired`, `_short_bwd_kernel`, launched by
 `_short_attention_bwd_call` and, with the qkv-bias gradient,
@@ -9,13 +10,23 @@ Counterpart of avt_tpu/ops/flash_attention.py's packed kernels: the forward
 projection (N, T, 3C) -> (N, T, C), reading it in place, one whole sequence
 per frame and head; the backward writes one packed dqkv (N, T, 3C).
 
-Both entry points are `torch.autograd.Function`s. On a CUDA tensor they
-launch the hand-written Hopper kernels `csrc/short_attention_fwd.cu` and
-`csrc/short_attention_bwd.cu` (bf16 or f32 storage, head dim 32, 64 or 128)
-or raise; on a CPU tensor they run the plain PyTorch versions
-`packed_short_attention_reference` and `packed_short_attention_bwd_reference`,
-which follow the head-pair TPU kernels' arithmetic order. There is no
-fallback from one to the other.
+The blocked flash attention over (B, T, H, D) (`_flash_kernel` via
+`_flash_attention_fwd`; `_dq_kernel` and `_dkv_kernel` via
+`_flash_attention_bwd`; `flash_attention_vjp`): what `dot_product_attention`
+runs for 128 tokens or more without a mask, AVT-h's causal attention over a
+long observed context on the main path. The kernels read strided (B, T, H,
+D) views in place, so the q, k and v views of a fused qkv projection need
+no copy (the JAX path pads and transposes them to (B*H, T_pad, D)).
+
+Every entry point is differentiable through a `torch.autograd.Function`. On
+a CUDA tensor it launches the hand-written Hopper kernels
+`csrc/short_attention_{fwd,bwd}.cu` (bf16 or f32 storage, head dim 32, 64
+or 128) and `csrc/flash_attention_{fwd,bwd}.cu` (bf16 or f32, head dim 64,
+128, 256 or 512) or raises; on a CPU tensor it runs the plain PyTorch
+versions (`packed_short_attention_reference`,
+`packed_short_attention_bwd_reference`, `flash_attention_reference`,
+`flash_attention_bwd_reference`), which follow the TPU kernels' arithmetic
+order. There is no fallback from one to the other.
 """
 from __future__ import annotations
 
@@ -33,6 +44,10 @@ NEG_INF = -1e30
 KERNEL = "short_attention_fwd"
 BWD_KERNEL = "short_attention_bwd"
 HEAD_DIMS = (32, 64, 128)
+FLASH_KERNEL = "flash_attention_fwd"
+FLASH_BWD_KERNEL = "flash_attention_bwd"
+FLASH_HEAD_DIMS = (64, 128, 256, 512)
+FLASH_BLOCK_K = 128  # the TPU kernel's key block, which the plain version repeats
 _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 
 
@@ -273,3 +288,234 @@ def packed_qkv_bias_attention(
     the JAX package."""
     bias_c = bias.to(qkv_nobias.dtype).contiguous()
     return _PackedBiasAttention.apply(qkv_nobias, bias_c, num_heads, causal)
+
+
+# ---------------------------------------------------------------------------
+# Blocked flash attention over (B, T, H, D): AVT-h at long observed contexts.
+# ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def _flash_scale(head_dim: int, dtype: torch.dtype) -> float:
+    """1/sqrt(D) rounded to the storage type: the TPU kernel's
+    `q_ref[...] * sm_scale` multiplies by a weakly typed Python float."""
+    return float(torch.tensor(1.0 / math.sqrt(head_dim), dtype=dtype))
+
+
+def _scaled_q(q: torch.Tensor) -> torch.Tensor:
+    """q' = q * sm_scale in the storage type, as f32 (B, H, T, D)."""
+    scale = torch.tensor(_flash_scale(q.shape[-1], q.dtype), dtype=q.dtype, device=q.device)
+    return (q * scale).float().transpose(1, 2)
+
+
+def _causal_keep(nq: int, k0: int, nk: int, device) -> torch.Tensor:
+    """(nq, nk) True where key k0 + j is at or before query i."""
+    q_pos = torch.arange(nq, device=device)[:, None]
+    return torch.arange(k0, k0 + nk, device=device)[None, :] <= q_pos
+
+
+def _delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """rowsum(dO * O) in f32 as (B, H, T), from the rounded output, as
+    `_fa_bwd` computes it outside the kernels."""
+    return (dout.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the forward kernel: (out (B, Tq, H, D) in the storage
+    type, lse (B, H, Tq) f32), in `_flash_kernel`'s order over 128-key blocks:
+    q scaled in the storage type, f32 scores with -1e30 on masked keys, an
+    online softmax with exp, p rounded to v's type for an f32-accumulated PV,
+    out = acc / max(l, 1e-30) rounded once, lse = m + log(max(l, 1e-30))."""
+    B, Tq, H, D = q.shape
+    Tk, dt = k.shape[1], q.dtype
+    qs = _scaled_q(q)
+    kf, vf = (x.float().transpose(1, 2) for x in (k, v))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m = torch.full((B, H, Tq, 1), NEG_INF, **f32)
+    l = torch.zeros((B, H, Tq, 1), **f32)
+    acc = torch.zeros((B, H, Tq, D), **f32)
+    for k0 in range(0, Tk, FLASH_BLOCK_K):
+        kb, vb = kf[:, :, k0:k0 + FLASH_BLOCK_K], vf[:, :, k0:k0 + FLASH_BLOCK_K]
+        s = torch.matmul(qs, kb.transpose(-1, -2))
+        if causal:
+            s = s.masked_fill(~_causal_keep(Tq, k0, kb.shape[2], q.device), NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p.to(v.dtype).float(), vb)
+        m = m_new
+    lc = l.clamp_min(1e-30)
+    out = (acc / lc).to(dt).transpose(1, 2).contiguous()
+    return out, (m + torch.log(lc))[..., 0]
+
+
+def flash_attention_bwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
+    out: torch.Tensor, lse: torch.Tensor, causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward kernels: (dq, dk, dv) in the storage
+    type, in `_dq_kernel` / `_dkv_kernel`'s order: p = exp(s - lse)
+    recomputed from the scaled q, ds = p * (dO.v^T - delta) with delta =
+    rowsum(dO * O) in f32, dq = (ds rounded to k's type . K) * sm_scale,
+    dk = ds^T rounded . q', dv = p^T rounded . dO, f32 accumulation."""
+    Tq, D = q.shape[1], q.shape[-1]
+    Tk, dt = k.shape[1], q.dtype
+    qs = _scaled_q(q)
+    kf, vf, dof = (x.float().transpose(1, 2) for x in (k, v, dout))
+    s = torch.matmul(qs, kf.transpose(-1, -2))
+    if causal:
+        s = s.masked_fill(~_causal_keep(Tq, 0, Tk, q.device), NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - _delta(dout, out)[..., None])
+    sm_scale = torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32)
+    dq = torch.matmul(ds.to(k.dtype).float(), kf) * sm_scale
+    dk = torch.matmul(ds.to(dt).float().transpose(-1, -2), qs)
+    dv = torch.matmul(p.to(dout.dtype).float().transpose(-1, -2), dof)
+    return tuple(x.to(dt).transpose(1, 2).contiguous() for x in (dq, dk, dv))
+
+
+def _flash_view(name: str, what: str, x: torch.Tensor, shape, like: torch.Tensor) -> torch.Tensor:
+    """A (B, T, H, D) operand as the kernels read it: on the card, in the
+    storage type, last two axes contiguous and rows 16-byte aligned. A view
+    that is not (a transposed or misaligned one) is copied into that layout;
+    anything else raises."""
+    if x.device != like.device or x.dtype != like.dtype or tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: {what} must be a {tuple(shape)} {like.dtype} tensor on "
+                         f"{like.device}, got {tuple(x.shape)} {x.dtype} on {x.device}")
+    D, size = x.shape[-1], x.element_size()
+    aligned = (x.stride(-1) == 1 and x.stride(-2) == D and x.data_ptr() % 16 == 0
+               and all((st * size) % 16 == 0 for st in x.stride()[:2]))
+    return x if aligned else x.contiguous()
+
+
+def _check_flash(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """Validates q, k, v for a flash kernel; returns them in its layout."""
+    if q.device.type != "cuda":
+        raise RuntimeError(
+            f"{name} runs on CUDA tensors (or, through its plain version, on CPU "
+            f"tensors); got a tensor on {q.device}")
+    if q.dim() != 4:
+        raise ValueError(f"{name}: q must be (B, T, H, D), got {tuple(q.shape)}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{name}: storage type must be bfloat16 or float32, got {q.dtype}")
+    B, _, H, D = q.shape
+    if D not in FLASH_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {D} is not one the kernel is built for "
+                         f"{FLASH_HEAD_DIMS}")
+    kv_shape = (B, k.shape[1], H, D)
+    return (_flash_view(name, "q", q, q.shape, q), _flash_view(name, "k", k, kv_shape, q),
+            _flash_view(name, "v", v, kv_shape, q))
+
+
+def _strides(*xs: torch.Tensor):
+    return [st for x in xs for st in x.stride()[:2]]
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_kernel():
+    fn = _build.load(FLASH_KERNEL).flash_attention_fwd
+    # (q, k, v, out, lse, B, H, Tq, Tk, D, is_bf16, causal, q_sb, q_st, k_sb,
+    #  k_st, v_sb, v_st, q_scale, stream)
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_bwd_kernel():
+    fn = _build.load(FLASH_BWD_KERNEL).flash_attention_bwd
+    # (q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tk, D, is_bf16, causal,
+    #  q_sb, q_st, k_sb, k_st, v_sb, v_st, do_sb, do_st, q_scale, dq_scale, stream)
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 8
+                   + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                  want_lse: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(out, lse (B, H, Tq) f32 or None) from the forward kernel."""
+    q, k, v = _check_flash(FLASH_KERNEL, q, k, v)
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    out = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device) if want_lse else None
+    if B * H * Tq == 0:
+        return out, lse
+    if Tk == 0:
+        raise ValueError(f"{FLASH_KERNEL}: no keys to attend to")
+    with torch.cuda.device(q.device):
+        err = _flash_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                              _ptr(lse), B, H, Tq, Tk, D, _DTYPES[q.dtype], int(causal),
+                              *_strides(q, k, v), _flash_scale(D, q.dtype),
+                              torch.cuda.current_stream().cuda_stream)
+    _build.check(_build.load(FLASH_KERNEL), err, FLASH_KERNEL)
+    _build.launch_counts[FLASH_KERNEL] += 1
+    return out, lse
+
+
+def _launch_flash_bwd(q, k, v, dout, lse, delta, causal: bool):
+    """(dq, dk, dv) from the backward kernels (dq side, then dk/dv side)."""
+    q, k, v = _check_flash(FLASH_BWD_KERNEL, q, k, v)
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    dout = _flash_view(FLASH_BWD_KERNEL, "dout", dout, q.shape, q)
+    for what, x in (("lse", lse), ("delta", delta)):
+        if (x.shape != (B, H, Tq) or x.dtype != torch.float32 or x.device != q.device
+                or not x.is_contiguous()):
+            raise ValueError(f"{FLASH_BWD_KERNEL}: {what} must be a contiguous ({B}, {H}, "
+                             f"{Tq}) float32 tensor on {q.device}")
+    dq = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Tk, H, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if B * H * Tq * Tk == 0:
+        return dq, dk.zero_(), dv.zero_()
+    with torch.cuda.device(q.device):
+        err = _flash_bwd_kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Tq, Tk, D,
+            _DTYPES[q.dtype], int(causal), *_strides(q, k, v, dout), _flash_scale(D, q.dtype),
+            1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
+    _build.check(_build.load(FLASH_BWD_KERNEL), err, FLASH_BWD_KERNEL)
+    _build.launch_counts[FLASH_BWD_KERNEL] += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """flash_attention with the recompute backward; residuals (q, k, v, out,
+    lse), as `_fa_fwd` keeps them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_reference(q, k, v, causal)
+        else:
+            out, lse = _launch_flash(q, k, v, causal, want_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attention_bwd_reference(q, k, v, dout, out, lse, ctx.causal)
+        else:
+            dq, dk, dv = _launch_flash_bwd(q, k, v, dout, lse, _delta(dout, out), ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
+) -> torch.Tensor:
+    """Flash attention over (B, T, H, D) with scale 1/sqrt(D); returns (B, Tq,
+    H, D). Differentiable (the recompute backward); the logsumexp is only
+    written when autograd will need it."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal)[0]
+    return _launch_flash(q, k, v, causal, want_lse=False)[0]

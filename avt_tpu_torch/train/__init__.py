@@ -1,5 +1,5 @@
-"""Training: the train step, SGD with its parameter groups and schedules,
-loss and accuracy over the model's endpoints."""
+"""Training: the train and eval steps, SGD with its parameter groups and
+schedules, loss and accuracy over the model's endpoints."""
 from avt_tpu_torch.train.ops import basic_loss_accuracy, mode_over_frames
 from avt_tpu_torch.train.optim import (
     SGD,
@@ -9,10 +9,10 @@ from avt_tpu_torch.train.optim import (
     multistep_schedule,
     warmup_schedule,
 )
-from avt_tpu_torch.train.step import make_train_step, weighted_loss_sum
+from avt_tpu_torch.train.step import make_eval_step, make_train_step, weighted_loss_sum
 
 __all__ = [
     "SGD", "basic_loss_accuracy", "build_optimizer", "build_schedule", "cosine_schedule",
-    "make_train_step", "mode_over_frames", "multistep_schedule", "warmup_schedule",
-    "weighted_loss_sum",
+    "make_eval_step", "make_train_step", "mode_over_frames", "multistep_schedule",
+    "warmup_schedule", "weighted_loss_sum",
 ]

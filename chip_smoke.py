@@ -27,10 +27,24 @@
    ms, clips/s, MFU, peak memory and a profile of one step.
 5. A depth-2 ViT with 24 heads of 32 takes a train step: its attention goes
    through `packed_short_attention`, the backward kernel's no-db form.
+6. The feature path of expts/02 at full width (identity backbone, 1024-d
+   features, AVT-h of 6 layers, inter_dim 2048, 4 heads of 512, 3806
+   actions, f32, batch 64) at a long observed context of 256 features,
+   which sends every AVT-h layer through the flash kernels: the flash
+   forward and backward are first held against their plain versions
+   (bf16 and f32, causal and not, head dims 64, 256 and 512, T=200 and 256)
+   and timed beside the plain versions and SDPA; then `make_eval_step` and
+   5 timed `make_train_step` steps (nesterov SGD under warmup + cosine) run,
+   with 6 forward launches per eval forward and 6 + 6 per train step; step 0
+   (LR 0) leaves the parameters as they were; every AVT-h attention
+   parameter gets a finite gradient; on 2 clips, gradients with the kernels
+   and with the plain versions agree. At the shipped context of 10 features
+   no flash kernel runs. Prints step ms, clips/s, peak memory and a profile.
 Prints one JSON line of kernel results, then {"ok": true, "device": ...}.
 Exits non-zero on any failure, and without a CUDA device.
 """
 import json
+import re
 import subprocess
 import sys
 import time
@@ -47,6 +61,7 @@ from avt_tpu_torch import (
     build_avt,
     build_optimizer,
     make_eval_forward,
+    make_eval_step,
     make_train_step,
 )
 from avt_tpu_torch.losses import mse
@@ -72,6 +87,13 @@ TRAIN_FLOPS_PER_CLIP = (35.2e9 * 10 + 9.7e9 + 1.6e9) * 3
 LOSS_WTS = {"cls_action": 1.0, "past_cls_action": 1.0, "feat": 1.0}
 TIMED_STEPS = 10
 GRAD_TOL = 5e-2  # kernels vs plain attention, of each gradient's max |value|
+# the feature path of expts/02: 1024-d features, AVT-h 2048 wide, 6 layers of
+# 4 heads of 512, batch 64; 256 observed features reach the flash kernels
+FEAT_DIM, FEAT_BATCH, AVTH_DIM, AVTH_LAYERS, AVTH_HEADS = 1024, 64, 2048, 6, 4
+LONG_T, SHORT_T = 256, 10
+FEAT_TIMED_STEPS = 5
+FLASH_SHAPE = (FEAT_BATCH, LONG_T, AVTH_HEADS, AVTH_DIM // AVTH_HEADS)  # (B, T, H, D)
+NO_FLASH = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
 
 
 def log(msg):
@@ -251,9 +273,110 @@ def time_attention_bwd(N, T, H, D, dtype, with_db=True):
     return res
 
 
+def flash_inputs(B, T, H, D, dtype, seed):
+    """q, k, v, dout (B, T, H, D) in the storage type."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((B, T, H, D), np.float32)).to("cuda", dtype)
+            for _ in range(4)]
+
+
+def check_flash(B, T, H, D, dtype, causal, seed):
+    """The flash forward (out, lse) and backward (dq, dk, dv) kernels against
+    their plain versions, and the backward's bits on a repeat; returns the
+    forward's and the backward's max |err|."""
+    q, k, v, do = flash_inputs(B, T, H, D, dtype, seed)
+    out, lse = fa._launch_flash(q, k, v, causal, want_lse=True)
+    delta = fa._delta(do, out)
+    grads = fa._launch_flash_bwd(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, causal)
+    torch.testing.assert_close(out, ref, atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(lse, ref_lse, atol=TOL[dtype], rtol=TOL[dtype])
+    refs = fa.flash_attention_bwd_reference(q, k, v, do, out, lse, causal)
+    errs = [rel_err(g, r) for g, r in zip(grads, refs)]
+    fwd_err = (out.float() - ref.float()).abs().max().item()
+    bwd_err = max((g.float() - r.float()).abs().max().item() for g, r in zip(grads, refs))
+    msg = (f"flash_attention B={B} T={T} H={H} D={D} {str(dtype)[6:]} causal={causal}: out "
+           f"max_abs_err={fwd_err:.3g}, lse {(lse - ref_lse).abs().max().item():.3g}; dq, dk, dv "
+           + ", ".join(f"{e:.3g} of max|ref| {r.float().abs().max().item():.3g}"
+                       for e, r in zip(errs, refs)) + f" (tolerance {TOL[dtype]})")
+    check(max(errs) <= TOL[dtype], msg)
+    again = fa._launch_flash_bwd(q, k, v, do, lse, delta, causal)
+    check(all(torch.equal(a, g) for a, g in zip(again, grads)), "flash backward: bits differ "
+          "on a repeat")
+    log(msg + "; backward bits equal on a repeat")
+    return fwd_err, bwd_err
+
+
+def causal_pairs(T, causal):
+    return T * (T + 1) // 2 if causal else T * T
+
+
+def flash_bound_ms(B, T, H, D, dtype, causal, backward):
+    """Forward: q, k, v in, out and lse out, 4*B*H*pairs*D; backward: q, k,
+    v, dout, lse, delta in, dq, dk, dv out, 10*B*H*pairs*D (s, dp, dq, dk,
+    dv); pairs counts only the unmasked (query, key) pairs."""
+    s = torch.finfo(dtype).bits // 8
+    rows = B * T * H * D
+    if backward:
+        nbytes, flops = 7 * rows * s + 2 * B * H * T * 4, 10 * B * H * causal_pairs(T, causal) * D
+    else:
+        nbytes, flops = 4 * rows * s + B * H * T * 4, 4 * B * H * causal_pairs(T, causal) * D
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sdpa_backend(q, k, v, causal):
+    """The backend torch picks for F.scaled_dot_product_attention here."""
+    from torch.nn.attention import SDPBackend
+
+    try:
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=causal)).name
+    except (AttributeError, RuntimeError, ValueError) as e:
+        return f"unknown ({type(e).__name__})"
+
+
+def time_flash(B, T, H, D, dtype, causal):
+    """Forward (with lse, as the train step calls it) and backward kernels,
+    their plain versions, and SDPA on the same (B, H, T, D) views (backward:
+    (forward + backward) - forward)."""
+    q, k, v, do = flash_inputs(B, T, H, D, dtype, seed=21)
+    out, lse = fa._launch_flash(q, k, v, causal, want_lse=True)
+    delta = fa._delta(do, out)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    x = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(*x, is_causal=causal)
+
+    fwd_ms = cuda_ms(sdpa)
+    fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa(), x, do.transpose(1, 2)))
+    fwd_bound, fwd_by = flash_bound_ms(B, T, H, D, dtype, causal, backward=False)
+    bwd_bound, bwd_by = flash_bound_ms(B, T, H, D, dtype, causal, backward=True)
+    res = {
+        "fwd": dict(kernel_ms=cuda_ms(lambda: fa._launch_flash(q, k, v, causal, True)),
+                    plain_ms=cuda_ms(lambda: fa.flash_attention_reference(q, k, v, causal),
+                                     iters=2, reps=3),
+                    library_ms=fwd_ms, bound_ms=fwd_bound, bound_by=fwd_by),
+        "bwd": dict(kernel_ms=cuda_ms(lambda: fa._launch_flash_bwd(q, k, v, do, lse, delta,
+                                                                   causal)),
+                    plain_ms=cuda_ms(lambda: fa.flash_attention_bwd_reference(
+                        q, k, v, do, out, lse, causal), iters=2, reps=3),
+                    library_ms=fwd_bwd_ms - fwd_ms, library_fwd_bwd_ms=fwd_bwd_ms,
+                    bound_ms=bwd_bound, bound_by=bwd_by),
+        "sdpa_backend": sdpa_backend(*x, causal),
+    }
+    log(f"flash_attention timing B={B} T={T} H={H} D={D} {str(dtype)[6:]} causal={causal}, "
+        f"SDPA backend {res['sdpa_backend']}: forward " + fmt(res["fwd"]) + "; backward "
+        + fmt(res["bwd"]))
+    return res
+
+
 def kernel_group(name):
     low = name.lower()
     for key, group in (("short_attn", "attention kernel"), ("bwd_query", "attention bwd kernel"),
+                       ("flash_fwd", "flash attention kernel"),
+                       ("flash_bwd", "flash attention bwd kernel"),
                        ("bwd_key", "attention bwd kernel"), ("db_reduce", "attention bwd kernel"),
                        ("foreach", "optimizer"), ("multi_tensor", "optimizer"),
                        ("gemm", "matmul"),
@@ -295,6 +418,31 @@ def profile_run(fn, label):
     return busy_ms
 
 
+def kernel_entry(mangled):
+    """A readable name for a mangled kernel entry: `name<type, D>`."""
+    m = re.search(r"(?:_cu_[0-9a-f]{8}|^_Z)(\d+)", mangled)
+    if m is None:
+        return mangled[:60]
+    start = m.end()
+    name, rest = mangled[start:start + int(m.group(1))], mangled[start + int(m.group(1)):]
+    args = re.match(r"I(f|13__nv_bfloat16)?Li(\d+)E", rest)
+    if args is None:
+        return name
+    dtype = {"f": "f32", "13__nv_bfloat16": "bf16"}.get(args.group(1))
+    return f"{name}<{', '.join(x for x in (dtype, args.group(2)) if x)}>"
+
+
+def log_registers(name, text):
+    """Registers and spills of every template in one kernel's ptxas output."""
+    entry = "?"
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = kernel_entry(m.group(1))
+        elif "registers" in line or "spill" in line:
+            log(f"  {name} {entry}: {line.split(':', 1)[-1].strip()}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this check runs on the GPU only")
@@ -314,9 +462,7 @@ def main():
     _build.build()
     log(f"built {sorted(_build.KERNELS)} in {time.time() - t0:.1f} s")
     for name, text in _build.build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        log_registers(name, text)
 
     # 2. every kernel against its plain version -----------------------------
     main_err = check_attention(240, 197, 12, 64, torch.bfloat16, False, seed=0)
@@ -339,6 +485,19 @@ def main():
     bwd_timing_240 = time_attention_bwd(240, 197, 12, 64, torch.bfloat16)
     no_db = {f"D{D}": time_attention_bwd(160, 197, 768 // D, D, torch.bfloat16, with_db=False)
              for D in (32, 128)}
+    # the flash kernels at AVT-h's shape on the feature path (f32, causal),
+    # both types and masks, and the other head dims at 8 heads
+    flash_err = check_flash(*FLASH_SHAPE, torch.float32, True, seed=6)
+    for dtype, causal in ((torch.float32, False), (torch.bfloat16, True),
+                          (torch.bfloat16, False)):
+        check_flash(*FLASH_SHAPE, dtype, causal, seed=7)
+    for D, dtype in ((64, torch.float32), (64, torch.bfloat16), (256, torch.float32),
+                     (256, torch.bfloat16)):
+        check_flash(FEAT_BATCH, LONG_T, 8, D, dtype, True, seed=8)
+    check_flash(FEAT_BATCH, 200, AVTH_HEADS, 512, torch.float32, True, seed=9)
+    check_flash(FEAT_BATCH, 200, 8, 64, torch.bfloat16, True, seed=10)
+    flash_timing = time_flash(*FLASH_SHAPE, torch.float32, True)
+    flash_timing_bf16 = time_flash(*FLASH_SHAPE, torch.bfloat16, True)
 
     # 3. serving: the full-width flagship through its entry points ----------
     serve_launches = serve_phase()
@@ -349,13 +508,20 @@ def main():
     # 5. the no-db form on a train step: 24 heads of 32 ----------------------
     d32_launches = small_train_phase()
 
+    # 6. the feature path of expts/02 at 256 observed features ---------------
+    feat_launches = feature_phase()
+
+    paths = {"serve": serve_launches, "train": train_launches, "train_d32": d32_launches,
+             **feat_launches}
+
+    def by_path(name):
+        return {path: counts[name] for path, counts in paths.items()}
+
     fwd_spec, bwd_spec = _build.KERNELS["short_attention_fwd"], _build.KERNELS["short_attention_bwd"]
     kernels = [
         dict(name="short_attention_fwd", route=fwd_spec["route"], source=fwd_spec["source"],
              replaces=fwd_spec["replaces"], launches=train_launches["short_attention_fwd"],
-             launches_by_path={"serve": serve_launches["short_attention_fwd"],
-                               "train": train_launches["short_attention_fwd"],
-                               "train_d32": d32_launches["short_attention_fwd"]},
+             launches_by_path=by_path("short_attention_fwd"),
              shape=[240, 197, 12, 64], dtype="bfloat16", max_abs_err=main_err,
              ms=timing["kernel_ms"], **timing,
              train_shape={"shape": [160, 197, 12, 64], **train_timing},
@@ -364,15 +530,22 @@ def main():
                              for k, v in unpaired.items()}),
         dict(name="short_attention_bwd", route=bwd_spec["route"], source=bwd_spec["source"],
              replaces=bwd_spec["replaces"], launches=train_launches["short_attention_bwd"],
-             launches_by_path={"serve": serve_launches["short_attention_bwd"],
-                               "train": train_launches["short_attention_bwd"],
-                               "train_d32": d32_launches["short_attention_bwd"]},
+             launches_by_path=by_path("short_attention_bwd"),
              shape=[160, 197, 12, 64], dtype="bfloat16", max_abs_err=bwd_err,
              ms=bwd_timing["kernel_ms"], **bwd_timing,
              serve_batch_shape={"shape": [240, 197, 12, 64], **bwd_timing_240},
              no_db_shape={k: {"shape": [160, 197, 768 // int(k[1:]), int(k[1:])], **v}
                           for k, v in no_db.items()}),
     ]
+    for name, side, err in (("flash_attention_fwd", "fwd", flash_err[0]),
+                            ("flash_attention_bwd", "bwd", flash_err[1])):
+        spec, timing = _build.KERNELS[name], flash_timing[side]
+        kernels.append(dict(
+            name=name, route=spec["route"], source=spec["source"], replaces=spec["replaces"],
+            launches=feat_launches["feature_train"][name], launches_by_path=by_path(name),
+            shape=list(FLASH_SHAPE), dtype="float32", causal=True, max_abs_err=err,
+            ms=timing["kernel_ms"], **timing, library=f"SDPA ({flash_timing['sdpa_backend']})",
+            bf16={"sdpa_backend": flash_timing_bf16["sdpa_backend"], **flash_timing_bf16[side]}))
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -415,6 +588,7 @@ def serve_phase():
     want = VIT_BLOCKS * forwards[0]
     check(launches["short_attention_fwd"] == want, f"launches {launches}, want {want}")
     check(launches["short_attention_bwd"] == 0, f"a backward launch while serving: {launches}")
+    check(all(launches[n] == 0 for n in NO_FLASH), f"a flash launch while serving: {launches}")
     # the same clip in a full batch and in a padded tail (and in two batches)
     tail_vs_full = np.abs(results[2][4:6] - results[3][2:4]).max()
     np.testing.assert_allclose(results[2][4:6], results[3][2:4], atol=1e-2, rtol=2e-2)
@@ -514,7 +688,7 @@ def train_phase():
         first_ms = (time.time() - t0) * 1e3
         launches = dict(_build.launch_counts)
         want = VIT_BLOCKS * steps
-        check(launches == {"short_attention_fwd": want, "short_attention_bwd": want},
+        check(launches == {"short_attention_fwd": want, "short_attention_bwd": want, **NO_FLASH},
               f"step {k}: launches {launches}, want {want} of each")
         values = {key: v.item() for key, v in metrics.items()}
         for key in ("loss", "loss/cls_action", "loss/past_cls_action", "loss/feat"):
@@ -544,7 +718,7 @@ def train_phase():
     steps += TIMED_STEPS
     launches = dict(_build.launch_counts)
     want = VIT_BLOCKS * steps
-    check(launches == {"short_attention_fwd": want, "short_attention_bwd": want},
+    check(launches == {"short_attention_fwd": want, "short_attention_bwd": want, **NO_FLASH},
           f"launches {launches} after {steps} steps, want {want} of each")
     check(np.isfinite(metrics["loss"].item()), "non-finite loss in the timed steps")
     clips_s = TRAIN_CLIPS / step_s
@@ -576,8 +750,8 @@ def train_phase():
 
 
 def one_clip_grads(model, preprocess, batch, names):
-    """Gradients of the step's loss on a one-clip batch, with the dropout
-    masks and crop draws of a fixed seed."""
+    """Gradients of the step's loss on a small batch (one clip, or two on the
+    feature path), with the dropout masks and crop draws of a fixed seed."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     model.train()
     video = preprocess(batch["video"], gen)
@@ -625,7 +799,7 @@ def small_train_phase():
         f"packed_short_attention calls {calls['packed_short_attention'].call_count}, "
         f"packed_qkv_bias_attention calls {calls['packed_qkv_bias_attention'].call_count}")
     check(np.isfinite(loss), f"24-head step: loss {loss}")
-    check(launches == {"short_attention_fwd": 2, "short_attention_bwd": 2},
+    check(launches == {"short_attention_fwd": 2, "short_attention_bwd": 2, **NO_FLASH},
           f"24-head step: launches {launches}, want 2 of each")
     check(calls["packed_short_attention"].call_count == 2
           and calls["packed_qkv_bias_attention"].call_count == 0,
@@ -634,6 +808,169 @@ def small_train_phase():
     check(all(g is not None and torch.isfinite(g).all() for g in grads),
           "24-head step: an attention-branch gradient is missing or non-finite")
     return launches
+
+
+def plain_flash(q, k, v, causal=False):
+    """The plain version in place of the flash kernels; autograd
+    differentiates it."""
+    return fa.flash_attention_reference(q, k, v, causal)[0]
+
+
+def feature_batch(B, T, seed):
+    """expts/02's subclip layout: (B, T, 1024, 1, 1, 1) f32 features, one
+    1-frame subclip per observed second, with their targets."""
+    rng = np.random.default_rng(seed)
+    video = torch.from_numpy(rng.standard_normal((B, T, FEAT_DIM, 1, 1, 1), np.float32))
+    return {"video": video.cuda(),
+            "target": {"action": torch.from_numpy(rng.integers(0, NUM_ACTIONS, size=B)).cuda()},
+            "target_subclips": {"action": torch.from_numpy(
+                rng.integers(-1, NUM_ACTIONS, size=(B, T, 1))).cuda()}}
+
+
+def feature_flops_per_clip(T):
+    """Forward FLOPs of one clip on the feature path: AVT-h's linears on
+    every token (qkv, proj, the 4x MLP), its causal attention, the encoder
+    and decoder, the past classifier on every token, the classifier once."""
+    C = AVTH_DIM
+    linears = AVTH_LAYERS * 12 * C * C + 2 * FEAT_DIM * C + FEAT_DIM * NUM_ACTIONS
+    attention = AVTH_LAYERS * 4 * C * causal_pairs(T, True)
+    return 2 * T * linears + attention + 2 * FEAT_DIM * NUM_ACTIONS
+
+
+def avth_attention_param(name):
+    """A parameter of AVT-h's attention branch (ln_1, c_attn, c_proj)."""
+    return name.startswith("future_predictor.gpt_model.h.") and (
+        ".attn." in name or ".ln_1." in name)
+
+
+def feature_phase():
+    """The feature path of expts/02 at full width; returns the launch counts
+    of each of its counted runs."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = build_avt(num_actions=NUM_ACTIONS, backbone="identity", backbone_dim=FEAT_DIM,
+                      inter_dim=AVTH_DIM, n_layer=AVTH_LAYERS, n_head=AVTH_HEADS, generator=gen)
+    num_classes = {"action": NUM_ACTIONS}
+    eval_step = make_eval_step(model, num_classes)
+    long_batch, short_batch = feature_batch(FEAT_BATCH, LONG_T, 1), feature_batch(FEAT_BATCH,
+                                                                                 SHORT_T, 2)
+    counts = {}
+
+    def counted(label, fn):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts[label] = dict(_build.launch_counts)
+        return out
+
+    eval_step(long_batch)  # first-call costs, outside the counted run
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = counted("feature_eval", lambda: eval_step(long_batch))
+    eval_ms = (time.time() - t0) * 1e3
+    logits = res["logits/action"]
+    check(logits.shape == (FEAT_BATCH, NUM_ACTIONS) and bool(torch.isfinite(logits).all()),
+          f"feature eval logits {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    check(all(bool(torch.isfinite(v).all()) for v in res.values()), "non-finite eval result")
+    want = {**{n: 0 for n in _build.KERNELS}, "flash_attention_fwd": AVTH_LAYERS}
+    check(counts["feature_eval"] == want, f"feature eval launches {counts['feature_eval']}, "
+          f"want {want}")
+    short = counted("feature_eval_t10", lambda: eval_step(short_batch))
+    check(all(bool(torch.isfinite(v).all()) for v in short.values()), "non-finite T=10 result")
+    check(not any(counts["feature_eval_t10"].values()),
+          f"T={SHORT_T} eval launched {counts['feature_eval_t10']}")
+    with mock.patch.object(fa, "flash_attention", plain_flash):
+        plain = eval_step(long_batch)["logits/action"]
+    scale, diff = plain.abs().max().item(), (logits - plain).abs().max().item()
+    log(f"feature eval, {FEAT_BATCH} clips x {LONG_T} features: {eval_ms:.2f} ms "
+        f"({FEAT_BATCH / eval_ms * 1e3:.2f} clips/s); loss/cls_action mean "
+        f"{res['loss/cls_action'].mean().item():.4f}, aux_loss/feat "
+        f"{res['aux_loss/feat'].item():.4f}; launches {counts['feature_eval']}; at T={SHORT_T} "
+        f"{counts['feature_eval_t10']}; kernels vs plain logits max |diff| {diff:.3g} of scale "
+        f"{scale:.3g}")
+    check(diff <= 1e-3 * scale, f"feature eval: kernels vs plain logits differ by {diff}")
+
+    opt, _ = build_optimizer(
+        model, lr_wd=[["__all__", 1e-3, 1e-6]], optimizer_name="sgd", scheduler_name="cosine",
+        iters_per_epoch=1000, num_epochs=50, warmup_epochs=20, bias_bn_wd_scale=1.0,
+        optimizer_kwargs={"nesterov": True})
+    step = make_train_step(model, opt, LOSS_WTS, num_classes)
+    step_gen = torch.Generator(device="cuda").manual_seed(1)
+    params = dict(model.named_parameters())
+    branch = [n for n in params if avth_attention_param(n)]
+    check(len(branch) == 6 * AVTH_LAYERS, f"AVT-h attention params {len(branch)}")
+    before = {n: p.detach().clone() for n, p in params.items()}
+    want = {**{n: 0 for n in _build.KERNELS}, "flash_attention_fwd": AVTH_LAYERS,
+            "flash_attention_bwd": AVTH_LAYERS}
+    torch.cuda.reset_peak_memory_stats()
+    for k in range(2):  # step 0 runs at LR 0, step 1 at the first warmup LR
+        t0 = time.time()
+        metrics = counted("feature_train", lambda: step(long_batch, step_gen))
+        first_ms = (time.time() - t0) * 1e3
+        check(counts["feature_train"] == want,
+              f"feature train step {k}: launches {counts['feature_train']}, want {want}")
+        values = {key: v.item() for key, v in metrics.items()}
+        for key in ("loss", "loss/cls_action", "loss/past_cls_action", "loss/feat"):
+            check(np.isfinite(values[key]), f"feature train step {k}: {key} = {values[key]}")
+        bad = [n for n in branch
+               if params[n].grad is None or not torch.isfinite(params[n].grad).all()]
+        check(not bad, f"feature train step {k}: missing or non-finite gradient for {bad[:4]}")
+        changed = [n for n, p in params.items() if not torch.equal(p, before[n])]
+        log(f"feature train step {k} ({first_ms:.1f} ms with first-call costs): lr "
+            f"{opt.groups[0].schedule(k):.3g}, "
+            + ", ".join(f"{key} {v:.4f}" for key, v in values.items())
+            + f"; {len(changed)} of {len(params)} parameter tensors changed; launches "
+            f"{counts['feature_train']}")
+        if k == 0:
+            check(not changed, f"step 0 at LR 0 changed {changed[:4]}")
+        else:
+            check(changed, "feature train step 1 changed no parameter")
+    counted("feature_train_t10", lambda: step(short_batch, step_gen))
+    check(not any(counts["feature_train_t10"].values()),
+          f"T={SHORT_T} train step launched {counts['feature_train_t10']}")
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.time()
+    for _ in range(FEAT_TIMED_STEPS):
+        metrics = step(long_batch, step_gen)
+    torch.cuda.synchronize()
+    step_s = (time.time() - t0) / FEAT_TIMED_STEPS
+    launches = dict(_build.launch_counts)
+    check(launches["flash_attention_fwd"] == AVTH_LAYERS * FEAT_TIMED_STEPS
+          and launches["flash_attention_bwd"] == AVTH_LAYERS * FEAT_TIMED_STEPS,
+          f"timed feature steps launched {launches}")
+    check(np.isfinite(metrics["loss"].item()), "non-finite loss in the timed feature steps")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    flops = 3 * FEAT_BATCH * feature_flops_per_clip(LONG_T)
+    log(f"feature train step, {FEAT_BATCH} clips x {LONG_T} features: {step_s * 1e3:.2f} ms a "
+        f"step (mean of {FEAT_TIMED_STEPS} after 2), {FEAT_BATCH / step_s:.2f} clips/s, "
+        f"{flops / step_s / 1e12:.2f} TFLOP/s ({flops / 1e12:.2f} TFLOP a step), "
+        f"{flops / step_s / PEAK_FLOPS[torch.float32]:.4f} of the f32 peak; peak memory "
+        f"{peak_gb:.2f} GB")
+    busy_ms = profile_run(lambda: step(long_batch, step_gen),
+                          f"feature train step, {FEAT_BATCH} clips x {LONG_T} features")
+    log(f"device busy {busy_ms:.2f} ms of the steady step's {step_s * 1e3:.2f} ms: "
+        f"idle share {1 - busy_ms / (step_s * 1e3):.3f}")
+
+    # gradients on 2 clips, with the kernels and with the plain versions
+    two = {"video": long_batch["video"][:2],
+           "target": {"action": long_batch["target"]["action"][:2]},
+           "target_subclips": {"action": long_batch["target_subclips"]["action"][:2]}}
+    names = ["future_predictor.gpt_model.h.0.attn.c_attn.weight",
+             "future_predictor.gpt_model.h.5.attn.c_attn.bias",
+             "future_predictor.encoder.weight", "classifiers.action.weight"]
+    features = lambda video, generator: video  # noqa: E731 (no preprocessing)
+    kernel_grads = one_clip_grads(model, features, two, names)
+    with mock.patch.object(fa, "flash_attention", plain_flash):
+        plain_grads = one_clip_grads(model, features, two, names)
+    for name, gk, gp in zip(names, kernel_grads, plain_grads):
+        scale = gp.abs().max().item()
+        diff = (gk - gp).abs().max().item()
+        log(f"grad {name}, kernels vs plain, 2 clips: max |diff| {diff:.3g} of scale "
+            f"{scale:.3g} (limit {GRAD_TOL} of the scale)")
+        check(scale > 0 and diff <= GRAD_TOL * scale, f"grad {name} differs by {diff}")
+    return counts
 
 
 if __name__ == "__main__":

@@ -108,4 +108,85 @@ def test_cuda_grads_reach_qkv_and_bias(cuda_device, D):
     tfa.packed_short_attention(y, H, causal=True).float().sum().backward()
     assert y.grad is not None and torch.isfinite(y.grad).all()
     torch.cuda.synchronize()
-    assert _build.launch_counts == {tfa.KERNEL: 2, tfa.BWD_KERNEL: 2}
+    assert _build.launch_counts == {**{name: 0 for name in _build.KERNELS},
+                                    tfa.KERNEL: 2, tfa.BWD_KERNEL: 2}
+
+
+def _heads(B, T, H, D, dtype, device, seed):
+    x = np.random.default_rng(seed).standard_normal((B, T, H, D)).astype(np.float32)
+    return torch.from_numpy(x).to(device=device, dtype=getattr(torch, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D,H,T,causal", [
+    # AVT-h of expts/02 (4 heads of 512) and of expts/13 (8 of 256), TransformerAgg's 8 of 64
+    ("float32", 512, 4, 256, True), ("bfloat16", 512, 4, 256, False),
+    ("float32", 256, 8, 256, False), ("bfloat16", 256, 8, 200, True),
+    ("float32", 128, 2, 130, True), ("bfloat16", 128, 2, 300, False),
+    ("float32", 64, 8, 200, True), ("bfloat16", 64, 8, 256, True),
+    ("float32", 512, 1, 5, False),  # shorter than a tile
+])
+def test_cuda_flash_matches_plain_version(cuda_device, dtype, D, H, T, causal):
+    q, k, v, do = (_heads(3, T, H, D, dtype, cuda_device, seed) for seed in range(4))
+    _build.reset_launch_counts()
+    out, lse = tfa._launch_flash(q, k, v, causal, want_lse=True)
+    delta = tfa._delta(do, out)
+    dq, dk, dv = tfa._launch_flash_bwd(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[tfa.FLASH_KERNEL] == 1
+    assert _build.launch_counts[tfa.FLASH_BWD_KERNEL] == 1
+    ref, ref_lse = tfa.flash_attention_reference(q, k, v, causal)
+    torch.testing.assert_close(out, ref, atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(lse, ref_lse, atol=TOL[dtype], rtol=TOL[dtype])
+    refs = tfa.flash_attention_bwd_reference(q, k, v, do, out, lse, causal)
+    for got, want in zip((dq, dk, dv), refs):
+        assert _rel_err(got, want) <= TOL[dtype]
+    again = tfa._launch_flash_bwd(q, k, v, do, lse, delta, causal)
+    assert all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv)))  # no atomics: same bits
+    assert torch.equal(tfa._launch_flash(q, k, v, causal, want_lse=False)[0], out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_cuda_flash_with_more_keys_than_queries(cuda_device, causal):
+    q, do = (_heads(2, 150, 2, 128, "float32", cuda_device, seed) for seed in (11, 12))
+    k, v = (_heads(2, 260, 2, 128, "float32", cuda_device, seed) for seed in (13, 14))
+    out, lse = tfa._launch_flash(q, k, v, causal, want_lse=True)
+    grads = tfa._launch_flash_bwd(q, k, v, do, lse, tfa._delta(do, out), causal)
+    ref, ref_lse = tfa.flash_attention_reference(q, k, v, causal)
+    torch.testing.assert_close(out, ref, atol=TOL["float32"], rtol=TOL["float32"])
+    torch.testing.assert_close(lse, ref_lse, atol=TOL["float32"], rtol=TOL["float32"])
+    refs = tfa.flash_attention_bwd_reference(q, k, v, do, out, lse, causal)
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    for got, want in zip(grads, refs):
+        assert _rel_err(got, want) <= TOL["float32"]
+
+
+@pytest.mark.cuda
+def test_cuda_flash_reads_packed_views_in_place(cuda_device):
+    B, T, H, D = 2, 150, 4, 128
+    qkv = _qkv(B, T, H, D, "float32", cuda_device, seed=9).requires_grad_(True)
+    q, k, v = (t.reshape(B, T, H, D) for t in qkv.split(H * D, dim=-1))
+    assert not q.is_contiguous()
+    _build.reset_launch_counts()
+    out = tfa.flash_attention(q, k, v, causal=True)
+    (grad,) = torch.autograd.grad(out.square().sum(), qkv)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[tfa.FLASH_KERNEL] == 1
+    assert _build.launch_counts[tfa.FLASH_BWD_KERNEL] == 1
+    x = qkv.detach().requires_grad_(True)
+    q2, k2, v2 = (t.reshape(B, T, H, D).contiguous() for t in x.split(H * D, dim=-1))
+    ref = tfa.flash_attention_reference(q2, k2, v2, True)[0]
+    (ref_grad,) = torch.autograd.grad(ref.square().sum(), x)
+    torch.testing.assert_close(out, ref, atol=TOL["float32"], rtol=TOL["float32"])
+    assert _rel_err(grad, ref_grad) <= TOL["float32"]
+
+
+@pytest.mark.cuda
+def test_cuda_flash_raises_on_unbuilt_head_dim(cuda_device):
+    x = torch.zeros(1, 130, 2, 96, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim 96"):
+        tfa.flash_attention(x, x, x)
+    with pytest.raises(TypeError, match="storage type"):
+        tfa.flash_attention(*(torch.zeros(1, 130, 2, 64, dtype=torch.float16,
+                                          device=cuda_device),) * 3)

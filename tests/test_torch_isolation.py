@@ -58,6 +58,8 @@ def test_entry_points_refuse_cpu_unasked(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         build_avt(num_actions=4)
     with pytest.raises(RuntimeError, match="CUDA"):
+        build_avt(num_actions=4, backbone="identity")
+    with pytest.raises(RuntimeError, match="CUDA"):
         VideoPreprocessor()
     assert resolve_device("cpu") == torch.device("cpu")
     assert avt_tpu_torch.__all__
