@@ -145,11 +145,112 @@ def load_jax_params(model: nn.Module, params: Mapping) -> nn.Module:
     return model
 
 
-def opt_state_from_jax(trace: Mapping, count: int = 0) -> dict:
-    """An optax momentum tree (`TraceState.trace`) -> the port's SGD state
-    (`{"count": count, "momentum": {name: f32 tensor}}`, for
-    `SGD.load_state_dict`, which rounds into the buffers' own type). A trace
-    has the parameters' tree, so `params_from_jax`'s re-layout applies; the
-    leaves of frozen parameters, which optax masks out, are filled in by the
-    caller."""
-    return {"count": int(count), "momentum": params_from_jax(trace)}
+# the parameter-shaped trees of optax's states: SGD's trace, Adam's moments,
+# Adafactor's factored second moments
+_STATE_TREES = ("trace", "mu", "nu", "row", "col", "v")
+
+
+def _masked(x) -> bool:
+    return type(x).__name__ == "MaskedNode"  # optax's leaf for another group's parameter
+
+
+def _merge(trees):
+    """One tree from the per-group trees of an optax multi_transform state,
+    in each of which the other groups' leaves are masked."""
+    if isinstance(trees[0], Mapping):
+        return {k: _merge([t[k] for t in trees]) for k in trees[0]}
+    real = [t for t in trees if not _masked(t)]
+    if not real:
+        raise ValueError("a parameter is masked in every group (frozen); its state has no "
+                         "counterpart in the port's optimizer")
+    return real[0]
+
+
+def _group_states(state) -> Dict[str, list]:
+    """group label -> the optax states (NamedTuples) of that group's chain,
+    found through chains (tuples), MaskedState and MultiTransformState."""
+    out: Dict[str, list] = {}
+
+    def walk(node, label):
+        if hasattr(node, "_fields"):
+            if "inner_states" in node._fields:
+                for lab, sub in node.inner_states.items():
+                    walk(sub, lab)
+                return
+            out.setdefault(label, []).append(node)
+            for f in node._fields:
+                if f not in _STATE_TREES:
+                    walk(getattr(node, f), label)
+        elif isinstance(node, (list, tuple)):
+            for x in node:
+                walk(x, label)
+
+    walk(state, None)
+    return out
+
+
+def _factored_from_jax(row: Mapping, col: Mapping, v: Mapping):
+    """Adafactor's row / col / v trees -> {port name: tensor} each. A leaf
+    the JAX side keeps as a 0-d placeholder is left out. The port factors a
+    torch-layout weight over its last two axes: for a linear weight, the
+    transpose of the JAX kernel, its row and col are JAX's col and row."""
+    leaves: list = []
+
+    def probe(node):  # each leaf -> a (2, 3, 4, 5) array holding its index
+        if isinstance(node, Mapping):
+            return {k: probe(x) for k, x in node.items()}
+        leaves.append(node)
+        return np.full((2, 3, 4, 5), len(leaves) - 1, np.float32)
+
+    placed = params_from_jax(probe(row))
+    n = len(leaves)
+    probe(col), probe(v)
+    out = {"row": {}, "col": {}, "v": {}}
+    for name, x in placed.items():
+        i = int(x.reshape(-1)[0])
+        r, c, full = leaves[i], leaves[n + i], leaves[2 * n + i]
+        layout = tuple(x.shape)
+        if np.ndim(full) > 0:
+            out["v"][name] = torch.from_numpy(_np(full))
+        elif layout == (2, 3, 4, 5):  # the same layout on both sides
+            out["row"][name], out["col"][name] = (torch.from_numpy(_np(a)) for a in (r, c))
+        elif layout == (5, 4, 3, 2) and np.ndim(r) == 1:  # a linear kernel, transposed
+            out["row"][name], out["col"][name] = (torch.from_numpy(_np(a)) for a in (c, r))
+        else:
+            raise NotImplementedError(f"{name}: no conversion of the factored second moments "
+                                      f"of a re-laid-out {np.ndim(r) + 1}-d kernel")
+    return out
+
+
+def opt_state_from_jax(state) -> dict:
+    """The state of avt_tpu's `build_optimizer` transformation (an optax
+    multi_transform, optionally behind gradient clipping) -> the port
+    optimizer's state, for its `load_state_dict` (which rounds into each
+    buffer's own type): the step count, SGD's `momentum`, Adam's and AdamW's
+    `mu` and `nu`, Adafactor's `row`, `col` and `v`, each as {parameter
+    name: f32 tensor}, and each group's plateau multiplier (`{"plateau":
+    {group label: mult}}`). Parameter trees have the parameters' layout, so
+    `params_from_jax`'s re-layout applies. A frozen parameter has no state
+    in optax and raises."""
+    groups = {k: v for k, v in _group_states(state).items() if k not in (None, "frozen")}
+    found: Dict[str, list] = {}
+    out: dict = {"plateau": {}}
+    count = None
+    for label, states in groups.items():
+        for st in states:
+            for f in _STATE_TREES:
+                if f in st._fields:
+                    found.setdefault(f, []).append(getattr(st, f))
+            if "mult" in st._fields:
+                out["plateau"][label] = float(np.asarray(st.mult))
+            if count is None and "count" in st._fields:  # the chain's counts move together
+                count = int(np.asarray(st.count))
+    out["count"] = int(count or 0)
+    if "trace" in found:
+        out["momentum"] = params_from_jax(_merge(found["trace"]))
+    for f in ("mu", "nu"):
+        if f in found:
+            out[f] = params_from_jax(_merge(found[f]))
+    if "row" in found:
+        out.update(_factored_from_jax(*(_merge(found[f]) for f in ("row", "col", "v"))))
+    return out

@@ -57,6 +57,12 @@ KERNELS: Dict[str, Dict[str, str]] = {
         "replaces": "avt_tpu/ops/flash_attention.py:92 (_dq_kernel) + :133 (_dkv_kernel), "
                     "via _flash_attention_bwd :305",
     },
+    "fused_qkv_attention_fwd": {
+        "route": "cuda",
+        "source": "avt_tpu_torch/ops/csrc/fused_qkv_attention_fwd.cu",
+        "replaces": "avt_tpu/ops/flash_attention.py:696 (_fused_qkv_attn_fwd_kernel, "
+                    "via _fused_qkv_attn_fwd_call :754)",
+    },
 }
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 

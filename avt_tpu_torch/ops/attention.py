@@ -3,7 +3,8 @@ picks Pallas, plain tensor math elsewhere.
 
 Counterpart of avt_tpu/ops/attention.py, with "CUDA" in place of "TPU". The
 ViT backbone (frames x 197 tokens) goes through the packed kernel
-(ops/flash_attention.py). AVT-h attends over one token per observed
+(ops/flash_attention.py), or, asked for with use_kernel=True, the kernel
+that also computes the qkv projection. AVT-h attends over one token per observed
 feature: at 128 tokens or more without a mask it goes through the blocked
 flash kernel (`flash_attention`), as the JAX package takes `_flash_kernel`;
 the shipped 10-token contexts, which the JAX package leaves to XLA, run
@@ -102,16 +103,16 @@ def fused_qkv_attention(
     multi-head attention; returns (N, T, C). The projection is rounded to
     x's type before the bias add, as flax's Dense does.
 
-    use_kernel=True is the counterpart of `use_pallas=True`, the kernel with
-    the projection inside it, which is not ported yet. On CUDA, for T >= 64
-    and head-pair geometry (head dim 64, even head count), the bias add goes
-    into the packed kernel's loads."""
-    if use_kernel:
-        raise NotImplementedError(
-            "the fused projection+attention kernel (avt_tpu "
-            "_fused_qkv_attn_fwd_kernel) is not ported yet")
+    use_kernel=True is the counterpart of `use_pallas=True`: the fused
+    kernel, with the projection inside it (its plain version on the CPU).
+    As in the JAX package it exists for head dim 64 and an even head count
+    only; any other geometry takes the split path. None (the default, as in
+    JAX) is the split path: on CUDA, for T >= 64 and head-pair geometry, the
+    bias add goes into the packed kernel's loads."""
     N, T, C = x.shape
     head_dim = C // num_heads
+    if use_kernel and head_dim == fa.FUSED_HEAD_DIM and num_heads % 2 == 0:
+        return fa.fused_qkv_attention(x, kernel, bias, num_heads, causal)
     qkv = torch.matmul(x, kernel.to(x.dtype))
     packed = (
         x.device.type == "cuda" and T >= 64 and head_dim == 64 and num_heads % 2 == 0

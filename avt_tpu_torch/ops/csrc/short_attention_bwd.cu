@@ -54,59 +54,17 @@
 //        -Xcompiler -fPIC (avt_tpu_torch/ops/_build.py does it at first use).
 // Entry: short_attention_bwd(...) below; returns the first CUDA error.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "short_attention_common.cuh"
 
 namespace {
 
-constexpr int kPad = 8;        // bf16 of padding per shared row (16 bytes):
-                               // conflict-free ldmatrix
+using namespace packed;
+
 constexpr int kMaxWarps = 8;   // 16 rows each: up to 128 rows per block
 constexpr float kLn2 = 0.6931471805599453f;  // 1 / log2(e)
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// c += a . b: a 16x16 bf16 (row fragment), b 16x8 bf16 (column fragment),
-// c 16x8 f32. Lane 4g+t holds rows g, g+8 and columns 2t, 2t+1 (+8).
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// In place on eight bf16 in shared memory: + bias (when given), then * scale
-// (when `scaled`), each bf16x2 result rounded once as a bf16 tensor op does.
-__device__ __forceinline__ void fix8(__nv_bfloat16* p, const __nv_bfloat16* bias,
-                                     bool scaled, __nv_bfloat162 scale2) {
-  uint4 x = *reinterpret_cast<const uint4*>(p);
-  __nv_bfloat162* xv = reinterpret_cast<__nv_bfloat162*>(&x);
-  if (bias != nullptr) {
-    const uint4 b = *reinterpret_cast<const uint4*>(bias);
-    const __nv_bfloat162* bv = reinterpret_cast<const __nv_bfloat162*>(&b);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) xv[i] = __hadd2(xv[i], bv[i]);
-  }
-  if (scaled) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) xv[i] = __hmul2(xv[i], scale2);
-  }
-  *reinterpret_cast<uint4*>(p) = x;
 }
 
 // dst[0:8] = src[0:8] * f in bf16 (one rounding per element).
@@ -119,73 +77,11 @@ __device__ __forceinline__ void scale8(__nv_bfloat16* dst, const __nv_bfloat16* 
   *reinterpret_cast<uint4*>(dst) = x;
 }
 
-// 2^x on the special-function unit; p is rounded to bf16 before every product.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // sum over the 8 row groups g of a warp (lanes with the same t)
 __device__ __forceinline__ float rows_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 4);
   x += __shfl_xor_sync(0xffffffffu, x, 8);
   return x + __shfl_xor_sync(0xffffffffu, x, 16);
-}
-
-// 16 bytes global -> shared without registers; zeros when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(addr), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Four 8x8 tiles; lanes 8i..8i+7 address the rows of tile i. Plain: lane
-// 4g+t gets (g, 2t), (g, 2t+1), the B fragment of a matrix stored [n][k].
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// Transposed: the B fragment of a matrix stored [k][n].
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// A fragments (16 rows x D) of a warp's rows from a shared [row][LD] tile.
-template <int D, int LD>
-__device__ __forceinline__ void load_a(uint32_t (&a)[D / 16][4], const __nv_bfloat16* rows,
-                                       int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    a[kk][0] = ld_u32(rows + g * LD + kk * 16 + 2 * t);
-    a[kk][1] = ld_u32(rows + (g + 8) * LD + kk * 16 + 2 * t);
-    a[kk][2] = ld_u32(rows + g * LD + kk * 16 + 2 * t + 8);
-    a[kk][3] = ld_u32(rows + (g + 8) * LD + kk * 16 + 2 * t + 8);
-  }
 }
 
 // c (16 x 8) = a (16 x D) . B^T for 8 rows of B stored [row][LD] at `rows`

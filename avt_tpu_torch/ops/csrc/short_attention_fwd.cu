@@ -35,112 +35,11 @@
 //        -Xcompiler -fPIC (avt_tpu_torch/ops/_build.py does it at first use).
 // Entry: short_attention_fwd(...) below; returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "short_attention_common.cuh"
 
 namespace {
 
-constexpr int kBK = 64;           // keys per compute step
-constexpr int kPad = 8;           // bf16 of padding per shared row: 16 bytes,
-                                  // which makes the fragment loads conflict-free
-
-// Two floats as one register of two bf16, the lower index in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// c += a . b for a 16x16 bf16 tile a (row-major fragment), a 16x8 bf16 tile b
-// (column fragment) and a 16x8 f32 tile c.
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// In place on eight bf16 in shared memory: + bias (when given), then * scale
-// (when `scaled`); bf16x2 arithmetic rounds each result once, as a bf16
-// tensor add or multiply does.
-__device__ __forceinline__ void fix8(__nv_bfloat16* p, const __nv_bfloat16* bias,
-                                     bool scaled, __nv_bfloat162 scale2) {
-  uint4 x = *reinterpret_cast<const uint4*>(p);
-  __nv_bfloat162* xv = reinterpret_cast<__nv_bfloat162*>(&x);
-  if (bias != nullptr) {
-    const uint4 b = *reinterpret_cast<const uint4*>(bias);
-    const __nv_bfloat162* bv = reinterpret_cast<const __nv_bfloat162*>(&b);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) xv[i] = __hadd2(xv[i], bv[i]);
-  }
-  if (scaled) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) xv[i] = __hmul2(xv[i], scale2);
-  }
-  *reinterpret_cast<uint4*>(p) = x;
-}
-
-// 2^x on the special-function unit (flushing denormal results to zero): p is
-// rounded to bf16 before it is used, far coarser than the approximation.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Copies 16 bytes global -> shared without holding registers; with `valid`
-// false it writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           bool valid) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(addr), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Four 8x8 bf16 tiles from shared memory: lanes 8i..8i+7 give the row
-// addresses of tile i, and lane 4g+t gets elements (g, 2t) and (g, 2t+1) of
-// each tile, the B fragment layout of mma.m16n8k16 for a K stored [key][dim].
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// Four 8x8 bf16 tiles from shared memory, transposed: lanes 8i..8i+7 give the
-// row addresses of tile i, and each lane gets two vertically adjacent
-// elements of each tile, which is the B fragment layout of mma.m16n8k16.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
+using namespace packed;
 
 // Query rows per block are 16 per warp, up to max_warps warps: one block
 // covers a whole ViT sequence (T=197 -> 13 warps), so each head's keys and
@@ -203,10 +102,8 @@ __global__ void __launch_bounds__(max_warps<D>() * 32)
   // keys at or past kmax are masked for every row of this warp
   const int kmax = causal ? min(T, qw + 16) : T;
   uint32_t qa[D / 16][4];
-  float o[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  RowState<D> state;
+  state.init();
 
   int n_st = (T + kKT - 1) / kKT;  // staged key tiles
   if (causal) n_st = min(n_st, (min(q0 + q_rows, T) - 1) / kKT + 1);
@@ -238,114 +135,11 @@ __global__ void __launch_bounds__(max_warps<D>() * 32)
     }
     __syncthreads();
     if (!active) continue;
-    if (st == 0) {
-      const __nv_bfloat16* Qw = Qs + warp * 16 * LD;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        qa[kk][0] = ld_u32(Qw + g * LD + kk * 16 + 2 * t);
-        qa[kk][1] = ld_u32(Qw + (g + 8) * LD + kk * 16 + 2 * t);
-        qa[kk][2] = ld_u32(Qw + g * LD + kk * 16 + 2 * t + 8);
-        qa[kk][3] = ld_u32(Qw + (g + 8) * LD + kk * 16 + 2 * t + 8);
-      }
-    }
-
-    for (int k0 = ks0; k0 < ks0 + kKT && k0 < kmax; k0 += kBK) {
-      const __nv_bfloat16* Kc = Ks + (k0 - ks0) * LD;
-      const __nv_bfloat16* Vc = Vs + (k0 - ks0) * LD;
-      // s = q' . k^T for this warp's 16 rows and 64 keys; key columns past
-      // kmax are left out of the product
-      float s[kBK / 8][4];
-#pragma unroll
-      for (int j = 0; j < kBK / 8; ++j) {
-        if (k0 + j * 8 >= kmax) {
-          s[j][0] = s[j][1] = s[j][2] = s[j][3] = -INFINITY;
-          continue;
-        }
-        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-        const __nv_bfloat16* ktile = Kc + (j * 8 + (lane & 7)) * LD + (lane >> 3) * 8;
-#pragma unroll
-        for (int kk = 0; kk < D / 16; kk += 2) {
-          uint32_t b[4];
-          ldmatrix_x4(b, ktile + kk * 16);
-          mma_16816(s[j], qa[kk], b[0], b[1]);
-          mma_16816(s[j], qa[kk + 1], b[2], b[3]);
-        }
-      }
-      float mx0 = -INFINITY, mx1 = -INFINITY;
-      const bool need_mask = causal || k0 + kBK > T;
-#pragma unroll
-      for (int j = 0; j < kBK / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + j * 8 + 2 * t + (e & 1);
-          const int row = e < 2 ? row0 : row1;
-          if (need_mask && (key >= T || (causal && key > row))) s[j][e] = -INFINITY;
-        }
-        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-      }
-      const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
-      // a row with every key so far masked keeps max -inf: shift by 0 so
-      // that exp2 gives 0 rather than NaN
-      const float sh0 = mn0 == -INFINITY ? 0.f : mn0;
-      const float sh1 = mn1 == -INFINITY ? 0.f : mn1;
-      const float a0 = fast_exp2(m0 - sh0), a1 = fast_exp2(m1 - sh1);
-      m0 = mn0;
-      m1 = mn1;
-      l0 *= a0;
-      l1 *= a1;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        o[j][0] *= a0;
-        o[j][1] *= a0;
-        o[j][2] *= a1;
-        o[j][3] *= a1;
-      }
-#pragma unroll
-      for (int j = 0; j < kBK / 8; ++j) {
-        s[j][0] = fast_exp2(s[j][0] - sh0);
-        s[j][1] = fast_exp2(s[j][1] - sh0);
-        s[j][2] = fast_exp2(s[j][2] - sh1);
-        s[j][3] = fast_exp2(s[j][3] - sh1);
-        l0 += s[j][0] + s[j][1];
-        l1 += s[j][2] + s[j][3];
-      }
-      // o += p . v: the score accumulators of key columns [16kk, 16kk+16)
-      // are exactly the A fragment of the next product; V's B fragments come
-      // from its row-major tile through ldmatrix.trans, two dim-tiles a load
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        if (k0 + kk * 16 >= kmax) break;
-        const uint32_t pa[4] = {
-            pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-        };
-        const __nv_bfloat16* vtile = Vc + (kk * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
-#pragma unroll
-        for (int j = 0; j < D / 8; j += 2) {
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, vtile + j * 8);
-          mma_16816(o[j], pa, b[0], b[1]);
-          mma_16816(o[j + 1], pa, b[2], b[3]);
-        }
-      }
-    }
+    if (st == 0) load_a<D, LD>(qa, Qs + warp * 16 * LD, g, t);
+    attend_bf16<D>(state, qa, Ks, Vs, ks0, min(ks0 + kKT, kmax), T, row0, row1, causal, lane);
   }
   if (!active) return;
-
-  const float inv0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
-  const float inv1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
-  __nv_bfloat16* out0 = out + (size_t(n) * T + row0) * C + h * D + 2 * t;
-  __nv_bfloat16* out1 = out + (size_t(n) * T + row1) * C + h * D + 2 * t;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    if (row0 < T)
-      *reinterpret_cast<uint32_t*>(out0 + j * 8) = pack_bf16(o[j][0] * inv0, o[j][1] * inv0);
-    if (row1 < T)
-      *reinterpret_cast<uint32_t*>(out1 + j * 8) = pack_bf16(o[j][2] * inv1, o[j][3] * inv1);
-  }
+  store_rows_bf16<D>(out + (size_t(n) * T + row0) * C + h * D, C, state, row0, row1, T, t);
 }
 
 // f32 storage: one thread per query row, plain FMAs, two passes over the keys

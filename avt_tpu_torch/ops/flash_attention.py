@@ -10,6 +10,12 @@ forward (`_short_fwd_kernel_paired`, `_short_fwd_kernel`, launched by
 projection (N, T, 3C) -> (N, T, C), reading it in place, one whole sequence
 per frame and head; the backward writes one packed dqkv (N, T, 3C).
 
+The fused qkv projection + attention (`_fused_qkv_attn_fwd_kernel`, via
+`_fused_qkv_attn_fwd_call`; `fused_qkv_attention`): x (N, T, C) . W + b and
+the head-pair attention in one kernel, which also writes the projected qkv
+for the backward; the backward is the packed no-db kernel plus library
+products for dx, dW and db, as `_fused_bwd_rule` leaves them to XLA.
+
 The blocked flash attention over (B, T, H, D) (`_flash_kernel` via
 `_flash_attention_fwd`; `_dq_kernel` and `_dkv_kernel` via
 `_flash_attention_bwd`; `flash_attention_vjp`): what `dot_product_attention`
@@ -21,12 +27,13 @@ no copy (the JAX path pads and transposes them to (B*H, T_pad, D)).
 Every entry point is differentiable through a `torch.autograd.Function`. On
 a CUDA tensor it launches the hand-written Hopper kernels
 `csrc/short_attention_{fwd,bwd}.cu` (bf16 or f32 storage, head dim 32, 64
-or 128) and `csrc/flash_attention_{fwd,bwd}.cu` (bf16 or f32, head dim 64,
-128, 256 or 512) or raises; on a CPU tensor it runs the plain PyTorch
-versions (`packed_short_attention_reference`,
-`packed_short_attention_bwd_reference`, `flash_attention_reference`,
-`flash_attention_bwd_reference`), which follow the TPU kernels' arithmetic
-order. There is no fallback from one to the other.
+or 128), `csrc/fused_qkv_attention_fwd.cu` (bf16 or f32, head dim 64, an
+even head count) and `csrc/flash_attention_{fwd,bwd}.cu` (bf16 or f32, head
+dim 64, 128, 256 or 512) or raises; on a CPU tensor it runs the plain
+PyTorch versions (`packed_short_attention_reference`,
+`packed_short_attention_bwd_reference`, `fused_qkv_attention_reference`,
+`flash_attention_reference`, `flash_attention_bwd_reference`), which follow
+the TPU kernels' arithmetic order. There is no fallback from one to the other.
 """
 from __future__ import annotations
 
@@ -48,6 +55,8 @@ FLASH_KERNEL = "flash_attention_fwd"
 FLASH_BWD_KERNEL = "flash_attention_bwd"
 FLASH_HEAD_DIMS = (64, 128, 256, 512)
 FLASH_BLOCK_K = 128  # the TPU kernel's key block, which the plain version repeats
+FUSED_KERNEL = "fused_qkv_attention_fwd"
+FUSED_HEAD_DIM = 64  # the fused kernel exists in head-pair form only
 _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 
 
@@ -288,6 +297,119 @@ def packed_qkv_bias_attention(
     the JAX package."""
     bias_c = bias.to(qkv_nobias.dtype).contiguous()
     return _PackedBiasAttention.apply(qkv_nobias, bias_c, num_heads, causal)
+
+
+# ---------------------------------------------------------------------------
+# The qkv projection and the packed attention in one kernel.
+# ---------------------------------------------------------------------------
+def fused_qkv_attention_reference(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, num_heads: int, causal: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the fused kernel: (out (N, T, C), qkv (N, T, 3C)) in
+    x's type, in `_fused_qkv_attn_fwd_kernel`'s order: x . w accumulated in
+    f32 and rounded to x's type, the bias added in that type, then the
+    head-pair attention of `packed_short_attention_reference`."""
+    dt = x.dtype
+    qkv = torch.matmul(x.float(), w.float()).to(dt) + b.to(dt)
+    return packed_short_attention_reference(qkv, num_heads, causal), qkv
+
+
+def _check_fused(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, num_heads: int):
+    """Validates the fused kernel's operands; returns x, W^T and b in the
+    kernel's layout: contiguous, W^T (3C, C) (the transposed view the ViT
+    passes is read in place; any other layout is copied once)."""
+    name = FUSED_KERNEL
+    if x.device.type != "cuda":
+        raise RuntimeError(
+            f"{name} runs on CUDA tensors (or, through its plain version, on CPU "
+            f"tensors); got a tensor on {x.device}")
+    if x.dim() != 3 or x.shape[-1] != FUSED_HEAD_DIM * num_heads or num_heads % 2:
+        raise ValueError(f"{name}: x must be (N, T, H*{FUSED_HEAD_DIM}) with an even head "
+                         f"count H, got {tuple(x.shape)} for {num_heads} heads")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{name}: storage type must be bfloat16 or float32, got {x.dtype}")
+    C = x.shape[-1]
+    for what, t, shape in (("w", w, (C, 3 * C)), ("b", b, (3 * C,))):
+        if t.shape != shape or t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(f"{name}: {what} must be a {shape} {x.dtype} tensor on {x.device}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    wt = w.t()
+    if not wt.is_contiguous() or wt.data_ptr() % 16:
+        wt = wt.contiguous()
+    return x.contiguous(), wt, b.contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_kernel():
+    fn = _build.load(FUSED_KERNEL).fused_qkv_attention_fwd
+    # (x, wt, bias, out, qkv, N, T, H, is_bf16, causal, scale, stream)
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_fused(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, num_heads: int,
+                  causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out (N, T, C), qkv (N, T, 3C)) from the fused kernel."""
+    x, wt, b = _check_fused(x, w, b, num_heads)
+    N, T, C = x.shape
+    out = torch.empty((N, T, C), dtype=x.dtype, device=x.device)
+    qkv = torch.empty((N, T, 3 * C), dtype=x.dtype, device=x.device)
+    if N == 0 or T == 0:
+        return out, qkv
+    with torch.cuda.device(x.device):
+        err = _fused_kernel()(x.data_ptr(), wt.data_ptr(), b.data_ptr(), out.data_ptr(),
+                              qkv.data_ptr(), N, T, num_heads, _DTYPES[x.dtype], int(causal),
+                              _storage_scale(FUSED_HEAD_DIM, x.dtype),
+                              torch.cuda.current_stream().cuda_stream)
+    _build.check(_build.load(FUSED_KERNEL), err, FUSED_KERNEL)
+    _build.launch_counts[FUSED_KERNEL] += 1
+    return out, qkv
+
+
+class _FusedQkvAttention(torch.autograd.Function):
+    """fused_qkv_attention in x's type; residuals (x, wc, qkv), as
+    `_fused_fwd_rule` keeps them. The backward is `_fused_bwd_rule`'s: dqkv
+    from the packed backward kernel (no db), then dx = dqkv . wc^T and dw =
+    x^T . dqkv as library products in the storage type (XLA's, outside the
+    TPU kernel), db = the f32 column sums of dqkv rounded to the storage
+    type."""
+
+    @staticmethod
+    def forward(ctx, x, wc, bc, num_heads, causal):
+        if x.device.type == "cpu":
+            out, qkv = fused_qkv_attention_reference(x, wc, bc, num_heads, causal)
+        else:
+            out, qkv = _launch_fused(x, wc, bc, num_heads, causal)
+        ctx.save_for_backward(x, wc, qkv)
+        ctx.num_heads, ctx.causal = num_heads, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, wc, qkv = ctx.saved_tensors
+        dout = dout.contiguous()
+        if qkv.device.type == "cpu":
+            dqkv, _ = packed_short_attention_bwd_reference(qkv, dout, ctx.num_heads, ctx.causal)
+        else:
+            dqkv, _ = _launch_bwd(qkv, None, dout, ctx.num_heads, ctx.causal, with_db=False)
+        N, T, C3 = dqkv.shape
+        d2 = dqkv.reshape(N * T, C3)
+        dx = torch.matmul(d2, wc.t()).reshape(x.shape)
+        dw = torch.matmul(x.reshape(N * T, -1).t(), d2)
+        db = d2.float().sum(dim=0).to(d2.dtype)
+        return dx, dw, db, None, None
+
+
+def fused_qkv_attention(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, num_heads: int, causal: bool = False
+) -> torch.Tensor:
+    """The qkv projection x (N, T, C) . w (C, 3C) + b (3C) and the head-pair
+    attention in one kernel; returns (N, T, C). Head dim 64, an even head
+    count. The casts of w and b to x's type stay outside the autograd
+    Function, so the parameters' gradients come back in their own type, as
+    in the JAX package."""
+    return _FusedQkvAttention.apply(x, w.to(x.dtype), b.to(x.dtype), num_heads, causal)
 
 
 # ---------------------------------------------------------------------------

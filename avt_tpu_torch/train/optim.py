@@ -1,19 +1,23 @@
-"""Optimizer, LR schedules and per-module parameter groups.
+"""Optimizers, LR schedules and per-module parameter groups.
 
-Counterpart of avt_tpu/train/optim.py for SGD (the flagship's optimizer):
+Counterpart of avt_tpu/train/optim.py:
   * schedules: `cosine_schedule`, `multistep_schedule`, `constant_schedule`
     and `warmup_schedule` (with its `affine_floor` quirk), composed by
     `build_schedule`. They are plain functions of the iteration count,
     evaluated on the host, so reading the LR never waits for the device.
+    `reduce_lr_on_plateau` is a constant schedule; its reductions come from
+    each group's `Plateau` multiplier, which `ReduceLROnPlateau.step`
+    lowers on the host (not for adafactor, whose step size ignores the LR).
   * `build_optimizer`: [module(s), lr, wd] groups matched on torch parameter
     names ('__all__', a name prefix, a dotted component, or an fnmatch
     pattern; the first matching group wins), LR scaled by the world size
     (and the batch size with scale_lr_by_bs), lr == 0 and unmatched
     parameters frozen, `bias_bn_wd_scale` on biases and norm parameters,
     `grad_clip_max_norm` over the non-frozen gradients only.
-  * `SGD`: written out, because torch.optim.SGD cannot keep a bf16 momentum
-    buffer. Its arithmetic follows optax 0.2.6's chain
-    add_decayed_weights -> trace -> scale_by_learning_rate:
+  * `SGD`, `Adam` (adam and adamw) and `Adafactor`, written out, because
+    torch.optim cannot keep a bf16 first moment and does not round where
+    optax does. SGD follows optax 0.2.6's chain add_decayed_weights ->
+    trace -> scale_by_learning_rate:
         g     = grad + wd * p                      (f32)
         new_t = g + momentum * t     (momentum * t in t's type, momentum
                                       rounded to it: a weakly typed float)
@@ -22,9 +26,8 @@ Counterpart of avt_tpu/train/optim.py for SGD (the flagship's optimizer):
         p     = p + (-lr(count)) * u;  count += 1
     The schedule sees the count before the increment (lr(0) = 0 under a
     warmup from init_lr_ratio 0). Parameters and buffers are updated in place
-    (the JAX step donates its state instead).
-Adam, AdamW, Adafactor and the plateau scaler are not ported yet (ROADMAP
-Queue 1) and raise.
+    (the JAX step donates its state instead), with torch._foreach ops per
+    group (Adafactor: per tensor), and no step waits for the device.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ import math
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -118,49 +122,110 @@ def build_schedule(name: str, base_lr: float, *, iters_per_epoch: int, num_epoch
             gamma=kwargs.get("gamma", 0.1), warmup_factor=kwargs.get("warmup_factor", 1.0 / 3),
             warmup_epochs=kwargs.get("scheduler_warmup_epochs", 0),
             warmup_method=kwargs.get("warmup_method", "linear"))
-    elif name == "constant":
+    elif name in ("constant", "reduce_lr_on_plateau"):
+        # a plateau's reductions scale the update through each group's
+        # Plateau multiplier, stepped by ReduceLROnPlateau on the host
         base = constant_schedule(base_lr)
-    elif name == "reduce_lr_on_plateau":
-        raise NotImplementedError(
-            "the ReduceLROnPlateau scaler is not ported yet (ROADMAP Queue 1)")
     else:
         raise NotImplementedError(f"Unknown scheduler {name!r}")
     return warmup_schedule(base, base_lr, warmup_epochs, iters_per_epoch,
                            warmup_init_lr_ratio, affine_floor=affine_floor)
 
 
-# ------------------------------------------------------------- optimizer
+# ------------------------------------------------------- ReduceLROnPlateau
+@dataclass
+class Plateau:
+    """A group's LR multiplier, stepped on the host by ReduceLROnPlateau
+    (avt_tpu's `PlateauScaleState`): the update is scaled by `mult`, kept as
+    an f32 value; `floor` is torch's absolute min_lr over the group's base
+    LR."""
+    mult: float = 1.0
+    floor: float = 0.0
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+class ReduceLROnPlateau:
+    """Host-side plateau tracker, torch.optim.lr_scheduler.ReduceLROnPlateau
+    step for step (avt_tpu's `ReduceLROnPlateau`): `step(optimizer, metric)`
+    once per evaluation reduces the groups' multipliers in place."""
+
+    def __init__(self, mode: str = "min", factor: float = 0.1, patience: int = 10,
+                 threshold: float = 1e-4, threshold_mode: str = "rel", cooldown: int = 0,
+                 **_ignored):
+        if mode not in ("min", "max") or threshold_mode not in ("rel", "abs"):
+            raise ValueError(f"mode {mode!r} / threshold_mode {threshold_mode!r}")
+        self.mode, self.factor, self.patience = mode, factor, patience
+        self.threshold, self.threshold_mode, self.cooldown = threshold, threshold_mode, cooldown
+        self.cooldown_counter = 0
+        self.num_bad_epochs = 0
+        self.best = -float("inf") if mode == "max" else float("inf")
+
+    def _is_better(self, a: float) -> bool:
+        if self.mode == "min":
+            if self.threshold_mode == "rel":
+                return a < self.best * (1.0 - self.threshold)
+            return a < self.best - self.threshold
+        if self.threshold_mode == "rel":
+            return a > self.best * (1.0 + self.threshold)
+        return a > self.best + self.threshold
+
+    def step(self, optimizer: "Optimizer", metric: float) -> None:
+        if self._is_better(float(metric)):
+            self.best = float(metric)
+            self.num_bad_epochs = 0
+        else:
+            self.num_bad_epochs += 1
+        if self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.num_bad_epochs = 0
+        if self.num_bad_epochs > self.patience:
+            # each group's multiplier times the factor, clamped at its
+            # floor, in f32: torch's per-group LR reduction
+            for group in optimizer.groups:
+                if group.plateau is not None:
+                    pl = group.plateau
+                    pl.mult = max(_f32(np.float32(pl.mult) * np.float32(self.factor)), pl.floor)
+            self.cooldown_counter = self.cooldown
+            self.num_bad_epochs = 0
+
+    def state_dict(self) -> dict:
+        return {"best": float(self.best), "num_bad_epochs": int(self.num_bad_epochs),
+                "cooldown_counter": int(self.cooldown_counter)}
+
+    def load_state_dict(self, d: dict) -> None:
+        self.best = float(d["best"])
+        self.num_bad_epochs = int(d["num_bad_epochs"])
+        self.cooldown_counter = int(d["cooldown_counter"])
+
+
+# ------------------------------------------------------------- optimizers
 @dataclass
 class ParamGroup:
     names: List[str]
     params: List[nn.Parameter]
     weight_decay: float
     schedule: Schedule
+    label: str = ""
+    plateau: Optional[Plateau] = None
 
 
-class SGD:
-    """SGD with (nesterov) momentum in optax's order; see the module
-    docstring. `step()` reads each parameter's `.grad` (None counts as 0) and
-    updates parameters and momentum buffers in place, with torch._foreach
-    ops per group, and never waits for the device."""
+class Optimizer:
+    """What the port's optimizers share: parameter groups, the step count,
+    gradient clipping, and per-parameter state buffers (`self.state`: kind ->
+    {parameter name: tensor}) that `load_state_dict` fills. `step()` reads
+    each parameter's `.grad` (None counts as 0), updates parameters and
+    buffers in place and never waits for the device."""
 
-    def __init__(self, groups: List[ParamGroup], *, momentum: float = 0.9,
-                 nesterov: bool = False, momentum_dtype: Optional[torch.dtype] = None,
-                 grad_clip_max_norm: Optional[float] = None, frozen: Sequence[str] = ()):
+    def __init__(self, groups: List[ParamGroup], grad_clip_max_norm: Optional[float] = None,
+                 frozen: Sequence[str] = ()):
         self.groups = groups
-        self.momentum = momentum
-        self.nesterov = nesterov
         self.grad_clip_max_norm = grad_clip_max_norm
         self.frozen = list(frozen)
         self.count = 0
-        self.momentum_buffers: Dict[str, torch.Tensor] = {
-            name: torch.zeros_like(p, dtype=momentum_dtype or p.dtype)
-            for g in groups for name, p in zip(g.names, g.params)}
-
-    def _momentum_in(self, bufs: List[torch.Tensor]) -> float:
-        """The momentum as JAX multiplies a buffer by it: a Python float
-        takes the array's type (0.8984375 for 0.9 in bf16)."""
-        return float(torch.tensor(self.momentum, dtype=bufs[0].dtype)) if bufs else self.momentum
+        self.state: Dict[str, Dict[str, torch.Tensor]] = {}
 
     def zero_grad(self) -> None:
         for g in self.groups:
@@ -171,27 +236,23 @@ class SGD:
     def _grads(group: ParamGroup) -> List[torch.Tensor]:
         return [torch.zeros_like(p) if p.grad is None else p.grad for p in group.params]
 
+    def _lr_scale(self, group: ParamGroup) -> float:
+        """-lr(count), times the group's plateau multiplier when it has one."""
+        lr = -group.schedule(self.count)
+        return lr * group.plateau.mult if group.plateau is not None else lr
+
     @torch.no_grad()
     def step(self) -> None:
         grads = [self._grads(g) for g in self.groups]
         if self.grad_clip_max_norm is not None:
             grads = self._clip(grads)
         for group, g in zip(self.groups, grads):
-            if not group.params:
-                continue
-            if group.weight_decay:
-                wd_p = torch._foreach_mul(group.params, group.weight_decay)
-                g = torch._foreach_add(g, wd_p)
-            bufs = [self.momentum_buffers[n] for n in group.names]
-            new_t = torch._foreach_add(g, torch._foreach_mul(bufs, self._momentum_in(bufs)))
-            if self.nesterov:
-                u = torch._foreach_add(g, torch._foreach_mul(new_t, self.momentum))
-            else:
-                u = new_t
-            torch._foreach_copy_(bufs, new_t)
-            torch._foreach_mul_(u, -group.schedule(self.count))
-            torch._foreach_add_(group.params, u)
+            if group.params:
+                self._update(group, g)
         self.count += 1
+
+    def _update(self, group: ParamGroup, grads: List[torch.Tensor]) -> None:
+        raise NotImplementedError
 
     def _clip(self, grads: List[List[torch.Tensor]]) -> List[List[torch.Tensor]]:
         """optax.clip_by_global_norm over the non-frozen gradients, on the
@@ -208,14 +269,160 @@ class SGD:
         return out
 
     def load_state_dict(self, state: dict) -> None:
-        """Copies count and momentum buffers in (buffers keep their type)."""
+        """Copies the count, every buffer (each keeps its own type) and, where
+        given, the groups' plateau multipliers ({group label: mult}) in."""
         self.count = int(state["count"])
-        missing = set(self.momentum_buffers) - set(state["momentum"])
-        if missing:
-            raise KeyError(f"no momentum for {sorted(missing)[:5]}")
+        for kind, bufs in self.state.items():
+            missing = set(bufs) - set(state.get(kind, {}))
+            if missing:
+                raise KeyError(f"no {kind} for {sorted(missing)[:5]}")
         with torch.no_grad():
-            for name, buf in self.momentum_buffers.items():
-                buf.copy_(state["momentum"][name])
+            for kind, bufs in self.state.items():
+                for name, buf in bufs.items():
+                    buf.copy_(state[kind][name])
+        for group in self.groups:
+            if group.plateau is not None and group.label in state.get("plateau", {}):
+                group.plateau.mult = _f32(state["plateau"][group.label])
+
+
+def _in_type(x: float, bufs: List[torch.Tensor]) -> float:
+    """x as JAX multiplies a buffer by it: a Python float takes the array's
+    type (0.8984375 for 0.9 in bf16)."""
+    return float(torch.tensor(x, dtype=bufs[0].dtype)) if bufs else x
+
+
+class SGD(Optimizer):
+    """SGD with (nesterov) momentum in optax's order; see the module
+    docstring."""
+
+    def __init__(self, groups: List[ParamGroup], *, momentum: float = 0.9,
+                 nesterov: bool = False, momentum_dtype: Optional[torch.dtype] = None,
+                 grad_clip_max_norm: Optional[float] = None, frozen: Sequence[str] = ()):
+        super().__init__(groups, grad_clip_max_norm, frozen)
+        self.momentum = momentum
+        self.nesterov = nesterov
+        self.momentum_buffers: Dict[str, torch.Tensor] = {
+            name: torch.zeros_like(p, dtype=momentum_dtype or p.dtype)
+            for g in groups for name, p in zip(g.names, g.params)}
+        self.state["momentum"] = self.momentum_buffers
+
+    def _update(self, group: ParamGroup, g: List[torch.Tensor]) -> None:
+        if group.weight_decay:
+            g = torch._foreach_add(g, torch._foreach_mul(group.params, group.weight_decay))
+        bufs = [self.momentum_buffers[n] for n in group.names]
+        new_t = torch._foreach_add(g, torch._foreach_mul(bufs, _in_type(self.momentum, bufs)))
+        if self.nesterov:
+            u = torch._foreach_add(g, torch._foreach_mul(new_t, self.momentum))
+        else:
+            u = new_t
+        torch._foreach_copy_(bufs, new_t)
+        torch._foreach_mul_(u, self._lr_scale(group))
+        torch._foreach_add_(group.params, u)
+
+
+class Adam(Optimizer):
+    """Adam (L2 decay: g += wd * p first, optax's add_decayed_weights ->
+    adam) or, with `decoupled`, AdamW (optax.adamw: u += wd * p after the
+    moment normalisation), in optax 0.2.6's order:
+        mu    = (1 - b1) * g + b1 * mu     (b1 * mu in mu's type: b1 rounded
+                                            to it, as a weakly typed float)
+        nu    = (1 - b2) * g^2 + b2 * nu   (f32)
+        u     = (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps),  t = count + 1
+        p     = p + (-lr(count)) * u       (the bias corrections in f32)
+    mu is stored in `momentum_dtype` (bf16 halves its traffic) after the
+    update used it in f32."""
+
+    def __init__(self, groups: List[ParamGroup], *, betas=(0.9, 0.999), eps: float = 1e-8,
+                 decoupled: bool = False, momentum_dtype: Optional[torch.dtype] = None,
+                 grad_clip_max_norm: Optional[float] = None, frozen: Sequence[str] = ()):
+        super().__init__(groups, grad_clip_max_norm, frozen)
+        self.b1, self.b2 = float(betas[0]), float(betas[1])
+        self.eps = eps
+        self.decoupled = decoupled
+        named = [(name, p) for g in groups for name, p in zip(g.names, g.params)]
+        self.state["mu"] = {n: torch.zeros_like(p, dtype=momentum_dtype or p.dtype)
+                            for n, p in named}
+        self.state["nu"] = {n: torch.zeros_like(p) for n, p in named}
+
+    def _update(self, group: ParamGroup, g: List[torch.Tensor]) -> None:
+        wd = group.weight_decay
+        if wd and not self.decoupled:
+            g = torch._foreach_add(g, torch._foreach_mul(group.params, wd))
+        mus = [self.state["mu"][n] for n in group.names]
+        nus = [self.state["nu"][n] for n in group.names]
+        mu = torch._foreach_add(torch._foreach_mul(g, 1 - self.b1),
+                                torch._foreach_mul(mus, _in_type(self.b1, mus)))
+        nu = torch._foreach_mul(torch._foreach_mul(g, g), 1 - self.b2)
+        torch._foreach_add_(nu, torch._foreach_mul(nus, self.b2))
+        t = np.float32(self.count + 1)
+        bc1 = _f32(np.float32(1) - np.float32(self.b1) ** t)
+        bc2 = _f32(np.float32(1) - np.float32(self.b2) ** t)
+        den = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+        torch._foreach_add_(den, self.eps)
+        u = torch._foreach_div(torch._foreach_div(mu, bc1), den)
+        if wd and self.decoupled:
+            torch._foreach_add_(u, torch._foreach_mul(group.params, wd))
+        torch._foreach_copy_(mus, mu)
+        torch._foreach_copy_(nus, nu)
+        torch._foreach_mul_(u, self._lr_scale(group))
+        torch._foreach_add_(group.params, u)
+
+
+class Adafactor(Optimizer):
+    """transformers.Adafactor as avt_tpu's `transformers_adafactor` has it,
+    with its defaults and quirks: the step size is relative,
+    min(1e-2, 1/sqrt(t)) * max(1e-3, RMS(p)), whatever the schedule says
+    (the reference's per-group LR dicts bypass the manual-LR path); every
+    tensor of 2 or more dimensions keeps row and column second moments over
+    its last two axes, the rest a full one; the update is clipped to RMS 1;
+    the weight decay is decoupled and scaled by the same computed LR:
+        delta = -(u * lr + wd * lr * p)
+    The factored axes are those of the port's (torch-layout) tensors, as
+    transformers factors the reference's weights: for a linear weight they
+    are the JAX kernel's two axes swapped, which gives the same update. The
+    update runs tensor by tensor on the device (the factored shapes differ),
+    without a sync."""
+
+    EPS1, EPS2, CLIP, DECAY = 1e-30, 1e-3, 1.0, -0.8
+
+    def __init__(self, groups: List[ParamGroup], *, grad_clip_max_norm: Optional[float] = None,
+                 frozen: Sequence[str] = ()):
+        super().__init__(groups, grad_clip_max_norm, frozen)
+        named = [(name, p) for g in groups for name, p in zip(g.names, g.params)]
+        f32 = dict(dtype=torch.float32)
+        self.state["row"] = {n: torch.zeros(p.shape[:-1], device=p.device, **f32)
+                             for n, p in named if p.dim() >= 2}
+        self.state["col"] = {n: torch.zeros(p.shape[:-2] + p.shape[-1:], device=p.device, **f32)
+                             for n, p in named if p.dim() >= 2}
+        self.state["v"] = {n: torch.zeros(p.shape, device=p.device, **f32)
+                           for n, p in named if p.dim() < 2}
+
+    @staticmethod
+    def _rms(x: torch.Tensor) -> torch.Tensor:
+        return x.square().mean().sqrt()
+
+    def _update(self, group: ParamGroup, grads: List[torch.Tensor]) -> None:
+        t = np.float32(self.count + 1)
+        step = _f32(min(np.float32(1e-2), np.float32(1) / np.sqrt(t)))
+        beta2t = _f32(np.float32(1) - t ** np.float32(self.DECAY))
+        wd = group.weight_decay
+        for name, p, g in zip(group.names, group.params, grads):
+            g32, p32 = g.float(), p.float()
+            lr = step * torch.clamp_min(self._rms(p32), self.EPS2)
+            sq = g32.square() + self.EPS1
+            if p.dim() >= 2:
+                r, c = self.state["row"][name], self.state["col"][name]
+                r.mul_(beta2t).add_(sq.mean(dim=-1) * (1 - beta2t))
+                c.mul_(beta2t).add_(sq.mean(dim=-2) * (1 - beta2t))
+                rf = torch.rsqrt(r / r.mean(dim=-1, keepdim=True))[..., None]
+                u = rf * torch.rsqrt(c)[..., None, :] * g32
+            else:
+                v = self.state["v"][name]
+                v.mul_(beta2t).add_(sq * (1 - beta2t))
+                u = torch.rsqrt(v) * g32
+            u = u / torch.clamp_min(self._rms(u) / self.CLIP, 1.0)
+            u = u * lr
+            p.add_((-(u + wd * lr * p32)).to(p.dtype))
 
 
 _NORMS = (nn.LayerNorm, nn.GroupNorm, nn.modules.batchnorm._NormBase)
@@ -249,16 +456,16 @@ def build_optimizer(
     warmup_init_lr_ratio: float = 0.0,
     optimizer_kwargs: Optional[dict] = None,
     scheduler_kwargs: Optional[dict] = None,
-) -> Tuple[SGD, Dict[str, Schedule]]:
-    """Per-module parameter groups -> (SGD, {group label: schedule}).
+) -> Tuple[Optimizer, Dict[str, Schedule]]:
+    """Per-module parameter groups -> (optimizer, {group label: schedule}).
 
-    optimizer_kwargs: momentum (0.9), nesterov (False), momentum_dtype
-    (None: the parameter's type; 'bf16'/'bfloat16')."""
+    optimizer_name: 'sgd', 'adam', 'adamw' or 'adafactor'. optimizer_kwargs:
+    momentum (0.9) and nesterov (False) for sgd; betas ((0.9, 0.999)) and eps
+    (1e-8) for adam/adamw; momentum_dtype (None: the parameter's type;
+    'bf16'/'bfloat16') for the sgd momentum and the adam first moment.
+    Adafactor takes none of them (its defaults are transformers')."""
     optimizer_kwargs = dict(optimizer_kwargs or {})
     scheduler_kwargs = scheduler_kwargs or {}
-    if optimizer_name != "sgd":
-        raise NotImplementedError(
-            f"optimizer {optimizer_name!r} is not ported yet (ROADMAP Queue 1); only sgd is")
     groups_cfg = [((mods,) if isinstance(mods, str) else tuple(mods), float(lr), float(wd))
                   for mods, lr, wd in lr_wd]
     lr_scale = world_size * (batch_size if scale_lr_by_bs and batch_size else 1)
@@ -294,15 +501,32 @@ def build_optimizer(
                                    warmup_init_lr_ratio=warmup_init_lr_ratio, **scheduler_kwargs)
             schedules[label] = sched
             names, params = members[label]
-            groups.append(ParamGroup(names, params, wd * wd_scale, sched))
+            plateau = None
+            if scheduler_name == "reduce_lr_on_plateau" and optimizer_name != "adafactor":
+                # the floor encodes torch's absolute min_lr for this group's
+                # base LR; adafactor's relative step ignores the LR, so the
+                # reference's plateau reduction does nothing there
+                plateau = Plateau(floor=_f32(scheduler_kwargs.get("min_lr", 0.0)
+                                             / max(lr * lr_scale, 1e-30)))
+            groups.append(ParamGroup(names, params, wd * wd_scale, sched, label, plateau))
     mdt = optimizer_kwargs.pop("momentum_dtype", None)
     if mdt not in (None, "bf16", "bfloat16", torch.bfloat16):
         raise ValueError(f"momentum_dtype {mdt!r}: None or bfloat16")
-    unknown = set(optimizer_kwargs) - {"momentum", "nesterov"}
+    mdt = None if mdt is None else torch.bfloat16
+    # the options avt_tpu's _base_optimizer takes; each optimizer reads its own
+    unknown = set(optimizer_kwargs) - {"momentum", "nesterov", "betas", "eps"}
     if unknown:
-        raise TypeError(f"unknown sgd options {sorted(unknown)}")
-    opt = SGD(groups, momentum=optimizer_kwargs.get("momentum", 0.9),
-              nesterov=optimizer_kwargs.get("nesterov", False),
-              momentum_dtype=None if mdt is None else torch.bfloat16,
-              grad_clip_max_norm=grad_clip_max_norm, frozen=frozen)
+        raise TypeError(f"unknown {optimizer_name} options {sorted(unknown)}")
+    common = dict(grad_clip_max_norm=grad_clip_max_norm, frozen=frozen)
+    if optimizer_name == "sgd":
+        opt = SGD(groups, momentum=optimizer_kwargs.get("momentum", 0.9),
+                  nesterov=optimizer_kwargs.get("nesterov", False), momentum_dtype=mdt, **common)
+    elif optimizer_name in ("adam", "adamw"):
+        opt = Adam(groups, betas=optimizer_kwargs.get("betas", (0.9, 0.999)),
+                   eps=optimizer_kwargs.get("eps", 1e-8), decoupled=optimizer_name == "adamw",
+                   momentum_dtype=mdt, **common)
+    elif optimizer_name == "adafactor":
+        opt = Adafactor(groups, **common)
+    else:
+        raise NotImplementedError(f"Unknown optimizer {optimizer_name!r}")
     return opt, schedules

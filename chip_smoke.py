@@ -9,8 +9,11 @@
 2. Kernels: holds each kernel against its plain PyTorch version at the
    serving and training paths' shapes (tolerances below) and times both,
    the library call that computes the same function, and the card's bound
-   for the work: the attention forward, and the attention backward (dqkv
-   and the qkv-bias gradient db).
+   for the work: the attention forward, the attention backward (dqkv and
+   the qkv-bias gradient db; the no-db form at head dims 32, 64 and 128),
+   and the fused qkv projection + attention (out and qkv; bf16 and f32,
+   causal and not; timed beside the split path, a matmul + the packed
+   kernel).
 3. Serving: the full-width flagship (ViT-B/16 + AVT-h, 3806 actions, bf16)
    answers requests of uint8 clips through `batch_predict` at batch 4, 3
    crops + flips each; the logits must be finite, (n, 3806), the same for a
@@ -25,6 +28,13 @@
    parameter of the attention branch gets a finite gradient; on one clip,
    gradients with the kernels and with the plain versions agree. Prints step
    ms, clips/s, MFU, peak memory and a profile of one step.
+4b. train_fused: the same step, weights, batch and dropout seed with the
+   ViT's attention op swapped for `fused_qkv_attention(use_kernel=True)`
+   (this phase only): 12 fused forward and 12 no-db backward launches a
+   step and no packed forward; the step-0 loss within 1e-2 relative of the
+   split step's; the one-clip gradients of every block's qkv weight and
+   bias and norm1 within GRAD_TOL of the split path's; step ms beside
+   phase 4's.
 5. A depth-2 ViT with 24 heads of 32 takes a train step: its attention goes
    through `packed_short_attention`, the backward kernel's no-db form.
 6. The feature path of expts/02 at full width (identity backbone, 1024-d
@@ -40,9 +50,17 @@
    parameter gets a finite gradient; on 2 clips, gradients with the kernels
    and with the plain versions agree. At the shipped context of 10 features
    no flash kernel runs. Prints step ms, clips/s, peak memory and a profile.
-Prints one JSON line of kernel results, then {"ok": true, "device": ...}.
+7. ek55_adam: expts/08 at full width (identity backbone, 1024-d features,
+   AVT-h of 12 layers, 8 heads, 2048 wide, model dropout 0.8, no past
+   classification, 2513 EK55 actions, f32, batch 32 of 10 features) with
+   Adam under warmup + cosine: step 0 (LR 0) leaves the parameters as they
+   were, step 1 changes them, no kernel launches (10 tokens); prints step
+   ms, clips/s, TFLOP/s, peak memory, idle share and the optimizer's share
+   of device time.
+Only phase 4b launches the fused kernel. Prints one JSON line of kernel results, then {"ok": true, "device": ...}.
 Exits non-zero on any failure, and without a CUDA device.
 """
+import functools
 import json
 import re
 import subprocess
@@ -66,8 +84,9 @@ from avt_tpu_torch import (
 )
 from avt_tpu_torch.losses import mse
 from avt_tpu_torch.models import AVTh, AVTModel, IdentityAgg, LinearClassifier, ViT
+from avt_tpu_torch.models import vit as vit_module
 from avt_tpu_torch.models.flagship import init_weights
-from avt_tpu_torch.ops import _build
+from avt_tpu_torch.ops import _build, attention
 from avt_tpu_torch.ops import flash_attention as fa
 from avt_tpu_torch.train import weighted_loss_sum
 
@@ -94,6 +113,13 @@ LONG_T, SHORT_T = 256, 10
 FEAT_TIMED_STEPS = 5
 FLASH_SHAPE = (FEAT_BATCH, LONG_T, AVTH_HEADS, AVTH_DIM // AVTH_HEADS)  # (B, T, H, D)
 NO_FLASH = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
+NO_OTHER = {**NO_FLASH, "fused_qkv_attention_fwd": 0}  # kernels off the ViT's default path
+# expts/08 (EK55, RULSTM TSN-RGB features): AVT-h of 12 layers, 8 heads, 2048
+# wide over 1024-d features, model dropout 0.8, no past classification, 2513
+# EK55 actions, batch 32, 10 observed features; Adam lr 5e-6 wd 1e-4
+EK55_ACTIONS, EK55_LAYERS, EK55_HEADS, EK55_BATCH = 2513, 12, 8, 32
+EK55_LOSS_WTS = {"cls_action": 1.0, "past_cls_action": 0.0, "feat": 2.0}
+EK55_TIMED_STEPS = 5
 
 
 def log(msg):
@@ -273,6 +299,68 @@ def time_attention_bwd(N, T, H, D, dtype, with_db=True):
     return res
 
 
+def fused_inputs(N, T, H, dtype, seed):
+    """x (N, T, C), W as the ViT passes it (the transposed view of a (3C, C)
+    weight) and b (3C), in the storage type; qkv comes out of order 1."""
+    rng = np.random.default_rng(seed)
+    C = 64 * H
+    x = torch.from_numpy(rng.standard_normal((N, T, C), np.float32))
+    w = torch.from_numpy(rng.standard_normal((3 * C, C), np.float32) / np.sqrt(C))
+    b = torch.from_numpy(rng.standard_normal(3 * C, np.float32) * 0.1)
+    return x.to("cuda", dtype), w.to("cuda", dtype).t(), b.to("cuda", dtype)
+
+
+def check_fused(N, T, H, dtype, causal, seed):
+    """The fused kernel against its plain version, on out and on qkv."""
+    x, w, b = fused_inputs(N, T, H, dtype, seed)
+    out, qkv = fa._launch_fused(x, w, b, H, causal)
+    torch.cuda.synchronize()
+    ref, ref_qkv = fa.fused_qkv_attention_reference(x, w, b, H, causal)
+    errs = [(got.float() - want.float()).abs().max().item()
+            for got, want in ((out, ref), (qkv, ref_qkv))]
+    for got, want in ((out, ref), (qkv, ref_qkv)):
+        torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+    log(f"fused_qkv_attention_fwd N={N} T={T} H={H} D=64 {str(dtype)[6:]} causal={causal}: "
+        f"out max_abs_err={errs[0]:.3g}, qkv max_abs_err={errs[1]:.3g} "
+        f"(tolerance {TOL[dtype]})")
+    return max(errs)
+
+
+def fused_bound_ms(N, T, H, dtype):
+    """x, W, b in; out and qkv out; 2*N*T*C*3C + 4*N*H*T^2*64 operations, as
+    the TPU kernel's CostEstimate counts them."""
+    s = torch.finfo(dtype).bits // 8
+    C = 64 * H
+    nbytes = (N * T * C + 3 * C * C + 3 * C + N * T * C + 3 * N * T * C) * s
+    flops = 2 * N * T * C * 3 * C + 4 * N * H * T * T * 64
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_fused(N, T, H, dtype):
+    """The fused kernel, its plain version, the library yardstick (one
+    matmul + bias, then SDPA on the split views; the port never calls it)
+    and the port's split path (a matmul, then the packed kernel with the
+    bias added in its loads)."""
+    x, w, b = fused_inputs(N, T, H, dtype, seed=12)
+    C = 64 * H
+
+    def library():
+        qkv = torch.matmul(x, w) + b
+        return F.scaled_dot_product_attention(
+            *(t.view(N, T, H, 64).transpose(1, 2) for t in qkv.split(C, dim=-1)))
+
+    bound_ms, bound_by = fused_bound_ms(N, T, H, dtype)
+    res = dict(kernel_ms=cuda_ms(lambda: fa._launch_fused(x, w, b, H, False)),
+               plain_ms=cuda_ms(lambda: fa.fused_qkv_attention_reference(x, w, b, H),
+                                iters=2, reps=3),
+               library_ms=cuda_ms(library),
+               split_ms=cuda_ms(lambda: fa.packed_qkv_bias_attention(torch.matmul(x, w), b, H)),
+               bound_ms=bound_ms, bound_by=bound_by)
+    log(f"fused_qkv_attention_fwd timing N={N} T={T} H={H} D=64 {str(dtype)[6:]}: " + fmt(res))
+    return res
+
+
 def flash_inputs(B, T, H, D, dtype, seed):
     """q, k, v, dout (B, T, H, D) in the storage type."""
     rng = np.random.default_rng(seed)
@@ -376,6 +464,7 @@ def kernel_group(name):
     low = name.lower()
     for key, group in (("short_attn", "attention kernel"), ("bwd_query", "attention bwd kernel"),
                        ("flash_fwd", "flash attention kernel"),
+                       ("fused_fwd", "fused qkv attention kernel"),
                        ("flash_bwd", "flash attention bwd kernel"),
                        ("bwd_key", "attention bwd kernel"), ("db_reduce", "attention bwd kernel"),
                        ("foreach", "optimizer"), ("multi_tensor", "optimizer"),
@@ -415,7 +504,7 @@ def profile_run(fn, label):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<4d} {e.key[:90]}")
     log(f"  {sum(e.count for e in kernels)} kernel launches")
-    return busy_ms
+    return busy_ms, groups
 
 
 def kernel_entry(mangled):
@@ -425,6 +514,9 @@ def kernel_entry(mangled):
         return mangled[:60]
     start = m.end()
     name, rest = mangled[start:start + int(m.group(1))], mangled[start + int(m.group(1)):]
+    flag = re.match(r"ILb([01])E", rest)
+    if flag is not None:
+        return f"{name}<{'true' if flag.group(1) == '1' else 'false'}>"
     args = re.match(r"I(f|13__nv_bfloat16)?Li(\d+)E", rest)
     if args is None:
         return name
@@ -481,10 +573,22 @@ def main():
     for causal in (False, True):
         check_attention_bwd(160, 197, 24, 32, torch.bfloat16, causal, False, seed=4)
     check_attention_bwd(160, 197, 6, 128, torch.bfloat16, False, False, seed=5)
+    # the no-db form at head pairs, as the fused op's backward runs it
+    for dtype in (torch.bfloat16, torch.float32):
+        for causal in (False, True):
+            check_attention_bwd(160, 197, 12, 64, dtype, causal, False, seed=13)
     bwd_timing = time_attention_bwd(160, 197, 12, 64, torch.bfloat16)
     bwd_timing_240 = time_attention_bwd(240, 197, 12, 64, torch.bfloat16)
     no_db = {f"D{D}": time_attention_bwd(160, 197, 768 // D, D, torch.bfloat16, with_db=False)
-             for D in (32, 128)}
+             for D in (32, 64, 128)}
+    # the fused projection + attention at a serving batch, f32, a train batch
+    # and causal, on out and qkv; timed at the train and serving batches
+    fused_err = check_fused(240, 197, 12, torch.bfloat16, False, seed=14)
+    check_fused(240, 197, 12, torch.float32, False, seed=14)
+    check_fused(160, 197, 12, torch.bfloat16, False, seed=15)
+    check_fused(4, 100, 4, torch.bfloat16, True, seed=16)
+    fused_timing = {N: time_fused(N, 197, 12, torch.bfloat16) for N in (160, 240)}
+    fused_timing_f32 = time_fused(240, 197, 12, torch.float32)
     # the flash kernels at AVT-h's shape on the feature path (f32, causal),
     # both types and masks, and the other head dims at 8 heads
     flash_err = check_flash(*FLASH_SHAPE, torch.float32, True, seed=6)
@@ -503,7 +607,10 @@ def main():
     serve_launches = serve_phase()
 
     # 4. training: the full-width flagship, bench.py's train step -------------
-    train_launches = train_phase()
+    train_launches, split_train = train_phase()
+
+    # 4b. the same train step through the fused projection + attention kernel
+    fused_launches, fused_train = train_fused_phase(split_train)
 
     # 5. the no-db form on a train step: 24 heads of 32 ----------------------
     d32_launches = small_train_phase()
@@ -511,8 +618,14 @@ def main():
     # 6. the feature path of expts/02 at 256 observed features ---------------
     feat_launches = feature_phase()
 
+    # 7. expts/08 with Adam at full width -----------------------------------
+    ek55_launches = ek55_adam_phase()
+
     paths = {"serve": serve_launches, "train": train_launches, "train_d32": d32_launches,
-             **feat_launches}
+             **feat_launches, "train_fused": fused_launches, "ek55_adam": ek55_launches}
+    for path, counts in paths.items():
+        if path != "train_fused":
+            check(counts["fused_qkv_attention_fwd"] == 0, f"a fused launch on {path}: {counts}")
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}
@@ -546,6 +659,16 @@ def main():
             shape=list(FLASH_SHAPE), dtype="float32", causal=True, max_abs_err=err,
             ms=timing["kernel_ms"], **timing, library=f"SDPA ({flash_timing['sdpa_backend']})",
             bf16={"sdpa_backend": flash_timing_bf16["sdpa_backend"], **flash_timing_bf16[side]}))
+    spec = _build.KERNELS["fused_qkv_attention_fwd"]
+    kernels.append(dict(
+        name="fused_qkv_attention_fwd", route=spec["route"], source=spec["source"],
+        replaces=spec["replaces"], launches=fused_launches["fused_qkv_attention_fwd"],
+        launches_by_path=by_path("fused_qkv_attention_fwd"), shape=[160, 197, 12, 64],
+        dtype="bfloat16", max_abs_err=fused_err, ms=fused_timing[160]["kernel_ms"],
+        **fused_timing[160], library="matmul + bias, then SDPA on the split views",
+        serve_batch_shape={"shape": [240, 197, 12, 64], **fused_timing[240]},
+        f32={"shape": [240, 197, 12, 64], **fused_timing_f32},
+        train_step_ms={"fused": fused_train["step_ms"], "split": split_train["step_ms"]}))
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -588,7 +711,8 @@ def serve_phase():
     want = VIT_BLOCKS * forwards[0]
     check(launches["short_attention_fwd"] == want, f"launches {launches}, want {want}")
     check(launches["short_attention_bwd"] == 0, f"a backward launch while serving: {launches}")
-    check(all(launches[n] == 0 for n in NO_FLASH), f"a flash launch while serving: {launches}")
+    check(all(launches[n] == 0 for n in NO_OTHER), f"a flash or fused launch while serving: "
+          f"{launches}")
     # the same clip in a full batch and in a padded tail (and in two batches)
     tail_vs_full = np.abs(results[2][4:6] - results[3][2:4]).max()
     np.testing.assert_allclose(results[2][4:6], results[3][2:4], atol=1e-2, rtol=2e-2)
@@ -688,7 +812,7 @@ def train_phase():
         first_ms = (time.time() - t0) * 1e3
         launches = dict(_build.launch_counts)
         want = VIT_BLOCKS * steps
-        check(launches == {"short_attention_fwd": want, "short_attention_bwd": want, **NO_FLASH},
+        check(launches == {"short_attention_fwd": want, "short_attention_bwd": want, **NO_OTHER},
               f"step {k}: launches {launches}, want {want} of each")
         values = {key: v.item() for key, v in metrics.items()}
         for key in ("loss", "loss/cls_action", "loss/past_cls_action", "loss/feat"):
@@ -703,6 +827,7 @@ def train_phase():
             + ", ".join(f"{key} {v:.4f}" for key, v in values.items())
             + f"; {len(changed)} of {len(params)} parameter tensors changed; launches {launches}")
         if k == 0:
+            loss0 = values["loss"]
             check(not changed, f"step 0 at LR 0 changed {changed[:4]}")
             moving = sum(bool(b.any()) for b in opt.momentum_buffers.values())
             check(moving > 0, "step 0 left every momentum buffer at 0")
@@ -718,7 +843,7 @@ def train_phase():
     steps += TIMED_STEPS
     launches = dict(_build.launch_counts)
     want = VIT_BLOCKS * steps
-    check(launches == {"short_attention_fwd": want, "short_attention_bwd": want, **NO_FLASH},
+    check(launches == {"short_attention_fwd": want, "short_attention_bwd": want, **NO_OTHER},
           f"launches {launches} after {steps} steps, want {want} of each")
     check(np.isfinite(metrics["loss"].item()), "non-finite loss in the timed steps")
     clips_s = TRAIN_CLIPS / step_s
@@ -728,7 +853,7 @@ def train_phase():
         f"MFU {clips_s * TRAIN_FLOPS_PER_CLIP / PEAK_FLOPS[torch.bfloat16]:.4f} "
         f"of {PEAK_FLOPS[torch.bfloat16] / 1e12:.0f} TFLOP/s "
         f"({TRAIN_FLOPS_PER_CLIP / 1e12:.4f} TFLOP a clip); peak memory {peak_gb:.2f} GB")
-    busy_ms = profile_run(lambda: step(batch, step_gen), f"train step, {TRAIN_CLIPS} clips")
+    busy_ms, _ = profile_run(lambda: step(batch, step_gen), f"train step, {TRAIN_CLIPS} clips")
     log(f"device busy {busy_ms:.2f} ms of the steady step's {step_s * 1e3:.2f} ms: "
         f"idle share {1 - busy_ms / (step_s * 1e3):.3f}")
 
@@ -746,7 +871,7 @@ def train_phase():
         log(f"grad {name}, kernels vs plain, 1 clip: max |diff| {diff:.3g} of scale "
             f"{scale:.3g} (limit {GRAD_TOL} of the scale)")
         check(scale > 0 and diff <= GRAD_TOL * scale, f"grad {name} differs by {diff}")
-    return launches
+    return launches, dict(loss0=loss0, step_ms=step_s * 1e3, clips_s=clips_s)
 
 
 def one_clip_grads(model, preprocess, batch, names):
@@ -799,7 +924,7 @@ def small_train_phase():
         f"packed_short_attention calls {calls['packed_short_attention'].call_count}, "
         f"packed_qkv_bias_attention calls {calls['packed_qkv_bias_attention'].call_count}")
     check(np.isfinite(loss), f"24-head step: loss {loss}")
-    check(launches == {"short_attention_fwd": 2, "short_attention_bwd": 2, **NO_FLASH},
+    check(launches == {"short_attention_fwd": 2, "short_attention_bwd": 2, **NO_OTHER},
           f"24-head step: launches {launches}, want 2 of each")
     check(calls["packed_short_attention"].call_count == 2
           and calls["packed_qkv_bias_attention"].call_count == 0,
@@ -807,6 +932,155 @@ def small_train_phase():
     grads = [p.grad for n, p in model.named_parameters() if attention_branch(n)]
     check(all(g is not None and torch.isfinite(g).all() for g in grads),
           "24-head step: an attention-branch gradient is missing or non-finite")
+    return launches
+
+
+def train_fused_phase(split):
+    """The flagship train step of phase 4 with the ViT's attention op
+    swapped for the fused kernel (`fused_qkv_attention(use_kernel=True)`,
+    the counterpart of use_pallas=True, which no model turns on): the same
+    weights, batch and dropout seed. Each of the 12 blocks runs the fused
+    forward and the no-db backward kernel. `split` holds phase 4's step-0
+    loss and steady step time. Returns the launch counts of the phase."""
+    fused_op = functools.partial(attention.fused_qkv_attention, use_kernel=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = build_avt(num_actions=NUM_ACTIONS, vit_dtype=torch.bfloat16, generator=gen)
+    opt, step, preprocess, batch = train_pipeline(model, TRAIN_CLIPS)
+    params = dict(model.named_parameters())
+    before = {n: p.detach().clone() for n, p in params.items()}
+    step_gen = torch.Generator(device="cuda").manual_seed(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    split_op = vit_module.fused_qkv_attention
+    vit_module.fused_qkv_attention = fused_op
+    try:
+        _build.reset_launch_counts()
+        for k in range(2):  # step 0 runs at LR 0, step 1 at the first warmup LR
+            metrics = step(batch, step_gen)
+            torch.cuda.synchronize()
+            launches = dict(_build.launch_counts)
+            want = {**{n: 0 for n in _build.KERNELS},
+                    "fused_qkv_attention_fwd": VIT_BLOCKS * (k + 1),
+                    "short_attention_bwd": VIT_BLOCKS * (k + 1)}
+            check(launches == want, f"fused train step {k}: launches {launches}, want {want}")
+            values = {key: v.item() for key, v in metrics.items()}
+            for key in ("loss", "loss/cls_action", "loss/past_cls_action", "loss/feat"):
+                check(np.isfinite(values[key]), f"fused train step {k}: {key} = {values[key]}")
+            changed = [n for n, p in params.items() if not torch.equal(p, before[n])]
+            log(f"fused train step {k}: " + ", ".join(f"{key} {v:.4f}" for key, v in values.items())
+                + f"; {len(changed)} of {len(params)} parameter tensors changed; launches {launches}")
+            if k == 0:
+                rel = abs(values["loss"] - split["loss0"]) / abs(split["loss0"])
+                log(f"fused vs split step 0 loss: {values['loss']:.6f} vs {split['loss0']:.6f}, "
+                    f"{rel:.3g} relative (limit 1e-2)")
+                check(rel <= 1e-2, f"fused step 0 loss {values['loss']} vs split {split['loss0']}")
+                check(not changed, f"fused step 0 at LR 0 changed {changed[:4]}")
+            else:
+                check(changed, "fused step 1 changed no parameter")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(TIMED_STEPS):
+            metrics = step(batch, step_gen)
+        torch.cuda.synchronize()
+        step_s = (time.time() - t0) / TIMED_STEPS
+        launches = dict(_build.launch_counts)
+        steps = 2 + TIMED_STEPS
+        check(launches["fused_qkv_attention_fwd"] == VIT_BLOCKS * steps
+              and launches["short_attention_bwd"] == VIT_BLOCKS * steps
+              and launches["short_attention_fwd"] == 0,
+              f"fused timed steps: launches {launches} after {steps} steps")
+        check(np.isfinite(metrics["loss"].item()), "non-finite loss in the timed fused steps")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        log(f"fused train step, {TRAIN_CLIPS} clips: {step_s * 1e3:.2f} ms a step (mean of "
+            f"{TIMED_STEPS} after 2; split path {split['step_ms']:.2f} ms in phase 4), "
+            f"{TRAIN_CLIPS / step_s:.2f} clips/s (split {split['clips_s']:.2f}); peak memory "
+            f"{peak_gb:.2f} GB")
+        busy_ms, _ = profile_run(lambda: step(batch, step_gen), "fused train step")
+        log(f"device busy {busy_ms:.2f} ms of the steady fused step's {step_s * 1e3:.2f} ms: "
+            f"idle share {1 - busy_ms / (step_s * 1e3):.3f}")
+        # gradients on one clip of every block's qkv projection and norm1,
+        # with the fused op and with the split path
+        names = [f"backbone.model.blocks.{i}.{leaf}" for i in range(VIT_BLOCKS)
+                 for leaf in ("attn.qkv.weight", "attn.qkv.bias", "norm1.weight", "norm1.bias")]
+        one = {"video": batch["video"][:1], "target": {"action": batch["target"]["action"][:1]},
+               "target_subclips": {"action": batch["target_subclips"]["action"][:1]}}
+        fused_grads = one_clip_grads(model, preprocess, one, names)
+    finally:
+        vit_module.fused_qkv_attention = split_op
+    split_grads = one_clip_grads(model, preprocess, one, names)
+    worst = 0.0
+    for name, gf, gs in zip(names, fused_grads, split_grads):
+        scale = gs.float().abs().max().item()
+        diff = (gf.float() - gs.float()).abs().max().item()
+        check(scale > 0 and diff <= GRAD_TOL * scale, f"fused grad {name} differs by {diff} "
+              f"at scale {scale}")
+        worst = max(worst, diff / scale)
+    log(f"grads of {len(names)} qkv / norm1 tensors, fused vs split, 1 clip: worst max |diff| "
+        f"{worst:.3g} of the tensor's scale (limit {GRAD_TOL})")
+    return launches, dict(step_ms=step_s * 1e3, clips_s=TRAIN_CLIPS / step_s)
+
+
+def ek55_adam_phase():
+    """expts/08 at full width on random 1024-d features and weights from a
+    seed: Adam (lr 5e-6, wd 1e-4 on every parameter, warmup 5 + cosine over
+    15 epochs, world size 1), batch 32, 10 observed features (frame_rate 2,
+    tau_o 5), f32. At 10 tokens AVT-h's attention is plain tensor code, as
+    in JAX: no kernel runs. Returns the launch counts of the phase."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = build_avt(num_actions=EK55_ACTIONS, backbone="identity", backbone_dim=FEAT_DIM,
+                      inter_dim=AVTH_DIM, n_layer=EK55_LAYERS, n_head=EK55_HEADS, dropout=0.8,
+                      classifier_on_past=False, generator=gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt, _ = build_optimizer(
+        model, lr_wd=[["__all__", 5e-6, 1e-4]], optimizer_name="adam", scheduler_name="cosine",
+        iters_per_epoch=1000, num_epochs=20, warmup_epochs=5, bias_bn_wd_scale=1.0)
+    num_classes = {"action": EK55_ACTIONS}
+    step = make_train_step(model, opt, EK55_LOSS_WTS, num_classes)
+    rng = np.random.default_rng(3)
+    batch = {"video": torch.from_numpy(rng.standard_normal(
+                 (EK55_BATCH, SHORT_T, FEAT_DIM, 1, 1, 1), np.float32)).cuda(),
+             "target": {"action": torch.from_numpy(
+                 rng.integers(0, EK55_ACTIONS, size=EK55_BATCH)).cuda()}}
+    params = dict(model.named_parameters())
+    before = {n: p.detach().clone() for n, p in params.items()}
+    step_gen = torch.Generator(device="cuda").manual_seed(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    for k in range(2):  # step 0 runs at LR 0, step 1 at the first warmup LR
+        metrics = step(batch, step_gen)
+        torch.cuda.synchronize()
+        values = {key: v.item() for key, v in metrics.items()}
+        for key in ("loss", "loss/cls_action", "loss/feat"):
+            check(np.isfinite(values[key]), f"ek55 adam step {k}: {key} = {values[key]}")
+        changed = [n for n, p in params.items() if not torch.equal(p, before[n])]
+        log(f"ek55 adam step {k}: lr {opt.groups[0].schedule(k):.3g}, "
+            + ", ".join(f"{key} {v:.4f}" for key, v in values.items())
+            + f"; {len(changed)} of {len(params)} parameter tensors changed")
+        if k == 0:
+            check(not changed, f"ek55 adam step 0 at LR 0 changed {changed[:4]}")
+        else:
+            check(changed, "ek55 adam step 1 changed no parameter")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(EK55_TIMED_STEPS):
+        metrics = step(batch, step_gen)
+    torch.cuda.synchronize()
+    step_s = (time.time() - t0) / EK55_TIMED_STEPS
+    launches = dict(_build.launch_counts)
+    check(not any(launches.values()), f"ek55 adam steps launched {launches}")
+    check(np.isfinite(metrics["loss"].item()), "non-finite loss in the timed ek55 adam steps")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    flops = 3 * EK55_BATCH * feature_flops_per_clip(SHORT_T, EK55_LAYERS, EK55_ACTIONS, False)
+    log(f"ek55 adam train step, {EK55_BATCH} clips x {SHORT_T} features, {n_params / 1e6:.1f} M "
+        f"parameters: {step_s * 1e3:.2f} ms a step (mean of {EK55_TIMED_STEPS} after 2), "
+        f"{EK55_BATCH / step_s:.2f} clips/s, {flops / step_s / 1e12:.2f} TFLOP/s "
+        f"({flops / 1e12:.3f} TFLOP a step, {flops / step_s / PEAK_FLOPS[torch.float32]:.4f} of "
+        f"the f32 peak); peak memory {peak_gb:.2f} GB")
+    busy_ms, groups = profile_run(lambda: step(batch, step_gen), "ek55 adam train step")
+    log(f"device busy {busy_ms:.2f} ms of the steady step's {step_s * 1e3:.2f} ms: idle share "
+        f"{1 - busy_ms / (step_s * 1e3):.3f}; optimizer {groups.get('optimizer', 0.0):.2f} ms, "
+        f"{groups.get('optimizer', 0.0) / busy_ms:.3f} of device time")
     return launches
 
 
@@ -827,14 +1101,15 @@ def feature_batch(B, T, seed):
                 rng.integers(-1, NUM_ACTIONS, size=(B, T, 1))).cuda()}}
 
 
-def feature_flops_per_clip(T):
+def feature_flops_per_clip(T, layers=AVTH_LAYERS, actions=NUM_ACTIONS, past_classifier=True):
     """Forward FLOPs of one clip on the feature path: AVT-h's linears on
     every token (qkv, proj, the 4x MLP), its causal attention, the encoder
-    and decoder, the past classifier on every token, the classifier once."""
+    and decoder, the past classifier on every token (when the model has
+    one), the classifier once."""
     C = AVTH_DIM
-    linears = AVTH_LAYERS * 12 * C * C + 2 * FEAT_DIM * C + FEAT_DIM * NUM_ACTIONS
-    attention = AVTH_LAYERS * 4 * C * causal_pairs(T, True)
-    return 2 * T * linears + attention + 2 * FEAT_DIM * NUM_ACTIONS
+    linears = layers * 12 * C * C + 2 * FEAT_DIM * C + past_classifier * FEAT_DIM * actions
+    attention = layers * 4 * C * causal_pairs(T, True)
+    return 2 * T * linears + attention + 2 * FEAT_DIM * actions
 
 
 def avth_attention_param(name):
@@ -948,8 +1223,8 @@ def feature_phase():
         f"{flops / step_s / 1e12:.2f} TFLOP/s ({flops / 1e12:.2f} TFLOP a step), "
         f"{flops / step_s / PEAK_FLOPS[torch.float32]:.4f} of the f32 peak; peak memory "
         f"{peak_gb:.2f} GB")
-    busy_ms = profile_run(lambda: step(long_batch, step_gen),
-                          f"feature train step, {FEAT_BATCH} clips x {LONG_T} features")
+    busy_ms, _ = profile_run(lambda: step(long_batch, step_gen),
+                             f"feature train step, {FEAT_BATCH} clips x {LONG_T} features")
     log(f"device busy {busy_ms:.2f} ms of the steady step's {step_s * 1e3:.2f} ms: "
         f"idle share {1 - busy_ms / (step_s * 1e3):.3f}")
 

@@ -74,9 +74,10 @@ def test_fused_qkv_attention_matches_avt_tpu(dtype):
 
 
 def test_unported_kernels_raise():
-    # the flash kernel is ported: use_kernel=True runs its plain version on the CPU
+    # every kernel is ported: use_kernel=True runs the flash kernel's and the
+    # fused kernel's plain versions on the CPU
     x = torch.zeros(1, 4, 2, 64)
     assert tattn.dot_product_attention(x, x, x, use_kernel=True).shape == x.shape
-    with pytest.raises(NotImplementedError, match="fused"):
-        tattn.fused_qkv_attention(torch.zeros(1, 4, 16), torch.zeros(16, 48), torch.zeros(48),
-                                  2, use_kernel=True)
+    out = tattn.fused_qkv_attention(torch.zeros(1, 4, 128), torch.zeros(128, 384),
+                                    torch.zeros(384), 2, use_kernel=True)
+    assert out.shape == (1, 4, 128)

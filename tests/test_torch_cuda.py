@@ -190,3 +190,87 @@ def test_cuda_flash_raises_on_unbuilt_head_dim(cuda_device):
     with pytest.raises(TypeError, match="storage type"):
         tfa.flash_attention(*(torch.zeros(1, 130, 2, 64, dtype=torch.float16,
                                           device=cuda_device),) * 3)
+
+
+def _fused_inputs(N, T, H, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    C = 64 * H
+    x, w, b = (rng.standard_normal(s).astype(np.float32) for s in ((N, T, C), (3 * C, C), (3 * C,)))
+    tdt = getattr(torch, dtype)
+    # w as the ViT passes it: the transposed view of a (3C, C) weight
+    return (torch.from_numpy(x * 0.5).to(device, tdt), torch.from_numpy(w * 0.05).to(device, tdt).t(),
+            torch.from_numpy(b * 0.1).to(device, tdt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,T,H,causal", [
+    ("bfloat16", 197, 12, False), ("float32", 197, 12, False), ("bfloat16", 100, 4, True),
+    ("float32", 100, 4, True),
+    # several 256-row tiles per sequence; a sequence shorter than a warp's rows
+    ("bfloat16", 300, 4, True), ("bfloat16", 300, 4, False), ("float32", 300, 2, True),
+    ("bfloat16", 5, 2, False),
+])
+def test_cuda_fused_kernel_matches_plain_version(cuda_device, dtype, T, H, causal):
+    x, w, b = _fused_inputs(3, T, H, dtype, cuda_device, seed=T + H)
+    _build.reset_launch_counts()
+    out, qkv = tfa._launch_fused(x, w, b, H, causal)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[tfa.FUSED_KERNEL] == 1
+    ref, ref_qkv = tfa.fused_qkv_attention_reference(x, w, b, H, causal)
+    torch.testing.assert_close(qkv, ref_qkv, atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(out, ref, atol=TOL[dtype], rtol=TOL[dtype])
+    # a contiguous (C, 3C) w is copied into the kernel's layout: the same result
+    out2, qkv2 = tfa._launch_fused(x, w.contiguous(), b, H, causal)
+    assert torch.equal(out2, out) and torch.equal(qkv2, qkv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_fused_grads_match_plain_version(cuda_device, dtype):
+    """The autograd Function on the card (the fused kernel, the no-db
+    backward kernel, library products) against the same Function on the CPU
+    (the plain versions); x in the storage type, w and b f32."""
+    x, w, b = _fused_inputs(4, 197, 12, dtype, cuda_device, seed=1)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(2)).to(cuda_device, x.dtype)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, w.float(), b.float())]
+    _build.reset_launch_counts()
+    out = tfa.fused_qkv_attention(*leaves, 12)
+    grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[tfa.FUSED_KERNEL] == 1
+    assert _build.launch_counts[tfa.BWD_KERNEL] == 1
+    assert _build.launch_counts[tfa.KERNEL] == 0
+    cpu = [t.detach().cpu().requires_grad_(True) for t in leaves]
+    ref = tfa.fused_qkv_attention(*cpu, 12)
+    refs = torch.autograd.grad(ref, cpu, g.cpu())
+    torch.testing.assert_close(out.cpu(), ref, atol=TOL[dtype], rtol=TOL[dtype])
+    for got, want in zip(grads, refs):
+        assert got.dtype == want.dtype
+        assert _rel_err(got.cpu(), want) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_cuda_no_db_backward_at_head_dim_64(cuda_device, dtype, causal):
+    """The backward kernel's no-db form at head pairs, as the fused op's
+    backward calls it."""
+    x = _qkv(6, 197, 12, 64, dtype, cuda_device, seed=15)
+    do = _qkv(6, 197, 12, 64, dtype, cuda_device, seed=16)[..., :768].contiguous()
+    dqkv, db = tfa._launch_bwd(x, None, do, 12, causal, with_db=False)
+    torch.cuda.synchronize()
+    assert db is None
+    ref, _ = tfa.packed_short_attention_bwd_reference(x, do, 12, causal)
+    assert _rel_err(dqkv, ref) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_cuda_fused_kernel_raises_off_its_geometry(cuda_device):
+    x, w, b = _fused_inputs(1, 10, 3, "bfloat16", cuda_device, seed=0)
+    with pytest.raises(ValueError, match="even head count"):
+        tfa._launch_fused(x, w, b, 3, False)
+    with pytest.raises(ValueError, match="even head count"):
+        tfa._launch_fused(x[..., :128], w[:128, :384], b[:384], 1, False)
+    with pytest.raises(TypeError, match="storage type"):
+        y, v, c = _fused_inputs(1, 10, 2, "float32", cuda_device, seed=0)
+        tfa._launch_fused(y.half(), v.half(), c.half(), 2, False)

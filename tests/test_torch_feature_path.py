@@ -13,7 +13,6 @@ import functools
 from unittest import mock
 
 import numpy as np
-import optax
 import pytest
 import torch
 
@@ -159,16 +158,6 @@ def _tmodel():
         classifier_on_past=True)
 
 
-def _jax_trace(opt_state):
-    """The momentum tree of every group, merged (optax masks each group's
-    tree to its own parameters)."""
-    masked = lambda x: isinstance(x, optax.MaskedNode)  # noqa: E731
-    traces = [st.inner_state[1][0].trace for label, st in opt_state.inner_states.items()
-              if label != "frozen"]
-    return jax.tree.map(lambda *xs: next(x for x in xs if not masked(x)), *traces,
-                        is_leaf=masked)
-
-
 def test_train_step_matches_avt_tpu(flash_path):
     """After one warm-up step (LR 0, momentum set), one step at the first
     warmup LR on both sides."""
@@ -183,7 +172,7 @@ def test_train_step_matches_avt_tpu(flash_path):
 
     model = load_jax_params(_tmodel(), state.params)
     opt, _ = build_optimizer(model, **OPT)
-    opt.load_state_dict(opt_state_from_jax(_jax_trace(state.opt_state), count=1))
+    opt.load_state_dict(opt_state_from_jax(state.opt_state))
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     flash_path.reset_mock()
     metrics = make_train_step(model, opt, LOSS_WTS, {"action": N_CLS})(_tbatch(b1))

@@ -31,6 +31,10 @@ def test_import_with_jax_blocked():
         "import avt_tpu_torch.train, avt_tpu_torch.train.optim, avt_tpu_torch.train.step\n"
         "import avt_tpu_torch.train.ops, avt_tpu_torch.losses, avt_tpu_torch.losses.xent\n"
         "import avt_tpu_torch.utils.metrics, avt_tpu_torch.ops.flash_attention\n"
+        "import avt_tpu_torch.ops.attention, avt_tpu_torch.ops._build, avt_tpu_torch.models.vit\n"
+        "from avt_tpu_torch.ops.flash_attention import fused_qkv_attention\n"
+        "from avt_tpu_torch.train.optim import Adam, Adafactor, ReduceLROnPlateau\n"
+        "from avt_tpu_torch.models.convert import opt_state_from_jax\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

@@ -7,7 +7,6 @@ under warmup + cosine. Compared after one and three steps: the total and
 per-key losses, the gradients, the parameter updates and the momentum.
 Also the port's train-mode dropout on its own."""
 import numpy as np
-import optax
 import pytest
 import torch
 
@@ -100,16 +99,6 @@ def _tbatch(b):
             "target_subclips": {"action": torch.from_numpy(b["tsub"])}}
 
 
-def _jax_trace(opt_state):
-    """The momentum tree of every group, merged (optax masks each group's
-    tree to its own parameters)."""
-    masked = lambda x: isinstance(x, optax.MaskedNode)  # noqa: E731
-    traces = [st.inner_state[1][0].trace for label, st in opt_state.inner_states.items()
-              if label != "frozen"]
-    return jax.tree.map(lambda *xs: next(x for x in xs if not masked(x)), *traces,
-                        is_leaf=masked)
-
-
 def _jgrads(jm, params, batch):
     jb = _jbatch(batch)
 
@@ -176,7 +165,7 @@ def test_train_step_matches_avt_tpu(jax_runs, dtype, n_steps):
     model = load_jax_params(_tmodel(getattr(torch, dtype) if dtype != "float32" else None),
                             run["states"][0].params)
     opt, _ = build_optimizer(model, **OPT)
-    opt.load_state_dict(opt_state_from_jax(_jax_trace(run["states"][0].opt_state), count=1))
+    opt.load_state_dict(opt_state_from_jax(run["states"][0].opt_state))
     step = make_train_step(model, opt, LOSS_WTS, {"action": N_CLS})
     for k in range(n_steps):
         before = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -192,7 +181,7 @@ def test_train_step_matches_avt_tpu(jax_runs, dtype, n_steps):
     jgrads = params_from_jax(run["grads"][n_steps - 1])
     jbefore = params_from_jax(run["states"][n_steps - 1].params)
     jafter = params_from_jax(run["states"][n_steps].params)
-    jmom = opt_state_from_jax(_jax_trace(run["states"][n_steps].opt_state))["momentum"]
+    jmom = opt_state_from_jax(run["states"][n_steps].opt_state)["momentum"]
     assert opt.count == n_steps + 1
     update_tol = tol["update"] if n_steps == 1 else max(tol["update"], BF16_TRACE_TOL)
     for name, p in model.named_parameters():
