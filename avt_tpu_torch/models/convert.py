@@ -192,8 +192,9 @@ def _group_states(state) -> Dict[str, list]:
 def _factored_from_jax(row: Mapping, col: Mapping, v: Mapping):
     """Adafactor's row / col / v trees -> {port name: tensor} each. A leaf
     the JAX side keeps as a 0-d placeholder is left out. The port factors a
-    torch-layout weight over its last two axes: for a linear weight, the
-    transpose of the JAX kernel, its row and col are JAX's col and row."""
+    linear weight, the transpose of the JAX kernel, over its own last two
+    axes, so its row and col are JAX's col and row; it factors a conv weight
+    in the flax kernel's layout, so its row and col are JAX's own."""
     leaves: list = []
 
     def probe(node):  # each leaf -> a (2, 3, 4, 5) array holding its index
@@ -212,7 +213,7 @@ def _factored_from_jax(row: Mapping, col: Mapping, v: Mapping):
         layout = tuple(x.shape)
         if np.ndim(full) > 0:
             out["v"][name] = torch.from_numpy(_np(full))
-        elif layout == (2, 3, 4, 5):  # the same layout on both sides
+        elif layout in ((2, 3, 4, 5), (5, 4, 2, 3)):  # the same layout, or a conv kernel
             out["row"][name], out["col"][name] = (torch.from_numpy(_np(a)) for a in (r, c))
         elif layout == (5, 4, 3, 2) and np.ndim(r) == 1:  # a linear kernel, transposed
             out["row"][name], out["col"][name] = (torch.from_numpy(_np(a)) for a in (c, r))

@@ -30,13 +30,42 @@
 // Bound on the H100. 10*B*H*Tq*Tk*D FLOPs for the 5 products (half when
 // causal) over the bytes of q, k, v, dO, lse, delta, dq, dk, dv: (64, 4, 256,
 // 512) in f32 is 43 GFLOP causal, 0.64 ms at 67 TFLOP/s, against 0.24 ms for
-// its bytes: bound by operations. Head dim 512 sets the tiling. The dq side
-// keeps q' and dO for 32 query rows (64 KB each in f32) and one padded 32-key
-// buffer that holds V (for dO . v^T), then K (for the scores and ds . k):
-// 193 KB of shared memory, dq in registers (64 floats a thread). The dk/dv
-// side keeps K and V for 16 key rows (32 KB each) and steps over 32-query
-// tiles of q' and dO (66 KB each, padded), dk and dv in registers (64 floats
-// a thread). Measured times are in PERF.md (chip_smoke.py prints them).
+// its bytes: bound by operations. The dq side does 3 of the 7 products (s,
+// dp, dq: 25.8 GFLOP, 0.385 ms), the dk/dv side 4 (s, dp, dk, dv: 34.4
+// GFLOP, 0.513 ms); each is bound by operations on the FMA units.
+//
+// The dq side keeps q' and dO for 8 * RPW query rows (RPW = 2048 / D rows a
+// warp, at most 8; 1 at D=1024) and one padded 32-key buffer that holds V
+// (for dO . v^T), then K (for the scores and ds . k): 197,120 bytes of
+// shared memory at D=512 and 1024, dq in registers (RPW * D / 32 floats a
+// thread).
+//
+// The dk/dv side (DkvTiling below) is tiled in registers, so that every
+// shared-memory load feeds several FMAs: the FMA units do 4 warp-FMAs a
+// clock on an SM, shared memory gives one 128-byte wavefront a clock, so a
+// loop that loads more than one wavefront per 4 warp-FMAs is paced by shared
+// memory. A block holds BK key rows of K and V (BK * D = 16384, at most 64:
+// 32 at D=512, 16 at D=1024; 128 KB) and steps over BQ-row tiles of q' and dO
+// (BQ * D = 8192, at most 32; 64 KB), rows padded by 4 floats. Per tile:
+//   0. q', dO, lse and delta come in (load_rows keeps 4 of a thread's
+//      global loads in flight: with one block an SM, one at a time left the
+//      FMA units waiting; PERF.md has the times of both).
+//   1. S = K . q'^T and then dP = V . dO^T, each BK x BQ: the 8 warps split
+//      D into NSL slices and the tile into PARTS parts (NSL * PARTS = 8); a
+//      lane sums a TK x TQ block (4 x 4; 2 x 2 at D=1024) over its slice
+//      from float4 loads, its rows 8 and 4 apart so that the loads hit
+//      distinct banks (per 4 values of d a warp loads 8 wavefronts for 64
+//      FMAs a lane). The partial sums go through shared memory and are
+//      added in a fixed order, slice 0 first.
+//   2. p = exp(S - lse) and ds = p * (dP - delta), rounded to the storage
+//      type, into a small BQ x BK tile that takes the partials' place.
+//   3. dv += p^T . dO and dk += ds^T . q': a thread owns RT = 8 key rows x
+//      CT columns of dk and of dv (CT = 8 at D >= 256: 128 accumulators), the
+//      columns in float4 groups tc*4 + 4*CG*j so that a warp's q'/dO loads
+//      are contiguous; per query each q'/dO value feeds 8 FMAs and each p/ds
+//      value, a broadcast, feeds CT.
+// 218 KB of shared memory at D=256 and 512, 204 KB at D=1024: one block an SM.
+// Measured times are in PERF.md (chip_smoke.py prints them).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (avt_tpu_torch/ops/_build.py does it at first use).
@@ -48,17 +77,42 @@ namespace {
 
 using namespace flash;
 
+// Query rows per warp on the dq side: the forward's, but 1 at D=1024, where
+// 2 would take 262,656 bytes of shared memory.
 template <int D>
-constexpr size_t dq_smem() {
-  return sizeof(float) *
-         (2 * size_t(kWarps * query_rows_per_warp(D)) * D + size_t(kTile) * padded(D));
+__host__ __device__ constexpr int dq_rows_per_warp() {
+  return D == 1024 ? 1 : query_rows_per_warp(D);
 }
 
 template <int D>
-constexpr size_t dkv_smem() {
+constexpr size_t dq_smem() {
   return sizeof(float) *
-         (2 * size_t(kWarps * key_rows_per_warp(D)) * D + 2 * size_t(kTile) * padded(D));
+         (2 * size_t(kWarps * dq_rows_per_warp<D>()) * D + size_t(kTile) * padded(D));
 }
+
+// The dk/dv side's tiles (see the note at the top).
+template <int D>
+struct DkvTiling {
+  static constexpr int BK = 16384 / D < 64 ? 16384 / D : 64;  // key rows a block
+  static constexpr int BQ = 8192 / D < 32 ? 8192 / D : 32;    // query rows a step
+  static constexpr int KS = padded(D);                        // floats a K, V, q', dO row
+  // scores: a lane's TK x TQ block, a warp's WK x WQ part over D / NSL
+  static constexpr int TK = D == 1024 ? 2 : 4, TQ = TK;
+  static constexpr int WK = 8 * TK, WQ = 4 * TQ;
+  static constexpr int PQ = BQ / WQ, PARTS = (BK / WK) * PQ;
+  static constexpr int NSL = kWarps / PARTS, DS = D / NSL;
+  static constexpr int PS = BK + 8;  // floats a row of the partial, p and ds tiles
+  static constexpr int EPT = (BK * BQ + kThreads - 1) / kThreads;  // scores a thread sums
+  // dk and dv: a thread's RT key rows x CT columns, in NV groups of VEC
+  static constexpr int RT = 8, RG = BK / RT, CG = kThreads / RG, CT = D / CG;
+  static constexpr int VEC = CT < 4 ? CT : 4, NV = CT / VEC;
+  static constexpr size_t smem =
+      sizeof(float) * (size_t(2 * BK + 2 * BQ) * KS + size_t(NSL) * BQ * PS + 2 * BQ);
+
+  static_assert(BK % WK == 0 && BQ % WQ == 0 && kWarps % PARTS == 0 && NSL >= 2, "score split");
+  static_assert(DS % 4 == 0 && BK % RT == 0 && CG * CT == D && CT % VEC == 0, "tiles");
+  static_assert(smem <= 232448, "shared memory");
+};
 
 // dq for RPW query rows a warp; steps over 32-key tiles.
 template <typename T, int D>
@@ -67,7 +121,7 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
              const T* __restrict__ dout, const float* __restrict__ lse,
              const float* __restrict__ delta, T* __restrict__ dq, View qv, View kv, View vv,
              View dov, Geometry g, int q_tiles, float q_scale, float dq_scale) {
-  constexpr int RPW = query_rows_per_warp(D);
+  constexpr int RPW = dq_rows_per_warp<D>();
   constexpr int BQ = kWarps * RPW;
   constexpr int NC = D / 32;
   constexpr int KS = padded(D);
@@ -138,89 +192,189 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 }
 
-// dk and dv for RPW key rows a warp; steps over 32-query tiles.
+// One warp's partial scores of the dk/dv side: a (rows `a`, 8 apart) .
+// b (rows 4 apart) over the warp's slice of D, TK x TQ sums a lane, stored
+// to `out` (query-major, PS floats a row).
+template <int D>
+__device__ __forceinline__ void score_partials(float* out, const float* a, const float* b) {
+  using L = DkvTiling<D>;
+  float acc[L::TK][L::TQ];
+#pragma unroll
+  for (int i = 0; i < L::TK; ++i) {
+#pragma unroll
+    for (int j = 0; j < L::TQ; ++j) acc[i][j] = 0.f;
+  }
+#pragma unroll 4
+  for (int d = 0; d < L::DS; d += 4) {
+    float4 x[L::TK], y[L::TQ];
+#pragma unroll
+    for (int i = 0; i < L::TK; ++i) x[i] = *reinterpret_cast<const float4*>(a + 8 * i * L::KS + d);
+#pragma unroll
+    for (int j = 0; j < L::TQ; ++j) y[j] = *reinterpret_cast<const float4*>(b + 4 * j * L::KS + d);
+#pragma unroll
+    for (int i = 0; i < L::TK; ++i) {
+#pragma unroll
+      for (int j = 0; j < L::TQ; ++j) {
+        acc[i][j] = fmaf(x[i].x, y[j].x, acc[i][j]);
+        acc[i][j] = fmaf(x[i].y, y[j].y, acc[i][j]);
+        acc[i][j] = fmaf(x[i].z, y[j].z, acc[i][j]);
+        acc[i][j] = fmaf(x[i].w, y[j].w, acc[i][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < L::TK; ++i) {
+#pragma unroll
+    for (int j = 0; j < L::TQ; ++j) out[4 * j * L::PS + 8 * i] = acc[i][j];
+  }
+}
+
+// The scores of this thread's entries e = threadIdx.x + m * kThreads of the
+// BQ x BK tile (query-major): the NSL partials added in slice order.
+template <int D>
+__device__ __forceinline__ void sum_partials(float (&x)[DkvTiling<D>::EPT], const float* part) {
+  using L = DkvTiling<D>;
+#pragma unroll
+  for (int m = 0; m < L::EPT; ++m) {
+    const int e = threadIdx.x + m * kThreads;
+    x[m] = 0.f;
+    if (e < L::BK * L::BQ) {
+      const int at = (e / L::BK) * L::PS + e % L::BK;
+      float t = part[at];
+#pragma unroll
+      for (int sl = 1; sl < L::NSL; ++sl) t += part[sl * L::BQ * L::PS + at];
+      x[m] = t;
+    }
+  }
+}
+
+// V consecutive floats from shared memory (16- or 8-byte aligned).
+template <int V>
+__device__ __forceinline__ void load_vec(float* x, const float* src) {
+  if constexpr (V == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(src);
+    x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+  } else {
+    static_assert(V == 2, "2 or 4 floats");
+    const float2 t = *reinterpret_cast<const float2*>(src);
+    x[0] = t.x, x[1] = t.y;
+  }
+}
+
+// dk and dv for BK key rows; steps over BQ-row query tiles (DkvTiling).
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const T* __restrict__ dout, const float* __restrict__ lse,
               const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
               View qv, View kv, View vv, View dov, Geometry g, int k_tiles, float q_scale) {
-  constexpr int RPW = key_rows_per_warp(D);
-  constexpr int BK = kWarps * RPW;
-  constexpr int NC = D / 32;
-  constexpr int QS = padded(D);
+  using L = DkvTiling<D>;
+  constexpr int BK = L::BK, BQ = L::BQ, KS = L::KS, PS = L::PS;
+  constexpr int RT = L::RT, CT = L::CT, CG = L::CG, VEC = L::VEC;
   extern __shared__ float4 smem4[];
-  float* k_s = reinterpret_cast<float*>(smem4);  // BK x D
-  float* v_s = k_s + BK * D;                     // BK x D
-  float* q_s = v_s + BK * D;                     // kTile x QS, scaled q
-  float* do_s = q_s + kTile * QS;                // kTile x QS
+  float* k_s = reinterpret_cast<float*>(smem4);  // BK x KS
+  float* v_s = k_s + BK * KS;                     // BK x KS
+  float* q_s = v_s + BK * KS;                     // BQ x KS, scaled q
+  float* do_s = q_s + BQ * KS;                    // BQ x KS
+  float* part = do_s + BQ * KS;                   // NSL x BQ x PS partial scores,
+  float* p_s = part;                              // then p (BQ x PS)
+  float* ds_s = part + BQ * PS;                   // and ds (BQ x PS)
+  float* lse_s = part + L::NSL * BQ * PS;         // BQ
+  float* delta_s = lse_s + BQ;                    // BQ
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int bh = blockIdx.x / k_tiles, k0 = (blockIdx.x % k_tiles) * BK;
   const int b = bh / g.H, h = bh % g.H;
   const T* qb = q + b * qv.sb + h * D;
   const T* dob = dout + b * dov.sb + h * D;
-  load_rows<T, D, BK>(k_s, D, k + b * kv.sb + h * D, kv.st, k0, g.Tk, 0.f);
-  load_rows<T, D, BK>(v_s, D, v + b * vv.sb + h * D, vv.st, k0, g.Tk, 0.f);
+  load_rows<T, D, BK>(k_s, KS, k + b * kv.sb + h * D, kv.st, k0, g.Tk, 0.f);
+  load_rows<T, D, BK>(v_s, KS, v + b * vv.sb + h * D, vv.st, k0, g.Tk, 0.f);
 
-  float dk_acc[RPW][NC], dv_acc[RPW][NC];
+  // scores: this warp's part of the tile and slice of D, the lane's first
+  // key and query rows
+  const int part_id = warp % L::PARTS, slice = warp / L::PARTS;
+  const int kr = (part_id / L::PQ) * L::WK + lane % 8;
+  const int qr = (part_id % L::PQ) * L::WQ + lane / 8;
+  const int d0 = slice * L::DS;
+  float* my_part = part + slice * BQ * PS + qr * PS + kr;
+  // dk and dv: this thread's key rows tr*RT + r and columns
+  // j*CG*VEC + tc*VEC + e
+  const int tr = tid / CG, tc = tid % CG;
+  float dk_acc[RT][CT], dv_acc[RT][CT];
 #pragma unroll
-  for (int r = 0; r < RPW; ++r) {
+  for (int r = 0; r < RT; ++r) {
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.f;
+    for (int c = 0; c < CT; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.f;
   }
+
   // causal: query tiles that end before this key tile see none of its keys
-  const int q_start = g.causal ? (k0 / kTile) * kTile : 0;
-  for (int q0 = q_start; q0 < g.Tq; q0 += kTile) {
-    __syncthreads();  // the last tile's q' and dO reads are done
-    load_rows<T, D, kTile>(q_s, QS, qb, qv.st, q0, g.Tq, q_scale);
-    load_rows<T, D, kTile>(do_s, QS, dob, dov.st, q0, g.Tq, 0.f);
-    const int qpos = q0 + lane;
-    const bool real = qpos < g.Tq;
-    const float q_lse = real ? lse[(long long)bh * g.Tq + qpos] : 0.f;
-    const float q_delta = real ? delta[(long long)bh * g.Tq + qpos] : 0.f;
-    __syncthreads();
-    float s[RPW], dp[RPW];
-    dot_rows<D, RPW>(s, k_s + warp * RPW * D, D, q_s + lane * QS);
-    dot_rows<D, RPW>(dp, v_s + warp * RPW * D, D, do_s + lane * QS);
-    float p[RPW], ds[RPW];
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const int kpos = k0 + warp * RPW + r;
-      const bool keep = real && kpos < g.Tk && (!g.causal || kpos <= qpos);
-      const float pr = keep ? expf(s[r] - q_lse) : 0.f;
-      p[r] = round_to<T>(pr);
-      ds[r] = round_to<T>(pr * (dp[r] - q_delta));
+  const int q_start = g.causal ? (k0 / BQ) * BQ : 0;
+  for (int q0 = q_start; q0 < g.Tq; q0 += BQ) {
+    __syncthreads();  // the last tile's q', dO, p and ds reads are done
+    if (tid < BQ) {
+      const int qpos = q0 + tid;
+      const bool real = qpos < g.Tq;
+      lse_s[tid] = real ? lse[(long long)bh * g.Tq + qpos] : 0.f;
+      delta_s[tid] = real ? delta[(long long)bh * g.Tq + qpos] : 0.f;
     }
-    const int qn = min(kTile, g.Tq - q0);
-    for (int i = 0; i < qn; ++i) {
-      float qi[NC], di[NC];
+    load_rows<T, D, BQ>(q_s, KS, qb, qv.st, q0, g.Tq, q_scale);
+    load_rows<T, D, BQ>(do_s, KS, dob, dov.st, q0, g.Tq, 0.f);
+    __syncthreads();
+    score_partials<D>(my_part, k_s + kr * KS + d0, q_s + qr * KS + d0);
+    __syncthreads();
+    float s[L::EPT], dp[L::EPT];
+    sum_partials<D>(s, part);
+    __syncthreads();  // the score partials are read
+    score_partials<D>(my_part, v_s + kr * KS + d0, do_s + qr * KS + d0);
+    __syncthreads();
+    sum_partials<D>(dp, part);
+    __syncthreads();  // the dP partials are read; p and ds take their place
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        qi[c] = q_s[i * QS + lane + 32 * c];
-        di[c] = do_s[i * QS + lane + 32 * c];
+    for (int m = 0; m < L::EPT; ++m) {
+      const int e = tid + m * kThreads;
+      if (e < BK * BQ) {
+        const int i = e / BK, j = e % BK;
+        const int qpos = q0 + i, kpos = k0 + j;
+        const bool keep = qpos < g.Tq && kpos < g.Tk && (!g.causal || kpos <= qpos);
+        const float pr = keep ? expf(s[m] - lse_s[i]) : 0.f;
+        p_s[i * PS + j] = round_to<T>(pr);
+        ds_s[i * PS + j] = round_to<T>(pr * (dp[m] - delta_s[i]));
+      }
+    }
+    __syncthreads();
+    const int qn = min(BQ, g.Tq - q0);  // later rows have p = ds = 0
+    for (int i = 0; i < qn; ++i) {
+      float pi[RT], dsi[RT], qi[CT], di[CT];
+#pragma unroll
+      for (int r = 0; r < RT; r += 4) {
+        load_vec<4>(pi + r, p_s + i * PS + tr * RT + r);
+        load_vec<4>(dsi + r, ds_s + i * PS + tr * RT + r);
       }
 #pragma unroll
-      for (int r = 0; r < RPW; ++r) {
-        const float pi = __shfl_sync(kFull, p[r], i);
-        const float dsi = __shfl_sync(kFull, ds[r], i);
+      for (int j = 0; j < L::NV; ++j) {
+        load_vec<VEC>(qi + j * VEC, q_s + i * KS + j * CG * VEC + tc * VEC);
+        load_vec<VEC>(di + j * VEC, do_s + i * KS + j * CG * VEC + tc * VEC);
+      }
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          dv_acc[r][c] = fmaf(pi, di[c], dv_acc[r][c]);
-          dk_acc[r][c] = fmaf(dsi, qi[c], dk_acc[r][c]);
+      for (int r = 0; r < RT; ++r) {
+#pragma unroll
+        for (int c = 0; c < CT; ++c) {
+          dv_acc[r][c] = fmaf(pi[r], di[c], dv_acc[r][c]);
+          dk_acc[r][c] = fmaf(dsi[r], qi[c], dk_acc[r][c]);
         }
       }
     }
   }
 #pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int kpos = k0 + warp * RPW + r;
+  for (int r = 0; r < RT; ++r) {
+    const int kpos = k0 + tr * RT + r;
     if (kpos >= g.Tk) continue;
     const long long off = ((long long)(b * g.Tk + kpos) * g.H + h) * D;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      dk[off + lane + 32 * c] = from_float<T>(dk_acc[r][c]);
-      dv[off + lane + 32 * c] = from_float<T>(dv_acc[r][c]);
+    for (int c = 0; c < CT; ++c) {
+      const int col = (c / VEC) * CG * VEC + tc * VEC + c % VEC;
+      dk[off + col] = from_float<T>(dk_acc[r][c]);
+      dv[off + col] = from_float<T>(dv_acc[r][c]);
     }
   }
 }
@@ -236,8 +390,8 @@ struct Args {
 
 template <typename T, int D>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr int BQ = kWarps * query_rows_per_warp(D);
-  constexpr int BK = kWarps * key_rows_per_warp(D);
+  constexpr int BQ = kWarps * dq_rows_per_warp<D>();
+  constexpr int BK = DkvTiling<D>::BK;
   const int q_tiles = (a.g.Tq + BQ - 1) / BQ, k_tiles = (a.g.Tk + BK - 1) / BK;
   const unsigned heads = unsigned(a.g.B) * a.g.H;
   const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k);
@@ -248,8 +402,9 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
       q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dq), a.qv, a.kv, a.vv, a.dov, a.g,
       q_tiles, a.q_scale, a.dq_scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = set_smem(flash_bwd_dkv<T, D>, dkv_smem<D>())) != cudaSuccess) return err;
-  flash_bwd_dkv<T, D><<<dim3(k_tiles * heads), kThreads, dkv_smem<D>(), stream>>>(
+  constexpr size_t dkv_smem = DkvTiling<D>::smem;
+  if ((err = set_smem(flash_bwd_dkv<T, D>, dkv_smem)) != cudaSuccess) return err;
+  flash_bwd_dkv<T, D><<<dim3(k_tiles * heads), kThreads, dkv_smem, stream>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.qv, a.kv,
       a.vv, a.dov, a.g, k_tiles, a.q_scale);
   return cudaGetLastError();
@@ -262,6 +417,7 @@ cudaError_t dispatch(int D, const Args& a, cudaStream_t stream) {
     case 128: return launch<T, 128>(a, stream);
     case 256: return launch<T, 256>(a, stream);
     case 512: return launch<T, 512>(a, stream);
+    case 1024: return launch<T, 1024>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -274,7 +430,7 @@ extern "C" {
 // batch and sequence strides in elements, rows 16-byte aligned. lse and delta
 // (B, H, Tq) f32 contiguous. dq (B, Tq, H, D), dk and dv (B, Tk, H, D)
 // contiguous in the storage type. is_bf16 selects bf16 (1) or f32 (0); D is
-// 64, 128, 256 or 512; q_scale is 1/sqrt(D) rounded to the storage type,
+// 64, 128, 256, 512 or 1024; q_scale is 1/sqrt(D) rounded to the storage type,
 // dq_scale the same in f32. Returns a cudaError_t.
 int flash_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
                         const void* lse, const void* delta, void* dq, void* dk, void* dv,

@@ -14,16 +14,15 @@
 // TF32). Values are rounded to the storage type exactly where the TPU kernel
 // casts them (round_to below).
 //
-// Work split. A block is 8 warps. A warp owns a few rows of the block's tile
-// (query rows in the forward and the dq side, key rows in the dk/dv side);
-// for a score tile each lane takes one row of the other operand, so a
-// score s[r] is one lane's dot product over D, read from shared memory as
-// float4 (the per-lane rows are padded by 4 floats, which makes those reads
-// conflict-free; the warp's own rows are read as broadcasts). For the
-// products with the score tile each lane owns the columns lane + 32*c of the
-// warp's rows, and the scores reach it by warp shuffles, so no score or
-// probability tile goes through shared memory and no T x T matrix reaches
-// device memory.
+// Work split. A block is 8 warps. In the forward and the dq side a warp owns
+// a few query rows of the block's tile; for a score tile each lane takes one
+// key row, so a score s[r] is one lane's dot product over D, read from
+// shared memory as float4 (the per-lane rows are padded by 4 floats, which
+// makes those reads conflict-free; the warp's own rows are read as
+// broadcasts). For the products with the score tile each lane owns the
+// columns lane + 32*c of the warp's rows, and the scores reach it by warp
+// shuffles. The dk/dv side tiles in registers instead (flash_attention_bwd.cu
+// has its design). No T x T matrix reaches device memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,19 +34,14 @@ namespace flash {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kTile = 32;          // keys per step (forward, dq) or queries per step (dk/dv)
+constexpr int kTile = 32;          // keys per step in the forward and the dq side
 constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF for masked scores
 constexpr unsigned kFull = 0xffffffffu;
 
 // Query rows per warp in the forward and the dq side: 64 accumulators a
-// thread (RPW * D / 32), at most 8 rows.
+// thread (RPW * D / 32), at most 8 rows. Head dims 64 to 1024.
 __host__ __device__ constexpr int query_rows_per_warp(int D) {
   return 2048 / D < 8 ? 2048 / D : 8;
-}
-// Key rows per warp in the dk/dv side: dk and dv take 2 * RPW * D / 32
-// accumulators a thread, at most 64.
-__host__ __device__ constexpr int key_rows_per_warp(int D) {
-  return 1024 / D < 8 ? 1024 / D : 8;
 }
 // Floats per row of a per-lane operand in shared memory.
 __host__ __device__ constexpr int padded(int D) { return D + 4; }
@@ -98,29 +92,44 @@ __device__ __forceinline__ void to_floats(const uint4& raw, float* x, __nv_bfloa
 // elements apart) into shared memory as f32, `ss` floats per row; rows at or
 // past `valid` are zero. With scale != 0 each value is multiplied by it and
 // rounded to T, as the TPU kernel's `q_ref[...] * sm_scale` is.
+// A thread's 16-byte global loads go out 4 at a time, all 4 before the first
+// store (16 registers in flight): one memory round trip per 4 vectors, where
+// a load followed by its store waits out each trip alone (the dk/dv side,
+// one block an SM, lost 13-17% to that). Two groups are unrolled, so the
+// compiler can overlap them; more stay a loop: unrolled, the compiler hoists
+// every group's loads and spills beside the accumulators (the forward and
+// the dq side at D=512 and 1024 in f32).
 template <typename T, int D, int kRows>
 __device__ __forceinline__ void load_rows(float* dst, int ss, const T* __restrict__ src,
                                           long long stride, int row0, int valid, float scale) {
-  constexpr int V = 16 / sizeof(T);
-  constexpr int VPR = D / V;
-  for (int i = threadIdx.x; i < kRows * VPR; i += kThreads) {
-    const int r = i / VPR, c = (i % VPR) * V;
-    float x[V];
-    if (row0 + r < valid) {
-      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src + (row0 + r) * stride + c));
-      to_floats(raw, x, T());
+  constexpr int V = 16 / sizeof(T), VPR = D / V, N = kRows * VPR / kThreads;
+  constexpr int G = N < 4 ? N : 4;
+  constexpr int kUnroll = N <= 2 * G ? N / G : 1;
+  static_assert(kRows * VPR % kThreads == 0 && N % G == 0, "whole groups of vectors a thread");
+#pragma unroll (kUnroll)
+  for (int n0 = 0; n0 < N; n0 += G) {
+    uint4 raw[G];
+#pragma unroll
+    for (int n = 0; n < G; ++n) {
+      const int i = threadIdx.x + (n0 + n) * kThreads, r = i / VPR, c = (i % VPR) * V;
+      raw[n] = row0 + r < valid
+                   ? __ldg(reinterpret_cast<const uint4*>(src + (row0 + r) * stride + c))
+                   : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int n = 0; n < G; ++n) {
+      const int i = threadIdx.x + (n0 + n) * kThreads, r = i / VPR, c = (i % VPR) * V;
+      float x[V];
+      to_floats(raw[n], x, T());
       if (scale != 0.f) {
 #pragma unroll
         for (int e = 0; e < V; ++e) x[e] = round_to<T>(x[e] * scale);
       }
-    } else {
+      float4* d = reinterpret_cast<float4*>(dst + r * ss + c);
 #pragma unroll
-      for (int e = 0; e < V; ++e) x[e] = 0.f;
+      for (int e = 0; e < V / 4; ++e)
+        d[e] = make_float4(x[4 * e], x[4 * e + 1], x[4 * e + 2], x[4 * e + 3]);
     }
-    float4* d = reinterpret_cast<float4*>(dst + r * ss + c);
-#pragma unroll
-    for (int e = 0; e < V / 4; ++e)
-      d[e] = make_float4(x[4 * e], x[4 * e + 1], x[4 * e + 2], x[4 * e + 3]);
   }
 }
 

@@ -30,7 +30,9 @@
 // keeps the scores in registers (one key a lane) and the output accumulator
 // in registers (16 columns a lane at D=512); causal blocks stop at their last
 // query. A head dim of 512 is why it is this way: a 64-row tile of q and its
-// accumulator would each take 128 KB. Measured times and the bound are in
+// accumulator would each take 128 KB. At D=1024 (expts/04) a block takes 16
+// query rows: 64 KB of q and a 128.5 KB padded K/V tile, 197,120 bytes of
+// shared memory. Measured times and the bound are in
 // PERF.md (chip_smoke.py prints them).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -151,6 +153,7 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o
     case 128: return launch<T, 128>(q, k, v, out, lse, qv, kv, vv, g, q_scale, stream);
     case 256: return launch<T, 256>(q, k, v, out, lse, qv, kv, vv, g, q_scale, stream);
     case 512: return launch<T, 512>(q, k, v, out, lse, qv, kv, vv, g, q_scale, stream);
+    case 1024: return launch<T, 1024>(q, k, v, out, lse, qv, kv, vv, g, q_scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -162,7 +165,7 @@ extern "C" {
 // q (B, Tq, H, D), k and v (B, Tk, H, D): last two axes contiguous, batch and
 // sequence strides in elements, rows 16-byte aligned. out (B, Tq, H, D)
 // contiguous in the storage type; lse (B, H, Tq) f32 or NULL. is_bf16 selects
-// bf16 (1) or f32 (0) storage; D is 64, 128, 256 or 512; q_scale is
+// bf16 (1) or f32 (0) storage; D is 64, 128, 256, 512 or 1024; q_scale is
 // 1/sqrt(D) rounded to the storage type. Returns a cudaError_t.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                         int B, int H, int Tq, int Tk, int D, int is_bf16, int causal,

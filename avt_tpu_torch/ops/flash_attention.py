@@ -29,7 +29,7 @@ a CUDA tensor it launches the hand-written Hopper kernels
 `csrc/short_attention_{fwd,bwd}.cu` (bf16 or f32 storage, head dim 32, 64
 or 128), `csrc/fused_qkv_attention_fwd.cu` (bf16 or f32, head dim 64, an
 even head count) and `csrc/flash_attention_{fwd,bwd}.cu` (bf16 or f32, head
-dim 64, 128, 256 or 512) or raises; on a CPU tensor it runs the plain
+dim 64, 128, 256, 512 or 1024) or raises; on a CPU tensor it runs the plain
 PyTorch versions (`packed_short_attention_reference`,
 `packed_short_attention_bwd_reference`, `fused_qkv_attention_reference`,
 `flash_attention_reference`, `flash_attention_bwd_reference`), which follow
@@ -53,7 +53,7 @@ BWD_KERNEL = "short_attention_bwd"
 HEAD_DIMS = (32, 64, 128)
 FLASH_KERNEL = "flash_attention_fwd"
 FLASH_BWD_KERNEL = "flash_attention_bwd"
-FLASH_HEAD_DIMS = (64, 128, 256, 512)
+FLASH_HEAD_DIMS = (64, 128, 256, 512, 1024)  # 512: expts/02; 1024: expts/04
 FLASH_BLOCK_K = 128  # the TPU kernel's key block, which the plain version repeats
 FUSED_KERNEL = "fused_qkv_attention_fwd"
 FUSED_HEAD_DIM = 64  # the fused kernel exists in head-pair form only
@@ -513,11 +513,8 @@ def _flash_view(name: str, what: str, x: torch.Tensor, shape, like: torch.Tensor
 
 
 def _check_flash(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """Validates q, k, v for a flash kernel; returns them in its layout."""
-    if q.device.type != "cuda":
-        raise RuntimeError(
-            f"{name} runs on CUDA tensors (or, through its plain version, on CPU "
-            f"tensors); got a tensor on {q.device}")
+    """Validates q, k, v for a flash kernel (q's rank, type and head dim, then
+    its device); returns them in its layout."""
     if q.dim() != 4:
         raise ValueError(f"{name}: q must be (B, T, H, D), got {tuple(q.shape)}")
     if q.dtype not in _DTYPES:
@@ -526,6 +523,10 @@ def _check_flash(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     if D not in FLASH_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {D} is not one the kernel is built for "
                          f"{FLASH_HEAD_DIMS}")
+    if q.device.type != "cuda":
+        raise RuntimeError(
+            f"{name} runs on CUDA tensors (or, through its plain version, on CPU "
+            f"tensors); got a tensor on {q.device}")
     kv_shape = (B, k.shape[1], H, D)
     return (_flash_view(name, "q", q, q.shape, q), _flash_view(name, "k", k, kv_shape, q),
             _flash_view(name, "v", v, kv_shape, q))

@@ -377,18 +377,26 @@ class Adafactor(Optimizer):
     its last two axes, the rest a full one; the update is clipped to RMS 1;
     the weight decay is decoupled and scaled by the same computed LR:
         delta = -(u * lr + wd * lr * p)
-    The factored axes are those of the port's (torch-layout) tensors, as
-    transformers factors the reference's weights: for a linear weight they
-    are the JAX kernel's two axes swapped, which gives the same update. The
-    update runs tensor by tensor on the device (the factored shapes differ),
-    without a sync."""
+    The factored axes are the last two of the JAX package's layout. A linear
+    weight is factored in the torch layout, the JAX kernel's two axes
+    swapped: the factored estimate is symmetric under a transpose, so the
+    update is the same (its row and col are JAX's col and row). A conv
+    weight (out, in, *k) is not a transpose of the flax kernel (*k, in,
+    out): its moments are taken on the permuted view in the flax layout,
+    which keeps its row (*k, in) and col (*k, out), and the update is
+    permuted back. No other parameter of the shipped models is re-laid-out
+    with 3 or more dimensions (the ViT's pos_embed and cls_token are the
+    same on both sides). The update runs tensor by tensor on the device (the
+    factored shapes differ), without a sync."""
 
     EPS1, EPS2, CLIP, DECAY = 1e-30, 1e-3, 1.0, -0.8
 
     def __init__(self, groups: List[ParamGroup], *, grad_clip_max_norm: Optional[float] = None,
-                 frozen: Sequence[str] = ()):
+                 frozen: Sequence[str] = (), conv_weights: Sequence[str] = ()):
         super().__init__(groups, grad_clip_max_norm, frozen)
-        named = [(name, p) for g in groups for name, p in zip(g.names, g.params)]
+        self.conv_weights = frozenset(conv_weights)
+        named = [(name, self._jax_layout(name, p))
+                 for g in groups for name, p in zip(g.names, g.params)]
         f32 = dict(dtype=torch.float32)
         self.state["row"] = {n: torch.zeros(p.shape[:-1], device=p.device, **f32)
                              for n, p in named if p.dim() >= 2}
@@ -396,6 +404,20 @@ class Adafactor(Optimizer):
                              for n, p in named if p.dim() >= 2}
         self.state["v"] = {n: torch.zeros(p.shape, device=p.device, **f32)
                            for n, p in named if p.dim() < 2}
+
+    def _jax_layout(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """A conv weight (out, in, *k) as the flax kernel (*k, in, out), a
+        view; any other tensor as it is."""
+        if name not in self.conv_weights:
+            return x
+        return x.permute(*range(2, x.dim()), 1, 0)
+
+    def _torch_layout(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """The inverse of `_jax_layout`."""
+        if name not in self.conv_weights:
+            return x
+        n = x.dim()
+        return x.permute(n - 1, n - 2, *range(n - 2))
 
     @staticmethod
     def _rms(x: torch.Tensor) -> torch.Tensor:
@@ -407,7 +429,7 @@ class Adafactor(Optimizer):
         beta2t = _f32(np.float32(1) - t ** np.float32(self.DECAY))
         wd = group.weight_decay
         for name, p, g in zip(group.names, group.params, grads):
-            g32, p32 = g.float(), p.float()
+            g32, p32 = (self._jax_layout(name, x.float()) for x in (g, p))
             lr = step * torch.clamp_min(self._rms(p32), self.EPS2)
             sq = g32.square() + self.EPS1
             if p.dim() >= 2:
@@ -422,7 +444,7 @@ class Adafactor(Optimizer):
                 u = torch.rsqrt(v) * g32
             u = u / torch.clamp_min(self._rms(u) / self.CLIP, 1.0)
             u = u * lr
-            p.add_((-(u + wd * lr * p32)).to(p.dtype))
+            p.add_(self._torch_layout(name, -(u + wd * lr * p32)).to(p.dtype))
 
 
 _NORMS = (nn.LayerNorm, nn.GroupNorm, nn.modules.batchnorm._NormBase)
@@ -526,7 +548,9 @@ def build_optimizer(
                    eps=optimizer_kwargs.get("eps", 1e-8), decoupled=optimizer_name == "adamw",
                    momentum_dtype=mdt, **common)
     elif optimizer_name == "adafactor":
-        opt = Adafactor(groups, **common)
+        conv = [n for n, m in owners.items()
+                if isinstance(m, nn.modules.conv._ConvNd) and n.rsplit(".", 1)[-1] == "weight"]
+        opt = Adafactor(groups, conv_weights=conv, **common)
     else:
         raise NotImplementedError(f"Unknown optimizer {optimizer_name!r}")
     return opt, schedules

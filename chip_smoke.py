@@ -42,14 +42,21 @@
    actions, f32, batch 64) at a long observed context of 256 features,
    which sends every AVT-h layer through the flash kernels: the flash
    forward and backward are first held against their plain versions
-   (bf16 and f32, causal and not, head dims 64, 256 and 512, T=200 and 256)
-   and timed beside the plain versions and SDPA; then `make_eval_step` and
+   (bf16 and f32, causal and not, head dims 64, 256, 512 and 1024, T=200
+   and 256) and timed beside the plain versions and SDPA, the backward
+   also side by side (the dq and dk/dv kernels, from a profile, each
+   beside its own bound), at (64, 256, 4x512) and (64, 128, 2x1024); then `make_eval_step` and
    5 timed `make_train_step` steps (nesterov SGD under warmup + cosine) run,
    with 6 forward launches per eval forward and 6 + 6 per train step; step 0
    (LR 0) leaves the parameters as they were; every AVT-h attention
    parameter gets a finite gradient; on 2 clips, gradients with the kernels
    and with the plain versions agree. At the shipped context of 10 features
    no flash kernel runs. Prints step ms, clips/s, peak memory and a profile.
+6b. feature_d1024: expts/04 at full width (2048-d features, AVT-h 2048 wide,
+   8 layers of 2 heads of 1024, f32, batch 64) at 128 observed features:
+   an eval step (8 flash forward launches), step 0 at LR 0 (parameters
+   unchanged), 2 timed train steps (8 + 8 launches each), finite attention
+   gradients; prints step ms, clips/s and peak memory.
 7. ek55_adam: expts/08 at full width (identity backbone, 1024-d features,
    AVT-h of 12 layers, 8 heads, 2048 wide, model dropout 0.8, no past
    classification, 2513 EK55 actions, f32, batch 32 of 10 features) with
@@ -112,6 +119,11 @@ FEAT_DIM, FEAT_BATCH, AVTH_DIM, AVTH_LAYERS, AVTH_HEADS = 1024, 64, 2048, 6, 4
 LONG_T, SHORT_T = 256, 10
 FEAT_TIMED_STEPS = 5
 FLASH_SHAPE = (FEAT_BATCH, LONG_T, AVTH_HEADS, AVTH_DIM // AVTH_HEADS)  # (B, T, H, D)
+# expts/04 (EK100 irCSN-152 features): 2048-d features, AVT-h 2048 wide, 8
+# layers of 2 heads of 1024, batch 64; 128 observed features reach the flash
+# kernels (the shortest such context)
+D1024_FEAT, D1024_LAYERS, D1024_HEADS, D1024_T, D1024_TIMED_STEPS = 2048, 8, 2, 128, 2
+FLASH_SHAPE_D1024 = (FEAT_BATCH, D1024_T, D1024_HEADS, AVTH_DIM // D1024_HEADS)
 NO_FLASH = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
 NO_OTHER = {**NO_FLASH, "fused_qkv_attention_fwd": 0}  # kernels off the ViT's default path
 # expts/08 (EK55, RULSTM TSN-RGB features): AVT-h of 12 layers, 8 heads, 2048
@@ -414,6 +426,40 @@ def flash_bound_ms(B, T, H, D, dtype, causal, backward):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def flash_side_bound_ms(B, T, H, D, dtype, causal, side):
+    """One side of the backward: dq reads q, k, v, dout, lse, delta and
+    writes dq, 3 products (s, dp, dq); dk/dv reads the same and writes dk
+    and dv, 4 products (s, dp, dk, dv)."""
+    s = torch.finfo(dtype).bits // 8
+    rows, pairs = B * T * H * D, B * H * causal_pairs(T, causal) * D
+    outs, products = (1, 3) if side == "dq" else (2, 4)
+    nbytes, flops = (4 + outs) * rows * s + 2 * B * H * T * 4, 2 * products * pairs
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def flash_side_ms(fn, iters=10):
+    """Device ms per call of each kernel of the flash backward (the dq side
+    `flash_bwd_dq`, the dk/dv side `flash_bwd_dkv`), from a torch.profiler
+    pass over `iters` calls after one outside it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {"dq": 0.0, "dkv": 0.0}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for side in out:
+                if f"flash_bwd_{side}<" in e.key:
+                    out[side] += e.self_device_time_total / 1e3 / iters
+    check(all(ms > 0 for ms in out.values()), f"the profile named no flash backward side: {out}")
+    return out
+
+
 def sdpa_backend(q, k, v, causal):
     """The backend torch picks for F.scaled_dot_product_attention here."""
     from torch.nn.attention import SDPBackend
@@ -441,6 +487,9 @@ def time_flash(B, T, H, D, dtype, causal):
     fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa(), x, do.transpose(1, 2)))
     fwd_bound, fwd_by = flash_bound_ms(B, T, H, D, dtype, causal, backward=False)
     bwd_bound, bwd_by = flash_bound_ms(B, T, H, D, dtype, causal, backward=True)
+    sides = flash_side_ms(lambda: fa._launch_flash_bwd(q, k, v, do, lse, delta, causal))
+    side_bounds = {side: flash_side_bound_ms(B, T, H, D, dtype, causal, side)[0]
+                   for side in sides}
     res = {
         "fwd": dict(kernel_ms=cuda_ms(lambda: fa._launch_flash(q, k, v, causal, True)),
                     plain_ms=cuda_ms(lambda: fa.flash_attention_reference(q, k, v, causal),
@@ -451,7 +500,9 @@ def time_flash(B, T, H, D, dtype, causal):
                     plain_ms=cuda_ms(lambda: fa.flash_attention_bwd_reference(
                         q, k, v, do, out, lse, causal), iters=2, reps=3),
                     library_ms=fwd_bwd_ms - fwd_ms, library_fwd_bwd_ms=fwd_bwd_ms,
-                    bound_ms=bwd_bound, bound_by=bwd_by),
+                    bound_ms=bwd_bound, bound_by=bwd_by,
+                    dq_ms=sides["dq"], dq_bound_ms=side_bounds["dq"],
+                    dkv_ms=sides["dkv"], dkv_bound_ms=side_bounds["dkv"]),
         "sdpa_backend": sdpa_backend(*x, causal),
     }
     log(f"flash_attention timing B={B} T={T} H={H} D={D} {str(dtype)[6:]} causal={causal}, "
@@ -600,8 +651,15 @@ def main():
         check_flash(FEAT_BATCH, LONG_T, 8, D, dtype, True, seed=8)
     check_flash(FEAT_BATCH, 200, AVTH_HEADS, 512, torch.float32, True, seed=9)
     check_flash(FEAT_BATCH, 200, 8, 64, torch.bfloat16, True, seed=10)
+    # head dim 1024 (expts/04's AVT-h), and at feature_d1024's own shape
+    for dtype, causal in ((torch.float32, True), (torch.float32, False), (torch.bfloat16, True)):
+        check_flash(8, 256, 2, 1024, dtype, causal, seed=17)
+    check_flash(8, 200, 2, 1024, torch.float32, True, seed=18)
+    d1024_err = check_flash(*FLASH_SHAPE_D1024, torch.float32, True, seed=19)
+    check_flash(*FLASH_SHAPE_D1024, torch.bfloat16, True, seed=19)
     flash_timing = time_flash(*FLASH_SHAPE, torch.float32, True)
     flash_timing_bf16 = time_flash(*FLASH_SHAPE, torch.bfloat16, True)
+    flash_timing_d1024 = time_flash(*FLASH_SHAPE_D1024, torch.float32, True)
 
     # 3. serving: the full-width flagship through its entry points ----------
     serve_launches = serve_phase()
@@ -618,11 +676,15 @@ def main():
     # 6. the feature path of expts/02 at 256 observed features ---------------
     feat_launches = feature_phase()
 
+    # 6b. expts/04's AVT-h (head dim 1024) at 128 observed features -------
+    d1024_launches = feature_d1024_phase()
+
     # 7. expts/08 with Adam at full width -----------------------------------
     ek55_launches = ek55_adam_phase()
 
     paths = {"serve": serve_launches, "train": train_launches, "train_d32": d32_launches,
-             **feat_launches, "train_fused": fused_launches, "ek55_adam": ek55_launches}
+             **feat_launches, "feature_d1024": d1024_launches, "train_fused": fused_launches,
+             "ek55_adam": ek55_launches}
     for path, counts in paths.items():
         if path != "train_fused":
             check(counts["fused_qkv_attention_fwd"] == 0, f"a fused launch on {path}: {counts}")
@@ -650,15 +712,19 @@ def main():
              no_db_shape={k: {"shape": [160, 197, 768 // int(k[1:]), int(k[1:])], **v}
                           for k, v in no_db.items()}),
     ]
-    for name, side, err in (("flash_attention_fwd", "fwd", flash_err[0]),
-                            ("flash_attention_bwd", "bwd", flash_err[1])):
+    for name, side, err, err_d1024 in (
+            ("flash_attention_fwd", "fwd", flash_err[0], d1024_err[0]),
+            ("flash_attention_bwd", "bwd", flash_err[1], d1024_err[1])):
         spec, timing = _build.KERNELS[name], flash_timing[side]
         kernels.append(dict(
             name=name, route=spec["route"], source=spec["source"], replaces=spec["replaces"],
             launches=feat_launches["feature_train"][name], launches_by_path=by_path(name),
             shape=list(FLASH_SHAPE), dtype="float32", causal=True, max_abs_err=err,
             ms=timing["kernel_ms"], **timing, library=f"SDPA ({flash_timing['sdpa_backend']})",
-            bf16={"sdpa_backend": flash_timing_bf16["sdpa_backend"], **flash_timing_bf16[side]}))
+            bf16={"sdpa_backend": flash_timing_bf16["sdpa_backend"], **flash_timing_bf16[side]},
+            d1024={"shape": list(FLASH_SHAPE_D1024), "dtype": "float32", "causal": True,
+                   "max_abs_err": err_d1024, "sdpa_backend": flash_timing_d1024["sdpa_backend"],
+                   **flash_timing_d1024[side]}))
     spec = _build.KERNELS["fused_qkv_attention_fwd"]
     kernels.append(dict(
         name="fused_qkv_attention_fwd", route=spec["route"], source=spec["source"],
@@ -1090,26 +1156,27 @@ def plain_flash(q, k, v, causal=False):
     return fa.flash_attention_reference(q, k, v, causal)[0]
 
 
-def feature_batch(B, T, seed):
-    """expts/02's subclip layout: (B, T, 1024, 1, 1, 1) f32 features, one
+def feature_batch(B, T, seed, dim=FEAT_DIM):
+    """expts/02's subclip layout: (B, T, dim, 1, 1, 1) f32 features, one
     1-frame subclip per observed second, with their targets."""
     rng = np.random.default_rng(seed)
-    video = torch.from_numpy(rng.standard_normal((B, T, FEAT_DIM, 1, 1, 1), np.float32))
+    video = torch.from_numpy(rng.standard_normal((B, T, dim, 1, 1, 1), np.float32))
     return {"video": video.cuda(),
             "target": {"action": torch.from_numpy(rng.integers(0, NUM_ACTIONS, size=B)).cuda()},
             "target_subclips": {"action": torch.from_numpy(
                 rng.integers(-1, NUM_ACTIONS, size=(B, T, 1))).cuda()}}
 
 
-def feature_flops_per_clip(T, layers=AVTH_LAYERS, actions=NUM_ACTIONS, past_classifier=True):
+def feature_flops_per_clip(T, layers=AVTH_LAYERS, actions=NUM_ACTIONS, past_classifier=True,
+                           feat_dim=FEAT_DIM):
     """Forward FLOPs of one clip on the feature path: AVT-h's linears on
     every token (qkv, proj, the 4x MLP), its causal attention, the encoder
     and decoder, the past classifier on every token (when the model has
     one), the classifier once."""
     C = AVTH_DIM
-    linears = layers * 12 * C * C + 2 * FEAT_DIM * C + past_classifier * FEAT_DIM * actions
+    linears = layers * 12 * C * C + 2 * feat_dim * C + past_classifier * feat_dim * actions
     attention = layers * 4 * C * causal_pairs(T, True)
-    return 2 * T * linears + attention + 2 * FEAT_DIM * actions
+    return 2 * T * linears + attention + 2 * feat_dim * actions
 
 
 def avth_attention_param(name):
@@ -1245,6 +1312,84 @@ def feature_phase():
         log(f"grad {name}, kernels vs plain, 2 clips: max |diff| {diff:.3g} of scale "
             f"{scale:.3g} (limit {GRAD_TOL} of the scale)")
         check(scale > 0 and diff <= GRAD_TOL * scale, f"grad {name} differs by {diff}")
+    return counts
+
+
+def feature_d1024_phase():
+    """expts/04 at full width (identity backbone, 2048-d features, AVT-h 2048
+    wide, 8 layers of 2 heads of 1024, dropout 0.2, past classifier, 3806
+    actions, f32, batch 64) at 128 observed features, where every AVT-h
+    layer goes through the flash kernels at head dim 1024: one eval step (8
+    forward launches), step 0 at LR 0 (parameters unchanged), then 2 timed
+    train steps (nesterov SGD lr 1e-3 wd 1e-6, warmup 5 + cosine over 50
+    epochs), each 8 forward + 8 backward launches. Returns the launch
+    counts of the phase."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = build_avt(num_actions=NUM_ACTIONS, backbone="identity", backbone_dim=D1024_FEAT,
+                      inter_dim=AVTH_DIM, n_layer=D1024_LAYERS, n_head=D1024_HEADS, dropout=0.2,
+                      classifier_on_past=True, generator=gen)
+    num_classes = {"action": NUM_ACTIONS}
+    batch = feature_batch(FEAT_BATCH, D1024_T, 4, dim=D1024_FEAT)
+    opt, _ = build_optimizer(
+        model, lr_wd=[["__all__", 1e-3, 1e-6]], optimizer_name="sgd", scheduler_name="cosine",
+        iters_per_epoch=1000, num_epochs=50, warmup_epochs=5, bias_bn_wd_scale=1.0,
+        optimizer_kwargs={"nesterov": True})
+    eval_step, step = make_eval_step(model, num_classes), make_train_step(model, opt, LOSS_WTS,
+                                                                          num_classes)
+    params = dict(model.named_parameters())
+    branch = [n for n in params if avth_attention_param(n)]
+    check(len(branch) == 6 * D1024_LAYERS, f"AVT-h attention params {len(branch)}")
+    before = {n: p.detach().clone() for n, p in params.items()}
+    step_gen = torch.Generator(device="cuda").manual_seed(1)
+    fwd_only = {**{n: 0 for n in _build.KERNELS}, "flash_attention_fwd": D1024_LAYERS}
+    eval_step(batch)  # first-call costs, outside the counted run
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.time()
+    res = eval_step(batch)
+    torch.cuda.synchronize()
+    eval_ms = (time.time() - t0) * 1e3
+    eval_counts = dict(_build.launch_counts)
+    logits = res["logits/action"]
+    check(logits.shape == (FEAT_BATCH, NUM_ACTIONS)
+          and all(bool(torch.isfinite(x).all()) for x in res.values()),
+          f"d1024 eval: logits {tuple(logits.shape)} or a non-finite result")
+    check(eval_counts == fwd_only, f"d1024 eval launches {eval_counts}, want {fwd_only}")
+    metrics = step(batch, step_gen)  # step 0, LR 0
+    torch.cuda.synchronize()
+    counts = dict(_build.launch_counts)
+    want = {**fwd_only, "flash_attention_fwd": 2 * D1024_LAYERS,
+            "flash_attention_bwd": D1024_LAYERS}
+    check(counts == want, f"d1024 train step 0 launches {counts}, want {want}")
+    check(np.isfinite(metrics["loss"].item()), f"d1024 step 0 loss {metrics['loss'].item()}")
+    bad = [n for n in branch if params[n].grad is None or not torch.isfinite(params[n].grad).all()]
+    check(not bad, f"d1024 step 0: missing or non-finite gradient for {bad[:4]}")
+    changed = [n for n, p in params.items() if not torch.equal(p, before[n])]
+    check(not changed, f"d1024 step 0 at LR 0 changed {changed[:4]}")
+    loss0 = metrics["loss"].item()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(D1024_TIMED_STEPS):
+        metrics = step(batch, step_gen)
+    torch.cuda.synchronize()
+    step_s = (time.time() - t0) / D1024_TIMED_STEPS
+    counts = dict(_build.launch_counts)
+    steps = 1 + D1024_TIMED_STEPS
+    want = {**fwd_only, "flash_attention_fwd": (1 + steps) * D1024_LAYERS,
+            "flash_attention_bwd": steps * D1024_LAYERS}
+    check(counts == want, f"d1024 launches {counts} after {steps} steps, want {want}")
+    check(np.isfinite(metrics["loss"].item()), "non-finite loss in the timed d1024 steps")
+    bad = [n for n in branch if not torch.isfinite(params[n].grad).all()]
+    check(not bad, f"d1024 timed steps: non-finite gradient for {bad[:4]}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    flops = 3 * FEAT_BATCH * feature_flops_per_clip(D1024_T, D1024_LAYERS, feat_dim=D1024_FEAT)
+    log(f"feature_d1024 (expts/04, 2 heads of 1024), {FEAT_BATCH} clips x {D1024_T} features: "
+        f"eval {eval_ms:.2f} ms; step 0 loss {loss0:.4f}, parameters unchanged at LR 0; train "
+        f"{step_s * 1e3:.2f} ms a step (mean of {D1024_TIMED_STEPS} after 1), "
+        f"{FEAT_BATCH / step_s:.2f} clips/s, {flops / step_s / 1e12:.2f} TFLOP/s "
+        f"({flops / 1e12:.2f} TFLOP a step); loss {metrics['loss'].item():.4f}; peak memory "
+        f"{peak_gb:.2f} GB; launches {counts}")
     return counts
 
 

@@ -125,6 +125,12 @@ def _heads(B, T, H, D, dtype, device, seed):
     ("float32", 128, 2, 130, True), ("bfloat16", 128, 2, 300, False),
     ("float32", 64, 8, 200, True), ("bfloat16", 64, 8, 256, True),
     ("float32", 512, 1, 5, False),  # shorter than a tile
+    # AVT-h of expts/04 (2 heads of 1024)
+    ("float32", 1024, 2, 256, True), ("bfloat16", 1024, 2, 130, False),
+    ("float32", 1024, 1, 5, False),
+    # many key tiles of the dk/dv side's 32 (D=512) and 64 (D=256) keys
+    ("float32", 512, 2, 300, True), ("bfloat16", 512, 2, 300, False),
+    ("bfloat16", 256, 4, 333, False),
 ])
 def test_cuda_flash_matches_plain_version(cuda_device, dtype, D, H, T, causal):
     q, k, v, do = (_heads(3, T, H, D, dtype, cuda_device, seed) for seed in range(4))
@@ -146,11 +152,9 @@ def test_cuda_flash_matches_plain_version(cuda_device, dtype, D, H, T, causal):
     assert torch.equal(tfa._launch_flash(q, k, v, causal, want_lse=False)[0], out)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("causal", [False, True])
-def test_cuda_flash_with_more_keys_than_queries(cuda_device, causal):
-    q, do = (_heads(2, 150, 2, 128, "float32", cuda_device, seed) for seed in (11, 12))
-    k, v = (_heads(2, 260, 2, 128, "float32", cuda_device, seed) for seed in (13, 14))
+def _more_keys_than_queries(device, D, causal):
+    q, do = (_heads(2, 150, 2, D, "float32", device, seed) for seed in (11, 12))
+    k, v = (_heads(2, 260, 2, D, "float32", device, seed) for seed in (13, 14))
     out, lse = tfa._launch_flash(q, k, v, causal, want_lse=True)
     grads = tfa._launch_flash_bwd(q, k, v, do, lse, tfa._delta(do, out), causal)
     ref, ref_lse = tfa.flash_attention_reference(q, k, v, causal)
@@ -160,6 +164,18 @@ def test_cuda_flash_with_more_keys_than_queries(cuda_device, causal):
     assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
     for got, want in zip(grads, refs):
         assert _rel_err(got, want) <= TOL["float32"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_cuda_flash_with_more_keys_than_queries(cuda_device, causal):
+    _more_keys_than_queries(cuda_device, 128, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_cuda_flash_with_more_keys_than_queries_at_head_dim_1024(cuda_device, causal):
+    _more_keys_than_queries(cuda_device, 1024, causal)
 
 
 @pytest.mark.cuda

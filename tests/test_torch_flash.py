@@ -4,7 +4,8 @@ CPU: the plain forward (out and lse) the CPU wrapper runs against
 `_flash_kernel`, the plain backward through autograd against `jax.vjp` of
 `flash_attention_vjp` (`_dq_kernel` + `_dkv_kernel`), and the dispatch of
 `dot_product_attention`. T=130 and 200 pad the last 128-key block and span
-two; D=512 is AVT-h's head of expts/02. The CUDA kernels themselves are held
+two; D=512 is AVT-h's head of expts/02, D=1024 that of expts/04 (AVT-h 2048
+wide, 2 heads). The CUDA kernels themselves are held
 against these plain versions on the card in test_torch_cuda.py and
 chip_smoke.py."""
 from unittest import mock
@@ -79,6 +80,44 @@ def test_flash_backward_matches_tpu_kernels(T, H, D, causal, dtype):
         scale = max(np.abs(_np(want)).max(), 1e-6)
         err = np.abs(_np(got) - _np(want)).max() / scale
         assert err <= TOL[dtype], f"d{name}: {err:.3g} of max |ref| (limit {TOL[dtype]})"
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_at_head_dim_1024_matches_tpu_kernels(causal):
+    """expts/04's head dim: the plain forward (out, lse) against
+    `_flash_attention_fwd` and its autograd backward against
+    `_flash_attention_bwd` (`_dq_kernel`, `_dkv_kernel`), interpret mode."""
+    T, H, D = 40, 2, 1024
+    q, k, v, do = _heads(T, H, D, seed=7 + causal, B=1)
+    jx = [jnp.asarray(x) for x in (q, k, v)]
+    ref, ref_lse = jfa._flash_attention_fwd(*jx, causal=causal, block_q=128, block_k=128,
+                                            interpret=True, want_lse=True)
+    _, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention_vjp(a, b, c, causal), *jx)
+    jgrads = vjp(jnp.asarray(do))
+    tx = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out, lse = tfa.flash_attention_reference(*tx, causal)
+    np.testing.assert_allclose(_np(out), _np(ref), atol=TOL["float32"], rtol=TOL["float32"])
+    np.testing.assert_allclose(_np(lse), _np(ref_lse)[..., :T], atol=TOL["float32"],
+                               rtol=TOL["float32"])
+    grads = torch.autograd.grad(tfa.flash_attention(*tx, causal), tx, torch.from_numpy(do))
+    for name, got, want in zip("qkv", grads, jgrads):
+        scale = max(np.abs(_np(want)).max(), 1e-6)
+        err = np.abs(_np(got) - _np(want)).max() / scale
+        assert err <= TOL["float32"], f"d{name}: {err:.3g} of max |ref|"
+
+
+def test_flash_geometry_takes_head_dim_1024():
+    """A (B, 128, 2, 1024) call, expts/04's AVT-h at 128 observed features,
+    passes the kernels' rank, type and head-dim checks and stops only at the
+    device check (meta tensors here); a head dim without a kernel stops
+    before it."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.empty(64, 128, 2, 1024, dtype=dtype, device="meta")
+        with pytest.raises(RuntimeError, match="runs on CUDA tensors"):
+            tfa._check_flash(tfa.FLASH_KERNEL, x, x, x)
+    x = torch.empty(2, 128, 2, 96, device="meta")
+    with pytest.raises(ValueError, match="head dim 96"):
+        tfa._check_flash(tfa.FLASH_BWD_KERNEL, x, x, x)
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -5,7 +5,9 @@ model (identity backbone, AVT-h of 2 layers, a linear classifier): after two
 steps on the JAX side, the state goes to the port through
 `opt_state_from_jax`, then both sides take three steps on the same fixed
 gradients. Compared: each parameter's update and the optimizer's state.
-Also one expts/08 train step (`make_train_step` with Adam, past
+Adafactor also on a small ViT backbone (depth 2, 2 heads of 32, 32x32
+frames), whose patch embedding is a conv weight laid out differently on the
+two sides. Also one expts/08 train step (`make_train_step` with Adam, past
 classification off, the feature loss at weight 2) against avt_tpu's."""
 import numpy as np
 import optax
@@ -22,17 +24,23 @@ from avt_tpu.models import (
     IdentityAgg as JIdentityAgg,
     IdentityBackbone as JIdentityBackbone,
     LinearClassifier as JLinearClassifier,
+    ViT as JViT,
 )
 from avt_tpu.train import TrainState, build_optimizer as jbuild_optimizer
 from avt_tpu.train import make_train_step as jmake_train_step
 from avt_tpu.train import optim as joptim
 from avt_tpu_torch.losses import mse
-from avt_tpu_torch.models import AVTh, AVTModel, IdentityAgg, IdentityBackbone, LinearClassifier
+from avt_tpu_torch.models import (
+    AVTh, AVTModel, IdentityAgg, IdentityBackbone, LinearClassifier, ViT,
+)
 from avt_tpu_torch.models.convert import load_jax_params, opt_state_from_jax, params_from_jax
 from avt_tpu_torch.train import ReduceLROnPlateau, build_optimizer, make_train_step
 
 FEAT, N_CLS, B, T = 64, 12, 2, 10
 AVTH = dict(inter_dim=64, n_layer=2, n_head=2)
+VIT = dict(img_size=32, patch_size=16, embed_dim=FEAT, depth=2, num_heads=2)
+CLIPS = 2  # ViT-backbone batches: 2 one-frame clips of 32x32
+PATCH = "backbone.model.patch_embed.proj.weight"
 # expts/08's loss weights: the action classifier and the feature loss at 2
 LOSS_WTS = {"cls_action": 1.0, "past_cls_action": 0.0, "feat": 2.0}
 # f32 on both sides, the same operations in the same order up to the
@@ -48,9 +56,9 @@ TOL = {None: 1e-4, "bfloat16": 2 ** -7}
 STEP_UPDATE_TOL = 2e-3
 
 
-def _jmodel(dropout=0.0):
+def _jmodel(dropout=0.0, vit=False):
     return JAVTModel(
-        backbone=JIdentityBackbone(),
+        backbone=JViT(**VIT) if vit else JIdentityBackbone(),
         temporal_aggregator=JIdentityAgg(in_features=FEAT),
         future_predictor=JAVTh(in_features=FEAT, output_len=1, avg_last_n=1,
                                return_past_too=True, embd_pdrop=0.0, attn_pdrop=0.0,
@@ -63,9 +71,9 @@ def _jmodel(dropout=0.0):
         classifier_on_past=False)
 
 
-def _tmodel():
+def _tmodel(vit=False):
     return AVTModel(
-        backbone=IdentityBackbone(),
+        backbone=ViT(**VIT) if vit else IdentityBackbone(),
         temporal_aggregator=IdentityAgg(in_features=FEAT),
         future_predictor=AVTh(in_features=FEAT, output_len=1, avg_last_n=1,
                               return_past_too=True, embd_pdrop=0.0, attn_pdrop=0.0,
@@ -95,8 +103,13 @@ def _tbatch(b):
             "target_subclips": {"action": torch.from_numpy(b["tsub"])}}
 
 
-def _params():
-    return jax.jit(_jmodel().init)(jax.random.PRNGKey(0), jnp.asarray(_batch(0)["video"]), (B,))
+def _params(vit=False):
+    if vit:
+        video = np.random.default_rng(0).standard_normal((B, CLIPS, 3, 1, 32, 32))
+    else:
+        video = _batch(0)["video"]
+    return jax.jit(_jmodel(vit=vit).init)(jax.random.PRNGKey(0),
+                                          jnp.asarray(video.astype(np.float32)), (B,))
 
 
 def _grads(params, seed):
@@ -124,10 +137,10 @@ def _opt_kw(name, momentum_dtype, scheduler="cosine", **sched_kw):
     return kw
 
 
-def _run(kw, plateau_metrics=None):
+def _run(kw, plateau_metrics=None, vit=False):
     """Two JAX steps, the state carried to the port, then three steps on
     both sides; returns the port optimizer, the JAX state and the updates."""
-    params = _params()
+    params = _params(vit)
     tx, _ = jbuild_optimizer(params, **kw)
     state = tx.init(params)
     jplat = tplat = None
@@ -140,7 +153,7 @@ def _run(kw, plateau_metrics=None):
         if jplat is not None:
             state = jplat.step(state, plateau_metrics[k])
             tplat.load_state_dict(jplat.state_dict())
-    model = load_jax_params(_tmodel(), params)
+    model = load_jax_params(_tmodel(vit), params)
     opt, _ = build_optimizer(model, **kw)
     opt.load_state_dict(opt_state_from_jax(state))
     assert opt.count == 2
@@ -181,6 +194,44 @@ def test_optimizer_matches_optax(name, momentum_dtype):
             _scaled_close(buf, ref[kind][n], tol, f"{kind} {n}")
     if momentum_dtype is not None:
         assert all(b.dtype == torch.bfloat16 for b in opt.state["mu"].values())
+
+
+def test_adafactor_on_a_vit_backbone_matches_optax():
+    """The patch embedding's conv weight is (out, in, kh, kw) in the port and
+    (kh, kw, in, out) in flax, no transpose of it: the port factors its
+    second moment over the flax kernel's last two axes, as JAX does, so the
+    updates and the row and col moments agree."""
+    opt, state, updates = _run(_opt_kw("adafactor", None), vit=True)
+    assert PATCH in updates
+    for n, (got, want) in updates.items():
+        assert want.abs().max() > 0, n
+        _scaled_close(got, want, TOL[None], f"update {n}")
+    assert tuple(opt.state["row"][PATCH].shape) == (16, 16, 3)
+    assert tuple(opt.state["col"][PATCH].shape) == (16, 16, FEAT)
+    ref = opt_state_from_jax(state)
+    for kind in ("row", "col", "v"):
+        assert set(opt.state[kind]) == set(ref[kind]) and ref[kind]
+        for n, buf in opt.state[kind].items():
+            _scaled_close(buf, ref[kind][n], TOL[None], f"{kind} {n}")
+
+
+def test_factored_state_of_a_conv_kernel_converts():
+    """`opt_state_from_jax` carries a conv kernel's row and col as JAX keeps
+    them and swaps a linear kernel's. After one step from a zero state the
+    moments are the gradient's mean squares (beta2 at t = 1 is 0)."""
+    params = _params(vit=True)
+    tx, _ = jbuild_optimizer(params, **_opt_kw("adafactor", None))
+    grads = _grads(params, 0)
+    _, state = tx.update(grads, tx.init(params), params)
+    got = opt_state_from_jax(state)
+    bb = grads["params"]["backbone"]
+    conv = np.square(np.asarray(bb["patch_embed"]["kernel"])) + 1e-30  # (kh, kw, in, out)
+    qkv = np.square(np.asarray(bb["blocks_0"]["attn"]["qkv"]["kernel"])) + 1e-30  # (in, out)
+    for kind, want in (("row", conv.mean(-1)), ("col", conv.mean(-2))):
+        np.testing.assert_allclose(got[kind][PATCH].numpy(), want, rtol=1e-5, err_msg=kind)
+    name = "backbone.model.blocks.0.attn.qkv.weight"  # torch (out, in): row over in
+    for kind, want in (("row", qkv.mean(0)), ("col", qkv.mean(1))):
+        np.testing.assert_allclose(got[kind][name].numpy(), want, rtol=1e-5, err_msg=kind)
 
 
 @pytest.mark.parametrize("name", ["adam", "adamw", "adafactor"])
