@@ -14,15 +14,26 @@
 // TF32). Values are rounded to the storage type exactly where the TPU kernel
 // casts them (round_to below).
 //
-// Work split. A block is 8 warps. In the forward and the dq side a warp owns
-// a few query rows of the block's tile; for a score tile each lane takes one
-// key row, so a score s[r] is one lane's dot product over D, read from
-// shared memory as float4 (the per-lane rows are padded by 4 floats, which
-// makes those reads conflict-free; the warp's own rows are read as
-// broadcasts). For the products with the score tile each lane owns the
-// columns lane + 32*c of the warp's rows, and the scores reach it by warp
-// shuffles. The dk/dv side tiles in registers instead (flash_attention_bwd.cu
-// has its design). No T x T matrix reaches device memory.
+// Work split. A block is 8 warps. It keeps BM rows of one operand (the
+// query rows of the forward and the dq side, the key rows of the dk/dv side)
+// in shared memory and steps over BN-row tiles of the others (Tiling below).
+// Every product is tiled in registers, so that each shared-memory load feeds
+// several FMAs: an SM issues 4 warp-FMAs a clock and reads one 128-byte
+// wavefront a clock, so a loop that loads more than one wavefront per 4
+// warp-FMAs is paced by shared memory.
+//   Scores (score_partials): the BN x BM tile of a . b over D. The warps
+//   split D into NSL slices and the tile into PARTS parts (NSL * PARTS = 8);
+//   a lane sums a TA x TB block over its slice from float4 loads, its kept
+//   rows 8 apart and its step rows 4 apart, so that a warp's loads touch 8
+//   and 4 rows (one wavefront each; rows padded by 4 floats): per 4 values
+//   of d, TA + TB wavefronts for 4 * TA * TB FMAs a lane. The partials go
+//   through shared memory and are added in a fixed order, slice 0 first
+//   (partial_sum): no atomics, the same bits run to run.
+//   Accumulators (fma_step): a thread owns RT = 8 kept rows x CT columns (64
+//   floats at D >= 256), the columns in VEC-float groups tc*VEC + CG*VEC*j
+//   so that a warp's row loads are contiguous; per step row each loaded
+//   value feeds RT FMAs and each tile value, a broadcast, feeds CT.
+// No T x T matrix reaches device memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -34,17 +45,51 @@ namespace flash {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kTile = 32;          // keys per step in the forward and the dq side
 constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF for masked scores
 constexpr unsigned kFull = 0xffffffffu;
+constexpr size_t kMaxSmem = 232448;  // the most shared memory a block can have
 
-// Query rows per warp in the forward and the dq side: 64 accumulators a
-// thread (RPW * D / 32), at most 8 rows. Head dims 64 to 1024.
-__host__ __device__ constexpr int query_rows_per_warp(int D) {
-  return 2048 / D < 8 ? 2048 / D : 8;
-}
-// Floats per row of a per-lane operand in shared memory.
-__host__ __device__ constexpr int padded(int D) { return D + 4; }
+// The tiles of every flash kernel (the note at the top). BM * D = 16384 (at
+// most 64 rows) is what a block keeps; BN * D = 8192 (at most 32) a step:
+// 32 and 16 rows at D=512, 16 and 8 at D=1024.
+template <int D>
+struct Tiling {
+  static constexpr int BM = 16384 / D < 64 ? 16384 / D : 64;  // rows a block keeps
+  static constexpr int BN = 8192 / D < 32 ? 8192 / D : 32;    // rows a step
+  static constexpr int KS = D + 4;  // floats an operand row, padded (the note at the top)
+  // scores: a lane's TA x TB block, a warp's WA x WB part over D / NSL
+  static constexpr int TA = D == 1024 ? 2 : 4, TB = TA;
+  static constexpr int WA = 8 * TA, WB = 4 * TB;
+  static constexpr int PB = BN / WB, PARTS = (BM / WA) * PB;
+  static constexpr int NSL = kWarps / PARTS, DS = D / NSL;
+  static constexpr int PS = BM + 8;  // floats a row of a BN x BM score tile
+  static constexpr int EPT = (BM * BN + kThreads - 1) / kThreads;  // scores a thread sums
+  // accumulators: a thread's RT kept rows x CT columns, in NV groups of VEC
+  static constexpr int RT = 8, RG = BM / RT, CG = kThreads / RG, CT = D / CG;
+  static constexpr int VEC = CT < 4 ? CT : 4, NV = CT / VEC;
+
+  static_assert(BM % WA == 0 && BN % WB == 0 && kWarps % PARTS == 0 && NSL >= 2, "score split");
+  static_assert(DS % 4 == 0 && BM % RT == 0 && CG * CT == D && CT % VEC == 0, "tiles");
+};
+
+// Where a lane's score block and accumulators lie (the note at the top).
+template <class L>
+struct Place {
+  int ar, br, d0, slice;  // scores: first kept and step row, slice of D
+  int tr, tc;             // accumulators: kept rows tr*RT + r, columns col(c)
+  __device__ explicit Place(int tid) {
+    const int warp = tid / 32, lane = tid % 32, part = warp % L::PARTS;
+    slice = warp / L::PARTS;
+    ar = (part / L::PB) * L::WA + lane % 8;
+    br = (part % L::PB) * L::WB + lane / 8;
+    d0 = slice * L::DS;
+    tr = tid / L::CG;
+    tc = tid % L::CG;
+  }
+  __device__ int col(int c) const {
+    return (c / L::VEC) * L::CG * L::VEC + tc * L::VEC + c % L::VEC;
+  }
+};
 
 struct View {  // a (B, T, H, D) operand: batch and sequence strides, in elements
   long long sb, st;
@@ -97,8 +142,8 @@ __device__ __forceinline__ void to_floats(const uint4& raw, float* x, __nv_bfloa
 // a load followed by its store waits out each trip alone (the dk/dv side,
 // one block an SM, lost 13-17% to that). Two groups are unrolled, so the
 // compiler can overlap them; more stay a loop: unrolled, the compiler hoists
-// every group's loads and spills beside the accumulators (the forward and
-// the dq side at D=512 and 1024 in f32).
+// every group's loads and spills beside the accumulators (the first forward
+// and dq side, at D=512 and 1024 in f32).
 template <typename T, int D, int kRows>
 __device__ __forceinline__ void load_rows(float* dst, int ss, const T* __restrict__ src,
                                           long long stride, int row0, int valid, float scale) {
@@ -133,36 +178,143 @@ __device__ __forceinline__ void load_rows(float* dst, int ss, const T* __restric
   }
 }
 
-// s[r] = a[r] . b over D for the warp's R rows a (broadcast reads, rows
-// `as` floats apart) and this lane's row b.
-template <int D, int R>
-__device__ __forceinline__ void dot_rows(float (&s)[R], const float* a, int as, const float* b) {
+// One 16-byte cp.async copy from device to shared memory; bytes = 0 writes
+// zeros. commit_copies closes a group of them, wait_copies waits for all.
+__device__ __forceinline__ void copy16(float* dst, const float* src, int bytes) {
+  const unsigned to = unsigned(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(to), "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void commit_copies() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Rows [row0, row0 + kRows) of a K or V slice into shared memory, as
+// load_rows puts them (scale 0). f32 rows are copied by cp.async straight
+// into the padded rows (rows past `valid` zero-filled), so that the copy runs
+// on while the block computes; the caller waits (wait_copies) before the
+// barrier that hands the rows on. bf16 rows are converted through registers
+// (load_rows), so their loads are not overlapped.
+template <typename T, int D, int kRows>
+__device__ __forceinline__ void fetch_rows(float* dst, int ss, const T* __restrict__ src,
+                                           long long stride, int row0, int valid) {
+  if constexpr (sizeof(T) != sizeof(float)) {
+    load_rows<T, D, kRows>(dst, ss, src, stride, row0, valid, 0.f);
+  } else {
+    constexpr int VPR = D / 4, N = kRows * VPR / kThreads;
+    static_assert(kRows * VPR % kThreads == 0, "whole vectors a thread");
 #pragma unroll
-  for (int r = 0; r < R; ++r) s[r] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    const float4 y = *reinterpret_cast<const float4*>(b + d);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float4 x = *reinterpret_cast<const float4*>(a + r * as + d);
-      s[r] = fmaf(x.x, y.x, s[r]);
-      s[r] = fmaf(x.y, y.y, s[r]);
-      s[r] = fmaf(x.z, y.z, s[r]);
-      s[r] = fmaf(x.w, y.w, s[r]);
+    for (int n = 0; n < N; ++n) {
+      const int i = threadIdx.x + n * kThreads, r = i / VPR, c = (i % VPR) * 4;
+      const bool in = row0 + r < valid;
+      copy16(dst + r * ss + c, in ? src + (row0 + r) * stride + c : src, in ? 16 : 0);
     }
+    commit_copies();
   }
 }
 
-// Butterfly reductions: every lane ends with the same value (each step adds
-// two operands in either order, and f32 addition commutes).
-__device__ __forceinline__ float warp_max(float x) {
+// One warp's partial scores: a (kept rows, 8 apart) . b (step rows, 4 apart)
+// over the warp's slice of D, TA x TB sums a lane, stored to `out` (step
+// row major, PS floats a row): out = part + slice*BN*PS + br*PS + ar, a =
+// kept + ar*KS + d0, b = step + br*KS + d0.
+template <class L>
+__device__ __forceinline__ void score_partials(float* out, const float* a, const float* b) {
+  float acc[L::TA][L::TB];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  for (int i = 0; i < L::TA; ++i) {
+#pragma unroll
+    for (int j = 0; j < L::TB; ++j) acc[i][j] = 0.f;
+  }
+#pragma unroll 4
+  for (int d = 0; d < L::DS; d += 4) {
+    float4 x[L::TA], y[L::TB];
+#pragma unroll
+    for (int i = 0; i < L::TA; ++i) x[i] = *reinterpret_cast<const float4*>(a + 8 * i * L::KS + d);
+#pragma unroll
+    for (int j = 0; j < L::TB; ++j) y[j] = *reinterpret_cast<const float4*>(b + 4 * j * L::KS + d);
+#pragma unroll
+    for (int i = 0; i < L::TA; ++i) {
+#pragma unroll
+      for (int j = 0; j < L::TB; ++j) {
+        acc[i][j] = fmaf(x[i].x, y[j].x, acc[i][j]);
+        acc[i][j] = fmaf(x[i].y, y[j].y, acc[i][j]);
+        acc[i][j] = fmaf(x[i].z, y[j].z, acc[i][j]);
+        acc[i][j] = fmaf(x[i].w, y[j].w, acc[i][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < L::TA; ++i) {
+#pragma unroll
+    for (int j = 0; j < L::TB; ++j) out[4 * j * L::PS + 8 * i] = acc[i][j];
+  }
+}
+
+// The score at `at` (= step row * PS + kept row) of the tile: the NSL
+// partials added in slice order.
+template <class L>
+__device__ __forceinline__ float partial_sum(const float* part, int at) {
+  float t = part[at];
+#pragma unroll
+  for (int sl = 1; sl < L::NSL; ++sl) t += part[sl * L::BN * L::PS + at];
+  return t;
+}
+
+// The scores of this thread's entries e = threadIdx.x + m * kThreads of the
+// BN x BM tile (step row e / BM, kept row e % BM); 0 past the tile.
+template <class L>
+__device__ __forceinline__ void sum_partials(float (&x)[L::EPT], const float* part) {
+#pragma unroll
+  for (int m = 0; m < L::EPT; ++m) {
+    const int e = threadIdx.x + m * kThreads;
+    x[m] = e < L::BM * L::BN ? partial_sum<L>(part, (e / L::BM) * L::PS + e % L::BM) : 0.f;
+  }
+}
+
+// V consecutive floats from shared memory (16- or 8-byte aligned).
+template <int V>
+__device__ __forceinline__ void load_vec(float* x, const float* src) {
+  if constexpr (V == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(src);
+    x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+  } else {
+    static_assert(V == 2, "2 or 4 floats");
+    const float2 t = *reinterpret_cast<const float2*>(src);
+    x[0] = t.x, x[1] = t.y;
+  }
+}
+
+// acc[r][c] += w[r] * x[c] for one step row: w = the row's RT tile values
+// at the thread's kept rows (tile + row*PS + tr*RT), x = its CT operand
+// values at the thread's columns (operand + row*KS + tc*VEC).
+template <class L>
+__device__ __forceinline__ void fma_step(float (&acc)[L::RT][L::CT], const float* w_row,
+                                         const float* x_row) {
+  float w[L::RT], x[L::CT];
+#pragma unroll
+  for (int r = 0; r < L::RT; r += 4) load_vec<4>(w + r, w_row + r);
+#pragma unroll
+  for (int j = 0; j < L::NV; ++j) load_vec<L::VEC>(x + j * L::VEC, x_row + j * L::CG * L::VEC);
+#pragma unroll
+  for (int r = 0; r < L::RT; ++r) {
+#pragma unroll
+    for (int c = 0; c < L::CT; ++c) acc[r][c] = fmaf(w[r], x[c], acc[r][c]);
+  }
+}
+
+// Butterfly reductions over W consecutive lanes: every lane of the group
+// ends with the same value (each step adds two operands in either order,
+// and f32 addition commutes).
+template <int W>
+__device__ __forceinline__ float group_max(float x) {
+#pragma unroll
+  for (int o = W / 2; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
   return x;
 }
-__device__ __forceinline__ float warp_sum(float x) {
+template <int W>
+__device__ __forceinline__ float group_sum(float x) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  for (int o = W / 2; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
   return x;
 }
 

@@ -382,7 +382,7 @@ def flash_inputs(B, T, H, D, dtype, seed):
 
 def check_flash(B, T, H, D, dtype, causal, seed):
     """The flash forward (out, lse) and backward (dq, dk, dv) kernels against
-    their plain versions, and the backward's bits on a repeat; returns the
+    their plain versions, and the bits of both on a repeat; returns the
     forward's and the backward's max |err|."""
     q, k, v, do = flash_inputs(B, T, H, D, dtype, seed)
     out, lse = fa._launch_flash(q, k, v, causal, want_lse=True)
@@ -401,10 +401,13 @@ def check_flash(B, T, H, D, dtype, causal, seed):
            + ", ".join(f"{e:.3g} of max|ref| {r.float().abs().max().item():.3g}"
                        for e, r in zip(errs, refs)) + f" (tolerance {TOL[dtype]})")
     check(max(errs) <= TOL[dtype], msg)
+    out2, lse2 = fa._launch_flash(q, k, v, causal, want_lse=True)
+    check(torch.equal(out2, out) and torch.equal(lse2, lse), "flash forward: bits differ on "
+          "a repeat")
     again = fa._launch_flash_bwd(q, k, v, do, lse, delta, causal)
     check(all(torch.equal(a, g) for a, g in zip(again, grads)), "flash backward: bits differ "
           "on a repeat")
-    log(msg + "; backward bits equal on a repeat")
+    log(msg + "; forward and backward bits equal on a repeat")
     return fwd_err, bwd_err
 
 

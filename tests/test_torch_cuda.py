@@ -131,6 +131,16 @@ def _heads(B, T, H, D, dtype, device, seed):
     # many key tiles of the dk/dv side's 32 (D=512) and 64 (D=256) keys
     ("float32", 512, 2, 300, True), ("bfloat16", 512, 2, 300, False),
     ("bfloat16", 256, 4, 333, False),
+    # just under and just over a step's 16 rows and a block's 32 at D=512
+    ("float32", 512, 2, 15, True), ("bfloat16", 512, 2, 15, False),
+    ("float32", 512, 2, 17, False), ("bfloat16", 512, 2, 17, True),
+    ("float32", 512, 2, 31, True), ("bfloat16", 512, 2, 31, False),
+    ("float32", 512, 2, 33, False), ("bfloat16", 512, 2, 33, True),
+    # and under and over a step's 8 rows and a block's 16 at D=1024
+    ("float32", 1024, 2, 7, True), ("bfloat16", 1024, 2, 7, False),
+    ("float32", 1024, 2, 9, False), ("bfloat16", 1024, 2, 9, True),
+    ("float32", 1024, 2, 15, True), ("bfloat16", 1024, 2, 15, False),
+    ("float32", 1024, 2, 17, False), ("bfloat16", 1024, 2, 17, True),
 ])
 def test_cuda_flash_matches_plain_version(cuda_device, dtype, D, H, T, causal):
     q, k, v, do = (_heads(3, T, H, D, dtype, cuda_device, seed) for seed in range(4))
@@ -152,9 +162,9 @@ def test_cuda_flash_matches_plain_version(cuda_device, dtype, D, H, T, causal):
     assert torch.equal(tfa._launch_flash(q, k, v, causal, want_lse=False)[0], out)
 
 
-def _more_keys_than_queries(device, D, causal):
-    q, do = (_heads(2, 150, 2, D, "float32", device, seed) for seed in (11, 12))
-    k, v = (_heads(2, 260, 2, D, "float32", device, seed) for seed in (13, 14))
+def _unequal_lengths(device, D, causal, Tq, Tk):
+    q, do = (_heads(2, Tq, 2, D, "float32", device, seed) for seed in (11, 12))
+    k, v = (_heads(2, Tk, 2, D, "float32", device, seed) for seed in (13, 14))
     out, lse = tfa._launch_flash(q, k, v, causal, want_lse=True)
     grads = tfa._launch_flash_bwd(q, k, v, do, lse, tfa._delta(do, out), causal)
     ref, ref_lse = tfa.flash_attention_reference(q, k, v, causal)
@@ -169,13 +179,22 @@ def _more_keys_than_queries(device, D, causal):
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [False, True])
 def test_cuda_flash_with_more_keys_than_queries(cuda_device, causal):
-    _more_keys_than_queries(cuda_device, 128, causal)
+    _unequal_lengths(cuda_device, 128, causal, 150, 260)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [False, True])
 def test_cuda_flash_with_more_keys_than_queries_at_head_dim_1024(cuda_device, causal):
-    _more_keys_than_queries(cuda_device, 1024, causal)
+    _unequal_lengths(cuda_device, 1024, causal, 150, 260)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [128, 512, 1024])
+@pytest.mark.parametrize("causal", [False, True])
+def test_cuda_flash_with_more_queries_than_keys(cuda_device, D, causal):
+    """The query-major kernels bound a causal block's keys by its last query:
+    here queries past the last key, and query blocks that end past it."""
+    _unequal_lengths(cuda_device, D, causal, 260, 150)
 
 
 @pytest.mark.cuda
