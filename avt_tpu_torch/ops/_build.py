@@ -5,7 +5,9 @@ is compiled by `nvcc` for sm_90a into a shared library under
 `avt_tpu_torch/_build/` (listed in .gitignore), named by a hash of the
 source and the shared headers (`csrc/*.cuh`), so an edit rebuilds; the
 library is loaded with ctypes. Nothing here runs when the package is
-imported.
+imported. `build` and `load` also take another directory of sources (a copy
+of `csrc/`, e.g. a parent commit's), so two versions of a kernel can be
+timed side by side.
 
 `KERNELS` names every kernel of the port with the TPU kernel it replaces,
 and `launch_counts` counts, per kernel, the launches its wrapper made: a run
@@ -21,7 +23,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -73,8 +75,7 @@ def reset_launch_counts() -> None:
 
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
-build_logs: Dict[str, str] = {}
+_libs: Dict[Tuple[str, Path], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -90,68 +91,74 @@ def _nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    """Named by a hash of the source and of every header in csrc/."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """Named by a hash of the source and of every header in its directory."""
+    digest = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
         digest.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def _start_build(name: str):
+def _start_build(name: str, csrc: Path):
     """Starts nvcc for one kernel; returns (process, tmp path, final path) or
     None when the library is already built."""
-    out = library_path(name)
+    out = library_path(name, csrc)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(csrc / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
 
-def _finish_build(name: str, started) -> None:
+def _finish_build(name: str, started) -> Optional[str]:
+    """Waits for nvcc; returns its output (ptxas's registers and spills)."""
     if started is None:
-        return
+        return None
     proc, tmp, out = started
     log, _ = proc.communicate()
-    build_logs[name] = log
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {name} (exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    return log
 
 
-def build(names: Iterable[str] = tuple(KERNELS)) -> None:
-    """Compiles the named kernels, one nvcc process each, all at once."""
+def build(names: Iterable[str] = tuple(KERNELS), csrc: Path = CSRC) -> Dict[str, str]:
+    """Compiles the named kernels from the sources in csrc, one nvcc process
+    each, all at once; returns nvcc's output for each library built now."""
     names = list(names)
     with _lock:
-        started = [(n, _start_build(n)) for n in names]
-        errors = []
+        started = [(n, _start_build(n, csrc)) for n in names]
+        logs, errors = {}, []
         for n, s in started:
             try:
-                _finish_build(n, s)
+                log = _finish_build(n, s)
             except RuntimeError as e:
                 errors.append(str(e))
+            else:
+                if log is not None:
+                    logs[n] = log
         if errors:
             raise RuntimeError("\n".join(errors))
+        return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The kernel's library, built first if needed."""
-    lib = _libs.get(name)
+def load(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
+    """The kernel's library, built from the sources in csrc first if needed."""
+    lib = _libs.get((name, csrc))
     if lib is not None:
         return lib
-    build([name])
+    build([name], csrc)
     with _lock:
-        if name not in _libs:
-            lib = ctypes.CDLL(str(library_path(name)))
+        if (name, csrc) not in _libs:
+            lib = ctypes.CDLL(str(library_path(name, csrc)))
             lib.avt_cuda_error_string.argtypes = [ctypes.c_int]
             lib.avt_cuda_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
-        return _libs[name]
+            _libs[(name, csrc)] = lib
+        return _libs[(name, csrc)]
 
 
 def check(lib: ctypes.CDLL, err: int, name: str) -> None:

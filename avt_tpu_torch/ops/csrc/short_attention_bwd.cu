@@ -27,10 +27,10 @@
 // T x T x D products per head, 10*N*H*T^2*D FLOPs (0.048 ms at 989 TFLOP/s): it
 // is bound by memory traffic, at T/7 FLOP per byte against the card's ~295.
 //
-// Design: right first, each pass simple. The TPU kernel keeps a whole frame
-// in VMEM and carries db across sequential grid steps; here blocks run in no
-// order, so the work is split in three launches on one stream:
-//   A. query side: one block per (frame, tile of up to 128 query rows, head),
+// Design. The TPU kernel keeps a whole frame in VMEM and carries db across
+// sequential grid steps; here blocks run in no order, so the work is split
+// in three launches on one stream:
+//   A. query side: one block per (frame, tile of up to 112 query rows, head),
 //      16 rows per warp. Pass 1 over the keys accumulates the row max, l and
 //      rowsum(p * dp) online (rescaled as the max grows); pass 2 recomputes p
 //      against the final max, forms ds and accumulates dq. Writes dq, the row
@@ -42,13 +42,27 @@
 //      their column sums.
 //   C. db: sums the per-(frame, tile) column sums in a fixed order, so db is
 //      the same from run to run (no float atomics).
-// Each head's keys and values (A) or queries and output gradients (B) are
-// staged in shared memory with cp.async, the bias add (and the q scaling,
-// and the 1/l products of B) done there in the storage type; products run on
-// the tensor cores with mma.sync m16n8k16 (f32 accumulation, ldmatrix
-// fragments) in bf16, plain FMAs in f32. Scores never reach device memory;
-// the scratch is 12 bytes per row and head. Rows and keys past T are
-// zero-filled, masked, and never written. Measured times are in PERF.md.
+// That is 9 T x T x D products where the TPU kernel does 5; what holds the
+// sides back on the card is latency, not products or traffic, so the bf16
+// sides are built to keep 2 blocks of 7 warps resident on an SM (the
+// register budget of `bwd_cfg`, 128 a thread at D <= 64) and to give each
+// warp independent work:
+//   - a warp's own operand rows come straight from device memory into
+//     registers, bias and scaling applied there in bf16 (`load_a_global`):
+//     q' and dO on side A, k and v on side B. A stages only k and v, B only
+//     q' and dO (cp.async; then each thread's own chunks get the bias, and
+//     q the scaling, in shared memory);
+//   - B scales the q' and dO fragments of its dk and dv products by 1/l in
+//     registers (`mma_ab_scaled`: the bits of the q'/l and dO/l tiles it
+//     replaces);
+//   - A runs whole key steps (16 keys at D=64) with no branch inside one
+//     (the staged keys padded to whole steps and zero-filled), so a step's
+//     products are independent chains of mma.sync m16n8k16 the warp
+//     interleaves.
+// Products run on the tensor cores (f32 accumulation, ldmatrix fragments)
+// in bf16, on plain FMAs in f32. Scores never reach device memory; the
+// scratch is 12 bytes per row and head. Rows and keys past T are zero-filled,
+// masked, and never written. PERF.md has the levers that were timed.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (avt_tpu_torch/ops/_build.py does it at first use).
@@ -60,21 +74,11 @@ namespace {
 
 using namespace packed;
 
-constexpr int kMaxWarps = 8;   // 16 rows each: up to 128 rows per block
+constexpr int kMaxWarps = 7;   // 16 rows each: up to 112 rows per block
 constexpr float kLn2 = 0.6931471805599453f;  // 1 / log2(e)
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// dst[0:8] = src[0:8] * f in bf16 (one rounding per element).
-__device__ __forceinline__ void scale8(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                       __nv_bfloat162 f2) {
-  uint4 x = *reinterpret_cast<const uint4*>(src);
-  __nv_bfloat162* xv = reinterpret_cast<__nv_bfloat162*>(&x);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) xv[i] = __hmul2(xv[i], f2);
-  *reinterpret_cast<uint4*>(dst) = x;
 }
 
 // sum over the 8 row groups g of a warp (lanes with the same t)
@@ -108,6 +112,27 @@ __device__ __forceinline__ void mma_ab(float (&acc)[D / 8][4], const uint32_t (&
   for (int j = 0; j < D / 8; j += 2) {
     uint32_t b[4];
     ldmatrix_x4_trans(b, tile + j * 8);
+    mma_16816(acc[j], a, b[0], b[1]);
+    mma_16816(acc[j + 1], a, b[2], b[3]);
+  }
+}
+
+// mma_ab with B's rows scaled first: rows 2t, 2t+1 of the tile by the pair
+// f_lo and rows 8 + 2t, 9 + 2t by f_hi, each product rounded once in bf16 as
+// a tensor multiply rounds it: the B fragments of (B * f) without staging it.
+template <int D, int LD>
+__device__ __forceinline__ void mma_ab_scaled(float (&acc)[D / 8][4], const uint32_t (&a)[4],
+                                              const __nv_bfloat16* rows, __nv_bfloat162 f_lo,
+                                              __nv_bfloat162 f_hi, int lane) {
+  const __nv_bfloat16* tile = rows + (lane & 15) * LD + (lane >> 4) * 8;
+#pragma unroll
+  for (int j = 0; j < D / 8; j += 2) {
+    uint32_t b[4];
+    ldmatrix_x4_trans(b, tile + j * 8);
+    b[0] = fix2(b[0], 0u, false, true, f_lo);
+    b[1] = fix2(b[1], 0u, false, true, f_hi);
+    b[2] = fix2(b[2], 0u, false, true, f_lo);
+    b[3] = fix2(b[3], 0u, false, true, f_hi);
     mma_16816(acc[j], a, b[0], b[1]);
     mma_16816(acc[j + 1], a, b[2], b[3]);
   }
@@ -152,14 +177,27 @@ __device__ __forceinline__ void block_colsum(float* dst, const float* red, int w
   }
 }
 
+// The bf16 kernels' geometry per head dim: keys staged at once and keys per
+// step (A), queries staged at once and queries per step (B), and the blocks
+// resident on an SM that each side's register budget is set for
+// (65536 / (32 * kMaxWarps * min_blocks) a thread).
+struct BwdCfg {
+  int kv_stage, key_step, min_blocks_a, q_stage, q_step, min_blocks_b;
+};
+
 template <int D>
-__host__ __device__ constexpr int kv_stage() { return D > 64 ? 128 : 256; }   // keys staged at once (A)
+__host__ __device__ constexpr BwdCfg bwd_cfg() {
+  return D == 32   ? BwdCfg{256, 64, 2, 256, 32, 2}
+         : D == 64 ? BwdCfg{256, 16, 2, 256, 16, 2}
+                   : BwdCfg{128, 32, 1, 64, 16, 1};
+}
+
+// Keys the query side stages at once: whole key steps, zero-filled past T.
 template <int D>
-__host__ __device__ constexpr int key_step() { return D > 64 ? 32 : 64; }     // keys per step (A)
-template <int D>
-__host__ __device__ constexpr int q_stage() { return D > 64 ? 64 : 128; }     // queries staged at once (B)
-template <int D>
-__host__ __device__ constexpr int q_step() { return D > 64 ? 16 : 32; }       // queries per step (B)
+__host__ __device__ int kv_rows_a(int T) {
+  constexpr BwdCfg cfg = bwd_cfg<D>();
+  return min(cfg.kv_stage, (T + cfg.key_step - 1) / cfg.key_step * cfg.key_step);
+}
 
 struct Geometry {
   int warps, n_tiles;  // 16-row groups per block, blocks per frame and head
@@ -177,20 +215,21 @@ __device__ __forceinline__ size_t stat_idx(int n, int h, int H, int k, int T, in
 }
 
 // ---------------------------------------------------------------- bf16, A
-// Grid (N * n_tiles, H). Warp w owns query rows q0 + 16w .. +16.
+// Grid (N * n_tiles, H). Warp w owns query rows q0 + 16w .. +16: its q' and
+// dO fragments come straight from device memory into registers (q's bias
+// and scale applied there); the block stages the head's keys and values.
 template <int D>
-__global__ void __launch_bounds__(kMaxWarps * 32)
+__global__ void __launch_bounds__(kMaxWarps * 32, bwd_cfg<D>().min_blocks_a)
     bwd_query_bf16(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restrict__ bias,
                    const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dqkv,
                    float* __restrict__ stats, float* __restrict__ partials, int T, int H,
                    int n_tiles, int causal, float scale, float sm_scale) {
-  constexpr int LD = D + kPad, CH = D / 8, KT = kv_stage<D>(), KB = key_step<D>();
+  constexpr int LD = D + kPad, CH = D / 8;
+  constexpr int KT = bwd_cfg<D>().kv_stage, KB = bwd_cfg<D>().key_step;
   const int warps = blockDim.x >> 5, q_rows = warps * 16;
-  const int kv_rows = min(KT, (T + 15) & ~15);
+  const int kv_rows = kv_rows_a<D>(T);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Os = Qs + q_rows * LD;
-  __nv_bfloat16* Ks = Os + q_rows * LD;
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Vs = Ks + kv_rows * LD;
   float* red = reinterpret_cast<float*>(Vs + kv_rows * LD);
 
@@ -200,25 +239,35 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   const size_t rs = 3 * size_t(C);
   const __nv_bfloat16* frame = qkv + size_t(n) * T * rs;
   const __nv_bfloat16* dframe = dout + size_t(n) * T * C;
-  const __nv_bfloat16* qb = bias ? bias + h * D : nullptr;
   const __nv_bfloat16* kb = bias ? bias + C + h * D : nullptr;
   const __nv_bfloat16* vb = bias ? bias + 2 * C + h * D : nullptr;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const __nv_bfloat162 scale2 = __float2bfloat162_rn(scale);
 
-  for (int i = tid; i < q_rows * CH; i += blockDim.x) {
-    const int r = i / CH, c = (i % CH) * 8, row = q0 + r;
-    const size_t src = size_t(min(row, T - 1));
-    cp_async16(Qs + r * LD + c, frame + src * rs + h * D + c, row < T);
-    cp_async16(Os + r * LD + c, dframe + src * C + h * D + c, row < T);
-  }
+  // each thread copies one 16-byte column chunk c of every rstep-th row
+  const int c = (tid % CH) * 8, rstep = blockDim.x / CH;
+  auto stage_kv = [&](int ks0) {
+    for (int r = tid / CH; r < kv_rows; r += rstep) {
+      const int row = ks0 + r;
+      const __nv_bfloat16* src = frame + size_t(min(row, T - 1)) * rs + C + h * D + c;
+      cp_async16(Ks + r * LD + c, src, row < T);
+      cp_async16(Vs + r * LD + c, src + C, row < T);
+    }
+  };
+  stage_kv(0);
 
   const int qw = q0 + warp * 16;
   const bool active = qw < T;
   const int row0 = qw + g, row1 = qw + g + 8;
   const int kmax = causal ? min(T, qw + 16) : T;
   uint32_t qa[D / 16][4], oa[D / 16][4];
+  if (active) {
+    load_a_global<D>(qa, frame + size_t(qw) * rs + h * D, rs, T - qw,
+                     bias ? bias + h * D : nullptr, true, scale2, g, t);
+    load_a_global<D>(oa, dframe + size_t(qw) * C + h * D, C, T - qw, nullptr, false, scale2,
+                     g, t);
+  }
   float dq[D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
@@ -231,46 +280,29 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     for (int st = 0; st < n_st; ++st) {
       const int ks0 = st * KT;
       if (pass == 0 || n_st > 1) {
-        __syncthreads();
-        for (int i = tid; i < kv_rows * CH; i += blockDim.x) {
-          const int r = i / CH, c = (i % CH) * 8, row = ks0 + r;
-          const __nv_bfloat16* src = frame + size_t(min(row, T - 1)) * rs + C + h * D + c;
-          cp_async16(Ks + r * LD + c, src, row < T);
-          cp_async16(Vs + r * LD + c, src + C, row < T);
+        if (pass > 0 || st > 0) {
+          __syncthreads();  // every warp is done with the previous tile
+          stage_kv(ks0);
         }
         cp_async_wait_all();
-        if (pass == 0 && st == 0) {
-          for (int i = tid; i < q_rows * CH; i += blockDim.x) {
-            const int r = i / CH, c = (i % CH) * 8;
-            if (q0 + r < T) fix8(Qs + r * LD + c, qb ? qb + c : nullptr, true, scale2);
-          }
-        }
         if (bias != nullptr) {
-          for (int i = tid; i < kv_rows * CH; i += blockDim.x) {
-            const int r = i / CH, c = (i % CH) * 8;
-            if (ks0 + r >= T) continue;
-            fix8(Ks + r * LD + c, kb + c, false, scale2);
-            fix8(Vs + r * LD + c, vb + c, false, scale2);
+          const uint4 bk = *reinterpret_cast<const uint4*>(kb + c);
+          const uint4 bv = *reinterpret_cast<const uint4*>(vb + c);
+          for (int r = tid / CH; r < kv_rows && ks0 + r < T; r += rstep) {
+            fix8(Ks + r * LD + c, reinterpret_cast<const __nv_bfloat16*>(&bk), false, scale2);
+            fix8(Vs + r * LD + c, reinterpret_cast<const __nv_bfloat16*>(&bv), false, scale2);
           }
         }
         __syncthreads();
       }
       if (!active) continue;
-      if (pass == 0 && st == 0) {
-        load_a<D, LD>(qa, Qs + warp * 16 * LD, g, t);
-        load_a<D, LD>(oa, Os + warp * 16 * LD, g, t);
-      }
       for (int k0 = ks0; k0 < ks0 + KT && k0 < kmax; k0 += KB) {
         const __nv_bfloat16* Kc = Ks + (k0 - ks0) * LD;
         const __nv_bfloat16* Vc = Vs + (k0 - ks0) * LD;
+        // whole steps, no branch inside: keys past T are zero rows, masked
         float s[KB / 8][4], dp[KB / 8][4];
 #pragma unroll
         for (int j = 0; j < KB / 8; ++j) {
-          if (k0 + j * 8 >= kmax) {
-            s[j][0] = s[j][1] = s[j][2] = s[j][3] = -INFINITY;
-            dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-            continue;
-          }
           mma_abt<D, LD>(s[j], qa, Kc + j * 8 * LD, lane);
           mma_abt<D, LD>(dp[j], oa, Vc + j * 8 * LD, lane);
         }
@@ -323,7 +355,6 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
           // dq += ds . k: k is stored [key][dim], the B layout of [k][n]
 #pragma unroll
           for (int kk = 0; kk < KB / 16; ++kk) {
-            if (k0 + kk * 16 >= kmax) break;
             uint32_t dsa[4];
             acc_to_a(dsa, s[2 * kk], s[2 * kk + 1]);
             mma_ab<D, LD>(dq, dsa, Kc + kk * 16 * LD, lane);
@@ -380,25 +411,27 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 }
 
 // ---------------------------------------------------------------- bf16, B
-// Grid (N * n_tiles, H). Warp w owns keys kb0 + 16w .. +16.
+// Grid (N * n_tiles, H). Warp w owns keys kb0 + 16w .. +16: its k and v
+// fragments (bias added) come straight from device memory into registers;
+// the block stages the head's q' (biased and scaled in place) and dO with
+// the row statistics, and 1/l scales the q' and dO fragments in registers.
 template <int D>
-__global__ void __launch_bounds__(kMaxWarps * 32)
+__global__ void __launch_bounds__(kMaxWarps * 32, bwd_cfg<D>().min_blocks_b)
     bwd_key_bf16(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restrict__ bias,
                  const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ dqkv,
                  const float* __restrict__ stats, float* __restrict__ partials, int T, int H,
                  int n_tiles, int causal, float scale) {
-  constexpr int LD = D + kPad, CH = D / 8, QT = q_stage<D>(), QB = q_step<D>();
+  constexpr int LD = D + kPad, CH = D / 8;
+  constexpr int QT = bwd_cfg<D>().q_stage, QB = bwd_cfg<D>().q_step;
   const int warps = blockDim.x >> 5, k_rows = warps * 16;
+  const int q_rows = min(QT, (T + QB - 1) / QB * QB);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + k_rows * LD;
-  __nv_bfloat16* Qs = Vs + k_rows * LD;  // q' (biased, scaled)
-  __nv_bfloat16* Os = Qs + QT * LD;      // dO
-  __nv_bfloat16* Ql = Os + QT * LD;      // q' * (1/l)
-  __nv_bfloat16* Ol = Ql + QT * LD;      // dO * (1/l)
-  float* st_m = reinterpret_cast<float*>(Ol + QT * LD);
-  float* st_d = st_m + QT;
-  float* red = st_d + QT;
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // q' (biased, scaled)
+  __nv_bfloat16* Os = Qs + q_rows * LD;                            // dO
+  float* st_m = reinterpret_cast<float*>(Os + q_rows * LD);        // row max
+  float* st_l = st_m + q_rows;                                     // 1/l
+  float* st_d = st_l + q_rows;                                     // delta
+  float* red = st_d + q_rows;
 
   const int n = blockIdx.x / n_tiles, tile = blockIdx.x % n_tiles;
   const int kb0 = tile * k_rows, h = blockIdx.y;
@@ -407,23 +440,43 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   const __nv_bfloat16* frame = qkv + size_t(n) * T * rs;
   const __nv_bfloat16* dframe = dout + size_t(n) * T * C;
   const __nv_bfloat16* qb = bias ? bias + h * D : nullptr;
-  const __nv_bfloat16* kb = bias ? bias + C + h * D : nullptr;
-  const __nv_bfloat16* vb = bias ? bias + 2 * C + h * D : nullptr;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const __nv_bfloat162 scale2 = __float2bfloat162_rn(scale);
 
-  for (int i = tid; i < k_rows * CH; i += blockDim.x) {
-    const int r = i / CH, c = (i % CH) * 8, row = kb0 + r;
-    const __nv_bfloat16* src = frame + size_t(min(row, T - 1)) * rs + C + h * D + c;
-    cp_async16(Ks + r * LD + c, src, row < T);
-    cp_async16(Vs + r * LD + c, src + C, row < T);
-  }
+  // each thread copies one 16-byte column chunk c of every rstep-th row
+  const int c = (tid % CH) * 8, rstep = blockDim.x / CH;
+  auto stage_q = [&](int qs0) {
+    for (int r = tid / CH; r < q_rows; r += rstep) {
+      const int row = qs0 + r;
+      const size_t src = size_t(min(row, T - 1));
+      cp_async16(Qs + r * LD + c, frame + src * rs + h * D + c, row < T);
+      cp_async16(Os + r * LD + c, dframe + src * C + h * D + c, row < T);
+    }
+    for (int i = tid; i < q_rows; i += blockDim.x) {
+      const int row = qs0 + i;
+      const bool in = row < T;
+      st_m[i] = in ? stats[stat_idx(n, h, H, 0, T, row)] : 0.f;
+      st_l[i] = in ? stats[stat_idx(n, h, H, 1, T, row)] : 0.f;
+      st_d[i] = in ? stats[stat_idx(n, h, H, 2, T, row)] : 0.f;
+    }
+  };
+
+  const int n_st = (T + QT - 1) / QT;
+  // causal: queries before the block's first key see none of its keys
+  const int st_first = causal ? kb0 / QT : 0;
+  if (st_first < n_st) stage_q(st_first * QT);
 
   const int kw = kb0 + warp * 16;
   const bool active = kw < T;
   const int key0 = kw + g, key1 = kw + g + 8;
   uint32_t ka[D / 16][4], va[D / 16][4];
+  if (active) {
+    load_a_global<D>(ka, frame + size_t(kw) * rs + C + h * D, rs, T - kw,
+                     bias ? bias + C + h * D : nullptr, false, scale2, g, t);
+    load_a_global<D>(va, frame + size_t(kw) * rs + 2 * C + h * D, rs, T - kw,
+                     bias ? bias + 2 * C + h * D : nullptr, false, scale2, g, t);
+  }
   float dk[D / 8][4], dv[D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
@@ -431,52 +484,20 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
   }
 
-  const int n_st = (T + QT - 1) / QT;
-  // causal: queries before the block's first key see none of its keys
-  const int st_first = causal ? kb0 / QT : 0;
   for (int st = st_first; st < n_st; ++st) {
     const int qs0 = st * QT;
-    __syncthreads();
-    for (int i = tid; i < QT * CH; i += blockDim.x) {
-      const int r = i / CH, c = (i % CH) * 8, row = qs0 + r;
-      const size_t src = size_t(min(row, T - 1));
-      cp_async16(Qs + r * LD + c, frame + src * rs + h * D + c, row < T);
-      cp_async16(Os + r * LD + c, dframe + src * C + h * D + c, row < T);
-    }
-    for (int i = tid; i < QT; i += blockDim.x) {
-      const int row = qs0 + i;
-      st_m[i] = row < T ? stats[stat_idx(n, h, H, 0, T, row)] : 0.f;
-      st_d[i] = row < T ? stats[stat_idx(n, h, H, 2, T, row)] : 0.f;
+    if (st > st_first) {
+      __syncthreads();  // every warp is done with the previous tile
+      stage_q(qs0);
     }
     cp_async_wait_all();
-    if (st == st_first && bias != nullptr) {
-      for (int i = tid; i < k_rows * CH; i += blockDim.x) {
-        const int r = i / CH, c = (i % CH) * 8;
-        if (kb0 + r >= T) continue;
-        fix8(Ks + r * LD + c, kb + c, false, scale2);
-        fix8(Vs + r * LD + c, vb + c, false, scale2);
-      }
-    }
-    for (int i = tid; i < QT * CH; i += blockDim.x) {
-      const int r = i / CH, c = (i % CH) * 8, row = qs0 + r;
-      if (row < T) {
-        fix8(Qs + r * LD + c, qb ? qb + c : nullptr, true, scale2);
-        const __nv_bfloat162 il2 =
-            __float2bfloat162_rn(stats[stat_idx(n, h, H, 1, T, row)]);
-        scale8(Ql + r * LD + c, Qs + r * LD + c, il2);
-        scale8(Ol + r * LD + c, Os + r * LD + c, il2);
-      } else {
-        *reinterpret_cast<uint4*>(Ql + r * LD + c) = make_uint4(0, 0, 0, 0);
-        *reinterpret_cast<uint4*>(Ol + r * LD + c) = make_uint4(0, 0, 0, 0);
-      }
-    }
+    const uint4 bq = qb ? *reinterpret_cast<const uint4*>(qb + c) : make_uint4(0, 0, 0, 0);
+    for (int r = tid / CH; r < q_rows && qs0 + r < T; r += rstep)
+      fix8(Qs + r * LD + c, qb ? reinterpret_cast<const __nv_bfloat16*>(&bq) : nullptr, true,
+           scale2);
     __syncthreads();
     if (!active) continue;
-    if (st == st_first) {
-      load_a<D, LD>(ka, Ks + warp * 16 * LD, g, t);
-      load_a<D, LD>(va, Vs + warp * 16 * LD, g, t);
-    }
-    for (int qq = 0; qq < QT && qs0 + qq < T; qq += QB) {
+    for (int qq = 0; qq < q_rows && qs0 + qq < T; qq += QB) {
       if (causal && qs0 + qq + QB <= kw) continue;  // every query before every key
       float s[QB / 8][4], dp[QB / 8][4];
 #pragma unroll
@@ -493,7 +514,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
           const int key = e < 2 ? key0 : key1;
           const bool keep = key < T && q < T && !(causal && key > q);
           const float p = keep ? fast_exp2(s[j][e] - st_m[qi]) : 0.f;
-          s[j][e] = p;                        // p^T
+          s[j][e] = p;                           // p^T
           dp[j][e] = p * (dp[j][e] - st_d[qi]);  // ds^T
         }
       }
@@ -502,8 +523,12 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
         uint32_t pa[4], dsa[4];
         acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
         acc_to_a(dsa, dp[2 * kk], dp[2 * kk + 1]);
-        mma_ab<D, LD>(dv, pa, Ol + (qq + kk * 16) * LD, lane);
-        mma_ab<D, LD>(dk, dsa, Ql + (qq + kk * 16) * LD, lane);
+        // 1/l rounded to bf16 for queries 2t, 2t+1 and 8 + 2t, 9 + 2t
+        const int qi = qq + kk * 16 + 2 * t;
+        const __nv_bfloat162 il_lo = __floats2bfloat162_rn(st_l[qi], st_l[qi + 1]);
+        const __nv_bfloat162 il_hi = __floats2bfloat162_rn(st_l[qi + 8], st_l[qi + 9]);
+        mma_ab_scaled<D, LD>(dv, pa, Os + (qq + kk * 16) * LD, il_lo, il_hi, lane);
+        mma_ab_scaled<D, LD>(dk, dsa, Qs + (qq + kk * 16) * LD, il_lo, il_hi, lane);
       }
     }
   }
@@ -527,7 +552,6 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   }
   if (partials == nullptr) return;
   float* part = partials + (size_t(n) * n_tiles + tile) * rs + h * D;
-  __syncthreads();  // every warp is done with the shared tiles
   warp_colsum<D>(red + warp * D, dk, kLn2, v0, v1, g, t);
   __syncthreads();
   block_colsum(part + C, red, warps, D, tid, blockDim.x);
@@ -807,31 +831,53 @@ cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
 }
 
+// Dynamic shared memory of the bf16 query side (A) and key side (B) at T.
+template <int D>
+size_t bf16_smem_a(int T) {
+  return sizeof(__nv_bfloat16) * size_t(2 * kv_rows_a<D>(T)) * (D + kPad) +
+         sizeof(float) * bf16_geometry(T).warps * D;
+}
+
+template <int D>
+size_t bf16_smem_b(int T) {
+  constexpr BwdCfg cfg = bwd_cfg<D>();
+  const int q_rows = min(cfg.q_stage, (T + cfg.q_step - 1) / cfg.q_step * cfg.q_step);
+  return sizeof(__nv_bfloat16) * size_t(2 * q_rows) * (D + kPad) +
+         sizeof(float) * (3 * q_rows + bf16_geometry(T).warps * D);
+}
+
 template <int D>
 cudaError_t launch_bf16(const void* qkv, const void* bias, const void* dout, void* dqkv,
                         float* stats, float* partials, int N, int T, int H, int causal,
                         float scale, float sm_scale, cudaStream_t stream) {
-  constexpr int LD = D + kPad;
   using bf = __nv_bfloat16;
   const Geometry geo = bf16_geometry(T);
-  const int rows = 16 * geo.warps;
   const dim3 grid(N * geo.n_tiles, H);
-  const size_t smem_a =
-      sizeof(bf) * size_t(2 * rows + 2 * min(kv_stage<D>(), (T + 15) & ~15)) * LD +
-      sizeof(float) * geo.warps * D;
+  const size_t smem_a = bf16_smem_a<D>(T), smem_b = bf16_smem_b<D>(T);
   cudaError_t err = set_smem(bwd_query_bf16<D>, smem_a);
   if (err != cudaSuccess) return err;
   bwd_query_bf16<D><<<grid, geo.warps * 32, smem_a, stream>>>(
       static_cast<const bf*>(qkv), static_cast<const bf*>(bias), static_cast<const bf*>(dout),
       static_cast<bf*>(dqkv), stats, partials, T, H, geo.n_tiles, causal, scale, sm_scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const size_t smem_b = sizeof(bf) * size_t(2 * rows + 4 * q_stage<D>()) * LD +
-                        sizeof(float) * (2 * q_stage<D>() + geo.warps * D);
   if ((err = set_smem(bwd_key_bf16<D>, smem_b)) != cudaSuccess) return err;
   bwd_key_bf16<D><<<grid, geo.warps * 32, smem_b, stream>>>(
       static_cast<const bf*>(qkv), static_cast<const bf*>(bias), static_cast<const bf*>(dout),
       static_cast<bf*>(dqkv), stats, partials, T, H, geo.n_tiles, causal, scale);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t residency_bf16(int T, int side, int* warps, int* smem, int* blocks) {
+  *warps = bf16_geometry(T).warps;
+  const size_t bytes = side == 0 ? bf16_smem_a<D>(T) : bf16_smem_b<D>(T);
+  *smem = int(bytes);
+  cudaError_t err = side == 0 ? set_smem(bwd_query_bf16<D>, bytes) : set_smem(bwd_key_bf16<D>, bytes);
+  if (err != cudaSuccess) return err;
+  return side == 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, bwd_query_bf16<D>,
+                                                                   *warps * 32, bytes)
+                   : cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, bwd_key_bf16<D>,
+                                                                   *warps * 32, bytes);
 }
 
 template <int D>
@@ -901,6 +947,19 @@ int short_attention_bwd(const void* qkv, const void* bias, const void* dout, voi
     db_reduce<<<(cols + 255) / 256, 256, 0, st>>>(pp, rows, cols, static_cast<float*>(db));
   }
   return int(cudaGetLastError());
+}
+
+// The bf16 query side (side 0) or key side (side 1) at sequence length T
+// and head dim D: warps a block, its dynamic shared memory in bytes, and how
+// many blocks of it one SM holds. Returns a cudaError_t.
+int short_attention_bwd_residency(int T, int D, int side, int* warps, int* smem_bytes,
+                                  int* blocks) {
+  switch (D) {
+    case 32: return residency_bf16<32>(T, side, warps, smem_bytes, blocks);
+    case 64: return residency_bf16<64>(T, side, warps, smem_bytes, blocks);
+    case 128: return residency_bf16<128>(T, side, warps, smem_bytes, blocks);
+  }
+  return int(cudaErrorInvalidValue);
 }
 
 const char* avt_cuda_error_string(int err) {

@@ -7,13 +7,17 @@
 // accumulation), their fragments loaded from shared memory with ldmatrix.
 // Fragment layouts are those of mma.m16n8k16: lane = 4*g + t holds rows g and
 // g+8, columns 2t, 2t+1 (+8). Shared rows are padded by kPad bf16 (16 bytes),
-// which makes the fragment loads conflict-free. `attend_bf16` and
-// `store_rows_bf16` are the forward's online-softmax loop over staged keys
-// and its output epilogue, in the order of the TPU's head-pair kernel
-// (avt_tpu/ops/flash_attention.py:_short_fwd_kernel_paired):
+// which makes the fragment loads conflict-free. `attend_bf16` (the fused
+// kernel's) and `attend_steps` (the forward's: whole key steps, no branch
+// inside one) with `store_rows_bf16` are the forward's online-softmax loop
+// over staged keys and its output epilogue, in the order of the TPU's
+// head-pair kernel (avt_tpu/ops/flash_attention.py:_short_fwd_kernel_paired):
 //   s  = q' . k^T (f32), q' = q * (sm_scale * log2 e) rounded to bf16
 //   p  = exp2(s - rowmax s), rounded to bf16 for an f32-accumulated p . v
 //   out = (p . v) / max(rowsum p, 1e-30), rounded once to bf16
+// `load_a_global` and `fix2` give a warp its own rows' A fragments straight
+// from device memory, with the bias add and scaling that `fix8` does to a
+// staged tile applied in registers (the same bits).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -45,6 +49,20 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ldg_u32(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const unsigned int*>(p));
+}
+
+// fix8's arithmetic on one register of two bf16: + b (when `biased`), then
+// * scale2 (when `scaled`), each result rounded once.
+__device__ __forceinline__ uint32_t fix2(uint32_t x, uint32_t b, bool biased, bool scaled,
+                                         __nv_bfloat162 scale2) {
+  __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&x);
+  if (biased) v = __hadd2(v, *reinterpret_cast<const __nv_bfloat162*>(&b));
+  if (scaled) v = __hmul2(v, scale2);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // In place on eight bf16 in shared memory: + bias (when given), then * scale
@@ -144,6 +162,38 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[D / 16][4], const __nv_bflo
   }
 }
 
+// A fragments (16 rows x D) read straight from device memory, with fix8's
+// arithmetic applied in registers: `rows` points at the first row's first
+// column, `ld` is the row stride; rows from `valid` on are zero. `bias` (D
+// values, or null) is added and, with `scaled`, the sum multiplied by scale2:
+// the bits a staged tile gets from fix8, without the shared-memory pass.
+template <int D>
+__device__ __forceinline__ void load_a_global(uint32_t (&a)[D / 16][4], const __nv_bfloat16* rows,
+                                              size_t ld, int valid, const __nv_bfloat16* bias,
+                                              bool scaled, __nv_bfloat162 scale2, int g, int t) {
+  const bool v0 = g < valid, v1 = g + 8 < valid;
+  const __nv_bfloat16* r0 = rows + size_t(g) * ld + 2 * t;
+  const __nv_bfloat16* r1 = r0 + 8 * ld;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    a[kk][0] = v0 ? ldg_u32(r0 + kk * 16) : 0u;
+    a[kk][1] = v1 ? ldg_u32(r1 + kk * 16) : 0u;
+    a[kk][2] = v0 ? ldg_u32(r0 + kk * 16 + 8) : 0u;
+    a[kk][3] = v1 ? ldg_u32(r1 + kk * 16 + 8) : 0u;
+  }
+  const bool biased = bias != nullptr;
+  if (!biased && !scaled) return;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t b0 = biased ? ldg_u32(bias + kk * 16 + 2 * t) : 0u;
+    const uint32_t b1 = biased ? ldg_u32(bias + kk * 16 + 2 * t + 8) : 0u;
+    if (v0) a[kk][0] = fix2(a[kk][0], b0, biased, scaled, scale2);
+    if (v1) a[kk][1] = fix2(a[kk][1], b0, biased, scaled, scale2);
+    if (v0) a[kk][2] = fix2(a[kk][2], b1, biased, scaled, scale2);
+    if (v1) a[kk][3] = fix2(a[kk][3], b1, biased, scaled, scale2);
+  }
+}
+
 // The forward's running state for one warp's 16 query rows.
 template <int D>
 struct RowState {
@@ -234,6 +284,98 @@ __device__ __forceinline__ void attend_bf16(RowState<D>& st, const uint32_t (&qa
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
       if (k0 + kk * 16 >= k_end) break;
+      const uint32_t pa[4] = {
+          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
+      };
+      const __nv_bfloat16* vtile = Vc + (kk * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
+#pragma unroll
+      for (int j = 0; j < D / 8; j += 2) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, vtile + j * 8);
+        mma_16816(st.o[j], pa, b[0], b[1]);
+        mma_16816(st.o[j + 1], pa, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// attend_bf16 without a branch inside a step: the staged rows must cover
+// every KB-key step that starts before k_end (zero-filled past T), so each
+// step's products run whole and its score tiles are independent chains of
+// mma the warp can interleave. Keys >= T, and with `causal` keys after the
+// query, are masked.
+template <int D, int KB>
+__device__ __forceinline__ void attend_steps(RowState<D>& st, const uint32_t (&qa)[D / 16][4],
+                                             const __nv_bfloat16* Ks, const __nv_bfloat16* Vs,
+                                             int ks0, int k_end, int T, int row0, int row1,
+                                             bool causal, int lane) {
+  constexpr int LD = D + kPad;
+  const int t = lane & 3;
+  for (int k0 = ks0; k0 < k_end; k0 += KB) {
+    const __nv_bfloat16* Kc = Ks + (k0 - ks0) * LD;
+    const __nv_bfloat16* Vc = Vs + (k0 - ks0) * LD;
+    float s[KB / 8][4];
+#pragma unroll
+    for (int j = 0; j < KB / 8; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      const __nv_bfloat16* ktile = Kc + (j * 8 + (lane & 7)) * LD + (lane >> 3) * 8;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; kk += 2) {
+        uint32_t b[4];
+        ldmatrix_x4(b, ktile + kk * 16);
+        mma_16816(s[j], qa[kk], b[0], b[1]);
+        mma_16816(s[j], qa[kk + 1], b[2], b[3]);
+      }
+    }
+    if (causal || k0 + KB > T) {
+#pragma unroll
+      for (int j = 0; j < KB / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + j * 8 + 2 * t + (e & 1);
+          if (key >= T || (causal && key > (e < 2 ? row0 : row1))) s[j][e] = -INFINITY;
+        }
+      }
+    }
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < KB / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+    const float mn0 = fmaxf(st.m0, quad_max(mx0)), mn1 = fmaxf(st.m1, quad_max(mx1));
+    // a row with every key so far masked keeps max -inf: shift by 0 so that
+    // exp2 gives 0 rather than NaN
+    const float sh0 = mn0 == -INFINITY ? 0.f : mn0;
+    const float sh1 = mn1 == -INFINITY ? 0.f : mn1;
+    const float a0 = fast_exp2(st.m0 - sh0), a1 = fast_exp2(st.m1 - sh1);
+    st.m0 = mn0;
+    st.m1 = mn1;
+    float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < KB / 8; ++j) {
+      s[j][0] = fast_exp2(s[j][0] - sh0);
+      s[j][1] = fast_exp2(s[j][1] - sh0);
+      s[j][2] = fast_exp2(s[j][2] - sh1);
+      s[j][3] = fast_exp2(s[j][3] - sh1);
+      l0 += s[j][0] + s[j][1];
+      l1 += s[j][2] + s[j][3];
+    }
+    st.l0 = st.l0 * a0 + l0;
+    st.l1 = st.l1 * a1 + l1;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      st.o[j][0] *= a0;
+      st.o[j][1] *= a0;
+      st.o[j][2] *= a1;
+      st.o[j][3] *= a1;
+    }
+    // o += p . v, as in attend_bf16
+#pragma unroll
+    for (int kk = 0; kk < KB / 16; ++kk) {
       const uint32_t pa[4] = {
           pack_bf16(s[2 * kk][0], s[2 * kk][1]),
           pack_bf16(s[2 * kk][2], s[2 * kk][3]),

@@ -40,6 +40,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
@@ -162,9 +163,9 @@ def _ptr(x: Optional[torch.Tensor]):
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
+def _kernel(csrc: Path = _build.CSRC):
     """The forward's C entry point, built and loaded at first use."""
-    fn = _build.load(KERNEL).short_attention_fwd
+    fn = _build.load(KERNEL, csrc).short_attention_fwd
     # (qkv, bias, out, N, T, H, D, is_bf16, causal, scale, stream)
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -172,9 +173,9 @@ def _kernel():
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_kernel():
+def _bwd_kernel(csrc: Path = _build.CSRC):
     """The backward's C entry points (launch, tiles), built at first use."""
-    lib = _build.load(BWD_KERNEL)
+    lib = _build.load(BWD_KERNEL, csrc)
     fn = lib.short_attention_bwd
     # (qkv, bias, dout, dqkv, stats, partials, db, N, T, H, D, is_bf16, causal,
     #  scale, sm_scale, stream)
@@ -187,7 +188,9 @@ def _bwd_kernel():
     return fn, tiles
 
 
-def _launch(qkv: torch.Tensor, bias, num_heads: int, causal: bool) -> torch.Tensor:
+def _launch(qkv: torch.Tensor, bias, num_heads: int, causal: bool,
+            csrc: Path = _build.CSRC) -> torch.Tensor:
+    """The forward kernel, built from the sources in csrc."""
     D = _check_qkv(KERNEL, qkv, num_heads)
     N, T, C3 = qkv.shape
     _check_operand(KERNEL, "bias", bias, (C3,), qkv)
@@ -195,17 +198,19 @@ def _launch(qkv: torch.Tensor, bias, num_heads: int, causal: bool) -> torch.Tens
     if N == 0 or T == 0:
         return out
     with torch.cuda.device(qkv.device):
-        err = _kernel()(qkv.data_ptr(), _ptr(bias), out.data_ptr(), N, T, num_heads, D,
+        err = _kernel(csrc)(qkv.data_ptr(), _ptr(bias), out.data_ptr(), N, T, num_heads, D,
                         _DTYPES[qkv.dtype], int(causal), _storage_scale(D, qkv.dtype),
                         torch.cuda.current_stream().cuda_stream)
-    _build.check(_build.load(KERNEL), err, KERNEL)
+    _build.check(_build.load(KERNEL, csrc), err, KERNEL)
     _build.launch_counts[KERNEL] += 1
     return out
 
 
 def _launch_bwd(qkv: torch.Tensor, bias, dout: torch.Tensor, num_heads: int, causal: bool,
-                with_db: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(dqkv, db in the storage type or None) from the backward kernel."""
+                with_db: bool, csrc: Path = _build.CSRC
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(dqkv, db in the storage type or None) from the backward kernel, built
+    from the sources in csrc."""
     D = _check_qkv(BWD_KERNEL, qkv, num_heads)
     N, T, C3 = qkv.shape
     _check_operand(BWD_KERNEL, "bias", bias, (C3,), qkv)
@@ -214,7 +219,7 @@ def _launch_bwd(qkv: torch.Tensor, bias, dout: torch.Tensor, num_heads: int, cau
     db = torch.zeros(C3, dtype=qkv.dtype, device=qkv.device) if with_db else None
     if N == 0 or T == 0:
         return dqkv, db
-    fn, tiles = _bwd_kernel()
+    fn, tiles = _bwd_kernel(csrc)
     is_bf16 = _DTYPES[qkv.dtype]
     f32 = dict(dtype=torch.float32, device=qkv.device)
     stats = torch.empty((N, num_heads, 3, T), **f32)  # row max, 1/l, delta
@@ -224,7 +229,7 @@ def _launch_bwd(qkv: torch.Tensor, bias, dout: torch.Tensor, num_heads: int, cau
                  _ptr(partials), _ptr(db), N, T, num_heads, D, is_bf16, int(causal),
                  _storage_scale(D, qkv.dtype), 1.0 / math.sqrt(D),
                  torch.cuda.current_stream().cuda_stream)
-    _build.check(_build.load(BWD_KERNEL), err, BWD_KERNEL)
+    _build.check(_build.load(BWD_KERNEL, csrc), err, BWD_KERNEL)
     _build.launch_counts[BWD_KERNEL] += 1
     return dqkv, db
 

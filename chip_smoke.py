@@ -5,12 +5,16 @@
 
 1. Card and build: prints the card's name and power limit, turns TF32 off,
    builds every kernel from the sources in the checkout (nvcc, sm_90a, one
-   process per source, all at once).
+   process per source, all at once), and logs each template's registers
+   and spills and, for the packed kernels' bf16 templates, warps a block,
+   shared memory and blocks resident on an SM at T=197.
 2. Kernels: holds each kernel against its plain PyTorch version at the
    serving and training paths' shapes (tolerances below) and times both,
    the library call that computes the same function, and the card's bound
-   for the work: the attention forward, the attention backward (dqkv and
-   the qkv-bias gradient db; the no-db form at head dims 32, 64 and 128),
+   for the work: the attention forward (bits on a repeat), the attention
+   backward (dqkv and the qkv-bias gradient db; the no-db form at head dims
+   32, 64 and 128; the query side, key side and db sum also timed apart from
+   a profile),
    and the fused qkv projection + attention (out and qkv; bf16 and f32,
    causal and not; timed beside the split path, a matmul + the packed
    kernel).
@@ -184,8 +188,10 @@ def check_attention(N, T, H, D, dtype, causal, seed):
     ref = fa.packed_short_attention_reference(qkv + bias.to(dtype), H, causal)
     err = (out.float() - ref.float()).abs().max().item()
     torch.testing.assert_close(out, ref, atol=TOL[dtype], rtol=TOL[dtype])
+    check(torch.equal(fa.packed_qkv_bias_attention(qkv, bias, H, causal), out),
+          f"short_attention_fwd N={N} T={T} D={D}: bits differ on a repeat")
     log(f"short_attention_fwd N={N} T={T} H={H} D={D} {str(dtype)[6:]} causal={causal}: "
-        f"max_abs_err={err:.3g} (tolerance {TOL[dtype]})")
+        f"max_abs_err={err:.3g} (tolerance {TOL[dtype]}), same bits on a repeat")
     return err
 
 
@@ -280,6 +286,56 @@ def attention_bwd_bound_ms(N, T, H, D, dtype, with_db=True):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+PACKED_SIDES = {"query_ms": "bwd_query", "key_ms": "bwd_key", "db_ms": "db_reduce"}
+
+
+def packed_side_ms(fn, iters=10):
+    """Device ms per call of each kernel of the packed backward (the query
+    side `bwd_query`, the key side `bwd_key`, the db sum `db_reduce`), from a
+    torch.profiler pass over `iters` calls after one outside it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {side: 0.0 for side in PACKED_SIDES}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for side, key in PACKED_SIDES.items():
+                if key in e.key:
+                    out[side] += e.self_device_time_total / 1e3 / iters
+    check(out["query_ms"] > 0 and out["key_ms"] > 0,
+          f"the profile named no packed backward side: {out}")
+    return out
+
+
+def log_residency():
+    """Warps a block, dynamic shared memory and blocks resident on an SM of
+    the packed kernels' bf16 templates at the ViT's T=197 (the card's
+    occupancy calculator over the compiled kernels)."""
+    import ctypes
+
+    out = {}
+    ints = [ctypes.c_int() for _ in range(3)]
+    for kernel, sides in (("short_attention_fwd", ("fwd",)),
+                          ("short_attention_bwd", ("query", "key"))):
+        lib = _build.load(kernel)
+        for side_i, side in enumerate(sides):
+            for D in fa.HEAD_DIMS:
+                args = (197, D) if kernel.endswith("fwd") else (197, D, side_i)
+                fn = getattr(lib, f"{kernel}_residency")
+                err = fn(*args, *(ctypes.byref(x) for x in ints))
+                check(err == 0, f"{kernel}_residency{args}: CUDA error {err}")
+                warps, smem, blocks = (x.value for x in ints)
+                out[f"{side} D={D}"] = dict(warps=warps, smem_bytes=smem, blocks_per_sm=blocks)
+                log(f"  {kernel} {side} bf16 D={D} T=197: {warps} warps a block, {smem} B of "
+                    f"shared memory, {blocks} blocks an SM ({warps * blocks} warps)")
+    return out
+
+
 def time_attention_bwd(N, T, H, D, dtype, with_db=True):
     """Kernel (with db: the bias form; without: packed_short_attention's),
     plain version, and the library yardstick: the backward of
@@ -304,9 +360,10 @@ def time_attention_bwd(N, T, H, D, dtype, with_db=True):
     fwd_ms = cuda_ms(sdpa)
     fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa(), x, do4))
     bound_ms, bound_by = attention_bwd_bound_ms(N, T, H, D, dtype, with_db)
+    sides = packed_side_ms(lambda: fa._launch_bwd(qkv, bias, dout, H, False, with_db))
     res = dict(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=fwd_bwd_ms - fwd_ms,
                library_fwd_bwd_ms=fwd_bwd_ms, library_fwd_ms=fwd_ms,
-               bound_ms=bound_ms, bound_by=bound_by)
+               bound_ms=bound_ms, bound_by=bound_by, **sides)
     log(f"short_attention_bwd timing N={N} T={T} H={H} D={D} db={with_db}: " + fmt(res))
     return res
 
@@ -605,10 +662,11 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.time()
-    _build.build()
+    build_logs = _build.build()
     log(f"built {sorted(_build.KERNELS)} in {time.time() - t0:.1f} s")
-    for name, text in _build.build_logs.items():
+    for name, text in build_logs.items():
         log_registers(name, text)
+    residency = log_residency()
 
     # 2. every kernel against its plain version -----------------------------
     main_err = check_attention(240, 197, 12, 64, torch.bfloat16, False, seed=0)
@@ -704,6 +762,7 @@ def main():
              ms=timing["kernel_ms"], **timing,
              train_shape={"shape": [160, 197, 12, 64], **train_timing},
              bench_shape={"shape": [1920, 197, 12, 64], **bench_timing},
+             residency={k: v for k, v in residency.items() if k.startswith("fwd")},
              unpaired_shape={k: {"shape": [160, 197, 768 // int(k[1:]), int(k[1:])], **v}
                              for k, v in unpaired.items()}),
         dict(name="short_attention_bwd", route=bwd_spec["route"], source=bwd_spec["source"],
@@ -712,6 +771,7 @@ def main():
              shape=[160, 197, 12, 64], dtype="bfloat16", max_abs_err=bwd_err,
              ms=bwd_timing["kernel_ms"], **bwd_timing,
              serve_batch_shape={"shape": [240, 197, 12, 64], **bwd_timing_240},
+             residency={k: v for k, v in residency.items() if not k.startswith("fwd")},
              no_db_shape={k: {"shape": [160, 197, 768 // int(k[1:]), int(k[1:])], **v}
                           for k, v in no_db.items()}),
     ]

@@ -30,17 +30,23 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,D,T,causal,bias", [
-    ("bfloat16", 64, 197, False, False), ("bfloat16", 64, 197, False, True),
-    ("float32", 64, 197, False, True), ("bfloat16", 32, 197, True, False),
-    ("bfloat16", 128, 197, True, True), ("float32", 128, 197, False, False),
+@pytest.mark.parametrize("dtype,D,T,causal,bias,N", [
+    ("bfloat16", 64, 197, False, False, 6), ("bfloat16", 64, 197, False, True, 6),
+    ("float32", 64, 197, False, True, 6), ("bfloat16", 32, 197, True, False, 6),
+    ("bfloat16", 128, 197, True, True, 6), ("float32", 128, 197, False, False, 6),
     # several query tiles and key tiles per sequence; a sequence shorter than a tile
-    ("bfloat16", 64, 600, True, True), ("bfloat16", 64, 600, False, False),
-    ("float32", 32, 300, True, False), ("bfloat16", 64, 5, False, True),
+    ("bfloat16", 64, 600, True, True, 6), ("bfloat16", 64, 600, False, False, 6),
+    ("float32", 32, 300, True, False, 6), ("bfloat16", 64, 5, False, True, 6),
+    # one warp and a part of the next (17); two query blocks with a second key
+    # tile (300), at every head dim; one frame; more blocks than the card holds
+    ("bfloat16", 32, 17, False, True, 6), ("bfloat16", 64, 17, True, True, 6),
+    ("bfloat16", 128, 17, False, False, 6), ("bfloat16", 32, 300, True, True, 6),
+    ("bfloat16", 64, 300, False, True, 6), ("bfloat16", 128, 300, True, False, 6),
+    ("bfloat16", 64, 197, True, True, 1), ("bfloat16", 64, 197, False, True, 64),
 ])
-def test_cuda_kernel_matches_plain_version(cuda_device, dtype, D, T, causal, bias):
+def test_cuda_kernel_matches_plain_version(cuda_device, dtype, D, T, causal, bias, N):
     H = 768 // D
-    x = _qkv(6, T, H, D, dtype, cuda_device, seed=3)
+    x = _qkv(N, T, H, D, dtype, cuda_device, seed=3)
     b = (torch.randn(3 * H * D, generator=torch.Generator().manual_seed(4)) if bias
          else torch.zeros(3 * H * D)).to(cuda_device)
     _build.reset_launch_counts()
@@ -49,6 +55,7 @@ def test_cuda_kernel_matches_plain_version(cuda_device, dtype, D, T, causal, bia
     assert _build.launch_counts[tfa.KERNEL] == 1
     ref = tfa.packed_short_attention_reference(x + b.to(x.dtype), H, causal)
     torch.testing.assert_close(out, ref, atol=TOL[dtype], rtol=TOL[dtype])
+    assert torch.equal(tfa.packed_qkv_bias_attention(x, b, H, causal), out)  # same bits
 
 
 @pytest.mark.cuda
@@ -66,20 +73,28 @@ def _rel_err(out, ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,D,T,causal,bias", [
-    ("bfloat16", 64, 197, False, True), ("float32", 64, 197, False, True),
-    ("bfloat16", 32, 197, False, False), ("bfloat16", 32, 197, True, False),
-    ("bfloat16", 128, 197, False, False), ("float32", 128, 197, True, True),
-    ("float32", 32, 197, True, False),
+@pytest.mark.parametrize("dtype,D,T,causal,bias,N", [
+    ("bfloat16", 64, 197, False, True, 6), ("float32", 64, 197, False, True, 6),
+    ("bfloat16", 32, 197, False, False, 6), ("bfloat16", 32, 197, True, False, 6),
+    ("bfloat16", 128, 197, False, False, 6), ("float32", 128, 197, True, True, 6),
+    ("float32", 32, 197, True, False, 6),
     # several query and key tiles per sequence; a sequence shorter than a tile
-    ("bfloat16", 64, 600, True, True), ("bfloat16", 64, 600, False, False),
-    ("float32", 64, 600, True, True), ("bfloat16", 64, 5, False, True),
-    ("float32", 32, 5, True, True),
+    ("bfloat16", 64, 600, True, True, 6), ("bfloat16", 64, 600, False, False, 6),
+    ("float32", 64, 600, True, True, 6), ("bfloat16", 64, 5, False, True, 6),
+    ("float32", 32, 5, True, True, 6),
+    # one warp and a part of the next (17); a second staged query or key tile
+    # (300), at every head dim; db summed over an odd number of frames; one
+    # frame; more blocks than the card holds
+    ("bfloat16", 32, 17, True, True, 6), ("bfloat16", 64, 17, False, True, 6),
+    ("bfloat16", 128, 17, True, False, 6), ("bfloat16", 32, 300, False, True, 6),
+    ("bfloat16", 64, 300, True, True, 6), ("bfloat16", 128, 300, False, True, 6),
+    ("bfloat16", 64, 197, False, True, 5), ("bfloat16", 64, 197, True, True, 1),
+    ("bfloat16", 64, 197, False, True, 64),
 ])
-def test_cuda_backward_matches_plain_version(cuda_device, dtype, D, T, causal, bias):
+def test_cuda_backward_matches_plain_version(cuda_device, dtype, D, T, causal, bias, N):
     H = 768 // D
-    x = _qkv(6, T, H, D, dtype, cuda_device, seed=5)
-    do = _qkv(6, T, H, D, dtype, cuda_device, seed=6)[..., : H * D].contiguous()
+    x = _qkv(N, T, H, D, dtype, cuda_device, seed=5)
+    do = _qkv(N, T, H, D, dtype, cuda_device, seed=6)[..., : H * D].contiguous()
     b = (torch.randn(3 * H * D, generator=torch.Generator().manual_seed(7)) if bias
          else torch.zeros(3 * H * D)).to(cuda_device, x.dtype)
     _build.reset_launch_counts()
@@ -297,6 +312,8 @@ def test_cuda_no_db_backward_at_head_dim_64(cuda_device, dtype, causal):
     assert db is None
     ref, _ = tfa.packed_short_attention_bwd_reference(x, do, 12, causal)
     assert _rel_err(dqkv, ref) <= TOL[dtype]
+    again, _ = tfa._launch_bwd(x, None, do, 12, causal, with_db=False)
+    assert torch.equal(again, dqkv)  # same bits on a repeat
 
 
 @pytest.mark.cuda

@@ -1,0 +1,128 @@
+#!/usr/bin/env python3
+"""Times the port's packed attention kernels (bf16) in turns on one GPU.
+
+    python3 tools/torch_packed_attention_turns.py [--source LABEL=DIR] ...
+
+Builds `short_attention_fwd.cu` and `short_attention_bwd.cu` from each DIR
+(a copy of `avt_tpu_torch/ops/csrc`: a parent commit's, or an edited copy,
+unpacked into a git-ignored directory) and from this checkout ("change"),
+each into a library of its own, and prints each library's registers and
+spills. Holds each against the plain PyTorch version (head-pair and unpaired
+head dims, causal and not, bits on a repeat), then times them at the ViT's
+shapes in turns (the sources in the order given, change, then the same in
+reverse, so each label gets two numbers from one card), the backward also by
+side from a profile (`chip_smoke.packed_side_ms`). Ends with one JSON line
+of the times. Needs a CUDA device; run it from the repository root.
+"""
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+from avt_tpu_torch.ops import _build  # noqa: E402
+from avt_tpu_torch.ops import flash_attention as fa  # noqa: E402
+
+BF16 = torch.bfloat16
+# (N, T, H, D, causal, bias): the forward with the bias, the backward with db
+CHECKS = ((8, 197, 12, 64, False, True), (5, 197, 12, 64, True, True),
+          (3, 300, 12, 64, True, False), (8, 197, 24, 32, True, False),
+          (8, 197, 6, 128, False, True), (2, 17, 6, 128, True, False))
+FWD_SHAPES = {  # label: (N, T, H, D, bias), the bias form as the ViT calls it
+    "N160": (160, 197, 12, 64, True), "N240": (240, 197, 12, 64, True),
+    "N1920": (1920, 197, 12, 64, True),
+    "D32": (160, 197, 24, 32, False), "D128": (160, 197, 6, 128, False),
+}
+BWD_SHAPES = {  # label: (N, T, H, D, with_db)
+    "db N160": (160, 197, 12, 64, True), "db N240": (240, 197, 12, 64, True),
+    "no-db D64": (160, 197, 12, 64, False), "no-db D32": (160, 197, 24, 32, False),
+    "no-db D128": (160, 197, 6, 128, False),
+}
+
+
+def check_source(label, csrc):
+    """Both kernels of one source directory against the plain versions."""
+    tol = cs.TOL[BF16]
+    for N, T, H, D, causal, with_bias in CHECKS:
+        qkv, dout, bias = cs.bwd_inputs(N, T, H, D, BF16, seed=31)
+        bias = bias if with_bias else None
+        ref_in = qkv if bias is None else qkv + bias
+        out = fa._launch(qkv, bias, H, causal, csrc)
+        torch.testing.assert_close(out, fa.packed_short_attention_reference(ref_in, H, causal),
+                                   atol=tol, rtol=tol)
+        dqkv, db = fa._launch_bwd(qkv, bias, dout, H, causal, with_bias, csrc)
+        ref, ref_db = fa.packed_short_attention_bwd_reference(ref_in, dout, H, causal, with_bias)
+        cs.check(cs.rel_err(dqkv, ref) <= tol and (db is None or cs.rel_err(db, ref_db) <= tol),
+                 f"{label}: the backward at {(N, T, H, D, causal, with_bias)}")
+        again, db_again = fa._launch_bwd(qkv, bias, dout, H, causal, with_bias, csrc)
+        cs.check(torch.equal(fa._launch(qkv, bias, H, causal, csrc), out)
+                 and torch.equal(again, dqkv) and (db is None or torch.equal(db_again, db)),
+                 f"{label}: bits differ on a repeat at {(N, T, H, D, causal, with_bias)}")
+    cs.log(f"{label}: forward and backward match the plain versions, same bits on a repeat")
+
+
+def time_turns(sources):
+    """label -> shape -> {"ms": [first turn, second turn], backward sides}."""
+    labels = list(sources) + list(sources)[::-1]
+    results = {label: {} for label in sources}
+    for shape, (N, T, H, D, flag) in FWD_SHAPES.items():
+        qkv, _, bias = cs.bwd_inputs(N, T, H, D, BF16, seed=33)
+        bias = bias if flag else None
+        for label in labels:
+            res = results[label].setdefault(f"fwd {shape}", {"ms": []})
+            res["ms"].append(cs.cuda_ms(lambda: fa._launch(qkv, bias, H, False, sources[label])))
+        cs.log(f"fwd {shape}: " + "; ".join(
+            f"{label} {'/'.join(f'{x:.4f}' for x in results[label][f'fwd {shape}']['ms'])}"
+            for label in sources))
+    for shape, (N, T, H, D, with_db) in BWD_SHAPES.items():
+        qkv, dout, bias = cs.bwd_inputs(N, T, H, D, BF16, seed=34)
+        bias = bias if with_db else None
+        for label in labels:
+            def run(csrc=sources[label]):
+                return fa._launch_bwd(qkv, bias, dout, H, False, with_db, csrc)
+
+            res = results[label].setdefault(f"bwd {shape}", {"ms": []})
+            res["ms"].append(cs.cuda_ms(run))
+            if "query_ms" not in res:
+                res.update(cs.packed_side_ms(run))
+        cs.log(f"bwd {shape}: " + "; ".join(
+            f"{label} {'/'.join(f'{x:.4f}' for x in res['ms'])} ("
+            + ", ".join(f"{k} {v:.4f}" for k, v in res.items() if k != "ms") + ")"
+            for label, res in ((lb, results[lb][f"bwd {shape}"]) for lb in sources)))
+    return results
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--source", action="append", default=[], metavar="LABEL=DIR",
+                    help="a directory holding a copy of avt_tpu_torch/ops/csrc, timed "
+                         "under LABEL before this checkout's sources")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("torch_packed_attention_turns: no CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    cs.log(smi.stdout.strip().splitlines()[0])
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    sources = {}
+    for spec in args.source:
+        label, _, csrc = spec.partition("=")
+        sources[label] = Path(csrc).resolve()
+    sources["change"] = _build.CSRC
+    for label, csrc in sources.items():
+        for name, text in _build.build((fa.KERNEL, fa.BWD_KERNEL), csrc).items():
+            cs.log_registers(f"{label} {name}", text)
+    for label, csrc in sources.items():
+        check_source(label, csrc)
+    print(json.dumps(time_turns(sources)))
+
+
+if __name__ == "__main__":
+    main()
