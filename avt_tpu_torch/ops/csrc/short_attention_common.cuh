@@ -7,11 +7,11 @@
 // accumulation), their fragments loaded from shared memory with ldmatrix.
 // Fragment layouts are those of mma.m16n8k16: lane = 4*g + t holds rows g and
 // g+8, columns 2t, 2t+1 (+8). Shared rows are padded by kPad bf16 (16 bytes),
-// which makes the fragment loads conflict-free. `attend_bf16` (the fused
-// kernel's) and `attend_steps` (the forward's: whole key steps, no branch
-// inside one) with `store_rows_bf16` are the forward's online-softmax loop
-// over staged keys and its output epilogue, in the order of the TPU's
-// head-pair kernel (avt_tpu/ops/flash_attention.py:_short_fwd_kernel_paired):
+// which makes the fragment loads conflict-free. `attend_steps` (whole key
+// steps, no branch inside one; the forward's and the fused kernel's) with
+// `store_rows_bf16` are the forward's one online-softmax loop over staged
+// keys and its output epilogue, in the order of the TPU's head-pair kernel
+// (avt_tpu/ops/flash_attention.py:_short_fwd_kernel_paired):
 //   s  = q' . k^T (f32), q' = q * (sm_scale * log2 e) rounded to bf16
 //   p  = exp2(s - rowmax s), rounded to bf16 for an f32-accumulated p . v
 //   out = (p . v) / max(rowsum p, 1e-30), rounded once to bf16
@@ -209,104 +209,11 @@ struct RowState {
 
 // One warp's query rows (row0 = qw + g, row1 = row0 + 8) against keys
 // [ks0, k_end) staged at Ks / Vs ([row][D + kPad], row r = key ks0 + r), in
-// 64-key steps with an online softmax. Keys >= T, and with `causal` keys
-// after the query, are masked; key columns from k_end on are left out of the
-// products (the caller passes k_end <= the staged rows' end).
-template <int D>
-__device__ __forceinline__ void attend_bf16(RowState<D>& st, const uint32_t (&qa)[D / 16][4],
-                                            const __nv_bfloat16* Ks, const __nv_bfloat16* Vs,
-                                            int ks0, int k_end, int T, int row0, int row1,
-                                            bool causal, int lane) {
-  constexpr int LD = D + kPad;
-  const int t = lane & 3;
-  for (int k0 = ks0; k0 < k_end; k0 += kBK) {
-    const __nv_bfloat16* Kc = Ks + (k0 - ks0) * LD;
-    const __nv_bfloat16* Vc = Vs + (k0 - ks0) * LD;
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      if (k0 + j * 8 >= k_end) {
-        s[j][0] = s[j][1] = s[j][2] = s[j][3] = -INFINITY;
-        continue;
-      }
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const __nv_bfloat16* ktile = Kc + (j * 8 + (lane & 7)) * LD + (lane >> 3) * 8;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; kk += 2) {
-        uint32_t b[4];
-        ldmatrix_x4(b, ktile + kk * 16);
-        mma_16816(s[j], qa[kk], b[0], b[1]);
-        mma_16816(s[j], qa[kk + 1], b[2], b[3]);
-      }
-    }
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-    const bool need_mask = causal || k0 + kBK > T;
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + 2 * t + (e & 1);
-        const int row = e < 2 ? row0 : row1;
-        if (need_mask && (key >= T || (causal && key > row))) s[j][e] = -INFINITY;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-    const float mn0 = fmaxf(st.m0, quad_max(mx0)), mn1 = fmaxf(st.m1, quad_max(mx1));
-    // a row with every key so far masked keeps max -inf: shift by 0 so that
-    // exp2 gives 0 rather than NaN
-    const float sh0 = mn0 == -INFINITY ? 0.f : mn0;
-    const float sh1 = mn1 == -INFINITY ? 0.f : mn1;
-    const float a0 = fast_exp2(st.m0 - sh0), a1 = fast_exp2(st.m1 - sh1);
-    st.m0 = mn0;
-    st.m1 = mn1;
-    st.l0 *= a0;
-    st.l1 *= a1;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      st.o[j][0] *= a0;
-      st.o[j][1] *= a0;
-      st.o[j][2] *= a1;
-      st.o[j][3] *= a1;
-    }
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      s[j][0] = fast_exp2(s[j][0] - sh0);
-      s[j][1] = fast_exp2(s[j][1] - sh0);
-      s[j][2] = fast_exp2(s[j][2] - sh1);
-      s[j][3] = fast_exp2(s[j][3] - sh1);
-      st.l0 += s[j][0] + s[j][1];
-      st.l1 += s[j][2] + s[j][3];
-    }
-    // o += p . v: the score accumulators of key columns [16kk, 16kk+16) are
-    // exactly the A fragment of the next product; V's B fragments come from
-    // its row-major tile through ldmatrix.trans, two dim-tiles a load
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      if (k0 + kk * 16 >= k_end) break;
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-      };
-      const __nv_bfloat16* vtile = Vc + (kk * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
-#pragma unroll
-      for (int j = 0; j < D / 8; j += 2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, vtile + j * 8);
-        mma_16816(st.o[j], pa, b[0], b[1]);
-        mma_16816(st.o[j + 1], pa, b[2], b[3]);
-      }
-    }
-  }
-}
-
-// attend_bf16 without a branch inside a step: the staged rows must cover
-// every KB-key step that starts before k_end (zero-filled past T), so each
-// step's products run whole and its score tiles are independent chains of
-// mma the warp can interleave. Keys >= T, and with `causal` keys after the
-// query, are masked.
+// KB-key steps with an online softmax. The staged rows must cover every step
+// that starts before k_end (finite values past T: those keys are masked), so
+// each step's products run whole, with no branch inside a step, and its score
+// tiles are independent chains of mma the warp can interleave. Keys >= T, and
+// with `causal` keys after the query, are masked.
 template <int D, int KB>
 __device__ __forceinline__ void attend_steps(RowState<D>& st, const uint32_t (&qa)[D / 16][4],
                                              const __nv_bfloat16* Ks, const __nv_bfloat16* Vs,
@@ -373,7 +280,9 @@ __device__ __forceinline__ void attend_steps(RowState<D>& st, const uint32_t (&q
       st.o[j][2] *= a1;
       st.o[j][3] *= a1;
     }
-    // o += p . v, as in attend_bf16
+    // o += p . v: the score accumulators of key columns [16kk, 16kk+16) are
+    // exactly the A fragment of the next product; V's B fragments come from
+    // its row-major tile through ldmatrix.trans, two dim-tiles a load
 #pragma unroll
     for (int kk = 0; kk < KB / 16; ++kk) {
       const uint32_t pa[4] = {

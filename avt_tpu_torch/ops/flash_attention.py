@@ -345,8 +345,10 @@ def _check_fused(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, num_heads: i
 
 
 @functools.lru_cache(maxsize=None)
-def _fused_kernel():
-    fn = _build.load(FUSED_KERNEL).fused_qkv_attention_fwd
+def _fused_kernel(csrc: Path = _build.CSRC):
+    """The fused kernel's C entry point, built from the sources in csrc at
+    first use."""
+    fn = _build.load(FUSED_KERNEL, csrc).fused_qkv_attention_fwd
     # (x, wt, bias, out, qkv, N, T, H, is_bf16, causal, scale, stream)
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -354,8 +356,9 @@ def _fused_kernel():
 
 
 def _launch_fused(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, num_heads: int,
-                  causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out (N, T, C), qkv (N, T, 3C)) from the fused kernel."""
+                  causal: bool, csrc: Path = _build.CSRC) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out (N, T, C), qkv (N, T, 3C)) from the fused kernel, built from the
+    sources in csrc."""
     x, wt, b = _check_fused(x, w, b, num_heads)
     N, T, C = x.shape
     out = torch.empty((N, T, C), dtype=x.dtype, device=x.device)
@@ -363,11 +366,11 @@ def _launch_fused(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, num_heads: 
     if N == 0 or T == 0:
         return out, qkv
     with torch.cuda.device(x.device):
-        err = _fused_kernel()(x.data_ptr(), wt.data_ptr(), b.data_ptr(), out.data_ptr(),
-                              qkv.data_ptr(), N, T, num_heads, _DTYPES[x.dtype], int(causal),
-                              _storage_scale(FUSED_HEAD_DIM, x.dtype),
-                              torch.cuda.current_stream().cuda_stream)
-    _build.check(_build.load(FUSED_KERNEL), err, FUSED_KERNEL)
+        err = _fused_kernel(csrc)(x.data_ptr(), wt.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                  qkv.data_ptr(), N, T, num_heads, _DTYPES[x.dtype], int(causal),
+                                  _storage_scale(FUSED_HEAD_DIM, x.dtype),
+                                  torch.cuda.current_stream().cuda_stream)
+    _build.check(_build.load(FUSED_KERNEL, csrc), err, FUSED_KERNEL)
     _build.launch_counts[FUSED_KERNEL] += 1
     return out, qkv
 

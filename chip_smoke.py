@@ -6,8 +6,9 @@
 1. Card and build: prints the card's name and power limit, turns TF32 off,
    builds every kernel from the sources in the checkout (nvcc, sm_90a, one
    process per source, all at once), and logs each template's registers
-   and spills and, for the packed kernels' bf16 templates, warps a block,
-   shared memory and blocks resident on an SM at T=197.
+   and spills and, for the packed kernels' bf16 templates and the fused
+   kernel's bf16 and f32 forms, warps a block, shared memory and blocks
+   resident on an SM at T=197.
 2. Kernels: holds each kernel against its plain PyTorch version at the
    serving and training paths' shapes (tolerances below) and times both,
    the library call that computes the same function, and the card's bound
@@ -15,9 +16,9 @@
    backward (dqkv and the qkv-bias gradient db; the no-db form at head dims
    32, 64 and 128; the query side, key side and db sum also timed apart from
    a profile),
-   and the fused qkv projection + attention (out and qkv; bf16 and f32,
-   causal and not; timed beside the split path, a matmul + the packed
-   kernel).
+   and the fused qkv projection + attention (out and qkv, bits on a repeat;
+   bf16 and f32, causal and not; timed beside the split path, a matmul +
+   the packed kernel).
 3. Serving: the full-width flagship (ViT-B/16 + AVT-h, 3806 actions, bf16)
    answers requests of uint8 clips through `batch_predict` at batch 4, 3
    crops + flips each; the logits must be finite, (n, 3806), the same for a
@@ -312,27 +313,31 @@ def packed_side_ms(fn, iters=10):
     return out
 
 
-def log_residency():
+def log_residency(csrc=_build.CSRC):
     """Warps a block, dynamic shared memory and blocks resident on an SM of
-    the packed kernels' bf16 templates at the ViT's T=197 (the card's
-    occupancy calculator over the compiled kernels)."""
+    the packed kernels' bf16 templates and of the fused kernel's bf16 and f32
+    forms at the ViT's T=197 (the card's occupancy calculator over the
+    kernels compiled from the sources in csrc)."""
     import ctypes
 
     out = {}
     ints = [ctypes.c_int() for _ in range(3)]
-    for kernel, sides in (("short_attention_fwd", ("fwd",)),
-                          ("short_attention_bwd", ("query", "key"))):
-        lib = _build.load(kernel)
-        for side_i, side in enumerate(sides):
-            for D in fa.HEAD_DIMS:
-                args = (197, D) if kernel.endswith("fwd") else (197, D, side_i)
-                fn = getattr(lib, f"{kernel}_residency")
-                err = fn(*args, *(ctypes.byref(x) for x in ints))
-                check(err == 0, f"{kernel}_residency{args}: CUDA error {err}")
-                warps, smem, blocks = (x.value for x in ints)
-                out[f"{side} D={D}"] = dict(warps=warps, smem_bytes=smem, blocks_per_sm=blocks)
-                log(f"  {kernel} {side} bf16 D={D} T=197: {warps} warps a block, {smem} B of "
-                    f"shared memory, {blocks} blocks an SM ({warps * blocks} warps)")
+    calls = [("short_attention_fwd", f"fwd D={D}", "bf16", (197, D)) for D in fa.HEAD_DIMS]
+    calls += [("short_attention_bwd", f"{side} D={D}", "bf16", (197, D, side_i))
+              for side_i, side in enumerate(("query", "key")) for D in fa.HEAD_DIMS]
+    calls += [("fused_qkv_attention_fwd", f"fused {dt}", dt, (197, int(dt == "bf16")))
+              for dt in ("bf16", "f32")]
+    for kernel, key, dt, args in calls:
+        fn = getattr(_build.load(kernel, csrc), f"{kernel}_residency", None)
+        if fn is None:  # an older copy of the sources
+            log(f"  {kernel}: no residency entry in {csrc}")
+            continue
+        err = fn(*args, *(ctypes.byref(x) for x in ints))
+        check(err == 0, f"{kernel}_residency{args}: CUDA error {err}")
+        warps, smem, blocks = (x.value for x in ints)
+        out[key] = dict(warps=warps, smem_bytes=smem, blocks_per_sm=blocks)
+        log(f"  {kernel} {key} ({dt}) T=197: {warps} warps a block, {smem} B of shared "
+            f"memory, {blocks} blocks an SM ({warps * blocks} warps)")
     return out
 
 
@@ -379,19 +384,24 @@ def fused_inputs(N, T, H, dtype, seed):
     return x.to("cuda", dtype), w.to("cuda", dtype).t(), b.to("cuda", dtype)
 
 
-def check_fused(N, T, H, dtype, causal, seed):
-    """The fused kernel against its plain version, on out and on qkv."""
+def check_fused(N, T, H, dtype, causal, seed, csrc=_build.CSRC):
+    """The fused kernel (built from the sources in csrc) against its plain
+    version, on out and on qkv, and the same bits on a repeat."""
     x, w, b = fused_inputs(N, T, H, dtype, seed)
-    out, qkv = fa._launch_fused(x, w, b, H, causal)
+    out, qkv = fa._launch_fused(x, w, b, H, causal, csrc)
     torch.cuda.synchronize()
     ref, ref_qkv = fa.fused_qkv_attention_reference(x, w, b, H, causal)
     errs = [(got.float() - want.float()).abs().max().item()
             for got, want in ((out, ref), (qkv, ref_qkv))]
     for got, want in ((out, ref), (qkv, ref_qkv)):
         torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+    again, qkv_again = fa._launch_fused(x, w, b, H, causal, csrc)
+    check(torch.equal(again, out) and torch.equal(qkv_again, qkv),
+          f"fused_qkv_attention_fwd N={N} T={T} H={H} {dtype} causal={causal}: bits differ "
+          "on a repeat")
     log(f"fused_qkv_attention_fwd N={N} T={T} H={H} D=64 {str(dtype)[6:]} causal={causal}: "
         f"out max_abs_err={errs[0]:.3g}, qkv max_abs_err={errs[1]:.3g} "
-        f"(tolerance {TOL[dtype]})")
+        f"(tolerance {TOL[dtype]}), same bits on a repeat")
     return max(errs)
 
 
@@ -406,11 +416,12 @@ def fused_bound_ms(N, T, H, dtype):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def time_fused(N, T, H, dtype):
-    """The fused kernel, its plain version, the library yardstick (one
-    matmul + bias, then SDPA on the split views; the port never calls it)
-    and the port's split path (a matmul, then the packed kernel with the
-    bias added in its loads)."""
+def time_fused(N, T, H, dtype, csrc=_build.CSRC, yardsticks=True):
+    """The fused kernel (built from the sources in csrc) and, with
+    `yardsticks`, its plain version, the library yardstick (one matmul +
+    bias, then SDPA on the split views; the port never calls it), the port's
+    split path (a matmul, then the packed kernel with the bias added in its
+    loads) and the bound."""
     x, w, b = fused_inputs(N, T, H, dtype, seed=12)
     C = 64 * H
 
@@ -419,14 +430,17 @@ def time_fused(N, T, H, dtype):
         return F.scaled_dot_product_attention(
             *(t.view(N, T, H, 64).transpose(1, 2) for t in qkv.split(C, dim=-1)))
 
-    bound_ms, bound_by = fused_bound_ms(N, T, H, dtype)
-    res = dict(kernel_ms=cuda_ms(lambda: fa._launch_fused(x, w, b, H, False)),
-               plain_ms=cuda_ms(lambda: fa.fused_qkv_attention_reference(x, w, b, H),
-                                iters=2, reps=3),
-               library_ms=cuda_ms(library),
-               split_ms=cuda_ms(lambda: fa.packed_qkv_bias_attention(torch.matmul(x, w), b, H)),
-               bound_ms=bound_ms, bound_by=bound_by)
-    log(f"fused_qkv_attention_fwd timing N={N} T={T} H={H} D=64 {str(dtype)[6:]}: " + fmt(res))
+    res = dict(kernel_ms=cuda_ms(lambda: fa._launch_fused(x, w, b, H, False, csrc)))
+    if yardsticks:
+        bound_ms, bound_by = fused_bound_ms(N, T, H, dtype)
+        res.update(plain_ms=cuda_ms(lambda: fa.fused_qkv_attention_reference(x, w, b, H),
+                                    iters=2, reps=3),
+                   library_ms=cuda_ms(library),
+                   split_ms=cuda_ms(
+                       lambda: fa.packed_qkv_bias_attention(torch.matmul(x, w), b, H)),
+                   bound_ms=bound_ms, bound_by=bound_by)
+        log(f"fused_qkv_attention_fwd timing N={N} T={T} H={H} D=64 {str(dtype)[6:]}: "
+            + fmt(res))
     return res
 
 
@@ -771,7 +785,7 @@ def main():
              shape=[160, 197, 12, 64], dtype="bfloat16", max_abs_err=bwd_err,
              ms=bwd_timing["kernel_ms"], **bwd_timing,
              serve_batch_shape={"shape": [240, 197, 12, 64], **bwd_timing_240},
-             residency={k: v for k, v in residency.items() if not k.startswith("fwd")},
+             residency={k: v for k, v in residency.items() if k.startswith(("query", "key"))},
              no_db_shape={k: {"shape": [160, 197, 768 // int(k[1:]), int(k[1:])], **v}
                           for k, v in no_db.items()}),
     ]
@@ -797,6 +811,7 @@ def main():
         **fused_timing[160], library="matmul + bias, then SDPA on the split views",
         serve_batch_shape={"shape": [240, 197, 12, 64], **fused_timing[240]},
         f32={"shape": [240, 197, 12, 64], **fused_timing_f32},
+        residency={k.split(" ")[1]: v for k, v in residency.items() if k.startswith("fused")},
         train_step_ms={"fused": fused_train["step_ms"], "split": split_train["step_ms"]}))
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

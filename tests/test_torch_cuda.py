@@ -253,15 +253,25 @@ def _fused_inputs(N, T, H, dtype, device, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,T,H,causal", [
-    ("bfloat16", 197, 12, False), ("float32", 197, 12, False), ("bfloat16", 100, 4, True),
-    ("float32", 100, 4, True),
+@pytest.mark.parametrize("dtype,T,H,causal,N", [
+    ("bfloat16", 197, 12, False, 3), ("float32", 197, 12, False, 3),
+    ("bfloat16", 100, 4, True, 3), ("float32", 100, 4, True, 3),
     # several 256-row tiles per sequence; a sequence shorter than a warp's rows
-    ("bfloat16", 300, 4, True), ("bfloat16", 300, 4, False), ("float32", 300, 2, True),
-    ("bfloat16", 5, 2, False),
+    ("bfloat16", 300, 4, True, 3), ("bfloat16", 300, 4, False, 3),
+    ("float32", 300, 2, True, 3), ("bfloat16", 5, 2, False, 3),
+    # the bf16 form's tile edges: whole and one row into the next warpgroup of
+    # 64 rows, one 256-row tile and one row into the second; both masks
+    ("bfloat16", 64, 2, False, 3), ("bfloat16", 65, 2, True, 3),
+    ("bfloat16", 128, 2, True, 3), ("bfloat16", 129, 2, False, 3),
+    ("bfloat16", 256, 2, False, 3), ("bfloat16", 256, 2, True, 3),
+    ("bfloat16", 257, 2, True, 3), ("bfloat16", 257, 2, False, 3),
+    ("float32", 257, 2, False, 3), ("float32", 65, 2, True, 3),
+    # one frame; two heads and twelve at the ViT's length
+    ("bfloat16", 197, 12, True, 1), ("float32", 197, 2, False, 1),
+    ("bfloat16", 197, 2, False, 5), ("bfloat16", 197, 12, True, 5),
 ])
-def test_cuda_fused_kernel_matches_plain_version(cuda_device, dtype, T, H, causal):
-    x, w, b = _fused_inputs(3, T, H, dtype, cuda_device, seed=T + H)
+def test_cuda_fused_kernel_matches_plain_version(cuda_device, dtype, T, H, causal, N):
+    x, w, b = _fused_inputs(N, T, H, dtype, cuda_device, seed=T + H)
     _build.reset_launch_counts()
     out, qkv = tfa._launch_fused(x, w, b, H, causal)
     torch.cuda.synchronize()
@@ -269,6 +279,9 @@ def test_cuda_fused_kernel_matches_plain_version(cuda_device, dtype, T, H, causa
     ref, ref_qkv = tfa.fused_qkv_attention_reference(x, w, b, H, causal)
     torch.testing.assert_close(qkv, ref_qkv, atol=TOL[dtype], rtol=TOL[dtype])
     torch.testing.assert_close(out, ref, atol=TOL[dtype], rtol=TOL[dtype])
+    # the same bits on a repeat
+    again, qkv_again = tfa._launch_fused(x, w, b, H, causal)
+    assert torch.equal(again, out) and torch.equal(qkv_again, qkv)
     # a contiguous (C, 3C) w is copied into the kernel's layout: the same result
     out2, qkv2 = tfa._launch_fused(x, w.contiguous(), b, H, causal)
     assert torch.equal(out2, out) and torch.equal(qkv2, qkv)

@@ -130,3 +130,14 @@ def test_kernel_wrapper_refuses_a_cpu_tensor():
     x = torch.zeros(1, 4, C)
     with pytest.raises(RuntimeError, match="CUDA"):
         tfa._launch_fused(x, torch.zeros(C, 3 * C), torch.zeros(3 * C), H, False)
+
+
+def test_kernel_wrapper_with_another_source_refuses_a_cpu_tensor(tmp_path, monkeypatch):
+    """The launch path built from another copy of the sources (as the turns
+    tool times a parent's) refuses a CPU tensor before it builds anything."""
+    load = mock.Mock(side_effect=AssertionError("built a kernel for a CPU tensor"))
+    monkeypatch.setattr(tfa._build, "load", load)
+    x = torch.zeros(1, 4, C)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tfa._launch_fused(x, torch.zeros(C, 3 * C), torch.zeros(3 * C), H, False, tmp_path)
+    assert load.call_count == 0

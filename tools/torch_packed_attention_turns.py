@@ -1,18 +1,25 @@
 #!/usr/bin/env python3
-"""Times the port's packed attention kernels (bf16) in turns on one GPU.
+"""Times the port's packed attention kernels and the fused qkv projection +
+attention kernel in turns on one GPU.
 
     python3 tools/torch_packed_attention_turns.py [--source LABEL=DIR] ...
+                                                  [--unchecked LABEL=DIR] ...
 
-Builds `short_attention_fwd.cu` and `short_attention_bwd.cu` from each DIR
+Builds `short_attention_fwd.cu` and `short_attention_bwd.cu` (the packed
+kernels, bf16) and `fused_qkv_attention_fwd.cu` (bf16 and f32) from each DIR
 (a copy of `avt_tpu_torch/ops/csrc`: a parent commit's, or an edited copy,
 unpacked into a git-ignored directory) and from this checkout ("change"),
 each into a library of its own, and prints each library's registers and
-spills. Holds each against the plain PyTorch version (head-pair and unpaired
-head dims, causal and not, bits on a repeat), then times them at the ViT's
-shapes in turns (the sources in the order given, change, then the same in
-reverse, so each label gets two numbers from one card), the backward also by
-side from a profile (`chip_smoke.packed_side_ms`). Ends with one JSON line
-of the times. Needs a CUDA device; run it from the repository root.
+spills and each template's blocks an SM at T=197. Holds each against the
+plain PyTorch version (packed: head-pair and unpaired head dims, causal and
+not; fused: `chip_smoke.check_fused` on out and qkv; bits on a repeat), then
+times them at the ViT's shapes in turns (the sources in the order given,
+change, then the same in reverse, so each label gets two numbers from one
+card), the packed backward also by side from a profile
+(`chip_smoke.packed_side_ms`), the fused kernel with `chip_smoke.time_fused`
+(its plain, library and split times once, in the first turn). A source
+given with --unchecked is timed without the checks (a phase skip). Ends with
+one JSON line of the times. Needs a CUDA device; run it from the repository root.
 """
 import argparse
 import json
@@ -38,6 +45,16 @@ FWD_SHAPES = {  # label: (N, T, H, D, bias), the bias form as the ViT calls it
     "N160": (160, 197, 12, 64, True), "N240": (240, 197, 12, 64, True),
     "N1920": (1920, 197, 12, 64, True),
     "D32": (160, 197, 24, 32, False), "D128": (160, 197, 6, 128, False),
+}
+# (N, T, H, dtype, causal): a serving and a train batch, f32, causal, and
+# the tile edges of the fused kernel (64-row warpgroups, 256-row tiles)
+FUSED_CHECKS = ((240, 197, 12, BF16, False), (160, 197, 12, BF16, False),
+                (240, 197, 12, torch.float32, False), (4, 100, 4, BF16, True),
+                (3, 300, 4, BF16, True), (3, 300, 2, torch.float32, True),
+                (2, 65, 2, BF16, False), (2, 257, 2, BF16, True))
+FUSED_SHAPES = {  # label: (N, T, H, dtype)
+    "N160": (160, 197, 12, BF16), "N240": (240, 197, 12, BF16),
+    "f32 N240": (240, 197, 12, torch.float32),
 }
 BWD_SHAPES = {  # label: (N, T, H, D, with_db)
     "db N160": (160, 197, 12, 64, True), "db N240": (240, 197, 12, 64, True),
@@ -65,6 +82,30 @@ def check_source(label, csrc):
                  and torch.equal(again, dqkv) and (db is None or torch.equal(db_again, db)),
                  f"{label}: bits differ on a repeat at {(N, T, H, D, causal, with_bias)}")
     cs.log(f"{label}: forward and backward match the plain versions, same bits on a repeat")
+
+
+def check_fused_source(label, csrc):
+    """The fused kernel of one source directory against its plain version."""
+    for N, T, H, dtype, causal in FUSED_CHECKS:
+        cs.check_fused(N, T, H, dtype, causal, seed=35, csrc=csrc)
+    cs.log(f"{label}: the fused kernel matches its plain version, same bits on a repeat")
+
+
+def time_fused_turns(sources):
+    """label -> "fused <shape>" -> {"ms": [first turn, second turn]}, the
+    first label's first turn also with the yardsticks."""
+    labels = list(sources) + list(sources)[::-1]
+    results = {label: {} for label in sources}
+    for shape, (N, T, H, dtype) in FUSED_SHAPES.items():
+        for i, label in enumerate(labels):
+            res = cs.time_fused(N, T, H, dtype, sources[label], yardsticks=i == 0)
+            entry = results[label].setdefault(f"fused {shape}", {"ms": []})
+            entry["ms"].append(res.pop("kernel_ms"))
+            entry.update(res)
+        cs.log(f"fused {shape}: " + "; ".join(
+            f"{label} {'/'.join(f'{x:.4f}' for x in results[label][f'fused {shape}']['ms'])}"
+            for label in sources))
+    return results
 
 
 def time_turns(sources):
@@ -103,6 +144,9 @@ def main():
     ap.add_argument("--source", action="append", default=[], metavar="LABEL=DIR",
                     help="a directory holding a copy of avt_tpu_torch/ops/csrc, timed "
                          "under LABEL before this checkout's sources")
+    ap.add_argument("--unchecked", action="append", default=[], metavar="LABEL=DIR",
+                    help="as --source, but timed without the checks: a phase skip, an "
+                         "edited copy that leaves out a part of the work")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_packed_attention_turns: no CUDA device")
@@ -111,17 +155,28 @@ def main():
     cs.log(smi.stdout.strip().splitlines()[0])
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    sources = {}
-    for spec in args.source:
+    sources, unchecked = {}, set()
+    for spec in args.source + args.unchecked:
         label, _, csrc = spec.partition("=")
         sources[label] = Path(csrc).resolve()
+        if spec in args.unchecked:
+            unchecked.add(label)
     sources["change"] = _build.CSRC
     for label, csrc in sources.items():
-        for name, text in _build.build((fa.KERNEL, fa.BWD_KERNEL), csrc).items():
+        for name, text in _build.build((fa.KERNEL, fa.BWD_KERNEL, fa.FUSED_KERNEL), csrc).items():
             cs.log_registers(f"{label} {name}", text)
+        cs.log(f"{label}:")
+        cs.log_residency(csrc)
     for label, csrc in sources.items():
+        if label in unchecked:
+            cs.log(f"{label}: not checked (timed only)")
+            continue
         check_source(label, csrc)
-    print(json.dumps(time_turns(sources)))
+        check_fused_source(label, csrc)
+    results = time_turns(sources)
+    for label, res in time_fused_turns(sources).items():
+        results[label].update(res)
+    print(json.dumps(results))
 
 
 if __name__ == "__main__":
