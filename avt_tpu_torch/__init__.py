@@ -11,7 +11,11 @@ attention backward is a second one (ops/csrc/short_attention_bwd.cu); and the
 feature path of expts/02 (`build_avt(backbone="identity")`, its train step
 and `make_eval_step`), whose AVT-h attention over 128 or more observed
 features runs on the blocked flash kernels (ops/csrc/flash_attention_fwd.cu
-and flash_attention_bwd.cu).
+and flash_attention_bwd.cu); and the trainer core around those steps
+(`run_training` with `make_multi_step`, `save_checkpoint` and
+`restore_checkpoint` with fractional-epoch resume, the meters, and
+`avt_tpu_torch.evaluate.evaluate` with its numpy result sink; the function
+is not re-exported here, where its name would hide the subpackage).
 """
 from avt_tpu_torch.data.transforms import VideoPreprocessor
 from avt_tpu_torch.losses import multidim_cross_entropy
@@ -23,7 +27,11 @@ from avt_tpu_torch.train import (
     build_optimizer,
     build_schedule,
     make_eval_step,
+    make_multi_step,
     make_train_step,
+    restore_checkpoint,
+    run_training,
+    save_checkpoint,
 )
 
 __all__ = [
@@ -36,7 +44,11 @@ __all__ = [
     "load_jax_params",
     "make_eval_forward",
     "make_eval_step",
+    "make_multi_step",
     "make_train_step",
     "multidim_cross_entropy",
     "params_from_jax",
+    "restore_checkpoint",
+    "run_training",
+    "save_checkpoint",
 ]

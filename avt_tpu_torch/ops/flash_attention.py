@@ -132,8 +132,22 @@ def packed_short_attention_bwd_reference(
     return dqkv, db
 
 
-def _check_qkv(name: str, qkv: torch.Tensor, num_heads: int) -> int:
-    """Validates a packed qkv for a kernel; returns the head dim."""
+def _aligned(x: torch.Tensor, in_layout: Optional[bool] = None) -> torch.Tensor:
+    """x as a kernel reads it: `x` itself when its strides are the kernel's
+    layout (`in_layout`, by default contiguity) and its base is 16-byte
+    aligned, else a contiguous copy in a new allocation, which the caching
+    allocator aligns (`.contiguous()` returns an already contiguous view
+    as it is, misaligned base and all)."""
+    if in_layout is None:
+        in_layout = x.is_contiguous()
+    if in_layout and x.data_ptr() % 16 == 0:
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _check_qkv(name: str, qkv: torch.Tensor, num_heads: int) -> Tuple[torch.Tensor, int]:
+    """Validates a packed qkv for a kernel; returns it as the kernel reads it
+    (a misaligned one copied) and the head dim."""
     if qkv.device.type != "cuda":
         raise RuntimeError(
             f"{name} runs on CUDA tensors (or, through its plain version, on "
@@ -146,16 +160,22 @@ def _check_qkv(name: str, qkv: torch.Tensor, num_heads: int) -> int:
         raise TypeError(f"{name}: storage type must be bfloat16 or float32, got {qkv.dtype}")
     if D not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {D} is not one the kernel is built for {HEAD_DIMS}")
-    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
-        raise ValueError(f"{name}: qkv must be contiguous and 16-byte aligned")
-    return D
+    if not qkv.is_contiguous():
+        raise ValueError(f"{name}: qkv must be contiguous")
+    return _aligned(qkv), D
 
 
-def _check_operand(name: str, what: str, x: Optional[torch.Tensor], shape, qkv: torch.Tensor):
-    if x is not None and (x.shape != shape or x.dtype != qkv.dtype or x.device != qkv.device
-                          or not x.is_contiguous() or x.data_ptr() % 16):
-        raise ValueError(f"{name}: {what} must be a contiguous, 16-byte aligned "
+def _check_operand(name: str, what: str, x: Optional[torch.Tensor], shape, qkv: torch.Tensor
+                   ) -> Optional[torch.Tensor]:
+    """A contiguous operand of qkv's type and device, as the kernel reads it
+    (a misaligned one copied)."""
+    if x is None:
+        return None
+    if (x.shape != shape or x.dtype != qkv.dtype or x.device != qkv.device
+            or not x.is_contiguous()):
+        raise ValueError(f"{name}: {what} must be a contiguous "
                          f"{tuple(shape)} {qkv.dtype} tensor on {qkv.device}")
+    return _aligned(x)
 
 
 def _ptr(x: Optional[torch.Tensor]):
@@ -191,9 +211,9 @@ def _bwd_kernel(csrc: Path = _build.CSRC):
 def _launch(qkv: torch.Tensor, bias, num_heads: int, causal: bool,
             csrc: Path = _build.CSRC) -> torch.Tensor:
     """The forward kernel, built from the sources in csrc."""
-    D = _check_qkv(KERNEL, qkv, num_heads)
+    qkv, D = _check_qkv(KERNEL, qkv, num_heads)
     N, T, C3 = qkv.shape
-    _check_operand(KERNEL, "bias", bias, (C3,), qkv)
+    bias = _check_operand(KERNEL, "bias", bias, (C3,), qkv)
     out = torch.empty((N, T, C3 // 3), dtype=qkv.dtype, device=qkv.device)
     if N == 0 or T == 0:
         return out
@@ -211,10 +231,10 @@ def _launch_bwd(qkv: torch.Tensor, bias, dout: torch.Tensor, num_heads: int, cau
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(dqkv, db in the storage type or None) from the backward kernel, built
     from the sources in csrc."""
-    D = _check_qkv(BWD_KERNEL, qkv, num_heads)
+    qkv, D = _check_qkv(BWD_KERNEL, qkv, num_heads)
     N, T, C3 = qkv.shape
-    _check_operand(BWD_KERNEL, "bias", bias, (C3,), qkv)
-    _check_operand(BWD_KERNEL, "dout", dout, (N, T, C3 // 3), qkv)
+    bias = _check_operand(BWD_KERNEL, "bias", bias, (C3,), qkv)
+    dout = _check_operand(BWD_KERNEL, "dout", dout, (N, T, C3 // 3), qkv)
     dqkv = torch.empty_like(qkv)
     db = torch.zeros(C3, dtype=qkv.dtype, device=qkv.device) if with_db else None
     if N == 0 or T == 0:
@@ -248,7 +268,7 @@ class _PackedShortAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         (qkv,) = ctx.saved_tensors
-        dout = dout.contiguous()
+        dout = _aligned(dout)
         if qkv.device.type == "cpu":
             dqkv, _ = packed_short_attention_bwd_reference(qkv, dout, ctx.num_heads, ctx.causal)
         else:
@@ -272,7 +292,7 @@ class _PackedBiasAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         qkv_nobias, bias_c = ctx.saved_tensors
-        dout = dout.contiguous()
+        dout = _aligned(dout)
         if qkv_nobias.device.type == "cpu":
             dqkv, db = packed_short_attention_bwd_reference(
                 qkv_nobias + bias_c, dout, ctx.num_heads, ctx.causal, with_db=True)
@@ -321,8 +341,9 @@ def fused_qkv_attention_reference(
 
 def _check_fused(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, num_heads: int):
     """Validates the fused kernel's operands; returns x, W^T and b in the
-    kernel's layout: contiguous, W^T (3C, C) (the transposed view the ViT
-    passes is read in place; any other layout is copied once)."""
+    kernel's layout: contiguous and 16-byte aligned, W^T (3C, C) (the
+    transposed view the ViT passes is read in place; any other layout or a
+    misaligned base is copied once)."""
     name = FUSED_KERNEL
     if x.device.type != "cuda":
         raise RuntimeError(
@@ -338,10 +359,7 @@ def _check_fused(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, num_heads: i
         if t.shape != shape or t.dtype != x.dtype or t.device != x.device:
             raise ValueError(f"{name}: {what} must be a {shape} {x.dtype} tensor on {x.device}, "
                              f"got {tuple(t.shape)} {t.dtype} on {t.device}")
-    wt = w.t()
-    if not wt.is_contiguous() or wt.data_ptr() % 16:
-        wt = wt.contiguous()
-    return x.contiguous(), wt, b.contiguous()
+    return _aligned(x), _aligned(w.t()), _aligned(b)
 
 
 @functools.lru_cache(maxsize=None)
@@ -396,7 +414,7 @@ class _FusedQkvAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         x, wc, qkv = ctx.saved_tensors
-        dout = dout.contiguous()
+        dout = _aligned(dout)
         if qkv.device.type == "cpu":
             dqkv, _ = packed_short_attention_bwd_reference(qkv, dout, ctx.num_heads, ctx.causal)
         else:
@@ -507,17 +525,16 @@ def flash_attention_bwd_reference(
 
 
 def _flash_view(name: str, what: str, x: torch.Tensor, shape, like: torch.Tensor) -> torch.Tensor:
-    """A (B, T, H, D) operand as the kernels read it: on the card, in the
-    storage type, last two axes contiguous and rows 16-byte aligned. A view
-    that is not (a transposed or misaligned one) is copied into that layout;
-    anything else raises."""
+    """A (B, T, H, D) operand as the kernels read it: in the storage type,
+    last two axes contiguous and rows 16-byte aligned. A view that is not (a
+    transposed or misaligned one) is copied into that layout; a wrong shape,
+    type or device raises."""
     if x.device != like.device or x.dtype != like.dtype or tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name}: {what} must be a {tuple(shape)} {like.dtype} tensor on "
                          f"{like.device}, got {tuple(x.shape)} {x.dtype} on {x.device}")
     D, size = x.shape[-1], x.element_size()
-    aligned = (x.stride(-1) == 1 and x.stride(-2) == D and x.data_ptr() % 16 == 0
-               and all((st * size) % 16 == 0 for st in x.stride()[:2]))
-    return x if aligned else x.contiguous()
+    return _aligned(x, x.stride(-1) == 1 and x.stride(-2) == D
+                    and all((st * size) % 16 == 0 for st in x.stride()[:2]))
 
 
 def _check_flash(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):

@@ -268,6 +268,17 @@ class Optimizer:
             out.append([torch.where(keep, a, b) for a, b in zip(g, clipped)])
         return out
 
+    def state_dict(self) -> dict:
+        """The inverse of `load_state_dict`: the count, a CPU copy of every
+        buffer in its own type ({kind: {parameter name: tensor}}, so a bf16
+        momentum stays bf16), and the plateau multipliers by group label."""
+        out = {"count": int(self.count),
+               "plateau": {g.label: float(g.plateau.mult)
+                           for g in self.groups if g.plateau is not None}}
+        for kind, bufs in self.state.items():
+            out[kind] = {name: buf.detach().to("cpu", copy=True) for name, buf in bufs.items()}
+        return out
+
     def load_state_dict(self, state: dict) -> None:
         """Copies the count, every buffer (each keeps its own type) and, where
         given, the groups' plateau multipliers ({group label: mult}) in."""

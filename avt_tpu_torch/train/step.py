@@ -1,7 +1,8 @@
 """The train and eval steps: forward, losses, backward, optimizer update.
 
 Counterpart of avt_tpu/train/step.py (`weighted_loss_sum`,
-`make_train_step`, `make_eval_step`): per-loss mean reduction, the
+`make_train_step`, `make_multi_step`, `make_eval_step`): per-loss mean
+reduction, the
 loss_wts-weighted sum with zero-weight losses left out of the graph, the
 gradient, the update. The JAX
 step is one jitted program over a donated TrainState; here the model's
@@ -10,8 +11,9 @@ returned metrics stay device tensors, so a step never waits for the device.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from avt_tpu_torch.train.ops import basic_loss_accuracy
@@ -84,6 +86,37 @@ def make_train_step(
         return metrics
 
     return step
+
+
+def step_generator(seed: int, step_id: int, device) -> torch.Generator:
+    """The generator of global step `step_id` on `device`, seeded from
+    (seed, step_id) alone, so that a run takes the same dropout masks and
+    crop draws whether its steps are chunked or not, and whether it ran
+    through or was resumed. This takes the place of JAX's
+    `fold_in(rng, step_id)`; the masks themselves differ from JAX's."""
+    state = np.random.SeedSequence([int(seed), int(step_id)]).generate_state(2, np.uint32)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(state[0]) << 32 | int(state[1]))
+    return gen
+
+
+def make_multi_step(step_fn: Callable, unroll_steps: int) -> Callable:
+    """K = `unroll_steps` train steps in one call: multi(batches, step_id0,
+    seed) runs `step_fn` on the K batches of the list `batches` (each
+    already on the device), step j with `step_generator(seed, step_id0 + j)`
+    on the batch's device, and returns each metric stacked (K,) on the
+    device, without waiting for it. One call still queues the K steps one
+    by one: capturing them in a CUDA graph is a later change (the
+    schedule's LR is read on the host at each step)."""
+
+    def multi(batches: Sequence[dict], step_id0: int, seed: int) -> Dict[str, torch.Tensor]:
+        if len(batches) != unroll_steps:
+            raise ValueError(f"{len(batches)} batches for a {unroll_steps}-step call")
+        per_step = [step_fn(b, step_generator(seed, step_id0 + j, b["video"].device))
+                    for j, b in enumerate(batches)]
+        return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+
+    return multi
 
 
 def make_eval_step(

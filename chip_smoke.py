@@ -40,6 +40,24 @@
    split step's; the one-clip gradients of every block's qkv weight and
    bias and norm1 within GRAD_TOL of the split path's; step ms beside
    phase 4's.
+4c. trainer: the full-width flagship of phase 4 trained through
+   `run_training` on host numpy batches from an in-script loader (4 batches
+   an epoch of 16 uint8 clips, reshuffled per epoch): 2 epochs, 3 steps a
+   call (`make_multi_step`) and a one-batch tail, nesterov SGD with a bf16
+   momentum under warmup 1 epoch + cosine over 2, an eval of 2 batches of 4
+   clips (3 crops + flips) through `make_eval_step` and `evaluate` after
+   each epoch, the rolling and the best checkpoint at each epoch's end. The
+   optimizer counts 8 steps; every loss and the primary metric are finite;
+   both checkpoints exist and the rolling one restores epoch 2.0; the
+   stored logits are (8, 3806) and finite; 12 packed forward and backward
+   launches a step and 12 forward launches an eval forward, nothing else.
+   Then run B: the same weights in single steps, a save every half epoch,
+   a crash when the loader is asked for global batch 7; a fresh model and
+   optimizer restore epoch 1.5 and finish. Its per-step losses equal run
+   A's within 1e-3 relative, its final parameters within 1e-3 of each
+   tensor's max |value|, and it prints whether the bits are equal. Prints
+   the loop's step ms beside phase 4's bare step, the save time and size
+   and the evaluator's ms a batch.
 5. A depth-2 ViT with 24 heads of 32 takes a train step: its attention goes
    through `packed_short_attention`, the backward kernel's no-db form.
 6. The feature path of expts/02 at full width (identity backbone, 1024-d
@@ -74,9 +92,11 @@ Exits non-zero on any failure, and without a CUDA device.
 """
 import functools
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -92,15 +112,27 @@ from avt_tpu_torch import (
     build_optimizer,
     make_eval_forward,
     make_eval_step,
+    make_multi_step,
     make_train_step,
+    restore_checkpoint,
+    run_training,
+    save_checkpoint,
 )
+from avt_tpu_torch.evaluate import RESULTS_SAVE_DIR, evaluate, read_results
 from avt_tpu_torch.losses import mse
 from avt_tpu_torch.models import AVTh, AVTModel, IdentityAgg, LinearClassifier, ViT
 from avt_tpu_torch.models import vit as vit_module
 from avt_tpu_torch.models.flagship import init_weights
 from avt_tpu_torch.ops import _build, attention
 from avt_tpu_torch.ops import flash_attention as fa
-from avt_tpu_torch.train import weighted_loss_sum
+from avt_tpu_torch.train import (
+    BEST_NAME,
+    CKPT_NAME,
+    MetricLogger,
+    train_one_epoch,
+    weighted_loss_sum,
+)
+from avt_tpu_torch.train import loop as loop_module
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound is the larger of
 # bytes over memory rate and operations over the type's peak rate
@@ -137,6 +169,12 @@ NO_OTHER = {**NO_FLASH, "fused_qkv_attention_fwd": 0}  # kernels off the ViT's d
 EK55_ACTIONS, EK55_LAYERS, EK55_HEADS, EK55_BATCH = 2513, 12, 8, 32
 EK55_LOSS_WTS = {"cls_action": 1.0, "past_cls_action": 0.0, "feat": 2.0}
 EK55_TIMED_STEPS = 5
+# the trainer phase: 2 epochs of 4 batches of 16 clips, 3 steps a call in run
+# A, which saves at each epoch's end and the best (a flagship checkpoint is
+# 2.4 GB, ~4 s to write); run B takes single steps, saves every half epoch and
+# crashes when asked for global batch 7, after its save at epoch 1.5 (with 3
+# steps a call no save inside an epoch comes before a crash)
+TRAINER_BATCHES, TRAINER_EPOCHS, TRAINER_K, TRAINER_CRASH_AT = 4, 2, 3, 7
 
 
 def log(msg):
@@ -745,6 +783,9 @@ def main():
     # 4b. the same train step through the fused projection + attention kernel
     fused_launches, fused_train = train_fused_phase(split_train)
 
+    # 4c. the trainer: run_training, checkpoints, eval, crash + resume ------
+    trainer_launches = trainer_phase(split_train)
+
     # 5. the no-db form on a train step: 24 heads of 32 ----------------------
     d32_launches = small_train_phase()
 
@@ -757,7 +798,8 @@ def main():
     # 7. expts/08 with Adam at full width -----------------------------------
     ek55_launches = ek55_adam_phase()
 
-    paths = {"serve": serve_launches, "train": train_launches, "train_d32": d32_launches,
+    paths = {"serve": serve_launches, "train": train_launches, "trainer": trainer_launches,
+             "train_d32": d32_launches,
              **feat_launches, "feature_d1024": d1024_launches, "train_fused": fused_launches,
              "ek55_adam": ek55_launches}
     for path, counts in paths.items():
@@ -902,14 +944,14 @@ def plain_bias_attention(qkv, bias, num_heads, causal=False):
     return fa.packed_short_attention_reference(qkv + bias.to(qkv.dtype), num_heads, causal)
 
 
-def train_pipeline(model, clips):
+def train_pipeline(model, clips, iters_per_epoch=1000, num_epochs=30, warmup_epochs=20):
     """bench.py's train step on `model`: (optimizer, step, batch on the card)."""
     pp = VideoPreprocessor(crop_size=224, scale_h="248-280", scale_w=-1, mean=(0.5,) * 3,
                            std=(0.5,) * 3, flip_p=0.5, compute_dtype=torch.bfloat16,
                            out_dtype=torch.bfloat16)
     opt, _ = build_optimizer(
         model, lr_wd=[["__all__", 1e-4, 1e-5]], optimizer_name="sgd", scheduler_name="cosine",
-        iters_per_epoch=1000, num_epochs=30, warmup_epochs=20,
+        iters_per_epoch=iters_per_epoch, num_epochs=num_epochs, warmup_epochs=warmup_epochs,
         optimizer_kwargs={"nesterov": True, "momentum_dtype": "bfloat16"})
 
     def preprocess(frames, generator):
@@ -1032,6 +1074,223 @@ def one_clip_grads(model, preprocess, batch, names):
     total, _ = weighted_loss_sum(losses, LOSS_WTS)
     params = dict(model.named_parameters())
     return torch.autograd.grad(total, [params[n] for n in names])
+
+
+class SyntheticClips:
+    """A loader of host numpy batches: `n_batches` an epoch of `batch_size`
+    uint8 clips (10, 256, 342, 3) from a pool made from `seed`, with action
+    targets, subclip targets, idx and uid; `set_epoch` reshuffles the pool
+    from the seed (with `shuffle`). With `crash_at` set it raises, once,
+    when asked for that global batch (counted across epochs)."""
+
+    class Dataset:
+        primary_metric = "final_acc/action/AR5"  # EPIC-Kitchens-100's
+        classes_manyshot = None
+
+    dataset = Dataset()
+
+    def __init__(self, n_batches, batch_size, seed, shuffle=True):
+        rng = np.random.default_rng(seed)
+        n = n_batches * batch_size
+        self.clips = rng.integers(0, 256, size=(n,) + CLIP, dtype=np.uint8)
+        self.target = rng.integers(0, NUM_ACTIONS, size=n)
+        self.tsub = rng.integers(-1, NUM_ACTIONS, size=(n, CLIP[0], 1))
+        self.n_batches, self.batch_size, self.seed, self.shuffle = n_batches, batch_size, seed, shuffle
+        self.epoch = 0
+        self.crash_at, self.served = None, 0
+
+    def __len__(self):
+        return self.n_batches
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+
+    def __iter__(self):
+        n = self.n_batches * self.batch_size
+        order = (np.random.default_rng([self.seed, self.epoch]).permutation(n) if self.shuffle
+                 else np.arange(n))
+        for i in range(self.n_batches):
+            if self.crash_at is not None and self.served == self.crash_at:
+                self.crash_at = None
+                raise RuntimeError(f"simulated crash at global batch {self.served}")
+            self.served += 1
+            sel = np.sort(order[i * self.batch_size:(i + 1) * self.batch_size])
+            yield {"video": self.clips[sel], "target": {"action": self.target[sel]},
+                   "target_subclips": {"action": self.tsub[sel]}, "idx": sel,
+                   "uid": np.asarray([f"clip{j:05d}" for j in sel])}
+
+
+def trainer_model(clips):
+    """The phase-4 flagship and train step under the trainer phase's
+    schedule: (model, optimizer, step, preprocess)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = build_avt(num_actions=NUM_ACTIONS, vit_dtype=torch.bfloat16, generator=gen)
+    opt, step, preprocess, _ = train_pipeline(model, clips, iters_per_epoch=TRAINER_BATCHES,
+                                              num_epochs=TRAINER_EPOCHS, warmup_epochs=1)
+    return model, opt, step, preprocess
+
+
+def recording(step, losses):
+    """`step` that appends each step's loss tensor (on the card) to `losses`."""
+    def recorded(batch, generator):
+        metrics = step(batch, generator)
+        losses.append(metrics["loss"])
+        return metrics
+
+    return recorded
+
+
+def trainer_phase(split):
+    """The full-width flagship trained through `run_training` (phase 4's
+    train step under warmup 1 epoch + cosine over 2 epochs of 4 batches of
+    16 host clips, K=3 steps a call, an eval of 2 batches of 4 clips through
+    `make_eval_step` and `evaluate` after each epoch, the best checkpoint
+    kept), then a run that crashes at a global batch and resumes from the
+    rolling checkpoint in a fresh model and optimizer. `split` holds phase
+    4's steady step time. Returns the launch counts of run A."""
+    loader = SyntheticClips(TRAINER_BATCHES, TRAIN_CLIPS, seed=11)
+    eval_loader = SyntheticClips(2, 4, seed=12, shuffle=False)
+    eval_pp = VideoPreprocessor(crop_size=224, scale_h=248, scale_w=-1, mean=(0.5,) * 3,
+                                std=(0.5,) * 3, eval_num_crops=3, eval_flip_crops=True,
+                                compute_dtype=torch.bfloat16, out_dtype=torch.bfloat16)
+    saves, evals, metrics, epoch_loggers, epoch_s = [], [], [], [], []
+
+    def timed_save(ckpt_dir, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        save_checkpoint(ckpt_dir, *args, **kwargs)
+        names = kwargs.get("names", (CKPT_NAME,))
+        saves.append((time.time() - t0, os.path.getsize(os.path.join(ckpt_dir, names[0]))))
+
+    def timed_epoch(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        last_saved = train_one_epoch(*args, **kwargs)
+        torch.cuda.synchronize()
+        epoch_s.append(time.time() - t0)
+        return last_saved
+
+    class RecordedLogger(MetricLogger):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            epoch_loggers.append(self)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # run A: two epochs straight through
+        model, opt, step, _ = trainer_model(TRAIN_CLIPS)
+        eval_step = make_eval_step(model, {"action": NUM_ACTIONS},
+                                   preprocess_fn=lambda v: eval_pp.eval_fn(v)[:, None])
+
+        def eval_fn(epoch):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            metric = evaluate(eval_step, {"": eval_loader}, save_dir=os.path.join(tmp, "a"),
+                              epoch=epoch, device="cuda")
+            evals.append(time.time() - t0)
+            metrics.append(metric)
+            return metric
+
+        losses_a = []
+        ckpt_a = os.path.join(tmp, "a", "ckpt")
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.time()
+        with mock.patch.object(loop_module, "save_checkpoint", timed_save), \
+                mock.patch.object(loop_module, "train_one_epoch", timed_epoch), \
+                mock.patch.object(loop_module, "MetricLogger", RecordedLogger):
+            run_training(train_step=recording(step, losses_a), model=model, optimizer=opt,
+                         train_loader=loader, eval_fn=eval_fn, num_epochs=TRAINER_EPOCHS,
+                         multi_step=make_multi_step(recording(step, losses_a), TRAINER_K),
+                         unroll_steps=TRAINER_K, ckpt_dir=ckpt_a, save_freq=None,
+                         save_freq_min=None, eval_freq=1, store_best=True, seed=5)
+        torch.cuda.synchronize()
+        run_s = time.time() - t0
+        launches = dict(_build.launch_counts)
+        n_steps = TRAINER_EPOCHS * TRAINER_BATCHES
+        n_eval = TRAINER_EPOCHS * len(eval_loader)
+        want = {**{n: 0 for n in _build.KERNELS},
+                "short_attention_fwd": VIT_BLOCKS * (n_steps + n_eval),
+                "short_attention_bwd": VIT_BLOCKS * n_steps}
+        check(launches == want, f"trainer run A: launches {launches}, want {want}")
+        check(opt.count == n_steps, f"trainer run A: optimizer count {opt.count}")
+        loss_a = torch.stack(losses_a).float().cpu().numpy()
+        check(len(loss_a) == n_steps and np.isfinite(loss_a).all(), f"run A losses {loss_a}")
+        check(sorted(os.listdir(ckpt_a)) == [CKPT_NAME, BEST_NAME], f"{os.listdir(ckpt_a)}")
+        fresh, fresh_opt, _, _ = trainer_model(TRAIN_CLIPS)
+        restored = restore_checkpoint(ckpt_a, fresh, fresh_opt)
+        check(restored == float(TRAINER_EPOCHS) and fresh_opt.count == n_steps,
+              f"run A's checkpoint restored epoch {restored}, count {fresh_opt.count}")
+        del fresh, fresh_opt
+        results = read_results(os.path.join(tmp, "a", RESULTS_SAVE_DIR))
+        logits = results["logits/action"]
+        check(logits.shape == (8, NUM_ACTIONS) and np.isfinite(logits).all(),
+              f"stored logits {logits.shape}, finite {np.isfinite(logits).all()}")
+        check(len(metrics) == TRAINER_EPOCHS and np.isfinite(metrics).all(),
+              f"primary metric of each epoch {metrics}")
+        final_a = {n: p.detach().clone() for n, p in model.named_parameters()}
+        del model, opt, step, eval_step
+        clips_s = epoch_loggers[1]["clips/s"]
+        save_s = [t for t, _ in saves]
+        log(f"trainer run A: {n_steps} steps of {TRAIN_CLIPS} clips in chunks of {TRAINER_K}, "
+            f"{len(evals)} evals of {len(eval_loader)} batches of 4 clips (6 views), "
+            f"{len(saves)} saves, {run_s:.2f} s; losses "
+            + ", ".join(f"{x:.4f}" for x in loss_a) + f"; launches {launches}; "
+            f"primary metric {eval_loader.dataset.primary_metric} of each epoch {metrics}")
+        log(f"trainer loop, epoch 1: {1e3 * epoch_s[1] / TRAINER_BATCHES:.2f} ms a step (host "
+            f"clock around train_one_epoch, {TRAINER_BATCHES} steps, no save inside); the "
+            f"loop's clips/s meter {clips_s.global_avg:.2f} (mean of {clips_s.count} chunks, "
+            f"median {clips_s.median:.2f}) vs phase 4's bare step "
+            f"{split['step_ms']:.2f} ms ({split['clips_s']:.2f} clips/s); checkpoint save "
+            f"{np.mean(save_s):.3f} s (min {min(save_s):.3f}, max {max(save_s):.3f}) for "
+            f"{saves[0][1] / 1e9:.3f} GB; evaluator {1e3 * np.mean(evals) / len(eval_loader):.1f} "
+            f"ms a batch of 4 clips ({len(evals)} evals)")
+
+        # run B: the same run, single steps, crashing when asked for a global batch
+        model, opt, step, _ = trainer_model(TRAIN_CLIPS)
+        ckpt_b = os.path.join(tmp, "b")
+        run_b = dict(model=model, optimizer=opt, train_loader=loader, num_epochs=TRAINER_EPOCHS,
+                     ckpt_dir=ckpt_b, save_freq=0.5, save_freq_min=None, seed=5)
+        losses_b = []
+        loader.crash_at, loader.served = TRAINER_CRASH_AT, 0
+        try:
+            run_training(train_step=recording(step, losses_b), **run_b)
+            check(False, "run B did not crash")
+        except RuntimeError as err:
+            check("simulated crash" in str(err), f"run B raised {err}")
+        del model, opt, step, run_b
+        model, opt, step, _ = trainer_model(TRAIN_CLIPS)
+        epoch_b = restore_checkpoint(ckpt_b, model, None)
+        # the last save before the crash: at the chunk of step crash_at - 1,
+        # on its save_freq boundary (every 2 steps)
+        want_epoch = (TRAINER_CRASH_AT - 1) // 2 * 2 / TRAINER_BATCHES
+        check(epoch_b == want_epoch and epoch_b % 1, f"run B's rolling checkpoint at epoch "
+              f"{epoch_b}, want the fractional {want_epoch}")
+        resumed = []
+        run_training(train_step=recording(step, resumed), model=model, optimizer=opt,
+                     train_loader=loader, num_epochs=TRAINER_EPOCHS, ckpt_dir=ckpt_b,
+                     save_freq=0.5, save_freq_min=None, seed=5)
+        check(opt.count == n_steps, f"resumed run: optimizer count {opt.count}")
+        first = int(round(epoch_b * TRAINER_BATCHES))
+        loss_b = torch.stack(losses_b[:first] + resumed).float().cpu().numpy()
+        rel = np.abs(loss_b - loss_a) / np.abs(loss_a)
+        check(len(loss_b) == n_steps and rel.max() <= 1e-3,
+              f"run B losses {loss_b} vs run A {loss_a}")
+        worst, differ = 0.0, []
+        for name, p in model.named_parameters():
+            diff = (p.float() - final_a[name].float()).abs().max().item()
+            scale = final_a[name].float().abs().max().item()
+            if diff:
+                differ.append(f"{name} {diff:.3g} of {scale:.3g}")
+            worst = max(worst, diff / max(scale, 1e-30))
+        check(worst <= 1e-3, f"resumed run's parameters differ from run A's: {differ[:8]}")
+        log(f"trainer run B: crashed when asked for global batch {TRAINER_CRASH_AT}, resumed a "
+            f"fresh model and optimizer from epoch {epoch_b} (step {first}); losses of steps "
+            f"0-{n_steps - 1} vs run A: max {rel.max():.3g} relative (limit 1e-3); final "
+            f"parameters vs run A: worst {worst:.3g} of the tensor's max |value| (limit 1e-3); "
+            + (f"bits equal: {not differ}" if not differ else
+               f"bits differ in {len(differ)} tensors: " + "; ".join(differ[:12])))
+        del model, opt, step, final_a
+    return launches
 
 
 def small_train_phase():

@@ -339,3 +339,50 @@ def test_cuda_fused_kernel_raises_off_its_geometry(cuda_device):
     with pytest.raises(TypeError, match="storage type"):
         y, v, c = _fused_inputs(1, 10, 2, "float32", cuda_device, seed=0)
         tfa._launch_fused(y.half(), v.half(), c.half(), 2, False)
+
+
+def _misaligned(x):
+    """x's values in a contiguous view one element into its storage: a base
+    address the kernels' 16-byte loads and the TMA cannot take as it is."""
+    base = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = base[1:].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    return view
+
+
+def _grads_of(fn, inputs, dout):
+    leaves = [t.detach().clone().requires_grad_(True) if t.is_floating_point() else t
+              for t in inputs]
+    out = fn(*leaves)
+    out.backward(dout)
+    return out.detach(), [t.grad for t in leaves]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_misaligned_operands_are_copied(cuda_device, dtype):
+    """Odd-offset views into each entry point (the packed attention with its
+    bias, the flash attention, the fused projection + attention), forward and
+    backward with a misaligned dout: the same bits as the aligned call."""
+    def same(fn, inputs, dout):
+        out, grads = _grads_of(fn, inputs, dout)
+        out_m, grads_m = _grads_of(fn, [_misaligned(t) for t in inputs], _misaligned(dout))
+        assert torch.equal(out_m, out)
+        for g, g_m in zip(grads, grads_m):
+            assert torch.equal(g_m, g)
+
+    x = _qkv(3, 197, 12, 64, dtype, cuda_device, seed=5)
+    b = torch.randn(3 * 768, generator=torch.Generator().manual_seed(6)).to(cuda_device, x.dtype)
+    dout = torch.randn(3, 197, 768, generator=torch.Generator().manual_seed(7)).to(cuda_device,
+                                                                                  x.dtype)
+    _build.reset_launch_counts()
+    same(lambda q, bias: tfa.packed_qkv_bias_attention(q, bias, 12), [x, b], dout)
+    assert _build.launch_counts[tfa.KERNEL] == _build.launch_counts[tfa.BWD_KERNEL] == 2
+    q, k, v, do = (_heads(2, 256, 4, 512, dtype, cuda_device, seed) for seed in range(10, 14))
+    same(lambda *qkv: tfa.flash_attention(*qkv, True), [q, k, v], do)
+    assert _build.launch_counts[tfa.FLASH_KERNEL] == _build.launch_counts[tfa.FLASH_BWD_KERNEL] == 2
+    xf, w, bf = _fused_inputs(3, 197, 12, dtype, cuda_device, seed=15)
+    wt = w.t()  # the weight (3C, C); the op takes its transposed view
+    same(lambda x_, w_, b_: tfa.fused_qkv_attention(x_, w_.t(), b_, 12), [xf, wt, bf], dout)
+    assert _build.launch_counts[tfa.FUSED_KERNEL] == 2

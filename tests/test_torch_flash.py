@@ -161,3 +161,21 @@ def test_flash_scale_is_rounded_to_storage_type():
     assert tfa._flash_scale(512, torch.bfloat16) == 0.044189453125
     assert tfa._flash_scale(512, torch.float32) == pytest.approx(512 ** -0.5, rel=1e-7)
     assert tfa._flash_scale(64, torch.bfloat16) == 0.125
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_view_and_aligned_copy_align_an_odd_offset(dtype):
+    """A contiguous view one element into its storage is misaligned for the
+    kernels' 16-byte loads; `.contiguous()` would return it as it is."""
+    base = torch.from_numpy(np.random.default_rng(0).standard_normal(2 * 4 * 2 * 64 + 1)).to(dtype)
+    x = base[1:].view(2, 4, 2, 64)
+    assert x.is_contiguous() and x.data_ptr() % 16 and x.contiguous() is x
+    for out in (tfa._flash_view("f", "q", x, x.shape, x), tfa._aligned(x)):
+        assert out.data_ptr() % 16 == 0 and out.is_contiguous() and torch.equal(out, x)
+    aligned = x.clone()
+    assert tfa._aligned(aligned) is aligned
+    assert tfa._flash_view("f", "q", aligned, aligned.shape, aligned) is aligned
+    # a transposed view is copied into the layout even when its base is aligned
+    t = aligned.transpose(1, 2)
+    out = tfa._flash_view("f", "q", t, t.shape, t)
+    assert out.is_contiguous() and torch.equal(out, t)

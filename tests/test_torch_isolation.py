@@ -1,5 +1,6 @@
 """The port stands alone: avt_tpu_torch and chip_smoke.py import neither JAX
-nor the JAX package, and its entry points do not run on the CPU unasked."""
+(nor flax, orbax or h5py) nor the JAX package, and its entry points do not
+run on the CPU unasked."""
 import re
 import subprocess
 import sys
@@ -18,13 +19,13 @@ PORT_FILES = sorted(
 ) + [ROOT / "chip_smoke.py"]
 # `avt_tpu` not followed by `_torch` (the port's own name starts the same)
 FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|flax|avt_tpu(?!_torch))\b", re.MULTILINE)
+    r"^\s*(?:import|from)\s+(?:jax|flax|orbax|h5py|avt_tpu(?!_torch))\b", re.MULTILINE)
 
 
 def test_import_with_jax_blocked():
     code = (
         "import sys\n"
-        "for name in ('jax', 'flax', 'avt_tpu'):\n"
+        "for name in ('jax', 'flax', 'avt_tpu', 'h5py', 'orbax'):\n"
         "    sys.modules[name] = None\n"
         "import avt_tpu_torch, avt_tpu_torch.models, avt_tpu_torch.ops, avt_tpu_torch.serve\n"
         "import avt_tpu_torch.data.transforms, avt_tpu_torch.models.convert\n"
@@ -35,6 +36,10 @@ def test_import_with_jax_blocked():
         "from avt_tpu_torch.ops.flash_attention import fused_qkv_attention\n"
         "from avt_tpu_torch.train.optim import Adam, Adafactor, ReduceLROnPlateau\n"
         "from avt_tpu_torch.models.convert import opt_state_from_jax\n"
+        "import avt_tpu_torch.train.loop, avt_tpu_torch.train.checkpoint\n"
+        "import avt_tpu_torch.train.meters, avt_tpu_torch.evaluate, avt_tpu_torch.utils.logging\n"
+        "from avt_tpu_torch.evaluate import evaluate, read_results, store_append\n"
+        "from avt_tpu_torch import run_training, make_multi_step, save_checkpoint\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -52,6 +57,7 @@ def test_source_imports_no_jax(path):
 def test_forbidden_pattern_catches_jax_package_only():
     assert FORBIDDEN.search("from avt_tpu.ops import x")
     assert FORBIDDEN.search("import jax.numpy as jnp")
+    assert FORBIDDEN.search("    import h5py")
     assert not FORBIDDEN.search("from avt_tpu_torch.ops import x")
 
 
