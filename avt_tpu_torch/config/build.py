@@ -1,0 +1,332 @@
+"""Build runtime objects from a resolved config.
+
+Counterpart of avt_tpu/config/build.py (`build_preprocessor`,
+`build_preprocess_fns`, `build_dataset`, `build_all_datasets`,
+`build_model`, `build_optimizer_from_cfg`, `loss_weights`): the wiring of
+the reference's func/train.py:539-844 (transforms -> datasets -> model ->
+parameter groups -> optimizer) as build functions over the composed
+config dict, onto the port's modules.
+
+`build_model` builds what the port's zoo holds: the identity and ViT-B
+(`avt_b`) backbones, the identity aggregators, AVT-h at a one-step rollout
+and a linear classifier for every task. Every other module or option
+raises NotImplementedError naming the ROADMAP item that ports it.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from avt_tpu_torch.config.registry import instantiate, resolve_target
+
+DATASET_TRAIN_KEY = "dataset_train"
+DATASET_EVAL_KEY = "dataset_eval"
+_ZOO_ITEM = "1.6"  # ROADMAP Queue 1.6: the rest of the zoo
+_MODEL_ITEM = "1.5"  # ROADMAP Queue 1.5: AVTModel and AVT-h beyond the flagship
+
+
+def _torch_dtype(name) -> torch.dtype:
+    return torch.bfloat16 if str(name) in ("bf16", "bfloat16") else torch.float32
+
+
+# ------------------------------------------------------------------ data
+def build_preprocessor(data_cfg: Dict, device=None):
+    """Preprocessing on the device from a data config (raw-video path)."""
+    from avt_tpu_torch.data.transforms import VideoPreprocessor
+
+    return VideoPreprocessor(
+        compute_dtype=_torch_dtype(data_cfg.get("compute_dtype") or "float32"),
+        out_dtype=_torch_dtype(data_cfg.get("out_dtype") or "float32"),
+        crop_size=data_cfg.get("crop_size"),
+        scale_h=data_cfg.get("scale_h", 256),
+        scale_w=data_cfg.get("scale_w", -1),
+        mean=data_cfg.get("mean"),
+        std=data_cfg.get("std"),
+        flip_p=data_cfg.get("flip_p", 0.5),
+        color_jitter_brightness=data_cfg.get("color_jitter_brightness", 0.0),
+        color_jitter_contrast=data_cfg.get("color_jitter_contrast", 0.0),
+        color_jitter_saturation=data_cfg.get("color_jitter_saturation", 0.0),
+        color_jitter_hue=data_cfg.get("color_jitter_hue", 0.0),
+        scale_pix_val=data_cfg.get("scale_pix_val", 1.0),
+        reverse_channels=data_cfg.get("reverse_channels", False),
+        eval_num_crops=data_cfg.get("eval_num_crops", 1),
+        eval_flip_crops=data_cfg.get("eval_flip_crops", False),
+        device=device,
+    )
+
+
+def build_preprocess_fns(cfg: Dict, device=None):
+    """(train_pp_fn(frames, generator), eval_pp_fn(frames)) for the
+    raw-video path: uint8 (B, T, H, W, 3) batches to the model's input.
+    Train applies the augment pipeline and the subclip fold; eval gives
+    (B, #clips, #crops, 3, T', crop, crop) with every crop view stacked."""
+    from avt_tpu_torch.data.transforms import fold_subclips
+
+    pp_train = build_preprocessor(cfg["data_train"], device)
+    pp_eval = build_preprocessor(cfg["data_eval"], device)
+    sub_tr = cfg["data_train"].get("subclips") or {}
+    n_tr = sub_tr.get("num_frames") or cfg["data_train"]["num_frames"]
+    s_tr = sub_tr.get("stride") or cfg["data_train"]["num_frames"]
+    sub_ev = cfg["data_eval"].get("subclips") or {}
+    n_ev = sub_ev.get("num_frames") or cfg["data_eval"]["num_frames"]
+    s_ev = sub_ev.get("stride") or cfg["data_eval"]["num_frames"]
+
+    def train_pp_fn(frames, generator=None):
+        return fold_subclips(pp_train.train_fn(frames, generator), n_tr, s_tr)
+
+    def eval_pp_fn(frames):
+        crops = pp_eval.eval_fn(frames)  # (B, #crops, 3, T, cs, cs)
+        folded = [fold_subclips(crops[:, i], n_ev, s_ev) for i in range(crops.shape[1])]
+        return torch.stack(folded, dim=2)  # (B, #clips, #crops, 3, T', cs, cs)
+
+    return train_pp_fn, eval_pp_fn
+
+
+def build_dataset(dataset_cfg: Dict, data_cfg: Dict, transform=None):
+    """Dataset from its config group and the data config (num_frames ->
+    frames_per_clip, subclips, segment labels), as the reference's
+    datasets/data.py:get_dataset builds it."""
+    cfg = dict(dataset_cfg)
+    if cfg.pop("_precomputed_metadata_file", None):
+        # cached video-clip metadata: only datasets over decoded video
+        # clips (`video_clips`) have it, and none is ported yet
+        raise NotImplementedError(
+            "_precomputed_metadata_file (video-clip metadata) is not ported yet "
+            "(ROADMAP Queue 1.3, the video decoder)")
+    reader_cfg = cfg.pop("reader_fn", None)
+    reader = (instantiate(reader_cfg) if reader_cfg is not None
+              else resolve_target("datasets.reader_fns.DefaultReader")())
+    conv_cfg = cfg.pop("conv_to_anticipate_fn", None)
+    conv = instantiate(conv_cfg, _partial_=True) if conv_cfg else None
+    conv_rt_cfg = cfg.pop("conv_to_anticipate_fn_runtime", None)
+    conv_rt = instantiate(conv_rt_cfg, _partial_=True) if conv_rt_cfg else None
+    if cfg.pop("sample_clips_densely", False) or cfg.pop("sample_clips_densely_fn", None):
+        raise NotImplementedError(
+            "dense clip sampling (feature extraction) probes each video's length with the "
+            "video decoder, which is not ported yet (ROADMAP Queue 1.3)")
+    subclips = dict(data_cfg.get("subclips") or {})
+    num_frames = data_cfg.get("num_frames", 16)
+    subclips_options = {
+        "num_frames": subclips.get("num_frames") or num_frames,
+        "stride": subclips.get("stride") or num_frames,
+    }
+    kwargs = dict(
+        frames_per_clip=num_frames,
+        frame_rate=data_cfg.get("frame_rate"),
+        subclips_options=subclips_options,
+        load_seg_labels=data_cfg.get("load_seg_labels", False),
+        reader=reader,
+        transform=transform,
+        conv_to_anticipate_fn=conv,
+        conv_to_anticipate_fn_runtime=conv_rt,
+    )
+    ar_cfg = cfg.pop("annot_reader_fn", None)
+    if ar_cfg is not None:
+        ar = dict(ar_cfg)
+        bfn = ar.get("bundle_entry_to_vname_fn")
+        if isinstance(bfn, dict):
+            ar["bundle_entry_to_vname_fn"] = resolve_target(bfn["_target_"])
+        elif isinstance(bfn, str):
+            ar["bundle_entry_to_vname_fn"] = resolve_target(bfn)
+        kwargs["annot_reader_fn"] = instantiate(ar, _partial_=True)
+    kwargs.update({k: v for k, v in cfg.items() if k != "_target_"})
+    target = resolve_target(cfg["_target_"])
+    return target(**{k: v for k, v in kwargs.items() if v is not None or k in (
+        "frame_rate", "transform", "conv_to_anticipate_fn")})
+
+
+def build_all_datasets(cfg: Dict) -> Tuple[list, Dict[str, Any]]:
+    """Every dataset_train* (to be concatenated) and every dataset_eval*,
+    keyed by its suffix (func/train.py:586-599)."""
+    train = [build_dataset(cfg[k], cfg["data_train"])
+             for k in sorted(cfg) if k.startswith(DATASET_TRAIN_KEY)]
+    evals = {k[len(DATASET_EVAL_KEY):]: build_dataset(cfg[k], cfg["data_eval"])
+             for k in sorted(cfg) if k.startswith(DATASET_EVAL_KEY)}
+    return train, evals
+
+
+# ----------------------------------------------------------------- model
+def _short(target: str) -> str:
+    return target.rsplit(".", 1)[-1]
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue {item})")
+
+
+# AVT-h options the port's AVTh does not take, with the value that means off
+_AVTH_OFF = {"drop_last_n": 0, "quantize_before_rollout": False, "output_attentions": False,
+             "rollout_mode": "recompute"}
+
+
+def build_model(cfg: Dict, num_classes: Dict[str, int], class_mappings: Dict, *,
+                device=None, generator: Optional[torch.Generator] = None):
+    """The AVTModel of cfg['model'] on `device` (CUDA unless the CPU is
+    asked for), in eval mode, its weights drawn from `generator` (on that
+    device; seeded from cfg['seed'] when None) with the JAX package's
+    distributions (`flagship.init_weights`)."""
+    from avt_tpu_torch.models import (
+        AVTh,
+        AVTModel,
+        IdentityAgg,
+        IdentityBackbone,
+        LinearClassifier,
+        ViT,
+    )
+    from avt_tpu_torch.models.flagship import init_weights
+    from avt_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+    mcfg = cfg["model"]
+    for key, item in (("intermediate_featdim", "mapper_to_inter"),
+                      ("project_dim_for_nce", "project_mlp (NCE)")):
+        if mcfg.get(key):
+            raise _not_ported(f"model.{key} ({item})", _MODEL_ITEM)
+    for key in ("use_cls_mappings", "add_regression_head"):
+        if mcfg.get(key):
+            raise _not_ported(f"model.{key}", _MODEL_ITEM)
+
+    def sub(group: str) -> Dict:
+        c = dict(mcfg[group])
+        c.pop("pretrained", None)  # weight init is train.init_from_model's
+        return c
+
+    bcfg = sub("backbone")
+    btarget = bcfg.pop("_target_")
+    drop_n = mcfg.get("backbone_last_n_modules_to_drop", 0)
+    if btarget == "avt_tpu.models.IdentityBackbone":
+        backbone, backbone_dim = IdentityBackbone(), mcfg["backbone_dim"]
+    elif btarget == "avt_tpu.models.ViT":
+        if drop_n != 0:
+            raise ValueError(
+                f"backbone_last_n_modules_to_drop={drop_n} with ViT: the backbone is built "
+                "headless (the reference's N=0); set model.backbone_last_n_modules_to_drop=0")
+        if bcfg.get("drop_rate", 0.0) or bcfg.get("gelu_approx") is not None:
+            raise _not_ported("ViT drop_rate and gelu_approx", _MODEL_ITEM)
+        bcfg.pop("drop_rate", None)
+        bcfg.pop("gelu_approx", None)
+        if "dtype" in bcfg:
+            bcfg["dtype"] = None if bcfg["dtype"] is None else _torch_dtype(bcfg["dtype"])
+        backbone = ViT(**bcfg, device=device)
+        backbone_dim = backbone.embed_dim
+    else:
+        raise _not_ported(f"backbone {_short(btarget)}", _ZOO_ITEM)
+
+    def build_agg(group: str, in_features: int):
+        c = sub(group)
+        t = c.pop("_target_")
+        if t != "avt_tpu.models.IdentityAgg":
+            raise _not_ported(f"temporal aggregator {_short(t)}", _ZOO_ITEM)
+        if c:
+            raise TypeError(f"IdentityAgg takes no options, got {sorted(c)}")
+        return IdentityAgg(in_features=in_features)
+
+    temporal_aggregator = build_agg("temporal_aggregator", backbone_dim)
+
+    fcfg = sub("future_predictor")
+    ftarget = fcfg.pop("_target_")
+    fcfg.pop("future_pred_loss_wt", None)  # inert in the reference too
+    if ftarget != "avt_tpu.models.AVTh":
+        raise _not_ported(f"future predictor {_short(ftarget)}", _ZOO_ITEM)
+    if fcfg.get("assign_to_centroids") is not None or fcfg.get("centroids") is not None:
+        raise _not_ported("AVT-h on cluster-id inputs (centroids)", _MODEL_ITEM)
+    fcfg.pop("assign_to_centroids", None)
+    fcfg.pop("centroids", None)
+    fcfg.pop("num_cluster_centers", None)
+    for key, off in _AVTH_OFF.items():
+        if fcfg.pop(key, off) != off:
+            raise _not_ported(f"AVT-h {key}", _MODEL_ITEM)
+    if fcfg.get("output_len", -1) > 1 or fcfg.get("output_len_eval", -1) > 1:
+        raise _not_ported("AVT-h rollouts longer than one step", _MODEL_ITEM)
+    loss_cfg = fcfg.pop("future_pred_loss", None)
+    floss = instantiate(loss_cfg, reduction="none") if loss_cfg else None
+    if "dtype" in fcfg:
+        fcfg["dtype"] = None if fcfg["dtype"] is None else _torch_dtype(fcfg["dtype"])
+    future_predictor = AVTh(in_features=backbone_dim, future_pred_loss=floss, device=device,
+                            **fcfg)
+    fut_dim = future_predictor.output_dim
+    after_agg = build_agg("temporal_aggregator_after_future_pred", fut_dim)
+
+    ccfg = sub("classifier")
+    ctarget = ccfg.pop("_target_")
+    if ctarget != "avt_tpu.models.LinearClassifier":
+        raise _not_ported(f"classifier {_short(ctarget)}", _ZOO_ITEM)
+    classifiers = {task: LinearClassifier(fut_dim, n, device=device, **ccfg)
+                   for task, n in num_classes.items()}
+    model = AVTModel(
+        backbone=backbone,
+        temporal_aggregator=temporal_aggregator,
+        future_predictor=future_predictor,
+        temporal_aggregator_after_future_pred=after_agg,
+        classifiers=classifiers,
+        num_classes=tuple(num_classes.items()),
+        backbone_dim=backbone_dim,
+        dropout=mcfg.get("dropout", 0.0),
+        classifier_on_past=mcfg.get("classifier_on_past", False),
+    )
+    del class_mappings  # read only by use_cls_mappings, which raises above
+    if generator is None:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(int(cfg.get("seed", 42)))
+    init_weights(model, generator)
+    return model.eval()
+
+
+# ------------------------------------------------------------- optimizer
+def build_optimizer_from_cfg(cfg: Dict, model, *, iters_per_epoch: int):
+    """(optimizer, {group: schedule}) of cfg['opt'] over `model`'s
+    parameters (the port's `build_optimizer`), for one process."""
+    from avt_tpu_torch.train import build_optimizer
+
+    opt = cfg["opt"]
+    opt_cfg = dict(opt["optimizer"])
+    opt_name = opt_cfg.pop("name")
+    sched_cfg = dict(opt["scheduler"])
+    sched_name = sched_cfg.pop("name")
+    lr_wd = opt["lr_wd"]
+    if opt.get("classifier_only"):
+        lr_wd = [["classifiers", lr, wd] for _, lr, wd in lr_wd]
+    sched_kwargs = {}
+    if sched_name == "cosine":
+        sched_kwargs["eta_min"] = sched_cfg.get("eta_min", 0.0)
+        num_epochs = sched_cfg.get("num_epochs", cfg["train"]["num_epochs"])
+    elif sched_name == "warmup_multi_step":
+        sched_kwargs.update(
+            milestone_epochs=sched_cfg.get("milestone_epochs", []),
+            gamma=sched_cfg.get("gamma", 0.1),
+            warmup_factor=sched_cfg.get("warmup_factor", 1.0 / 3),
+            scheduler_warmup_epochs=sched_cfg.get("warmup_epochs", 0),
+            warmup_method=sched_cfg.get("warmup_method", "linear"),
+        )
+        num_epochs = cfg["train"]["num_epochs"]
+    else:
+        if sched_name == "reduce_lr_on_plateau":
+            sched_kwargs["min_lr"] = sched_cfg.get("min_lr", 0.0)
+        num_epochs = cfg["train"]["num_epochs"]
+    # the cosine config already subtracts the warmup through the minus
+    # resolver; build_schedule subtracts it again
+    warmup_epochs = cfg["opt"]["warmup"].get("num_epochs", 0)
+    if sched_name == "cosine":
+        num_epochs = num_epochs + warmup_epochs
+    return build_optimizer(
+        model,
+        lr_wd,
+        optimizer_name=opt_name,
+        scheduler_name=sched_name,
+        iters_per_epoch=iters_per_epoch,
+        num_epochs=num_epochs,
+        world_size=1,
+        batch_size=cfg["train"]["batch_size"],
+        scale_lr_by_bs=opt.get("scale_lr_by_bs", False),
+        bias_bn_wd_scale=opt.get("bias_bn_wd_scale", 1.0),
+        grad_clip_max_norm=(opt.get("grad_clip") or {}).get("max_norm"),
+        warmup_epochs=warmup_epochs,
+        warmup_init_lr_ratio=cfg["opt"]["warmup"].get("init_lr_ratio", 0.0),
+        optimizer_kwargs=opt_cfg,
+        scheduler_kwargs=sched_kwargs,
+    )
+
+
+def loss_weights(cfg: Dict) -> Dict[str, float]:
+    return dict(cfg["train"]["train_one_epoch_fn"]["loss_wts"])

@@ -1,0 +1,113 @@
+"""_target_ registry: maps target strings to the port's constructors.
+
+Counterpart of avt_tpu/config/registry.py (`register_target`,
+`resolve_target`, `instantiate`). The same target strings are registered:
+the reference's (`datasets.*`, `torch.nn.MSELoss`, `loss_fn.*`) and the
+JAX package's native names (`avt_tpu.data.NpyFeatsReader`, ...). These are
+strings only: each maps onto the port's class, never onto the JAX package.
+A target whose module is not ported yet is registered too, and raises
+NotImplementedError naming the ROADMAP item that ports it when it is
+instantiated.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Any, Callable, Dict
+
+_REGISTRY: Dict[str, Callable] = {}
+
+
+def register_target(name: str, fn: Callable = None):
+    """Register a constructor under a target name (usable as decorator)."""
+    if fn is None:
+        return lambda f: register_target(name, f)
+    _REGISTRY[name] = fn
+    return fn
+
+
+def resolve_target(name: str) -> Callable:
+    if name in _REGISTRY:
+        return _REGISTRY[name]
+    raise KeyError(f"Unknown _target_ {name!r}; registered: {sorted(_REGISTRY)}")
+
+
+def instantiate(cfg: Any, *args, _partial_: bool = False, **kwargs):
+    """Build the object described by a {'_target_': ...} dict.
+
+    Like hydra.utils.instantiate with _recursive_=False: nested dicts are
+    passed through as plain data; explicit kwargs override config keys.
+    """
+    if cfg is None:
+        return None
+    if not isinstance(cfg, dict) or "_target_" not in cfg:
+        raise ValueError(f"instantiate needs a dict with _target_: {cfg!r}")
+    cfg = dict(cfg)
+    target = resolve_target(cfg.pop("_target_"))
+    params = {**cfg, **kwargs}
+    if _partial_ or params.pop("_partial_", False):
+        return functools.partial(target, *args, **params)
+    return target(*args, **params)
+
+
+def not_ported(what: str, item: str) -> Callable:
+    """A constructor that raises: `what` is not ported yet (ROADMAP `item`)."""
+
+    def raise_not_ported(*args, **kwargs):
+        raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue {item})")
+
+    raise_not_ported.__name__ = f"not_ported_{what.replace(' ', '_')}"
+    return raise_not_ported
+
+
+def _register_builtin_targets():
+    """Alias the reference's target strings and the JAX package's names."""
+    from avt_tpu_torch.data.anticipation import convert_to_anticipation, dense_clip_sampler
+    from avt_tpu_torch.data.epic_kitchens import EpicKitchens
+    from avt_tpu_torch.data.readers import (
+        LMDBFeatsReader,
+        NpyFeatsReader,
+        VideoAsLabelOnehotReader,
+    )
+    from avt_tpu_torch.losses import MSELoss, MultiDimCrossEntropy, NormedMSE
+
+    video_reader = not_ported("the raw-video reader (data/video_decoder.py, OpenCVVideoReader)",
+                              "1.3")
+    breakfast = "data/breakfast_50salads.py"
+    pairs = {
+        # datasets and annotation functions (reference names)
+        "datasets.epic_kitchens.EPICKitchens": EpicKitchens,
+        "datasets.base_video_dataset.convert_to_anticipation": convert_to_anticipation,
+        "datasets.base_video_dataset.dense_clip_sampler": dense_clip_sampler,
+        "datasets.epic_kitchens.EpicRULSTMFeatsReader": LMDBFeatsReader,
+        "datasets.reader_fns.DefaultReader": video_reader,
+        "datasets.reader_fns.VideoAsLabelOnehotReader": VideoAsLabelOnehotReader,
+        # losses
+        "torch.nn.MSELoss": MSELoss,
+        "loss_fn.mse.NormedMSE": NormedMSE,
+        "loss_fn.multidim_xentropy.MultiDimCrossEntropy": MultiDimCrossEntropy,
+        "loss_fn.multidim_xentropy.QuantizeAndCrossEntropy": not_ported(
+            "QuantizeAndCrossEntropy (AVT-h on cluster-id inputs)", "1.5"),
+        "loss_fn.simclr_infonce.DistributedSimclrInfoNCELoss": not_ported(
+            "the InfoNCE losses (losses/infonce.py)", "1.8"),
+        "loss_fn.simclr_infonce.MultiDimDistributedSimclrInfoNCELoss": not_ported(
+            "the InfoNCE losses (losses/infonce.py)", "1.8"),
+        # native names
+        "avt_tpu.data.EpicKitchens": EpicKitchens,
+        "avt_tpu.data.NpyFeatsReader": NpyFeatsReader,
+        "avt_tpu.data.LibavVideoReader": video_reader,
+        "avt_tpu.data.LMDBFeatsReader": LMDBFeatsReader,
+        "avt_tpu.data.convert_to_anticipation": convert_to_anticipation,
+        "avt_tpu.losses.NormedMSE": NormedMSE,
+        "avt_tpu.losses.MSELoss": MSELoss,
+    }
+    for name in ("Breakfast50Salads", "SenerFeatsReader", "GZFormatReader", "NPYFormatReader",
+                 "read_abu_farha_annotations", "read_orig_50salads_annotations",
+                 "read_orig_breakfast_annotations", "bundle_entry_to_video_fname_50salads",
+                 "bundle_entry_to_video_fname_breakfast"):
+        pairs[f"datasets.breakfast_50salads.{name}"] = not_ported(f"{breakfast}:{name}", "1.3")
+    pairs["avt_tpu.data.Breakfast50Salads"] = not_ported(f"{breakfast}:Breakfast50Salads", "1.3")
+    for name, fn in pairs.items():
+        register_target(name, fn)
+
+
+_register_builtin_targets()

@@ -11,6 +11,7 @@ Counterpart of avt_tpu/data/transforms.py (`_interp_taps`,
          computes it (a triangle kernel widened by 1/scale when it
          downscales) -> /255 -> random flip -> optional color jitter ->
          scale/reverse/Normalize, (B, 3, T, crop, crop).
+`fold_subclips` cuts the preprocessed clip into subclips on the device.
 `random_resized_crop` is not ported yet (no shipped pipeline uses it).
 """
 from __future__ import annotations
@@ -277,3 +278,15 @@ class VideoPreprocessor:
             crops += [c.flip(3) for c in crops]
         out = self._finalize(torch.stack(crops, dim=1))  # (B, #crops, T, th, tw, 3)
         return out.permute(0, 1, 5, 2, 3, 4)  # (B, #crops, 3, T, th, tw)
+
+
+def fold_subclips(video: torch.Tensor, num_frames: int, stride: int) -> torch.Tensor:
+    """(B, 3, T, H, W) -> (B, #clips, 3, num_frames, H, W): the subclip fold
+    of the raw-video path, after the preprocessing on the device. T must be
+    tiled exactly."""
+    T = video.shape[2]
+    if T < num_frames or (T - num_frames) % stride != 0:
+        raise ValueError(f"subclips (num_frames={num_frames}, stride={stride}) must tile "
+                         f"T={T} exactly")
+    return torch.stack([video[:, :, i:i + num_frames]
+                        for i in range(0, T - num_frames + 1, stride)], dim=1)

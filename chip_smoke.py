@@ -87,9 +87,25 @@
    were, step 1 changes them, no kernel launches (10 tokens); prints step
    ms, clips/s, TFLOP/s, peak memory, idle share and the optimizer's share
    of device time.
+8. train_net: expts/02 from its experiment file through `train_net.cli`
+   (the config, datasets, loader, model, `run_training`, `evaluate`), on a
+   synthetic EK100 tree written with numpy and csv (`write_ek100_tree`:
+   RULSTM csv annotations, 97 verbs, 300 nouns, 3806 actions, 1024-d f32
+   .npy features at 30 fps), the overrides pointing the annotations and
+   the npy reader at it and cutting it to 1 epoch (4 train batches of 64,
+   2 eval batches); the model, batch size, optimizer and losses as the
+   file sets them. (a) At the shipped 10 observed features: no kernel
+   launches. (b) At 256: 6 flash forward + 6 backward launches a train
+   step and 6 forward launches an eval batch, nothing else; finite losses,
+   final_acc/action/AR5 among the final metrics, a checkpoint at epoch 1,
+   and a second call that resumes from it, trains nothing and evaluates.
+   Prints rows, steps, the loop's ms a step, the host's data ms a batch,
+   the eval's ms a batch and the launches, beside the card's name and
+   power limit.
 Only phase 4b launches the fused kernel. Prints one JSON line of kernel results, then {"ok": true, "device": ...}.
 Exits non-zero on any failure, and without a CUDA device.
 """
+import csv
 import functools
 import json
 import os
@@ -798,10 +814,13 @@ def main():
     # 7. expts/08 with Adam at full width -----------------------------------
     ek55_launches = ek55_adam_phase()
 
+    # 8. expts/02 from its file through train_net, on a synthetic EK100 tree
+    tn_launches = train_net_phase(card)
+
     paths = {"serve": serve_launches, "train": train_launches, "trainer": trainer_launches,
              "train_d32": d32_launches,
              **feat_launches, "feature_d1024": d1024_launches, "train_fused": fused_launches,
-             "ek55_adam": ek55_launches}
+             "ek55_adam": ek55_launches, **tn_launches}
     for path, counts in paths.items():
         if path != "train_fused":
             check(counts["fused_qkv_attention_fwd"] == 0, f"a fused launch on {path}: {counts}")
@@ -1727,6 +1746,237 @@ def feature_d1024_phase():
         f"{FEAT_BATCH / step_s:.2f} clips/s, {flops / step_s / 1e12:.2f} TFLOP/s "
         f"({flops / 1e12:.2f} TFLOP a step); loss {metrics['loss'].item():.4f}; peak memory "
         f"{peak_gb:.2f} GB; launches {counts}")
+    return counts
+
+
+# ---------------------------------------------------------------- train_net
+EK100_VERBS, EK100_NOUNS = 97, 300
+FEATURE_FPS = 30  # RULSTM stores one TSN feature per frame at 30 fps
+EXPT_02 = "expts/02_ek100_avt_tsn.txt"
+
+
+def write_ek100_tree(root, *, train_videos, eval_videos, actions_per_video, first_action_s,
+                     dim=FEAT_DIM, seed=0):
+    """A synthetic EK100 tree under `root`, written with numpy and csv only:
+    EPIC_100_{verb,noun}_classes.csv (97 verbs, 300 nouns), RULSTM's
+    actions.csv (3806 actions, action a = (verb a % 97, noun a // 97)), the
+    RULSTM annotations training.csv and validation.csv (uid, video_id,
+    start_frame, end_frame, verb, noun, action at 30 fps, no header; one
+    action a second from `first_action_s` on, `actions_per_video` a video,
+    train and eval on their own videos), and a per-video .npy store of
+    `dim`-d f32 features at 30 fps (row i = frame i + 1) reaching 2 s past
+    the last action. Returns the overrides that point expts/02 at it."""
+    rng = np.random.default_rng(seed)
+    annot = os.path.join(root, "annotations", "epic-kitchens-100")
+    rulstm = os.path.join(root, "annotations", "rulstm", "ek100")
+    feats = os.path.join(root, "features")
+    for d in (annot, rulstm, os.path.join(feats, "rgb")):
+        os.makedirs(d, exist_ok=True)
+    for name, n in (("verb", EK100_VERBS), ("noun", EK100_NOUNS)):
+        with open(os.path.join(annot, f"EPIC_100_{name}_classes.csv"), "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["id", "key"])
+            w.writerows([i, f"{name}{i}"] for i in range(n))
+    with open(os.path.join(rulstm, "actions.csv"), "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["id", "verb", "noun", "action"])
+        w.writerows([a, a % EK100_VERBS, a // EK100_VERBS,
+                     f"verb{a % EK100_VERBS}_noun{a // EK100_VERBS}"]
+                    for a in range(NUM_ACTIONS))
+    seconds = first_action_s + actions_per_video + 2
+    uid = 0
+    for split, participant, n_videos in (("training", 1, train_videos),
+                                         ("validation", 2, eval_videos)):
+        rows = []
+        for v in range(n_videos):
+            video = f"P{participant:02d}_{v + 1:02d}"
+            np.save(os.path.join(feats, "rgb", f"{video}.npy"),
+                    rng.standard_normal((seconds * FEATURE_FPS, dim), np.float32))
+            for k in range(actions_per_video):
+                start = (first_action_s + k) * FEATURE_FPS
+                action = int(rng.integers(NUM_ACTIONS))
+                rows.append([uid, video, start, start + FEATURE_FPS // 2, action % EK100_VERBS,
+                             action // EK100_VERBS, action])
+                uid += 1
+        with open(os.path.join(rulstm, f"{split}.csv"), "w", newline="") as f:
+            csv.writer(f).writerows(rows)
+    common = "dataset.epic_kitchens100.common"
+    reader = ("{_target_: avt_tpu.data.NpyFeatsReader, root: "
+              f"${{{common}.rulstm_feats_dir}}/rgb/, read_type: normal}}")
+    return [f"{common}.annot_dir={annot}/", f"{common}.rulstm_annot_dir={rulstm}/",
+            f"{common}.rulstm_feats_dir={feats}/",
+            f"dataset_train.annotation_path=[{rulstm}/training.csv]",
+            f"dataset_eval.annotation_path=[{rulstm}/validation.csv]",
+            "~dataset_train.reader_fn", "~dataset_eval.reader_fn",
+            f"+dataset_train.reader_fn={reader}", f"+dataset_eval.reader_fn={reader}"]
+
+
+
+# the train_net phase: 9 train videos and 4 eval videos of 32 actions a
+# second from 258 s on (256 observed seconds fit before each), so 288 train
+# rows (4 batches of 64, the rest dropped) and 128 eval rows (2 batches)
+TN_TRAIN_VIDEOS, TN_EVAL_VIDEOS, TN_ACTIONS, TN_FIRST_S = 9, 4, 32, LONG_T + 2
+TN_BATCH, TN_WORKERS = 64, 8
+TN_STEPS = TN_TRAIN_VIDEOS * TN_ACTIONS // TN_BATCH
+TN_EVAL_BATCHES = -(-TN_EVAL_VIDEOS * TN_ACTIONS // TN_BATCH)
+
+
+def long_context(T):
+    """The overrides that give expts/02 T observed features: T frames at its
+    1 fps over a window of T seconds."""
+    return [f"data_train.num_frames={T}", f"data_eval.num_frames={T}",
+            f"dataset_train.conv_to_anticipate_fn.tau_o={T}",
+            f"dataset_eval.conv_to_anticipate_fn.tau_o={T}"]
+
+
+def run_train_net(argv):
+    """`train_net.cli(argv)` with its loaders, loop meters, evaluator and
+    final metrics recorded, and the kernel launch counts set to 0 just
+    before and read just after. Returns (the cli's metrics, a dict of what
+    was recorded)."""
+    from avt_tpu_torch import train_net
+    from avt_tpu_torch.evaluate import evaluator as evaluator_module
+
+    rec = {"waits": {"train": [], "eval": []}, "rows": {}, "loggers": [], "epochs": [],
+           "eval_s": [], "finals": []}
+
+    class TimedLoader(train_net.DataLoader):
+        """The loader, timing how long each batch keeps the caller waiting."""
+
+        def __iter__(self):
+            kind = "train" if self.drop_last else "eval"
+            rec["rows"][kind] = len(self.dataset)
+            it = super().__iter__()
+            while True:
+                t0 = time.time()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                rec["waits"][kind].append(time.time() - t0)
+                yield batch
+
+    class RecordedLogger(MetricLogger):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            rec["loggers"].append(self)
+
+    def timed_evaluate(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        metric = evaluate(*args, **kwargs)
+        rec["eval_s"].append(time.time() - t0)
+        return metric
+
+    def counted_epoch(*args, **kwargs):
+        rec["epochs"].append(kwargs["epoch"])
+        return train_one_epoch(*args, **kwargs)
+
+    final_accuracies = evaluator_module.final_accuracies_from_results
+
+    def recorded_finals(*args, **kwargs):
+        rec["finals"].append(final_accuracies(*args, **kwargs))
+        return rec["finals"][-1]
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.time()
+    with mock.patch.object(train_net, "DataLoader", TimedLoader), \
+            mock.patch.object(train_net, "evaluate", timed_evaluate), \
+            mock.patch.object(loop_module, "MetricLogger", RecordedLogger), \
+            mock.patch.object(loop_module, "train_one_epoch", counted_epoch), \
+            mock.patch.object(evaluator_module, "final_accuracies_from_results",
+                              recorded_finals):
+        metrics = train_net.cli(argv)
+    torch.cuda.synchronize()
+    rec["wall_s"] = time.time() - t0
+    rec["launches"] = dict(_build.launch_counts)
+    return metrics, rec
+
+
+def train_net_phase(card):
+    """expts/02 from its experiment file through `train_net.cli`, on a
+    synthetic EK100 tree (`write_ek100_tree`: 1024-d features, 97 verbs,
+    300 nouns, 3806 actions) read by the npy reader: the model (6 layers, 4
+    heads, inter_dim 2048, dropout 0.2), the batch of 64, the optimizer and
+    the losses as the file sets them; one epoch of 4 batches, then the
+    eval of 2. (a) As shipped, 10 observed features: no kernel launches.
+    (b) 256 observed features: 6 flash forward + 6 flash backward launches
+    a train step and 6 forward launches an eval forward, nothing else;
+    finite losses, final_acc/action/AR5 among the final metrics, a
+    checkpoint at epoch 1; then a second cli call on the same run
+    directory resumes from it, trains nothing and evaluates once. Prints
+    rows, steps, the loop's ms a step, the host's data ms a batch (the
+    time a batch keeps the loop waiting), the eval's ms a batch and the
+    launches. Returns the launch counts of each run."""
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        tree = write_ek100_tree(os.path.join(tmp, "tree"), train_videos=TN_TRAIN_VIDEOS,
+                                eval_videos=TN_EVAL_VIDEOS, actions_per_video=TN_ACTIONS,
+                                first_action_s=TN_FIRST_S, seed=21)
+        log(f"train_net: synthetic EK100 tree ({TN_TRAIN_VIDEOS} + {TN_EVAL_VIDEOS} videos of "
+            f"{TN_FIRST_S + TN_ACTIONS + 2} s, {FEAT_DIM}-d f32 features at {FEATURE_FPS} fps) "
+            f"written in {time.time() - t0:.1f} s")
+        common = tree + [f"data_train.workers={TN_WORKERS}", f"data_eval.workers={TN_WORKERS}",
+                         "train.num_epochs=1"]
+        for label, T in (("train_net_t10", SHORT_T), ("train_net", LONG_T)):
+            run_dir = os.path.join(tmp, label)
+            argv = ["--config-file", EXPT_02, "--run-dir", run_dir] + common + (
+                long_context(T) if T != SHORT_T else [])
+            (metric,), rec = run_train_net(argv)
+            counts[label] = rec["launches"]
+            layers = AVTH_LAYERS if T >= 128 else 0
+            want = {**{n: 0 for n in _build.KERNELS},
+                    "flash_attention_fwd": layers * (TN_STEPS + TN_EVAL_BATCHES),
+                    "flash_attention_bwd": layers * TN_STEPS}
+            check(rec["launches"] == want, f"{label}: launches {rec['launches']}, want {want}")
+            check(rec["epochs"] == [0] and len(rec["waits"]["train"]) == TN_STEPS + 1
+                  and len(rec["waits"]["eval"]) == TN_EVAL_BATCHES,
+                  f"{label}: epochs {rec['epochs']}, batches {rec['waits']}")
+            meters = rec["loggers"][0].meters
+            losses = {k: m.global_avg for k, m in meters.items() if k.startswith("loss")}
+            check(meters["loss"].count == TN_STEPS and all(np.isfinite(list(losses.values()))),
+                  f"{label}: losses {losses} over {meters['loss'].count} steps")
+            finals = rec["finals"]
+            check(len(finals) == 1 and "final_acc/action/AR5" in finals[0]
+                  and np.isfinite(finals[0]["final_acc/action/AR5"])
+                  and metric == finals[0]["final_acc/action/AR5"],
+                  f"{label}: final metrics {finals}, returned {metric}")
+            ckpt = torch.load(os.path.join(run_dir, CKPT_NAME), map_location="cpu",
+                              weights_only=False)
+            check(ckpt["epoch"] == 1.0, f"{label}: checkpoint at epoch {ckpt['epoch']}")
+            del ckpt
+            train_wait, eval_wait = rec["waits"]["train"], rec["waits"]["eval"]
+            clips_s = meters["clips/s"]
+            loop_ms = TN_BATCH / clips_s.median * 1e3
+            log(f"train_net {label} ({card}): expts/02 at {T} observed features, rows train "
+                f"{rec['rows']['train']} / eval {rec['rows']['eval']}, {TN_STEPS} steps of "
+                f"{TN_BATCH} clips (unroll_steps 32: one chunk), {len(eval_wait)} eval batches; "
+                f"the loop {loop_ms:.2f} ms a step (its clips/s meter, median "
+                f"{clips_s.median:.2f}, the chunk's batches and steps); host data "
+                f"{1e3 * np.median(train_wait):.2f} ms a train batch (median of "
+                f"{len(train_wait)}, max {1e3 * max(train_wait):.2f}), "
+                f"{1e3 * np.median(eval_wait):.2f} ms an eval batch; eval "
+                f"{1e3 * rec['eval_s'][0] / len(eval_wait):.2f} ms a batch (evaluate, result "
+                f"files included); losses "
+                + ", ".join(f"{k} {v:.4f}" for k, v in sorted(losses.items()))
+                + f"; final_acc/action/AR5 {metric:.4f}; cli {rec['wall_s']:.1f} s; launches "
+                f"{rec['launches']}")
+            if T == LONG_T:
+                (again,), rec2 = run_train_net(argv)
+                counts["train_net_resume"] = rec2["launches"]
+                want = {**{n: 0 for n in _build.KERNELS},
+                        "flash_attention_fwd": AVTH_LAYERS * TN_EVAL_BATCHES}
+                check(rec2["launches"] == want and not rec2["epochs"]
+                      and not rec2["waits"]["train"][1:] and len(rec2["finals"]) == 1,
+                      f"resumed train_net: launches {rec2['launches']}, epochs "
+                      f"{rec2['epochs']}, finals {len(rec2['finals'])}")
+                check(np.isfinite(again), f"resumed train_net: metric {again}")
+                log(f"train_net resumed ({card}): restored epoch 1.0, trained nothing, "
+                    f"evaluated once ({1e3 * rec2['eval_s'][0] / TN_EVAL_BATCHES:.2f} ms a "
+                    f"batch); final_acc/action/AR5 {again:.4f} (first run {metric:.4f}); cli "
+                    f"{rec2['wall_s']:.1f} s; launches {rec2['launches']}")
     return counts
 
 

@@ -1,0 +1,186 @@
+"""The port's config layer against avt_tpu's and PyYAML.
+
+The port reads YAML with its own reader (`avt_tpu_torch.config.overrides.
+yaml_load`), since its package imports no PyYAML. Compared here: the reader
+with `yaml.safe_load` on every conf/**/*.yaml file (with ${...} stashed,
+as both packages parse them) and on YAML 1.1 edge scalars; `parse_value`
+with avt_tpu's on every override value of every expts/*.txt file (sweep
+elements included) and on quoted, flow and scientific values; the composed
+config of every sweep variant of every experiment file with avt_tpu's
+`Composer`; and the registry's refusals of targets that are not ported.
+"""
+import math
+from pathlib import Path
+
+import pytest
+import yaml
+
+from avt_tpu.config import Composer as JComposer
+from avt_tpu.config import expand_sweeps as jexpand_sweeps
+from avt_tpu.config import parse_overrides_file as jparse_overrides_file
+from avt_tpu.config.compose import load_yaml as jload_yaml
+from avt_tpu.config.overrides import _split_top_level_commas
+from avt_tpu.config.overrides import parse_value as jparse_value
+from avt_tpu_torch.config import (
+    Composer,
+    expand_sweeps,
+    instantiate,
+    load_yaml,
+    parse_overrides_file,
+    parse_value,
+    resolve_target,
+    yaml_load,
+)
+from avt_tpu_torch.config.overrides import (
+    YAMLSubsetError,
+    _QuotedStr,
+    plain,
+    stash_interpolations,
+)
+
+ROOT = Path(__file__).resolve().parents[1]
+CONF_DIR = ROOT / "conf"
+CONF_FILES = sorted(CONF_DIR.rglob("*.yaml"))
+EXPTS = sorted((ROOT / "expts").glob("*.txt"))
+
+
+def _override_values():
+    """Every value of every override line in expts/, and each element of a
+    sweep."""
+    values = set()
+    for path in EXPTS:
+        for line in path.read_text().splitlines():
+            line = line.split("#")[0].strip()
+            if "=" not in line:
+                continue
+            raw = line.split("=", 1)[1]
+            values.add(raw)
+            parts = _split_top_level_commas(raw)
+            if len(parts) > 1:
+                values.update(p.strip() for p in parts)
+    return sorted(values)
+
+
+EXPT_VALUES = _override_values()
+# scientific numbers with and without a dot, quoted and not, at any depth;
+# flow collections; YAML 1.1 booleans and nulls; interpolations in flows
+EXTRA_VALUES = [
+    "1e-6", "1E+3", "-2e5", "1.0e-6", "1.0e6", "0.000001", "'1e-6'", '"1e-6"',
+    "[1e-6, '1e-6', 0.1]", "{a: 1e-6, b: '2e-3', 1e-4: c}", "[[__all__,0.001,0.000001]]",
+    "{_target_: torch.nn.MSELoss}", '"no"', "'yes'", "no", "yes", "On", "off", "~", "null",
+    "Null", "", "true", "False", "012", "0x1F", "1_000", "+7", "-0", ".5", "1:30", ".inf",
+    "-.Inf", "[a: b]", "{a}", "[a, b, ]", "a: b", "- a", "a b  c", "a #b", "a#b", "[a",
+    "{a: [1, {b: ${x.y}}]}", "${a.b}/c d", "'it''s'", '"tab\\there"', "2001-12-14",
+    "[${cwd}/x.pth, y]", "{k: ${a}, ${b}: v}",
+]
+
+
+def _jax_equal(a, b):
+    """Equal values of equal types, NaN equal to NaN, at any depth."""
+    if type(a) is not type(b):
+        return False
+    if isinstance(a, dict):
+        return list(a) == list(b) and all(_jax_equal(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_jax_equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, float) and math.isnan(a):
+        return math.isnan(b)
+    return a == b
+
+
+@pytest.mark.parametrize("path", CONF_FILES, ids=lambda p: str(p.relative_to(CONF_DIR)))
+def test_yaml_reader_matches_pyyaml_on_conf(path):
+    text, _ = stash_interpolations(path.read_text())
+    ours = yaml_load(text)
+    assert _jax_equal(plain(ours), yaml.safe_load(text))
+    assert _jax_equal(load_yaml(path), jload_yaml(path))
+
+
+def test_conf_files_are_all_compared():
+    assert len(CONF_FILES) == 54
+
+
+YAML_CASES = [
+    "1e-6", "1.0e5", "1.0e+5", "0.000001", "~", "null", "", "a: b", "- a", "[a: b]", "{a}",
+    "'x'", '"no"', "0o7", "012", "08", "0x1F", "0b101", "1_000", "+1", ".5", "1.", "1:30",
+    "yes", "On", "OFF", "[1, [2, 3], {a: 1}]", "{a: [1,2], b: c d}", "a#b", "a #b", "[a,b,]",
+    "a:b", "{a:b}", "[http://x]", "foo bar  baz", "2001-12-14", "-", "-.inf", ".NaN",
+    "'it''s'", '"a\\tb"', "[ ]", "{ }", "a,b", "[a b, c]", "-1", "- ", "a:", "{a: }",
+    "[a, ]", "a : b", "[a , b ]", "{a : 1 , b: [x , y]}", "key: [a, b] # c", "a: 'b' # c",
+    "[-1, -x, -]", "a:\n  b: 1\n  c:\n  - x\n  - y: 2\n    z: 3\nd: [1]",
+    "- a\n-\n  - b\n- c: d", "a:\n- 1\n- 2", "x: 'q' # c\n# only a comment\ny: \"r\"",
+]
+
+
+@pytest.mark.parametrize("text", YAML_CASES)
+def test_yaml_reader_matches_pyyaml_on_scalars_and_blocks(text):
+    assert _jax_equal(plain(yaml_load(text)), yaml.safe_load(text))
+
+
+@pytest.mark.parametrize("text", ["a: b: c", "[a", "{a: b", "'open", "&x a", "!!str 5", "|",
+                                  "a:\n  b\n  c", "=", "a:\n\tb: 1"])
+def test_yaml_reader_refuses_what_pyyaml_refuses_or_the_subset_leaves_out(text):
+    with pytest.raises(YAMLSubsetError):
+        yaml_load(text)
+
+
+def test_yaml_reader_keeps_the_quote_style():
+    v = yaml_load("{a: 'x', b: y, c: [\"z\"]}")
+    assert isinstance(v["a"], _QuotedStr) and not isinstance(v["b"], _QuotedStr)
+    assert isinstance(v["c"][0], _QuotedStr)
+
+
+@pytest.mark.parametrize("raw", EXPT_VALUES + EXTRA_VALUES)
+def test_parse_value_matches_avt_tpu(raw):
+    assert _jax_equal(parse_value(raw), jparse_value(raw)), raw
+
+
+def test_expt_values_cover_every_kind():
+    assert len(EXPT_VALUES) >= 96
+    kinds = {type(parse_value(v)) for v in EXPT_VALUES}
+    assert {int, float, bool, str, list, dict} <= kinds
+
+
+@pytest.mark.parametrize("expt", EXPTS, ids=lambda p: p.stem)
+def test_compose_matches_avt_tpu(expt):
+    ours = expand_sweeps(parse_overrides_file(expt))
+    ref = jexpand_sweeps(jparse_overrides_file(expt))
+    assert len(ours) == len(ref)
+    for variant, jvariant in zip(ours, ref):
+        cfg = Composer(CONF_DIR).compose("config", variant)
+        jcfg = JComposer(CONF_DIR).compose("config", jvariant)
+        assert _jax_equal(cfg, jcfg)
+
+
+def test_every_expt_is_composed():
+    assert len(EXPTS) == 27
+    variants = sum(len(expand_sweeps(parse_overrides_file(e))) for e in EXPTS)
+    assert variants > len(EXPTS)  # the sweeps expand
+
+
+@pytest.mark.parametrize("target,item", [
+    ("datasets.breakfast_50salads.Breakfast50Salads", "1.3"),
+    ("datasets.breakfast_50salads.SenerFeatsReader", "1.3"),
+    ("avt_tpu.data.Breakfast50Salads", "1.3"),
+    ("datasets.reader_fns.DefaultReader", "1.3"),
+    ("avt_tpu.data.LibavVideoReader", "1.3"),
+    ("loss_fn.simclr_infonce.MultiDimDistributedSimclrInfoNCELoss", "1.8"),
+    ("loss_fn.multidim_xentropy.QuantizeAndCrossEntropy", "1.5"),
+])
+def test_unported_targets_raise_naming_their_roadmap_item(target, item):
+    with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue {item}"):
+        instantiate({"_target_": target})
+
+
+def test_targets_map_onto_the_port():
+    import avt_tpu_torch.data as tdata
+    import avt_tpu_torch.losses as tlosses
+
+    assert resolve_target("datasets.epic_kitchens.EPICKitchens") is tdata.EpicKitchens
+    assert resolve_target("datasets.epic_kitchens.EpicRULSTMFeatsReader") is tdata.LMDBFeatsReader
+    assert resolve_target("avt_tpu.data.NpyFeatsReader") is tdata.NpyFeatsReader
+    assert resolve_target("torch.nn.MSELoss") is tlosses.MSELoss
+    loss = instantiate({"_target_": "torch.nn.MSELoss"}, reduction="none")
+    assert loss.reduction == "none"
+    with pytest.raises(KeyError):
+        resolve_target("no.such.Target")

@@ -386,3 +386,33 @@ def test_cuda_misaligned_operands_are_copied(cuda_device, dtype):
     wt = w.t()  # the weight (3C, C); the op takes its transposed view
     same(lambda x_, w_, b_: tfa.fused_qkv_attention(x_, w_.t(), b_, 12), [xf, wt, bf], dout)
     assert _build.launch_counts[tfa.FUSED_KERNEL] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_train_net_runs_expts02_through_the_flash_kernels(cuda_device, tmp_path):
+    """`train_net.cli` on expts/02 at 256 observed features, full width, on a
+    synthetic EK100 tree of 64 train and 32 eval rows (chip_smoke.py's):
+    one train step and one eval batch, 6 flash forward + 6 flash backward
+    launches for the step and 6 forward launches for the eval, nothing else;
+    a second call resumes from the checkpoint, trains nothing and evaluates."""
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    import chip_smoke
+
+    tree = chip_smoke.write_ek100_tree(str(tmp_path / "tree"), train_videos=2, eval_videos=1,
+                                       actions_per_video=32, first_action_s=258, seed=4)
+    argv = (["--config-file", os.path.join(root, chip_smoke.EXPT_02), "--run-dir",
+             str(tmp_path / "run"), "train.num_epochs=1", "data_train.workers=4",
+             "data_eval.workers=4"] + tree + chip_smoke.long_context(256))
+    layers = 6
+    want = {**{n: 0 for n in _build.KERNELS}, tfa.FLASH_KERNEL: 2 * layers,
+            tfa.FLASH_BWD_KERNEL: layers}
+    (metric,), rec = chip_smoke.run_train_net(argv)
+    assert rec["launches"] == want and rec["epochs"] == [0] and np.isfinite(metric)
+    assert "final_acc/action/AR5" in rec["finals"][0]
+    (again,), rec = chip_smoke.run_train_net(argv)
+    assert rec["launches"] == {**want, tfa.FLASH_KERNEL: layers, tfa.FLASH_BWD_KERNEL: 0}
+    assert rec["epochs"] == [] and np.isfinite(again)

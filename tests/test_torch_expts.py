@@ -1,0 +1,189 @@
+"""Every experiment file that runs on the port from its file, against avt_tpu.
+
+The synthetic DATA/ tree of tests/_expt_fixtures.py (EK100 pkl
+annotations with a label-less test split, EK55 with its video splits,
+EGTEA's RULSTM csvs; fake-lmdb feature stores at the channel counts the
+files configure) stands in for the data. Each file is composed by both
+packages with the working directory at the tree (`${cwd}/DATA`), at a
+small width (AVT-h of 1 layer, 64 wide, 2 heads; batches of 2; every
+dropout rate 0, as JAX's and torch's random bits differ). Then the port's
+`build_all_datasets`, `DataLoader`, `build_model`, `build_optimizer_from_cfg`,
+one train step, and then one eval step on the first batch of every eval
+dataset, are held against avt_tpu's, from avt_tpu's weights, at 2e-4 (f32).
+The files that the port does not run raise NotImplementedError naming
+their ROADMAP item; expts/06 as shipped is refused by both packages.
+"""
+import sys
+from pathlib import Path
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import avt_tpu.data.readers as jreaders
+from avt_tpu.config import Composer as JComposer
+from avt_tpu.config import expand_sweeps as jexpand_sweeps
+from avt_tpu.config import parse_override as jparse_override
+from avt_tpu.config import parse_overrides_file as jparse_overrides_file
+from avt_tpu.config.build import build_all_datasets as jbuild_all_datasets
+from avt_tpu.config.build import build_model as jbuild_model
+from avt_tpu.config.build import build_optimizer_from_cfg as jbuild_optimizer_from_cfg
+from avt_tpu.data.dataset import ConcatDataset as JConcatDataset
+from avt_tpu.data.loader import DataLoader as JDataLoader
+from avt_tpu.train import TrainState
+from avt_tpu.train import make_eval_step as jmake_eval_step
+from avt_tpu.train import make_train_step as jmake_train_step
+from avt_tpu_torch import train_net
+from avt_tpu_torch.config import Composer, expand_sweeps, parse_override, parse_overrides_file
+from avt_tpu_torch.config.build import (
+    build_all_datasets,
+    build_model,
+    build_optimizer_from_cfg,
+    loss_weights,
+)
+from avt_tpu_torch.data.dataset import ConcatDataset
+from avt_tpu_torch.data.loader import DataLoader
+from avt_tpu_torch.models.convert import load_jax_params
+from avt_tpu_torch.train import make_eval_step, make_train_step
+
+import _expt_fixtures
+import ref_harness
+
+EXPTS_DIR = Path(__file__).resolve().parents[1] / "expts"
+B = 2
+SMALL = ["model.future_predictor.n_layer=1", "model.future_predictor.inter_dim=64",
+         "model.future_predictor.n_head=2", f"train.batch_size={B}", f"eval.batch_size={B}",
+         "data_train.workers=2", "data_eval.workers=2", "model.dropout=0.0",
+         "+model.future_predictor.embd_pdrop=0.0", "+model.future_predictor.attn_pdrop=0.0",
+         "+model.future_predictor.resid_pdrop=0.0"]
+TOL = 2e-4
+KEYS = ["video", "target", "target_subclips", "idx", "uid"]
+
+RUN_FROM_FILE = [
+    "02_ek100_avt_tsn", "02_ek100_avt_tsn_test_trainval",
+    "03_ek100_avt_tsn_obj", "03_ek100_avt_tsn_obj_test_trainval",
+    "04_ek100_avt_ig65m", "04_ek100_avt_ig65m_test_trainval",
+    "06_ek100_avt_tsnflow_test_trainval",
+    "08_ek55_avt_tsn", "08_ek55_avt_tsn_forAR",
+    "10_ek55_avt_ig65m", "10_ek55_avt_ig65m_forAR",
+    "11_egtea_avt_tsn",
+]
+# train.init_from_model, raw video or 50Salads: not ported yet
+NOT_PORTED = sorted(p.stem for p in EXPTS_DIR.glob("*.txt")
+                    if p.stem not in RUN_FROM_FILE and p.stem != "06_ek100_avt_tsnflow")
+
+
+@pytest.fixture(scope="module")
+def data_root(tmp_path_factory):
+    """The directory holding DATA/; the feature files need no videos."""
+    root = tmp_path_factory.mktemp("expt_tree")
+    with mock.patch.object(_expt_fixtures, "_write_video", lambda *a, **k: None):
+        _expt_fixtures.build_data_tree(root)
+    return root
+
+
+@pytest.fixture
+def in_tree(data_root, monkeypatch):
+    """The working directory at the tree (so `${cwd}/DATA` is it) and both
+    packages' lmdb readers on tests/_fake_lmdb.py."""
+    monkeypatch.chdir(data_root)
+    fake = ref_harness._load_fake_lmdb()
+    monkeypatch.setitem(sys.modules, "lmdb", fake)
+    monkeypatch.setattr(jreaders, "lmdb", fake, raising=False)
+    monkeypatch.setattr(jreaders, "HAVE_LMDB", True, raising=False)
+
+
+def _compose(name, overrides=SMALL):
+    """Both packages' configs of the file's first sweep variant."""
+    expt = EXPTS_DIR / f"{name}.txt"
+    cfg = Composer(train_net.CONF_DIR).compose("config", expand_sweeps(
+        parse_overrides_file(expt) + [parse_override(o) for o in overrides])[0])
+    jcfg = JComposer(train_net.CONF_DIR).compose("config", jexpand_sweeps(
+        jparse_overrides_file(expt) + [jparse_override(o) for o in overrides])[0])
+    assert cfg == jcfg
+    return cfg, jcfg
+
+
+def _close(out, ref, what):
+    out = out.detach().float().numpy() if isinstance(out, torch.Tensor) else np.asarray(out)
+    ref = np.asarray(ref, np.float32)
+    assert out.shape == ref.shape, what
+    err = np.abs(out - ref).max() / max(np.abs(ref).max(), 1e-12)
+    assert err <= TOL, f"{what}: max |diff| {err:.3g} of its scale (limit {TOL})"
+
+
+def _first(ds, jds, seed, shuffle):
+    kw = dict(shuffle=shuffle, drop_last=shuffle, seed=seed, num_workers=2, keys=KEYS)
+    batch, jbatch = next(iter(DataLoader(ds, B, **kw))), next(iter(JDataLoader(jds, B, **kw)))
+    assert batch.keys() == jbatch.keys()
+    for k in ("video", "idx", "uid"):
+        assert np.array_equal(batch[k], jbatch[k]), k
+    for task in jbatch["target"]:
+        assert np.array_equal(batch["target"][task], jbatch["target"][task]), task
+    sel = ("video", "target", "target_subclips")
+    tb = {k: ({kk: torch.from_numpy(np.asarray(vv)) for kk, vv in v.items()}
+              if isinstance(v, dict) else torch.from_numpy(np.asarray(v)))
+          for k, v in batch.items() if k in sel}
+    jb = {k: ({kk: jnp.asarray(vv) for kk, vv in v.items()} if isinstance(v, dict)
+              else jnp.asarray(v))
+          for k, v in jbatch.items() if k in sel}
+    return tb, jb
+
+
+@pytest.mark.parametrize("name", RUN_FROM_FILE)
+def test_expt_builds_and_steps_like_avt_tpu(in_tree, name):
+    cfg, jcfg = _compose(name)
+    train, evals = build_all_datasets(cfg)
+    jtrain, jevals = jbuild_all_datasets(jcfg)
+    assert [len(d) for d in train] == [len(d) for d in jtrain]
+    assert {k: len(d) for k, d in evals.items()} == {k: len(d) for k, d in jevals.items()}
+    ds = train[0] if len(train) == 1 else ConcatDataset(train)
+    jds = jtrain[0] if len(jtrain) == 1 else JConcatDataset(jtrain)
+    num_classes = {k: len(v) for k, v in ds.classes.items()}
+    assert num_classes == {k: len(v) for k, v in jds.classes.items()}
+    tb, jb = _first(ds, jds, cfg["seed"], shuffle=True)
+
+    jm = jbuild_model(jcfg, num_classes, jds.class_mappings)
+    params = jm.init(jax.random.PRNGKey(0), jb["video"], (B,))
+    tx, _ = jbuild_optimizer_from_cfg(jcfg, params, iters_per_epoch=2)
+    jstep = jmake_train_step(jm, tx, loss_weights(cfg), num_classes, donate=False)
+    jeval = jmake_eval_step(jm, num_classes)
+    model = build_model(cfg, num_classes, ds.class_mappings, device="cpu")
+    load_jax_params(model, params)
+    opt, _ = build_optimizer_from_cfg(cfg, model, iters_per_epoch=2)
+    step = make_train_step(model, opt, loss_weights(cfg), num_classes)
+    eval_step = make_eval_step(model, num_classes)
+
+    state, jmetrics = jstep(TrainState.create(params, tx), jb, jax.random.PRNGKey(1))
+    metrics = step(tb)
+    losses = [k for k in jmetrics if k.startswith("loss")]
+    assert "loss" in losses and set(losses) <= set(metrics)
+    for k in losses:
+        _close(metrics[k], jmetrics[k], f"train step {k}")
+    for suffix in jevals:
+        etb, ejb = _first(evals[suffix], jevals[suffix], cfg["seed"], shuffle=False)
+        res, ref = eval_step(etb), jeval(state.params, ejb)  # after the step
+        for task in num_classes:
+            key = f"logits/{task}"
+            if key in ref:
+                _close(res[key], ref[key], f"eval{suffix} {key}")
+
+
+def test_expt06_as_shipped_is_refused_by_both(in_tree):
+    """expts/06 sets drop_style=rulstm, which the reference refuses."""
+    cfg, jcfg = _compose("06_ek100_avt_tsnflow")
+    with pytest.raises(NotImplementedError):
+        jbuild_all_datasets(jcfg)
+    with pytest.raises(NotImplementedError):
+        build_all_datasets(cfg)
+
+
+@pytest.mark.parametrize("name", NOT_PORTED)
+def test_unported_expt_raises_naming_its_roadmap_item(in_tree, tmp_path, name):
+    cfg, _ = _compose(name, overrides=())  # as shipped: it raises before any build
+    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1\.\d"):
+        train_net.main(cfg, str(tmp_path), device="cpu")

@@ -1,5 +1,6 @@
 """The port stands alone: avt_tpu_torch and chip_smoke.py import neither JAX
-(nor flax, orbax or h5py) nor the JAX package, and its entry points do not
+(nor flax, orbax or h5py) nor the JAX package, nor PyYAML, pandas or OpenCV
+(lmdb only inside LMDBFeatsReader.__init__), and its entry points do not
 run on the CPU unasked."""
 import re
 import subprocess
@@ -19,7 +20,21 @@ PORT_FILES = sorted(
 ) + [ROOT / "chip_smoke.py"]
 # `avt_tpu` not followed by `_torch` (the port's own name starts the same)
 FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|flax|orbax|h5py|avt_tpu(?!_torch))\b", re.MULTILINE)
+    r"^\s*(?:import|from)\s+(?:jax|flax|orbax|h5py|yaml|pandas|cv2|avt_tpu(?!_torch))\b",
+    re.MULTILINE)
+
+
+# the config and host data layers and train_net
+NEW_MODULES = (
+    "import avt_tpu_torch.config, avt_tpu_torch.config.overrides, avt_tpu_torch.config.compose\n"
+    "import avt_tpu_torch.config.registry, avt_tpu_torch.config.build, avt_tpu_torch.data\n"
+    "import avt_tpu_torch.data.table, avt_tpu_torch.data.sampling, avt_tpu_torch.data.readers\n"
+    "import avt_tpu_torch.data.anticipation, avt_tpu_torch.data.dataset\n"
+    "import avt_tpu_torch.data.epic_kitchens, avt_tpu_torch.data.clip_samplers\n"
+    "import avt_tpu_torch.data.loader, avt_tpu_torch.train_net\n"
+    "from avt_tpu_torch.config import Composer, instantiate\n"
+    "from avt_tpu_torch.train_net import cli, main\n"
+)
 
 
 def test_import_with_jax_blocked():
@@ -40,12 +55,44 @@ def test_import_with_jax_blocked():
         "import avt_tpu_torch.train.meters, avt_tpu_torch.evaluate, avt_tpu_torch.utils.logging\n"
         "from avt_tpu_torch.evaluate import evaluate, read_results, store_append\n"
         "from avt_tpu_torch import run_training, make_multi_step, save_checkpoint\n"
+        + NEW_MODULES +
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_new_layers_import_with_yaml_pandas_and_cv2_blocked():
+    """The config and data layers and train_net read YAML, csv and tables
+    on their own: they import with PyYAML, pandas, OpenCV and lmdb blocked
+    too, and compose expts/02 there."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'flax', 'avt_tpu', 'h5py', 'orbax', 'yaml', 'pandas', 'cv2',\n"
+        "             'lmdb'):\n"
+        "    sys.modules[name] = None\n"
+        + NEW_MODULES +
+        "from avt_tpu_torch.config import parse_overrides_file\n"
+        "cfg = Composer('conf').compose('config', parse_overrides_file(\n"
+        "    'expts/02_ek100_avt_tsn.txt'))\n"
+        "assert cfg['model']['future_predictor']['n_layer'] == 6\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_lmdb_is_imported_by_the_lmdb_reader_alone():
+    src = (ROOT / "avt_tpu_torch" / "data" / "readers.py").read_text()
+    imports = re.findall(r"^( *)import lmdb\b", src, re.MULTILINE)
+    assert imports == ["        "]  # once, inside LMDBFeatsReader.__init__
+    for path in PORT_FILES:
+        if path.name != "readers.py":
+            assert not re.search(r"^\s*(?:import|from)\s+lmdb\b", path.read_text(), re.MULTILINE)
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -58,6 +105,8 @@ def test_forbidden_pattern_catches_jax_package_only():
     assert FORBIDDEN.search("from avt_tpu.ops import x")
     assert FORBIDDEN.search("import jax.numpy as jnp")
     assert FORBIDDEN.search("    import h5py")
+    assert FORBIDDEN.search("import yaml") and FORBIDDEN.search("  import pandas as pd")
+    assert FORBIDDEN.search("import cv2")
     assert not FORBIDDEN.search("from avt_tpu_torch.ops import x")
 
 
