@@ -14,12 +14,16 @@ raises NotImplementedError naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
+import functools
+import logging
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from avt_tpu_torch.config.registry import instantiate, resolve_target
 
+LOG = logging.getLogger(__name__)
 DATASET_TRAIN_KEY = "dataset_train"
 DATASET_EVAL_KEY = "dataset_eval"
 _ZOO_ITEM = "1.6"  # ROADMAP Queue 1.6: the rest of the zoo
@@ -89,11 +93,11 @@ def build_dataset(dataset_cfg: Dict, data_cfg: Dict, transform=None):
     datasets/data.py:get_dataset builds it."""
     cfg = dict(dataset_cfg)
     if cfg.pop("_precomputed_metadata_file", None):
-        # cached video-clip metadata: only datasets over decoded video
-        # clips (`video_clips`) have it, and none is ported yet
+        # cached video-clip metadata: only datasets over torchvision-style
+        # decoded clips (`video_clips`) have it, and none is ported yet
         raise NotImplementedError(
-            "_precomputed_metadata_file (video-clip metadata) is not ported yet "
-            "(ROADMAP Queue 1.3, the video decoder)")
+            "_precomputed_metadata_file (torchvision video-clip metadata) is not ported yet "
+            "(ROADMAP Queue 1.3)")
     reader_cfg = cfg.pop("reader_fn", None)
     reader = (instantiate(reader_cfg) if reader_cfg is not None
               else resolve_target("datasets.reader_fns.DefaultReader")())
@@ -101,10 +105,13 @@ def build_dataset(dataset_cfg: Dict, data_cfg: Dict, transform=None):
     conv = instantiate(conv_cfg, _partial_=True) if conv_cfg else None
     conv_rt_cfg = cfg.pop("conv_to_anticipate_fn_runtime", None)
     conv_rt = instantiate(conv_rt_cfg, _partial_=True) if conv_rt_cfg else None
-    if cfg.pop("sample_clips_densely", False) or cfg.pop("sample_clips_densely_fn", None):
-        raise NotImplementedError(
-            "dense clip sampling (feature extraction) probes each video's length with the "
-            "video decoder, which is not ported yet (ROADMAP Queue 1.3)")
+    # dense clip sampling for SSL and feature extraction
+    dense_cfg = cfg.pop("sample_clips_densely_fn", None)
+    if cfg.pop("sample_clips_densely", False) and dense_cfg is None:
+        dense_cfg = {"_target_": "datasets.base_video_dataset.dense_clip_sampler"}
+    dense_fn = None
+    if dense_cfg is not None:
+        dense_fn = _build_dense_sampler(dict(dense_cfg), cfg.get("root", ""))
     subclips = dict(data_cfg.get("subclips") or {})
     num_frames = data_cfg.get("num_frames", 16)
     subclips_options = {
@@ -120,6 +127,7 @@ def build_dataset(dataset_cfg: Dict, data_cfg: Dict, transform=None):
         transform=transform,
         conv_to_anticipate_fn=conv,
         conv_to_anticipate_fn_runtime=conv_rt,
+        sample_clips_densely_fn=dense_fn,
     )
     ar_cfg = cfg.pop("annot_reader_fn", None)
     if ar_cfg is not None:
@@ -134,6 +142,45 @@ def build_dataset(dataset_cfg: Dict, data_cfg: Dict, transform=None):
     target = resolve_target(cfg["_target_"])
     return target(**{k: v for k, v in kwargs.items() if v is not None or k in (
         "frame_rate", "transform", "conv_to_anticipate_fn")})
+
+
+def _build_dense_sampler(dense_cfg: Dict, root) -> Any:
+    """`dense_clip_sampler` with each video's length probed by the video
+    decoder, the videos sharded per process and, with featext_skip_done,
+    the uids of an earlier extraction's results skipped (the reference's
+    base_video_dataset.py:200-267)."""
+    from avt_tpu_torch.data.anticipation import dense_clip_sampler, get_abs_path
+
+    dense_cfg.pop("_target_", None)
+    featext_skip_done = dense_cfg.pop("featext_skip_done", False)
+    results_dir = dense_cfg.pop("featext_results_dir", "./results")
+    shard_per_worker = dense_cfg.pop("shard_per_worker", False)
+    rank, world = 0, 1
+    if shard_per_worker and torch.distributed.is_available() and \
+            torch.distributed.is_initialized():
+        rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
+    skip_uids = set()
+    if featext_skip_done:
+        from avt_tpu_torch.evaluate.results import read_saved_results_uids
+
+        skip_uids = read_saved_results_uids(os.path.join(results_dir, str(rank)))
+        LOG.info("featext resume: %d uids already done", len(skip_uids))
+    roots = [root] if isinstance(root, str) else list(root or [""])
+
+    def video_len_fn(path):
+        return _video_len_cached(str(get_abs_path(roots, path)))
+
+    return functools.partial(dense_clip_sampler, video_len_fn=video_len_fn, shard=(rank, world),
+                             skip_uids=skip_uids, **dense_cfg)
+
+
+@functools.lru_cache(maxsize=None)
+def _video_len_cached(abs_path: str) -> float:
+    """A video's duration, probed once a process (a dense-sampled dataset
+    may be built twice in a run)."""
+    from avt_tpu_torch.data.video_decoder import get_video_info
+
+    return get_video_info(abs_path)["len"]
 
 
 def build_all_datasets(cfg: Dict) -> Tuple[list, Dict[str, Any]]:

@@ -12,8 +12,10 @@ instantiated.
 from __future__ import annotations
 
 import functools
+import logging
 from typing import Any, Callable, Dict
 
+LOG = logging.getLogger(__name__)
 _REGISTRY: Dict[str, Callable] = {}
 
 
@@ -59,8 +61,25 @@ def not_ported(what: str, item: str) -> Callable:
     return raise_not_ported
 
 
+def _default_video_reader(**kwargs):
+    """The raw-video reader: the native libav decoder, or OpenCV when the
+    decoder does not build or load (the JAX package's rule). Logs which one
+    it took and, on the fallback, why."""
+    from avt_tpu_torch.data.readers import OpenCVVideoReader
+    from avt_tpu_torch.data.video_decoder import LibavVideoReader, native_decoder_error
+
+    err = native_decoder_error()
+    if err is None:
+        LOG.info("video reader: LibavVideoReader (the native libav decoder)")
+        return LibavVideoReader(**kwargs)
+    LOG.warning("video reader: OpenCVVideoReader, as the native decoder is unavailable: %s",
+                err)
+    return OpenCVVideoReader(**kwargs)
+
+
 def _register_builtin_targets():
     """Alias the reference's target strings and the JAX package's names."""
+    from avt_tpu_torch.data import breakfast_50salads as bf
     from avt_tpu_torch.data.anticipation import convert_to_anticipation, dense_clip_sampler
     from avt_tpu_torch.data.epic_kitchens import EpicKitchens
     from avt_tpu_torch.data.readers import (
@@ -70,16 +89,13 @@ def _register_builtin_targets():
     )
     from avt_tpu_torch.losses import MSELoss, MultiDimCrossEntropy, NormedMSE
 
-    video_reader = not_ported("the raw-video reader (data/video_decoder.py, OpenCVVideoReader)",
-                              "1.3")
-    breakfast = "data/breakfast_50salads.py"
     pairs = {
         # datasets and annotation functions (reference names)
         "datasets.epic_kitchens.EPICKitchens": EpicKitchens,
         "datasets.base_video_dataset.convert_to_anticipation": convert_to_anticipation,
         "datasets.base_video_dataset.dense_clip_sampler": dense_clip_sampler,
         "datasets.epic_kitchens.EpicRULSTMFeatsReader": LMDBFeatsReader,
-        "datasets.reader_fns.DefaultReader": video_reader,
+        "datasets.reader_fns.DefaultReader": _default_video_reader,
         "datasets.reader_fns.VideoAsLabelOnehotReader": VideoAsLabelOnehotReader,
         # losses
         "torch.nn.MSELoss": MSELoss,
@@ -94,9 +110,10 @@ def _register_builtin_targets():
         # native names
         "avt_tpu.data.EpicKitchens": EpicKitchens,
         "avt_tpu.data.NpyFeatsReader": NpyFeatsReader,
-        "avt_tpu.data.LibavVideoReader": video_reader,
+        "avt_tpu.data.LibavVideoReader": _default_video_reader,
         "avt_tpu.data.LMDBFeatsReader": LMDBFeatsReader,
         "avt_tpu.data.convert_to_anticipation": convert_to_anticipation,
+        "avt_tpu.data.Breakfast50Salads": bf.Breakfast50Salads,
         "avt_tpu.losses.NormedMSE": NormedMSE,
         "avt_tpu.losses.MSELoss": MSELoss,
     }
@@ -104,8 +121,7 @@ def _register_builtin_targets():
                  "read_abu_farha_annotations", "read_orig_50salads_annotations",
                  "read_orig_breakfast_annotations", "bundle_entry_to_video_fname_50salads",
                  "bundle_entry_to_video_fname_breakfast"):
-        pairs[f"datasets.breakfast_50salads.{name}"] = not_ported(f"{breakfast}:{name}", "1.3")
-    pairs["avt_tpu.data.Breakfast50Salads"] = not_ported(f"{breakfast}:Breakfast50Salads", "1.3")
+        pairs[f"datasets.breakfast_50salads.{name}"] = getattr(bf, name)
     for name, fn in pairs.items():
         register_target(name, fn)
 

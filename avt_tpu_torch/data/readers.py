@@ -12,8 +12,9 @@ pipeline unchanged.
 
 Stores are LMDB (the `lmdb` module is imported by `LMDBFeatsReader` alone,
 when it is built) or memory-mapped per-video .npy shards (`NpyFeatsReader`,
-no C dependency). The raw-video readers (OpenCV, the native libav decoder)
-are not ported yet (ROADMAP Queue 1.3).
+no C dependency). Raw video is read by `OpenCVVideoReader` (OpenCV is
+imported by its constructor alone) or by the native libav decoder
+(`video_decoder.LibavVideoReader`).
 """
 from __future__ import annotations
 
@@ -252,3 +253,49 @@ class VideoAsLabelOnehotReader(Reader):
         valid = labels >= 0
         feats[np.arange(len(labels))[valid], labels[valid]] = 1.0
         return feats[:, None, None, :], {}
+
+
+class OpenCVVideoReader(Reader):
+    """Raw-video decode through OpenCV (the fallback; the native libav
+    decoder of video_decoder.py is the main reader).
+
+    Returns (T, H, W, 3) RGB uint8 frames whose times i / fps fall in
+    [start_sec, end_sec] (inclusive), like torchvision's read_video.
+    """
+
+    def __init__(self):
+        import cv2  # only this reader needs it
+
+        self._cv2 = cv2
+
+    def get_frame_rate(self, video_path) -> float:
+        cap = self._cv2.VideoCapture(str(video_path))
+        try:
+            return float(cap.get(self._cv2.CAP_PROP_FPS))
+        finally:
+            cap.release()
+
+    def __call__(self, video_path, start_sec, end_sec, fps, row):
+        cv2 = self._cv2
+        cap = cv2.VideoCapture(str(video_path))
+        frames = []
+        try:
+            vid_fps = cap.get(cv2.CAP_PROP_FPS)
+            if vid_fps <= 0:
+                return np.zeros((0, 1, 1, 3), dtype=np.uint8), {}
+            start_frame = int(np.ceil(start_sec * vid_fps - 1e-6))
+            cap.set(cv2.CAP_PROP_POS_FRAMES, start_frame)
+            idx = start_frame
+            while True:
+                ok, frame = cap.read()
+                if not ok:
+                    break
+                if idx / vid_fps > end_sec + 1e-6:
+                    break
+                frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+                idx += 1
+        finally:
+            cap.release()
+        if not frames:
+            return np.zeros((0, 1, 1, 3), dtype=np.uint8), {"video_fps": vid_fps}
+        return np.stack(frames), {"video_fps": vid_fps}

@@ -55,6 +55,18 @@ def gen_load_resfiles(resdir: str) -> Iterator[Dict[str, np.ndarray]]:
         yield {key: np.concatenate(vals, axis=0) for key, vals in parts.items()}
 
 
+def read_saved_results_uids(rank_dir: str) -> set:
+    """The uids already in one process's results, `<output_dir>/<rank>`
+    (the resume of a feature extraction); empty when there are none."""
+    uids = set()
+    for fpath in sorted(glob.glob(osp.join(rank_dir, "*.npz"))):
+        with np.load(fpath) as data:
+            if "uid" in data.files:
+                uids.update(el.decode() if isinstance(el, bytes) else str(el)
+                            for el in data["uid"].tolist())
+    return uids
+
+
 def read_results(resdir: str) -> Dict[str, np.ndarray]:
     """Merge all ranks' files; mean multiple predictions per idx."""
     data0 = next(gen_load_resfiles(resdir))

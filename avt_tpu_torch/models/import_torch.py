@@ -1,0 +1,300 @@
+"""Partial model init from torch checkpoints (`train.init_from_model`).
+
+Counterpart of avt_tpu/models/import_torch.py (`load_torch_state_dict`,
+`merge_params`, `init_from_model`), itself the reference's init_model
+(func/train.py:457-497, 669-688). The port's parameters keep the
+reference's torch names (timm ViT under `backbone.model.`, HF GPT-2 under
+`future_predictor.gpt_model.`, `classifiers.<task>`), so a checkpoint loads
+by name with no layout change. What loads is what the JAX package's
+converters load: for each layout, the same leaves are taken from the file
+(timm's `head.*` and `pre_logits.*`, which `timm_vit_to_flax` never
+converts, are dropped; so are HF GPT-2's `wte` and attention masks), each
+is copied where the model has that name at that shape (cast to the
+model's dtype), and a shape mismatch or an unknown name is skipped with a
+warning. The spec forms, the module names and every error are JAX's.
+
+Layouts read: a reference AVT checkpoint (`backbone.`, `future_predictor.`,
+`classifiers.` keys), which is also the port's own run checkpoint
+(`<run>/checkpoint`, train/checkpoint.py's `{"model": state_dict, ...}`);
+a raw timm ViT; a raw HF GPT-2; a bare `nn.Linear`. The BNInception,
+video-ResNet and RULSTM layouts, and an AVT checkpoint's Transformer or
+RULSTM aggregator loaded whole, raise NotImplementedError: their modules
+are not in the port (ROADMAP Queue 1.6). A directory is an avt_tpu (orbax)
+checkpoint, which the port does not read.
+"""
+from __future__ import annotations
+
+import logging
+import os
+import re
+from typing import Dict, List, Mapping, Tuple
+
+import numpy as np
+import torch
+
+LOG = logging.getLogger(__name__)
+
+StateDict = Dict[str, torch.Tensor]
+_ZOO_ITEM = "ROADMAP Queue 1.6"
+
+_VIT_BLOCK = ("norm1.weight", "norm1.bias", "attn.qkv.weight", "attn.qkv.bias",
+              "attn.proj.weight", "attn.proj.bias", "norm2.weight", "norm2.bias",
+              "mlp.fc1.weight", "mlp.fc1.bias", "mlp.fc2.weight", "mlp.fc2.bias")
+_GPT2_BLOCK = ("ln_1.weight", "ln_1.bias", "attn.c_attn.weight", "attn.c_attn.bias",
+               "attn.c_proj.weight", "attn.c_proj.bias", "ln_2.weight", "ln_2.bias",
+               "mlp.c_fc.weight", "mlp.c_fc.bias", "mlp.c_proj.weight", "mlp.c_proj.bias")
+
+
+def _tensor(v) -> torch.Tensor:
+    return v.detach() if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+
+
+def load_torch_state_dict(fpath: str) -> StateDict:
+    """A torch checkpoint's state_dict, unwrapped from the reference's
+    formats (func/train.py:467-477): a raw state_dict, {'model': sd} (also
+    the port's own run checkpoint), {'state_dict': sd} or VISSL's
+    {'classy_state_dict': ...}."""
+    obj = torch.load(fpath, map_location="cpu", weights_only=False)
+    if isinstance(obj, dict):
+        if "classy_state_dict" in obj:
+            obj = obj["classy_state_dict"]["base_model"]["model"]["trunk"]
+        elif "model" in obj and isinstance(obj["model"], dict):
+            obj = obj["model"]
+        elif "state_dict" in obj:
+            obj = obj["state_dict"]
+    return {k: _tensor(v) for k, v in obj.items()}
+
+
+def _depth(sd: Mapping, pattern: str) -> int:
+    return 1 + max(int(m.group(1)) for k in sd if (m := re.match(pattern, k)))
+
+
+def timm_vit_leaves(sd: Mapping[str, torch.Tensor]) -> StateDict:
+    """The leaves of a timm ViT state_dict that `timm_vit_to_flax` takes
+    (the classifier `head.*` and `pre_logits.*` are not among them); a
+    missing one raises KeyError, as there."""
+    out = {k: sd[k] for k in ("cls_token", "pos_embed", "patch_embed.proj.weight",
+                              "patch_embed.proj.bias")}
+    for i in range(_depth(sd, r"blocks\.(\d+)\.")):
+        out.update({f"blocks.{i}.{n}": sd[f"blocks.{i}.{n}"] for n in _VIT_BLOCK})
+    out.update({k: sd[k] for k in ("norm.weight", "norm.bias")})
+    return out
+
+
+def gpt2_leaves(sd: Mapping[str, torch.Tensor]) -> StateDict:
+    """The leaves of an HF GPT2Model state_dict that `gpt2_to_flax` takes
+    (not `wte` nor the attention masks)."""
+    out = {"wpe.weight": sd["wpe.weight"]}
+    for i in range(_depth(sd, r"h\.(\d+)\.")):
+        out.update({f"h.{i}.{n}": sd[f"h.{i}.{n}"] for n in _GPT2_BLOCK})
+    out.update({k: sd[k] for k in ("ln_f.weight", "ln_f.bias")})
+    return out
+
+
+def _sub(sd: Mapping, prefix: str) -> StateDict:
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def _with_prefix(prefix: str, sd: Mapping) -> StateDict:
+    return {prefix + k: v for k, v in sd.items()}
+
+
+def avt_checkpoint_leaves(sd: Mapping[str, torch.Tensor]) -> Tuple[StateDict, List[str]]:
+    """The leaves of a reference AVT state_dict that `avt_checkpoint_to_flax`
+    converts, under the port's names, and the aggregators it carries whose
+    modules the port lacks (a Transformer or RULSTM layout)."""
+    out: StateDict = {}
+    vit = _sub(sd, "backbone.model.")
+    if vit:
+        out.update(_with_prefix("backbone.model.", timm_vit_leaves(vit)))
+    gpt = _sub(sd, "future_predictor.gpt_model.")
+    if gpt:
+        out.update(_with_prefix("future_predictor.gpt_model.", gpt2_leaves(gpt)))
+    if "future_predictor.encoder.weight" in sd:
+        enc = sd["future_predictor.encoder.weight"]
+        dec = sd.get("future_predictor.decoder.weight")
+        if enc.ndim == 2 and dec is not None:
+            if enc.shape == dec.shape and torch.equal(enc, dec):
+                # tied weights: an nn.Embedding encoder (quantized inputs),
+                # which the port's AVT-h does not have
+                out["future_predictor.encoder_embed.weight"] = enc
+            else:
+                out["future_predictor.encoder.weight"] = enc
+                out["future_predictor.decoder.weight"] = dec
+    for key, val in sd.items():
+        # the MLP future predictor's Linears and the classifiers, as JAX's
+        # converter matches them
+        if re.match(r"future_predictor\.model\.(\d+)\.(weight|bias)", key):
+            out[key] = val
+        m = re.match(r"classifiers\.([^.]+)\.(weight|bias)", key)
+        if m:
+            out[f"classifiers.{m.group(1)}.{m.group(2)}"] = val
+    for name in ("mapper_to_inter", "reset_temp_agg_feat_dim"):
+        for kind in ("weight", "bias"):
+            if f"{name}.{kind}" in sd:
+                out[f"{name}.{kind}"] = sd[f"{name}.{kind}"]
+    for src in ("project_mlp.0", "project_mlp.2", "regression_head"):
+        if f"{src}.weight" in sd:
+            out[f"{src}.weight"] = sd[f"{src}.weight"]
+            out[f"{src}.bias"] = sd[f"{src}.bias"]
+    unported = []
+    for agg in ("temporal_aggregator", "temporal_aggregator_after_future_pred"):
+        sub = _sub(sd, agg + ".")
+        if not sub:
+            continue
+        if "downproject.weight" in sub:
+            unported.append(f"{agg} (the Transformer aggregator)")
+        elif any("rolling_lstm" in k for k in sub):
+            unported.append(f"{agg} (the RULSTM aggregator)")
+        else:
+            LOG.warning("Unrecognized %s. layout: %s", agg, sorted(sub)[:5])
+    handled = {"backbone", "future_predictor", "classifiers", "mapper_to_inter",
+               "reset_temp_agg_feat_dim", "project_mlp", "regression_head",
+               "temporal_aggregator", "temporal_aggregator_after_future_pred",
+               "cls_map_verb_action", "cls_map_noun_action"}
+    leftovers = sorted({k.split(".")[0] for k in sd} - handled)
+    if leftovers:
+        LOG.warning("avt checkpoint: no conversion for module(s) %s; they keep the model's "
+                    "init", leftovers)
+    return out, unported
+
+
+def convert_checkpoint(sd: Mapping[str, torch.Tensor]) -> Tuple[StateDict, bool, List[str]]:
+    """Detects the checkpoint's layout, as the JAX package's
+    `_convert_checkpoint` does. Returns (its leaves, whether they are a
+    whole model's or one module's, the unported aggregators it carries)."""
+    keys = set(sd)
+    if any(k.startswith(("backbone.", "future_predictor.", "classifiers.", "mapper_to_inter.",
+                         "reset_temp_agg_feat_dim.")) for k in keys):
+        leaves, unported = avt_checkpoint_leaves(sd)
+        return leaves, True, unported
+    if "cls_token" in keys and "patch_embed.proj.weight" in keys:
+        return timm_vit_leaves(sd), False, []
+    if "wpe.weight" in keys:
+        return gpt2_leaves(sd), False, []
+    for what, hit in (
+            ("the BNInception layout (models/bninception.py)", "conv1_7x7_s2.weight" in keys),
+            ("the RULSTM layout (temporal_agg.py:RULSTM)", any("rolling_lstm" in k for k in keys)),
+            ("the video-ResNet layout (models/video_resnet.py)",
+             "stem.0.weight" in keys or "_feature_blocks.stem.0.weight" in keys)):
+        if hit:
+            raise NotImplementedError(
+                f"init_from_model: a checkpoint in {what} loads into a module that is not "
+                f"ported yet ({_ZOO_ITEM})")
+    if "weight" in keys and keys <= {"weight", "bias"}:  # a bare nn.Linear
+        return {k: sd[k] for k in ("weight", "bias") if k in sd}, False, []
+    raise ValueError(f"init_from_model: unrecognized checkpoint layout (keys like "
+                     f"{sorted(keys)[:5]})")
+
+
+def merge_params(target: Mapping[str, torch.Tensor], source: Mapping[str, torch.Tensor],
+                 prefix: str = "") -> StateDict:
+    """`target` with each leaf of `source` (named relative to `prefix`) in
+    place of the target's of that name and shape, cast to the target's
+    dtype. A shape mismatch is skipped with a warning (func/train.py:489-494:
+    'removing keys ... since size mismatch'), an unknown name too."""
+    out = dict(target)
+    for key, val in source.items():
+        name = prefix + key
+        if name not in out:
+            LOG.warning("Unexpected key %s in checkpoint; skipped", name)
+            continue
+        tgt = out[name]
+        if tuple(tgt.shape) != tuple(val.shape):
+            LOG.warning("Shape mismatch at %s: ckpt %s vs model %s; skipped", name,
+                        tuple(val.shape), tuple(tgt.shape))
+            continue
+        out[name] = val.to(dtype=tgt.dtype)
+    return out
+
+
+def _module_to_flax_name(module: str) -> str:
+    """The JAX package's parameter subtree of a reference module path:
+    'backbone.model' and 'backbone' -> 'backbone', 'classifiers.<task>' ->
+    'classifiers_<task>', anything else as it is."""
+    if module in ("backbone.model", "backbone"):
+        return "backbone"
+    m = re.match(r"^classifiers\.(.+)$", module)
+    if m:
+        return f"classifiers_{m.group(1)}"
+    return module
+
+
+def _flax_name(port_name: str) -> str:
+    """The JAX package's top-level subtree that holds a port parameter."""
+    if port_name.startswith("backbone.model."):
+        return "backbone"
+    m = re.match(r"^classifiers\.([^.]+)\.", port_name)
+    if m:
+        return f"classifiers_{m.group(1)}"
+    return port_name.split(".")[0]
+
+
+def _port_prefix(flax_name: str) -> str:
+    if flax_name == "backbone":
+        return "backbone.model."
+    if flax_name.startswith("classifiers_"):
+        return f"classifiers.{flax_name[len('classifiers_'):]}."
+    return flax_name + "."
+
+
+def init_from_model(model: torch.nn.Module, specs, loader=load_torch_state_dict) -> List[str]:
+    """Loads the checkpoints of `specs` into `model` in place, in order
+    (func/train.py:669-688); returns the names of the parameters loaded.
+
+    specs: a list of [path], [module, path] or [module, ckpt_prefix, path];
+    module names are the reference's torch paths ('backbone.model',
+    'classifiers.action'), None or '' for the whole model; ckpt_prefix is
+    stripped from the checkpoint's keys first. A spec that cannot resolve
+    raises: a requested pretrained init that silently does not happen is
+    the worst outcome."""
+    state = model.state_dict()
+    merged = dict(state)
+    for spec in specs:
+        if len(spec) == 1:
+            module, ckpt_prefix, path = None, None, spec[0]
+        elif len(spec) == 2:
+            module, ckpt_prefix, path = spec[0], None, spec[1]
+        else:
+            module, ckpt_prefix, path = spec
+        if os.path.isdir(str(path)):
+            raise ValueError(
+                f"init_from_model: {path} is a directory, an avt_tpu (orbax) checkpoint; the "
+                "port reads torch checkpoints, its own run's is the file <run>/checkpoint")
+        sd = loader(path)
+        if ckpt_prefix:
+            sd = _sub(sd, ckpt_prefix)
+            if not sd:
+                raise ValueError(f"init_from_model: prefix {ckpt_prefix!r} matches no keys in "
+                                 f"{path}")
+        leaves, is_full_tree, unported = convert_checkpoint(sd)
+        if not leaves and not unported:
+            raise ValueError(f"init_from_model: nothing converted from {path} "
+                             f"(spec module={module!r})")
+        if module:
+            flax_name = _module_to_flax_name(module)
+            present = sorted({_flax_name(n) for n in merged})
+            if flax_name not in present:
+                raise KeyError(f"init_from_model: module {module!r} (flax {flax_name!r}) not in "
+                               f"model params {present}")
+            prefix = _port_prefix(flax_name)
+            sub = _sub(leaves, prefix) if is_full_tree else leaves
+            if is_full_tree and not sub:
+                sub = leaves  # the JAX package merges the whole tree then
+            merged = merge_params(merged, sub, prefix)
+        else:
+            if not is_full_tree:
+                raise ValueError(f"init_from_model: {path} is a module-level checkpoint; give "
+                                 "the spec a module name to load it into")
+            if unported:
+                raise NotImplementedError(
+                    f"init_from_model: {path} carries {', '.join(unported)}, a module that is "
+                    f"not ported yet ({_ZOO_ITEM})")
+            merged = merge_params(merged, leaves)
+    loaded = [k for k in state if merged[k] is not state[k]]
+    with torch.no_grad():
+        for k in loaded:
+            state[k].copy_(merged[k])
+    LOG.info("init_from_model: %d of %d tensors loaded from %s", len(loaded), len(state),
+             [str(s[-1]) for s in specs])
+    return loaded

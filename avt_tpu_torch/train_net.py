@@ -2,9 +2,10 @@
 
 Counterpart of avt_tpu/train_net.py (`main`, `cli`), in one process:
 compose the config from conf/ and the overrides (sweeps expand to one run
-each), build the datasets, loaders, model and optimizer, auto-resume from
-the run directory, train with an eval every eval_freq epochs, or only
-evaluate (test_only).
+each), build the datasets, loaders and model, load train.init_from_model's
+checkpoints into it, build the optimizer, auto-resume from the run
+directory, train with an eval every eval_freq epochs, or only evaluate
+(test_only).
 
 Usage:
   python -m avt_tpu_torch.train_net key=value [+key=value ...]
@@ -39,6 +40,7 @@ from avt_tpu_torch.data.clip_samplers import build_clip_samplers
 from avt_tpu_torch.data.dataset import ConcatDataset
 from avt_tpu_torch.data.loader import DataLoader
 from avt_tpu_torch.evaluate import evaluate
+from avt_tpu_torch.models.import_torch import init_from_model
 from avt_tpu_torch.train import (
     Preempted,
     ReduceLROnPlateau,
@@ -70,8 +72,6 @@ def _refuse_unported(cfg: Dict) -> None:
     if (cfg.get("train_eval_op") or {}).get("name") == "pred_future_feat":
         raise NotImplementedError("train_eval_op=pred_future_feat (the SSL step) is not ported "
                                   "yet (ROADMAP Queue 1.8)")
-    if cfg["train"].get("init_from_model"):
-        raise NotImplementedError("train.init_from_model is not ported yet (ROADMAP Queue 1.6)")
 
 
 def main(cfg: Dict, work_dir: str = ".", device=None) -> float:
@@ -134,6 +134,10 @@ def main(cfg: Dict, work_dir: str = ".", device=None) -> float:
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     model = build_model(cfg, num_classes, class_mappings, device=device, generator=gen)
+    if cfg["train"].get("init_from_model"):
+        # before the optimizer; a checkpoint in the run directory still wins
+        # (run_training restores it)
+        init_from_model(model, cfg["train"]["init_from_model"])
     # raw-video batches (B, T, H, W, 3 uint8) are preprocessed on the device
     # inside the steps: resize, crop, augment and the subclip fold
     batch0 = next(iter(train_loader))

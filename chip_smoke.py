@@ -102,6 +102,26 @@
    Prints rows, steps, the loop's ms a step, the host's data ms a batch,
    the eval's ms a batch and the launches, beside the card's name and
    power limit.
+9. train_net_raw: expts/01 from its experiment file through
+   `train_net.cli` at full width (ViT-B/16 in f32, AVT-h of 6 layers, 4
+   heads, inter_dim 2048, 10 frames at 1 fps, batch 3, 3 crops + flips at
+   eval), in a scratch working directory: a synthetic EK100 tree of raw
+   videos (`write_ek100_tree` with mp4v videos of 456x256 at 30 fps, 16 s,
+   written with OpenCV) read by the file's `DefaultReader` (the native
+   libav decoder, built at first use, or OpenCV when it does not build),
+   and a seeded timm in21k ViT-B/16 file (`write_timm_vit`, with its
+   21843-class head and pre_logits) where the file's
+   `train.init_from_model` looks. 1 epoch of 4 train batches and 2 eval
+   batches, then a resumed call that only evaluates. The backbone's leaves
+   must equal the file's bit for bit before step 1, head and pre_logits
+   must not load, the losses and the metric must be finite, and the
+   launches are 12 packed forward + 12 packed backward (f32, with db) a
+   step and 12 forward an eval batch, nothing else. Before it, phase 2
+   also holds the packed kernels' f32 forms against their plain versions
+   at this path's shapes (N=30 and 180 frames forward, 30 backward) and
+   times them. Prints the reader that ran, the loop's ms a step, the
+   host's decode wait a train batch and eval's ms a batch, beside the
+   card's name and power limit.
 Only phase 4b launches the fused kernel. Prints one JSON line of kernel results, then {"ok": true, "device": ...}.
 Exits non-zero on any failure, and without a CUDA device.
 """
@@ -786,6 +806,14 @@ def main():
     check_flash(8, 200, 2, 1024, torch.float32, True, seed=18)
     d1024_err = check_flash(*FLASH_SHAPE_D1024, torch.float32, True, seed=19)
     check_flash(*FLASH_SHAPE_D1024, torch.bfloat16, True, seed=19)
+    # the packed kernels' f32 forms at expts/01's shapes: a train step of 3
+    # clips x 10 frames and an eval batch of 3 clips x 10 frames x 6 views
+    check_attention(TNR_BATCH * TNR_FRAMES, 197, 12, 64, torch.float32, False, seed=20)
+    check_attention(TNR_BATCH * TNR_FRAMES * 6, 197, 12, 64, torch.float32, False, seed=20)
+    check_attention_bwd(TNR_BATCH * TNR_FRAMES, 197, 12, 64, torch.float32, False, True, seed=21)
+    f32_fwd = {N: time_attention(N, 197, 12, 64, torch.float32)
+               for N in (TNR_BATCH * TNR_FRAMES, TNR_BATCH * TNR_FRAMES * 6)}
+    f32_bwd = time_attention_bwd(TNR_BATCH * TNR_FRAMES, 197, 12, 64, torch.float32)
     flash_timing = time_flash(*FLASH_SHAPE, torch.float32, True)
     flash_timing_bf16 = time_flash(*FLASH_SHAPE, torch.bfloat16, True)
     flash_timing_d1024 = time_flash(*FLASH_SHAPE_D1024, torch.float32, True)
@@ -817,10 +845,13 @@ def main():
     # 8. expts/02 from its file through train_net, on a synthetic EK100 tree
     tn_launches = train_net_phase(card)
 
+    # 9. expts/01 from its file through train_net, on raw video (f32 ViT)
+    tnr_launches = train_net_raw_phase(card)
+
     paths = {"serve": serve_launches, "train": train_launches, "trainer": trainer_launches,
              "train_d32": d32_launches,
              **feat_launches, "feature_d1024": d1024_launches, "train_fused": fused_launches,
-             "ek55_adam": ek55_launches, **tn_launches}
+             "ek55_adam": ek55_launches, **tn_launches, **tnr_launches}
     for path, counts in paths.items():
         if path != "train_fused":
             check(counts["fused_qkv_attention_fwd"] == 0, f"a fused launch on {path}: {counts}")
@@ -839,7 +870,8 @@ def main():
              bench_shape={"shape": [1920, 197, 12, 64], **bench_timing},
              residency={k: v for k, v in residency.items() if k.startswith("fwd")},
              unpaired_shape={k: {"shape": [160, 197, 768 // int(k[1:]), int(k[1:])], **v}
-                             for k, v in unpaired.items()}),
+                             for k, v in unpaired.items()},
+             f32_shapes={f"N{N}": {"shape": [N, 197, 12, 64], **v} for N, v in f32_fwd.items()}),
         dict(name="short_attention_bwd", route=bwd_spec["route"], source=bwd_spec["source"],
              replaces=bwd_spec["replaces"], launches=train_launches["short_attention_bwd"],
              launches_by_path=by_path("short_attention_bwd"),
@@ -848,7 +880,9 @@ def main():
              serve_batch_shape={"shape": [240, 197, 12, 64], **bwd_timing_240},
              residency={k: v for k, v in residency.items() if k.startswith(("query", "key"))},
              no_db_shape={k: {"shape": [160, 197, 768 // int(k[1:]), int(k[1:])], **v}
-                          for k, v in no_db.items()}),
+                          for k, v in no_db.items()},
+             f32_shapes={f"N{TNR_BATCH * TNR_FRAMES}": {
+                 "shape": [TNR_BATCH * TNR_FRAMES, 197, 12, 64], **f32_bwd}}),
     ]
     for name, side, err, err_d1024 in (
             ("flash_attention_fwd", "fwd", flash_err[0], d1024_err[0]),
@@ -1756,7 +1790,7 @@ EXPT_02 = "expts/02_ek100_avt_tsn.txt"
 
 
 def write_ek100_tree(root, *, train_videos, eval_videos, actions_per_video, first_action_s,
-                     dim=FEAT_DIM, seed=0):
+                     dim=FEAT_DIM, seed=0, video=None):
     """A synthetic EK100 tree under `root`, written with numpy and csv only:
     EPIC_100_{verb,noun}_classes.csv (97 verbs, 300 nouns), RULSTM's
     actions.csv (3806 actions, action a = (verb a % 97, noun a // 97)), the
@@ -1765,12 +1799,18 @@ def write_ek100_tree(root, *, train_videos, eval_videos, actions_per_video, firs
     action a second from `first_action_s` on, `actions_per_video` a video,
     train and eval on their own videos), and a per-video .npy store of
     `dim`-d f32 features at 30 fps (row i = frame i + 1) reaching 2 s past
-    the last action. Returns the overrides that point expts/02 at it."""
+    the last action. Returns the overrides that point expts/02 at it.
+
+    With video=(width, height, fps), raw videos take the store's place:
+    `videos/<participant>/<video>.MP4` (mp4v, `write_video`), as long, and
+    the overrides point a raw-video file (expts/01) at them, read by the
+    `DefaultReader` the file composes."""
     rng = np.random.default_rng(seed)
     annot = os.path.join(root, "annotations", "epic-kitchens-100")
     rulstm = os.path.join(root, "annotations", "rulstm", "ek100")
     feats = os.path.join(root, "features")
-    for d in (annot, rulstm, os.path.join(feats, "rgb")):
+    videos = os.path.join(root, "videos")
+    for d in (annot, rulstm, os.path.join(feats, "rgb") if video is None else videos):
         os.makedirs(d, exist_ok=True)
     for name, n in (("verb", EK100_VERBS), ("noun", EK100_NOUNS)):
         with open(os.path.join(annot, f"EPIC_100_{name}_classes.csv"), "w", newline="") as f:
@@ -1789,26 +1829,83 @@ def write_ek100_tree(root, *, train_videos, eval_videos, actions_per_video, firs
                                          ("validation", 2, eval_videos)):
         rows = []
         for v in range(n_videos):
-            video = f"P{participant:02d}_{v + 1:02d}"
-            np.save(os.path.join(feats, "rgb", f"{video}.npy"),
-                    rng.standard_normal((seconds * FEATURE_FPS, dim), np.float32))
+            name = f"P{participant:02d}_{v + 1:02d}"
+            if video is None:
+                np.save(os.path.join(feats, "rgb", f"{name}.npy"),
+                        rng.standard_normal((seconds * FEATURE_FPS, dim), np.float32))
+            else:
+                write_video(os.path.join(videos, f"P{participant:02d}", f"{name}.MP4"), *video,
+                            seconds=seconds, seed=int(rng.integers(2 ** 31)))
             for k in range(actions_per_video):
                 start = (first_action_s + k) * FEATURE_FPS
                 action = int(rng.integers(NUM_ACTIONS))
-                rows.append([uid, video, start, start + FEATURE_FPS // 2, action % EK100_VERBS,
+                rows.append([uid, name, start, start + FEATURE_FPS // 2, action % EK100_VERBS,
                              action // EK100_VERBS, action])
                 uid += 1
         with open(os.path.join(rulstm, f"{split}.csv"), "w", newline="") as f:
             csv.writer(f).writerows(rows)
     common = "dataset.epic_kitchens100.common"
+    paths = [f"{common}.annot_dir={annot}/", f"{common}.rulstm_annot_dir={rulstm}/",
+             f"dataset_train.annotation_path=[{rulstm}/training.csv]",
+             f"dataset_eval.annotation_path=[{rulstm}/validation.csv]"]
+    if video is not None:
+        return paths + [f"{common}.data_dir_extension={videos}"]
     reader = ("{_target_: avt_tpu.data.NpyFeatsReader, root: "
               f"${{{common}.rulstm_feats_dir}}/rgb/, read_type: normal}}")
-    return [f"{common}.annot_dir={annot}/", f"{common}.rulstm_annot_dir={rulstm}/",
-            f"{common}.rulstm_feats_dir={feats}/",
-            f"dataset_train.annotation_path=[{rulstm}/training.csv]",
-            f"dataset_eval.annotation_path=[{rulstm}/validation.csv]",
-            "~dataset_train.reader_fn", "~dataset_eval.reader_fn",
-            f"+dataset_train.reader_fn={reader}", f"+dataset_eval.reader_fn={reader}"]
+    return paths + [f"{common}.rulstm_feats_dir={feats}/",
+                    "~dataset_train.reader_fn", "~dataset_eval.reader_fn",
+                    f"+dataset_train.reader_fn={reader}", f"+dataset_eval.reader_fn={reader}"]
+
+
+def write_video(path, width, height, fps, *, seconds, seed):
+    """An mp4v video of `seconds` at `fps`: a smooth seeded colour field
+    that drifts a pixel a frame, with a block that moves across it."""
+    import cv2  # only the raw-video tree needs OpenCV
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:height, 0:width].astype(np.float32)
+    slopes = rng.uniform(0.2, 1.0, size=(3, 2)).astype(np.float32)
+    field = np.stack([a * x + b * y for a, b in slopes], -1)
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (width, height))
+    try:
+        for i in range(int(seconds * fps)):
+            frame = ((field + i * slopes[:, 0]) % 256).astype(np.uint8)
+            c = (4 * i) % max(width - 32, 1)
+            frame[height // 2 - 16:height // 2 + 16, c:c + 32] = 255 - 3 * (i % 80)
+            writer.write(frame)
+    finally:
+        writer.release()
+
+
+def write_timm_vit(path, *, embed_dim=768, depth=12, img_size=224, patch=16,
+                   num_classes=21843, seed=0):
+    """A seeded ViT state_dict in timm's layout, as timm's in21k files
+    (jx_vit_base_patch16_224_in21k) hold it: the blocks, the final norm, the
+    21843-class `head` and `pre_logits.fc`; N(0, 0.02) weights, LayerNorm
+    weights about 1. Returns the state_dict."""
+    rng = np.random.default_rng(seed)
+    D, mlp, tokens = embed_dim, 4 * embed_dim, (img_size // patch) ** 2 + 1
+
+    def w(*shape, mean=0.0):
+        return torch.from_numpy(mean + 0.02 * rng.standard_normal(shape, np.float32))
+
+    sd = {"cls_token": w(1, 1, D), "pos_embed": w(1, tokens, D),
+          "patch_embed.proj.weight": w(D, 3, patch, patch), "patch_embed.proj.bias": w(D)}
+    for i in range(depth):
+        b = f"blocks.{i}"
+        sd.update({f"{b}.norm1.weight": w(D, mean=1.0), f"{b}.norm1.bias": w(D),
+                   f"{b}.attn.qkv.weight": w(3 * D, D), f"{b}.attn.qkv.bias": w(3 * D),
+                   f"{b}.attn.proj.weight": w(D, D), f"{b}.attn.proj.bias": w(D),
+                   f"{b}.norm2.weight": w(D, mean=1.0), f"{b}.norm2.bias": w(D),
+                   f"{b}.mlp.fc1.weight": w(mlp, D), f"{b}.mlp.fc1.bias": w(mlp),
+                   f"{b}.mlp.fc2.weight": w(D, mlp), f"{b}.mlp.fc2.bias": w(D)})
+    sd.update({"norm.weight": w(D, mean=1.0), "norm.bias": w(D),
+               "pre_logits.fc.weight": w(D, D), "pre_logits.fc.bias": w(D),
+               "head.weight": w(num_classes, D), "head.bias": w(num_classes)})
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(sd, path)
+    return sd
 
 
 
@@ -1979,6 +2076,150 @@ def train_net_phase(card):
                     f"{rec2['wall_s']:.1f} s; launches {rec2['launches']}")
     return counts
 
+
+# ---------------------------------------------------------- train_net_raw
+# expts/01 from its file: 4 train videos and 2 eval videos of 3 actions a
+# second from 11 s on (tau_o 10 s before tau_a 1 s fits), so 12 train rows
+# (4 batches of the file's 3) and 6 eval rows (2 batches)
+EXPT_01 = "expts/01_ek100_avt.txt"
+TIMM_IN21K = "DATA/pretrained/TIMM/jx_vit_base_patch16_224_in21k-e5005f0a.pth"
+TNR_TRAIN_VIDEOS, TNR_EVAL_VIDEOS, TNR_ACTIONS, TNR_FIRST_S = 4, 2, 3, 11
+TNR_BATCH, TNR_FRAMES = 3, 10  # the file's batch and observed frames (10 s at 1 fps)
+TNR_VIDEO = (456, 256, 30)  # EK100's videos_extension_ht256px: 256 px high, 30 fps
+TNR_STEPS = TNR_TRAIN_VIDEOS * TNR_ACTIONS // TNR_BATCH
+TNR_EVAL_BATCHES = -(-TNR_EVAL_VIDEOS * TNR_ACTIONS // TNR_BATCH)
+
+
+def train_net_raw_phase(card):
+    """expts/01 from its experiment file through `train_net.cli` at full
+    width (ViT-B/16 in f32, AVT-h of 6 layers, 4 heads, inter_dim 2048, 10
+    frames at 1 fps, batch 3, 3 crops + flips at eval), on a synthetic EK100
+    tree of raw videos (`write_ek100_tree` with mp4v videos of 456x256 at 30
+    fps, 16 s each) read by the file's `DefaultReader`, and a seeded timm
+    in21k ViT-B/16 file (with its 21843-class head and pre_logits) at the
+    path the file's `train.init_from_model` names under ${cwd}; run in a
+    scratch directory, cut to 1 epoch of 4 train batches and 2 eval
+    batches, then a second call that resumes and only evaluates. Checks:
+    the backbone's leaves equal the file's bit for bit before step 1,
+    `head` and `pre_logits` were not loaded, every loss is finite, the
+    primary metric is finite, 12 packed forward + 12 packed backward (with
+    db, f32) launches a step and 12 forward an eval batch, nothing else.
+    Prints the reader that ran, the loop's ms a step, the host's decode
+    wait a train batch and eval's ms a batch beside the card's name and
+    power limit. Returns the launch counts of each call."""
+    from avt_tpu_torch import train_net
+    from avt_tpu_torch.data import video_decoder
+    from avt_tpu_torch.models import import_torch
+
+    counts, inits, readers = {}, [], set()
+    real_init, real_build = import_torch.init_from_model, train_net.build_all_datasets
+
+    def recorded_init(model, specs):
+        """The real init, then the backbone held against the file."""
+        loaded = real_init(model, specs)
+        sd = model.state_dict()
+        vit = import_torch.load_torch_state_dict(specs[-1][-1])
+        kept = import_torch.timm_vit_leaves(vit)
+        inits.append({
+            "equal": all(torch.equal(sd["backbone.model." + k].cpu(), v)
+                         for k, v in kept.items()),
+            "loaded": sorted(loaded),
+            "want": sorted("backbone.model." + k for k in kept),
+            "skipped": sorted(k for k in vit if k not in kept)})
+        return loaded
+
+    def recorded_build(cfg):
+        train, evals = real_build(cfg)
+        readers.update(type(d.reader).__name__ for d in train + list(evals.values()))
+        return train, evals
+
+    expt = os.path.join(os.path.dirname(os.path.abspath(__file__)), EXPT_01)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)  # ${cwd} of the file's timm path
+        try:
+            t0 = time.time()
+            tree = write_ek100_tree(os.path.join(tmp, "tree"), train_videos=TNR_TRAIN_VIDEOS,
+                                    eval_videos=TNR_EVAL_VIDEOS, actions_per_video=TNR_ACTIONS,
+                                    first_action_s=TNR_FIRST_S, seed=22, video=TNR_VIDEO)
+            t_tree = time.time() - t0
+            t0 = time.time()
+            timm = write_timm_vit(os.path.join(tmp, TIMM_IN21K), seed=23)
+            log(f"train_net_raw: synthetic EK100 tree ({TNR_TRAIN_VIDEOS} + {TNR_EVAL_VIDEOS} "
+                f"mp4v videos of {TNR_VIDEO[0]}x{TNR_VIDEO[1]} at {TNR_VIDEO[2]} fps, "
+                f"{TNR_FIRST_S + TNR_ACTIONS + 2} s) written in {t_tree:.1f} s; timm in21k "
+                f"file ({sum(v.numel() for v in timm.values()) / 1e6:.1f} M values) in "
+                f"{time.time() - t0:.1f} s")
+            del timm
+            run_dir = os.path.join(tmp, "run")
+            argv = ["--config-file", expt, "--run-dir", run_dir] + tree + [
+                f"data_train.workers={TN_WORKERS}", f"data_eval.workers={TN_WORKERS}",
+                "train.num_epochs=1"]
+            with mock.patch.object(train_net, "init_from_model", recorded_init), \
+                    mock.patch.object(train_net, "build_all_datasets", recorded_build):
+                (metric,), rec = run_train_net(argv)
+                counts["train_net_raw"] = rec["launches"]
+                (again,), rec2 = run_train_net(argv)
+                counts["train_net_raw_resume"] = rec2["launches"]
+            ckpt_epoch = torch.load(os.path.join(run_dir, CKPT_NAME), map_location="cpu",
+                                    weights_only=False)["epoch"]
+        finally:
+            os.chdir(cwd)
+    reader_note = ""
+    if readers != {"LibavVideoReader"}:
+        reader_note = f" (the native decoder: {video_decoder.native_decoder_error()})"
+    log(f"train_net_raw: video reader {sorted(readers)}{reader_note}")
+
+    first = inits[0]
+    check(len(inits) == 2 and all(i["equal"] for i in inits),
+          f"train_net_raw: the backbone differs from the timm file after init: {inits}")
+    check(first["loaded"] == first["want"] and first["skipped"] == [
+        "head.bias", "head.weight", "pre_logits.fc.bias", "pre_logits.fc.weight"],
+        f"train_net_raw: loaded {len(first['loaded'])} of {len(first['want'])}, skipped "
+        f"{first['skipped']}")
+    L = VIT_BLOCKS
+    want = {**{n: 0 for n in _build.KERNELS},
+            "short_attention_fwd": L * (TNR_STEPS + TNR_EVAL_BATCHES),
+            "short_attention_bwd": L * TNR_STEPS}
+    check(rec["launches"] == want, f"train_net_raw: launches {rec['launches']}, want {want}")
+    check(rec["epochs"] == [0] and len(rec["waits"]["train"]) == TNR_STEPS + 1
+          and len(rec["waits"]["eval"]) == TNR_EVAL_BATCHES,
+          f"train_net_raw: epochs {rec['epochs']}, batches {rec['waits']}")
+    meters = rec["loggers"][0].meters
+    losses = {k: m.global_avg for k, m in meters.items() if k.startswith("loss")}
+    check(meters["loss"].count == TNR_STEPS and all(np.isfinite(list(losses.values()))),
+          f"train_net_raw: losses {losses} over {meters['loss'].count} steps")
+    finals = rec["finals"]
+    check(len(finals) == 1 and np.isfinite(finals[0]["final_acc/action/AR5"])
+          and metric == finals[0]["final_acc/action/AR5"],
+          f"train_net_raw: final metrics {finals}, returned {metric}")
+    check(ckpt_epoch == 1.0, f"train_net_raw: checkpoint at epoch {ckpt_epoch}")
+    want2 = {**{n: 0 for n in _build.KERNELS},
+             "short_attention_fwd": L * TNR_EVAL_BATCHES}
+    check(rec2["launches"] == want2 and not rec2["epochs"] and not rec2["waits"]["train"][1:]
+          and len(rec2["finals"]) == 1 and np.isfinite(again),
+          f"resumed train_net_raw: launches {rec2['launches']}, epochs {rec2['epochs']}, "
+          f"finals {rec2['finals']}, metric {again}")
+    train_wait, eval_wait = rec["waits"]["train"], rec["waits"]["eval"]
+    clips_s = meters["clips/s"]
+    log(f"train_net_raw ({card}): expts/01 at full width (ViT-B/16 f32, AVT-h 6x4 heads, "
+        f"2048 wide), rows train {rec['rows']['train']} / eval {rec['rows']['eval']}, "
+        f"{TNR_STEPS} steps of {TNR_BATCH} clips x {TNR_FRAMES} frames "
+        f"({TNR_BATCH * TNR_FRAMES} ViT frames), {len(eval_wait)} eval batches of {TNR_BATCH} clips x 6 views; the loop "
+        f"{TNR_BATCH / clips_s.median * 1e3:.2f} ms a step (its clips/s meter, median "
+        f"{clips_s.median:.4f}); host decode wait {1e3 * np.median(train_wait):.2f} ms a train "
+        f"batch (median of {len(train_wait)}, max {1e3 * max(train_wait):.2f}), "
+        f"{1e3 * np.median(eval_wait):.2f} ms an eval batch; eval "
+        f"{1e3 * rec['eval_s'][0] / len(eval_wait):.2f} ms a batch (evaluate, result files "
+        f"included); losses " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(losses.items()))
+        + f"; final_acc/action/AR5 {metric:.4f}; cli {rec['wall_s']:.1f} s; launches "
+        f"{rec['launches']}; init loaded {len(first['loaded'])} tensors, skipped "
+        f"{first['skipped']}")
+    log(f"train_net_raw resumed ({card}): restored epoch 1.0, trained nothing, evaluated once "
+        f"({1e3 * rec2['eval_s'][0] / TNR_EVAL_BATCHES:.2f} ms a batch); final_acc/action/AR5 "
+        f"{again:.4f} (first run {metric:.4f}); cli {rec2['wall_s']:.1f} s; launches "
+        f"{rec2['launches']}")
+    return counts
 
 if __name__ == "__main__":
     main()

@@ -416,3 +416,36 @@ def test_cuda_train_net_runs_expts02_through_the_flash_kernels(cuda_device, tmp_
     (again,), rec = chip_smoke.run_train_net(argv)
     assert rec["launches"] == {**want, tfa.FLASH_KERNEL: layers, tfa.FLASH_BWD_KERNEL: 0}
     assert rec["epochs"] == [] and np.isfinite(again)
+
+
+@pytest.mark.cuda
+def test_cuda_train_net_runs_expts01_on_raw_video(cuda_device, tmp_path, monkeypatch):
+    """`train_net.cli` on expts/01 at a ViT of 2 blocks (768 wide, 12 heads,
+    f32) on a raw-video EK100 tree (chip_smoke.py's, 128x96 at 10 fps) read
+    by the file's DefaultReader, the backbone from a timm file at the path
+    the file names: one train step and one eval batch of 3 clips, 2 packed
+    forward + 2 packed backward launches for the step and 2 forward for the
+    eval, nothing else; a second call resumes and only evaluates."""
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    import chip_smoke
+
+    monkeypatch.chdir(tmp_path)
+    chip_smoke.write_timm_vit(str(tmp_path / chip_smoke.TIMM_IN21K), depth=2, seed=5)
+    tree = chip_smoke.write_ek100_tree(str(tmp_path / "tree"), train_videos=1, eval_videos=1,
+                                       actions_per_video=3, first_action_s=11, seed=6,
+                                       video=(128, 96, 10))
+    argv = (["--config-file", os.path.join(root, chip_smoke.EXPT_01), "--run-dir",
+             str(tmp_path / "run"), "train.num_epochs=1", "data_train.workers=4",
+             "data_eval.workers=4", "+model.backbone.depth=2"] + tree)
+    layers = 2
+    want = {**{n: 0 for n in _build.KERNELS}, tfa.KERNEL: 2 * layers, tfa.BWD_KERNEL: layers}
+    (metric,), rec = chip_smoke.run_train_net(argv)
+    assert rec["launches"] == want and rec["epochs"] == [0] and np.isfinite(metric)
+    assert np.isfinite(rec["loggers"][0].meters["loss"].global_avg)
+    (again,), rec = chip_smoke.run_train_net(argv)
+    assert rec["launches"] == {**want, tfa.KERNEL: layers, tfa.BWD_KERNEL: 0}
+    assert rec["epochs"] == [] and np.isfinite(again)

@@ -2,20 +2,28 @@
 
 The synthetic DATA/ tree of tests/_expt_fixtures.py (EK100 pkl
 annotations with a label-less test split, EK55 with its video splits,
-EGTEA's RULSTM csvs; fake-lmdb feature stores at the channel counts the
-files configure) stands in for the data. Each file is composed by both
-packages with the working directory at the tree (`${cwd}/DATA`), at a
-small width (AVT-h of 1 layer, 64 wide, 2 heads; batches of 2; every
-dropout rate 0, as JAX's and torch's random bits differ). Then the port's
-`build_all_datasets`, `DataLoader`, `build_model`, `build_optimizer_from_cfg`,
-one train step, and then one eval step on the first batch of every eval
-dataset, are held against avt_tpu's, from avt_tpu's weights, at 2e-4 (f32).
-The files that the port does not run raise NotImplementedError naming
-their ROADMAP item; expts/06 as shipped is refused by both packages.
+EGTEA's RULSTM csvs and 50Salads' activity files; fake-lmdb feature stores
+at the channel counts the files configure; cv2-written raw videos read by
+each package's native decoder) stands in for the data, with timm ViT files
+at the names the files load (a block more than the model has, and the
+in21k classifier head, which neither package loads). Each file is composed
+by both packages with the working directory at the tree (`${cwd}/DATA`),
+at a small width (a ViT of 1 block, 32 wide, on 32x32 crops; AVT-h of 1
+layer, 64 wide, 2 heads; batches of 2; every dropout rate 0, as JAX's and
+torch's random bits differ). Then the port's `build_all_datasets`,
+`DataLoader`, `build_model`, `init_from_model` (the file's own spec: the
+timm file, or a run checkpoint written here for the `_testonly` files),
+`build_optimizer_from_cfg`, one train step (raw frames preprocessed by
+avt_tpu's train_fn, as the two packages' augmentation draws differ), and
+then one eval step on the first batch of every eval dataset (raw frames
+through each package's eval preprocessing), are held against avt_tpu's,
+from avt_tpu's weights, at 2e-4 (f32); the loaded weights exactly. The
+file that the port does not run raises NotImplementedError naming its
+ROADMAP item; expts/06 as shipped is refused by both packages.
 """
+import os
 import sys
 from pathlib import Path
-from unittest import mock
 
 import numpy as np
 import pytest
@@ -32,8 +40,10 @@ from avt_tpu.config import parse_overrides_file as jparse_overrides_file
 from avt_tpu.config.build import build_all_datasets as jbuild_all_datasets
 from avt_tpu.config.build import build_model as jbuild_model
 from avt_tpu.config.build import build_optimizer_from_cfg as jbuild_optimizer_from_cfg
+from avt_tpu.config.build import build_preprocess_fns as jbuild_preprocess_fns
 from avt_tpu.data.dataset import ConcatDataset as JConcatDataset
 from avt_tpu.data.loader import DataLoader as JDataLoader
+from avt_tpu.models.import_torch import init_from_model as jinit_from_model
 from avt_tpu.train import TrainState
 from avt_tpu.train import make_eval_step as jmake_eval_step
 from avt_tpu.train import make_train_step as jmake_train_step
@@ -43,15 +53,20 @@ from avt_tpu_torch.config.build import (
     build_all_datasets,
     build_model,
     build_optimizer_from_cfg,
+    build_preprocess_fns,
     loss_weights,
 )
 from avt_tpu_torch.data.dataset import ConcatDataset
 from avt_tpu_torch.data.loader import DataLoader
-from avt_tpu_torch.models.convert import load_jax_params
-from avt_tpu_torch.train import make_eval_step, make_train_step
+from avt_tpu_torch.models.convert import load_jax_params, params_from_jax
+from avt_tpu_torch.models.import_torch import init_from_model
+from avt_tpu_torch.train import make_eval_step, make_train_step, save_checkpoint
 
 import _expt_fixtures
 import ref_harness
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 EXPTS_DIR = Path(__file__).resolve().parents[1] / "expts"
 B = 2
@@ -60,29 +75,32 @@ SMALL = ["model.future_predictor.n_layer=1", "model.future_predictor.inter_dim=6
          "data_train.workers=2", "data_eval.workers=2", "model.dropout=0.0",
          "+model.future_predictor.embd_pdrop=0.0", "+model.future_predictor.attn_pdrop=0.0",
          "+model.future_predictor.resid_pdrop=0.0"]
+# the ViT at a small width, on 32x32 crops of the fixture's 128x96 frames
+VIT = 32
+SMALL_VIT = [f"model.backbone_dim={VIT}", f"+model.backbone.embed_dim={VIT}",
+             "+model.backbone.depth=1", "+model.backbone.num_heads=2",
+             f"+model.backbone.img_size={VIT}", "data_train.scale_h=36-40",
+             f"data_train.crop_size={VIT}", "data_eval.scale_h=36", f"data_eval.crop_size={VIT}"]
 TOL = 2e-4
 KEYS = ["video", "target", "target_subclips", "idx", "uid"]
 
-RUN_FROM_FILE = [
-    "02_ek100_avt_tsn", "02_ek100_avt_tsn_test_trainval",
-    "03_ek100_avt_tsn_obj", "03_ek100_avt_tsn_obj_test_trainval",
-    "04_ek100_avt_ig65m", "04_ek100_avt_ig65m_test_trainval",
-    "06_ek100_avt_tsnflow_test_trainval",
-    "08_ek55_avt_tsn", "08_ek55_avt_tsn_forAR",
-    "10_ek55_avt_ig65m", "10_ek55_avt_ig65m_forAR",
-    "11_egtea_avt_tsn",
-]
-# train.init_from_model, raw video or 50Salads: not ported yet
-NOT_PORTED = sorted(p.stem for p in EXPTS_DIR.glob("*.txt")
-                    if p.stem not in RUN_FROM_FILE and p.stem != "06_ek100_avt_tsnflow")
+# the RULSTM aggregator (expts/05) is not ported yet
+NOT_PORTED = ["05_ek100_rustm_test_testonly"]
+RUN_FROM_FILE = sorted(p.stem for p in EXPTS_DIR.glob("*.txt")
+                       if p.stem not in NOT_PORTED and p.stem != "06_ek100_avt_tsnflow")
 
 
 @pytest.fixture(scope="module")
 def data_root(tmp_path_factory):
-    """The directory holding DATA/; the feature files need no videos."""
+    """The directory holding DATA/, with the timm files the raw-video files
+    load (chip_smoke.py's in21k layout at the small width, a block more than
+    the model has)."""
     root = tmp_path_factory.mktemp("expt_tree")
-    with mock.patch.object(_expt_fixtures, "_write_video", lambda *a, **k: None):
-        _expt_fixtures.build_data_tree(root)
+    data = _expt_fixtures.build_data_tree(root)
+    timm = data / "pretrained" / "TIMM"
+    for name in ("jx_vit_base_p16_224-80ecf9dd.pth", "jx_vit_base_patch16_224_in21k-e5005f0a.pth"):
+        chip_smoke.write_timm_vit(str(timm / name), embed_dim=VIT, depth=2, img_size=VIT,
+                                  seed=31)
     return root
 
 
@@ -98,8 +116,11 @@ def in_tree(data_root, monkeypatch):
 
 
 def _compose(name, overrides=SMALL):
-    """Both packages' configs of the file's first sweep variant."""
+    """Both packages' configs of the file's first sweep variant (a ViT at
+    the small width too, where the file's backbone is one)."""
     expt = EXPTS_DIR / f"{name}.txt"
+    if overrides and "avt_b" in expt.read_text():
+        overrides = list(overrides) + SMALL_VIT
     cfg = Composer(train_net.CONF_DIR).compose("config", expand_sweeps(
         parse_overrides_file(expt) + [parse_override(o) for o in overrides])[0])
     jcfg = JComposer(train_net.CONF_DIR).compose("config", jexpand_sweeps(
@@ -114,6 +135,40 @@ def _close(out, ref, what):
     assert out.shape == ref.shape, what
     err = np.abs(out - ref).max() / max(np.abs(ref).max(), 1e-12)
     assert err <= TOL, f"{what}: max |diff| {err:.3g} of its scale (limit {TOL})"
+
+
+def _write_run_checkpoint(model, path, cfg):
+    """The checkpoint a `_testonly` file loads: the port's own run
+    checkpoint (`train/checkpoint.py`) at a `<run>/checkpoint` path, else a
+    reference `{'model': sd}` file; both hold the model's weights, moved."""
+    moved = {k: v * 1.5 + 0.01 for k, v in model.state_dict().items()}
+    if os.path.basename(path) == "checkpoint":
+        original = {k: v.clone() for k, v in model.state_dict().items()}
+        model.load_state_dict(moved)
+        opt, _ = build_optimizer_from_cfg(cfg, model, iters_per_epoch=2)
+        save_checkpoint(os.path.dirname(path), model, opt, 1.0)
+        model.load_state_dict(original)
+    else:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        torch.save({"model": moved, "epoch": 1.0}, path)
+
+
+def _init_both(cfg, model, params):
+    """The file's train.init_from_model through both packages; the port's
+    weights must equal avt_tpu's exactly, and some must have moved."""
+    spec = cfg["train"]["init_from_model"]
+    for s in spec:
+        if not os.path.exists(str(s[-1])):
+            _write_run_checkpoint(model, str(s[-1]), cfg)
+    params = jinit_from_model(params, spec)
+    loaded = init_from_model(model, spec)
+    ref = params_from_jax(params)
+    assert loaded and set(ref) == set(model.state_dict())
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, ref[k]), k
+    if "TIMM" in str(spec[-1][-1]):  # one block of the file's two, no head
+        assert all(k.startswith("backbone.model.") and ".blocks.1." not in k for k in loaded)
+    return params
 
 
 def _first(ds, jds, seed, shuffle):
@@ -146,17 +201,25 @@ def test_expt_builds_and_steps_like_avt_tpu(in_tree, name):
     num_classes = {k: len(v) for k, v in ds.classes.items()}
     assert num_classes == {k: len(v) for k, v in jds.classes.items()}
     tb, jb = _first(ds, jds, cfg["seed"], shuffle=True)
+    eval_pp = jeval_pp = None
+    if jb["video"].ndim == 5:  # raw uint8 frames (B, T, H, W, 3)
+        _, eval_pp = build_preprocess_fns(cfg, "cpu")
+        jtrain_pp, jeval_pp = jbuild_preprocess_fns(jcfg)
+        jb["video"] = jax.jit(jtrain_pp)(jb["video"], jax.random.PRNGKey(5))
+        tb["video"] = torch.from_numpy(np.array(jb["video"]))
 
     jm = jbuild_model(jcfg, num_classes, jds.class_mappings)
-    params = jm.init(jax.random.PRNGKey(0), jb["video"], (B,))
-    tx, _ = jbuild_optimizer_from_cfg(jcfg, params, iters_per_epoch=2)
-    jstep = jmake_train_step(jm, tx, loss_weights(cfg), num_classes, donate=False)
-    jeval = jmake_eval_step(jm, num_classes)
+    params = jax.jit(jm.init, static_argnums=2)(jax.random.PRNGKey(0), jb["video"], (B,))
     model = build_model(cfg, num_classes, ds.class_mappings, device="cpu")
     load_jax_params(model, params)
+    if cfg["train"]["init_from_model"]:
+        params = _init_both(cfg, model, params)
+    tx, _ = jbuild_optimizer_from_cfg(jcfg, params, iters_per_epoch=2)
+    jstep = jmake_train_step(jm, tx, loss_weights(cfg), num_classes, donate=False)
+    jeval = jmake_eval_step(jm, num_classes, preprocess_fn=jeval_pp)
     opt, _ = build_optimizer_from_cfg(cfg, model, iters_per_epoch=2)
     step = make_train_step(model, opt, loss_weights(cfg), num_classes)
-    eval_step = make_eval_step(model, num_classes)
+    eval_step = make_eval_step(model, num_classes, preprocess_fn=eval_pp)
 
     state, jmetrics = jstep(TrainState.create(params, tx), jb, jax.random.PRNGKey(1))
     metrics = step(tb)

@@ -1,0 +1,277 @@
+"""The port's `init_from_model` against avt_tpu's.
+
+A small AVT model (ViT of 2 blocks, 32 wide, AVT-h of 1 layer, 5 actions)
+is built in both packages, the port's from avt_tpu's weights
+(`params_from_jax`). Each spec then goes through both packages'
+`init_from_model` on the same torch files, and the port's parameters must
+equal avt_tpu's result, carried by `params_from_jax`, leaf for leaf and
+exactly. The files: a timm in21k ViT with its `head` and `pre_logits`
+(which neither loads) and a block more than the model has; a reference
+`{'model': sd}` AVT checkpoint with a shape-mismatched classifier; a prefix
+spec onto a bare `nn.Linear`; the port's own run checkpoint; a raw HF GPT-2;
+several specs in turn. Every error avt_tpu raises is raised here with the
+same type; the layouts whose modules the port lacks raise
+NotImplementedError naming ROADMAP Queue 1.6, and a directory (an avt_tpu
+orbax checkpoint) raises ValueError.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from avt_tpu.losses import mse as jmse
+from avt_tpu.models import (
+    AVTh as JAVTh,
+    AVTModel as JAVTModel,
+    IdentityAgg as JIdentityAgg,
+    LinearClassifier as JLinearClassifier,
+    ViT as JViT,
+)
+from avt_tpu.models.import_torch import init_from_model as jinit_from_model
+from avt_tpu_torch.losses import mse
+from avt_tpu_torch.models import AVTh, AVTModel, IdentityAgg, LinearClassifier, ViT
+from avt_tpu_torch.models.convert import load_jax_params, params_from_jax
+from avt_tpu_torch.models.import_torch import init_from_model, load_torch_state_dict
+from avt_tpu_torch.train import build_optimizer, save_checkpoint
+
+DIM, N_CLS, MLP, TOK = 32, 5, 128, 5  # a 32x32 image in 16x16 patches: 4 + cls
+
+
+def _jmodel():
+    return JAVTModel(
+        backbone=JViT(img_size=32, patch_size=16, embed_dim=DIM, depth=2, num_heads=2),
+        temporal_aggregator=JIdentityAgg(in_features=DIM),
+        future_predictor=JAVTh(in_features=DIM, inter_dim=64, n_layer=1, n_head=2,
+                               output_len=1, avg_last_n=1, return_past_too=True,
+                               future_pred_loss=lambda p, t: jmse(p, t, reduction="none")),
+        temporal_aggregator_after_future_pred=JIdentityAgg(in_features=DIM),
+        classifiers={"action": JLinearClassifier(out_features=N_CLS)},
+        num_classes=(("action", N_CLS),), backbone_dim=DIM, classifier_on_past=True)
+
+
+def _tmodel():
+    return AVTModel(
+        backbone=ViT(img_size=32, patch_size=16, embed_dim=DIM, depth=2, num_heads=2,
+                     device="cpu"),
+        temporal_aggregator=IdentityAgg(in_features=DIM),
+        future_predictor=AVTh(in_features=DIM, inter_dim=64, n_layer=1, n_head=2,
+                              output_len=1, avg_last_n=1, return_past_too=True,
+                              future_pred_loss=lambda p, t: mse(p, t, reduction="none"),
+                              device="cpu"),
+        temporal_aggregator_after_future_pred=IdentityAgg(in_features=DIM),
+        classifiers={"action": LinearClassifier(DIM, N_CLS, device="cpu")},
+        num_classes=(("action", N_CLS),), backbone_dim=DIM, classifier_on_past=True)
+
+
+@pytest.fixture(scope="module")
+def jparams():
+    video = np.random.default_rng(0).standard_normal((1, 1, 1, 3, 2, 32, 32), np.float32)
+    return jax.jit(_jmodel().init)(jax.random.PRNGKey(0), jnp.asarray(video))
+
+
+def _w(rng, *shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 0.02)
+
+
+def timm_sd(seed, depth=3, head=True):
+    """A timm ViT state_dict at the model's width: `depth` blocks, and the
+    in21k file's classifier head and pre_logits."""
+    rng = np.random.default_rng(seed)
+    sd = {"cls_token": _w(rng, 1, 1, DIM), "pos_embed": _w(rng, 1, TOK, DIM),
+          "patch_embed.proj.weight": _w(rng, DIM, 3, 16, 16), "patch_embed.proj.bias": _w(rng, DIM),
+          "norm.weight": _w(rng, DIM), "norm.bias": _w(rng, DIM)}
+    for i in range(depth):
+        b = f"blocks.{i}"
+        sd.update({f"{b}.norm1.weight": _w(rng, DIM), f"{b}.norm1.bias": _w(rng, DIM),
+                   f"{b}.attn.qkv.weight": _w(rng, 3 * DIM, DIM),
+                   f"{b}.attn.qkv.bias": _w(rng, 3 * DIM),
+                   f"{b}.attn.proj.weight": _w(rng, DIM, DIM), f"{b}.attn.proj.bias": _w(rng, DIM),
+                   f"{b}.norm2.weight": _w(rng, DIM), f"{b}.norm2.bias": _w(rng, DIM),
+                   f"{b}.mlp.fc1.weight": _w(rng, MLP, DIM), f"{b}.mlp.fc1.bias": _w(rng, MLP),
+                   f"{b}.mlp.fc2.weight": _w(rng, DIM, MLP), f"{b}.mlp.fc2.bias": _w(rng, DIM)})
+    if head:
+        sd.update({"head.weight": _w(rng, 21843, DIM), "head.bias": _w(rng, 21843),
+                   "pre_logits.fc.weight": _w(rng, DIM, DIM), "pre_logits.fc.bias": _w(rng, DIM)})
+    return sd
+
+
+def avt_sd(seed, n_cls=N_CLS):
+    """A reference AVT state_dict: another model's weights under the
+    reference's names, its classifier over `n_cls` classes."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {k: torch.randn(v.shape, generator=g) * 0.02 for k, v in _tmodel().state_dict().items()}
+    sd["classifiers.action.weight"] = torch.randn(n_cls, DIM, generator=g)
+    sd["classifiers.action.bias"] = torch.randn(n_cls, generator=g)
+    return sd
+
+
+def _save(obj, path):
+    torch.save(obj, str(path))
+    return str(path)
+
+
+def both(jparams, specs):
+    """Both packages' init_from_model from the same weights; the port's
+    parameters must equal avt_tpu's. Returns the names the port loaded."""
+    model = load_jax_params(_tmodel(), jparams)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    ref = params_from_jax(jinit_from_model(jparams, specs))
+    loaded = init_from_model(model, specs)
+    sd = model.state_dict()
+    assert set(sd) == set(ref)
+    for k in sd:
+        assert torch.equal(sd[k], ref[k]), k
+    assert set(loaded) == {k for k in sd if not torch.equal(sd[k], before[k])}
+    return loaded
+
+
+@pytest.mark.parametrize("module", ["backbone.model", "backbone"])
+def test_timm_in21k_file_loads_the_backbone_as_avt_tpu(jparams, tmp_path, module):
+    sd = timm_sd(1)
+    path = _save(sd, tmp_path / "jx_vit_base_patch16_224_in21k-e5005f0a.pth")
+    loaded = both(jparams, [[module, path]])
+    want = {"backbone.model." + k for k in sd if not k.startswith(("head.", "pre_logits.",
+                                                                   "blocks.2."))}
+    assert set(loaded) == want  # head, pre_logits and the third block are skipped
+
+
+def test_reference_checkpoint_skips_the_mismatched_classifier(jparams, tmp_path):
+    sd = avt_sd(2, n_cls=N_CLS + 1)
+    path = _save({"model": sd, "epoch": 3}, tmp_path / "checkpoint.pth")
+    loaded = both(jparams, [[path]])
+    assert set(loaded) == set(sd) - {"classifiers.action.weight", "classifiers.action.bias"}
+
+
+def test_reference_checkpoint_into_one_module(jparams, tmp_path):
+    path = _save({"state_dict": avt_sd(3)}, tmp_path / "ckpt.pth")
+    loaded = both(jparams, [["backbone.model", path]])
+    assert loaded and all(k.startswith("backbone.model.") for k in loaded)
+    loaded = both(jparams, [["classifiers.action", path]])
+    assert set(loaded) == {"classifiers.action.weight", "classifiers.action.bias"}
+
+
+def test_prefix_spec_onto_a_bare_linear(jparams, tmp_path):
+    rng = np.random.default_rng(4)
+    sd = {"classifier.1.weight": _w(rng, N_CLS, DIM), "classifier.1.bias": _w(rng, N_CLS),
+          "rolling_lstm.weight_ih_l0": _w(rng, 8, DIM)}
+    path = _save(sd, tmp_path / "rulstm.pth.tar")
+    loaded = both(jparams, [["classifiers.action", "classifier.1.", path]])
+    assert set(loaded) == {"classifiers.action.weight", "classifiers.action.bias"}
+    loaded = both(jparams, [["classifiers.action", _save(
+        {"weight": sd["classifier.1.weight"]}, tmp_path / "linear.pth")]])
+    assert loaded == ["classifiers.action.weight"]
+
+
+def test_the_ports_own_run_checkpoint_loads_whole(jparams, tmp_path):
+    src = load_jax_params(_tmodel(), jparams)
+    with torch.no_grad():
+        for p in src.parameters():
+            p.mul_(1.5).add_(0.01)
+    opt, _ = build_optimizer(src, [["__all__", 0.1, 0.0]], iters_per_epoch=1, num_epochs=1)
+    save_checkpoint(str(tmp_path / "run"), src, opt, 1.0)
+    path = str(tmp_path / "run" / "checkpoint")
+    loaded = both(jparams, [[path]])
+    assert set(loaded) == set(src.state_dict())
+    assert set(load_torch_state_dict(path)) == set(src.state_dict())
+
+
+def test_raw_gpt2_and_several_specs_in_turn(jparams, tmp_path):
+    full = avt_sd(5)
+    gpt = {k[len("future_predictor.gpt_model."):]: v for k, v in full.items()
+           if k.startswith("future_predictor.gpt_model.")}
+    gpt["wte.weight"] = torch.zeros(7, 64)
+    gpt_path = _save(gpt, tmp_path / "gpt2.bin")
+    # into future_predictor: avt_tpu's tree puts GPT-2 under `gpt`, so a raw
+    # GPT-2 there matches no name and loads nothing, in both
+    assert both(jparams, [["future_predictor", gpt_path]]) == []
+    timm_path = _save(timm_sd(6, depth=2, head=False), tmp_path / "vit.pth")
+    full_path = _save({"model": full}, tmp_path / "full.pth")
+    loaded = both(jparams, [[full_path], ["backbone.model", timm_path]])
+    assert set(loaded) == set(full)
+
+
+def _error_case(tmp_path, case):
+    """(spec, exception type) of one failure, its files written."""
+    if case == "unrecognized layout":
+        return [["backbone", _save({"foo.weight": torch.zeros(2)}, tmp_path / "x.pth")]], ValueError
+    if case == "prefix matches nothing":
+        return [["classifiers.action", "nope.", _save(avt_sd(7), tmp_path / "x.pth")]], ValueError
+    if case == "nothing converted":
+        return [[_save({"backbone.foo": torch.zeros(2)}, tmp_path / "x.pth")]], ValueError
+    if case == "module not in the model":
+        return [["temporal_aggregator", _save(timm_sd(8), tmp_path / "x.pth")]], KeyError
+    if case == "module-level file without a module":
+        return [[_save(timm_sd(9), tmp_path / "x.pth")]], ValueError
+    if case == "timm file missing a leaf":
+        sd = timm_sd(10)
+        del sd["norm.weight"]
+        return [["backbone.model", _save(sd, tmp_path / "x.pth")]], KeyError
+    if case == "missing file":
+        return [["backbone.model", str(tmp_path / "absent.pth")]], FileNotFoundError
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case", [
+    "unrecognized layout", "prefix matches nothing", "nothing converted",
+    "module not in the model", "module-level file without a module",
+    "timm file missing a leaf", "missing file"])
+def test_errors_match_avt_tpu(jparams, tmp_path, case):
+    specs, exc = _error_case(tmp_path, case)
+    with pytest.raises(exc):
+        jinit_from_model(jparams, specs)
+    model = load_jax_params(_tmodel(), jparams)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    with pytest.raises(exc):
+        init_from_model(model, specs)
+    assert all(torch.equal(v, before[k]) for k, v in model.state_dict().items())
+
+
+def _lstm(rng, prefix):
+    return {f"{prefix}.weight_ih_l0": _w(rng, 16, DIM), f"{prefix}.weight_hh_l0": _w(rng, 16, 4),
+            f"{prefix}.bias_ih_l0": _w(rng, 16), f"{prefix}.bias_hh_l0": _w(rng, 16)}
+
+
+@pytest.mark.parametrize("layout", ["bninception", "rulstm", "video_resnet", "vissl_resnet"])
+def test_layouts_of_unported_modules_raise_naming_queue_1_6(jparams, tmp_path, layout):
+    rng = np.random.default_rng(11)
+    sd = {"bninception": {"conv1_7x7_s2.weight": _w(rng, 4, 3, 7, 7)},
+          "rulstm": {**_lstm(rng, "rolling_lstm"), **_lstm(rng, "unrolling_lstm")},
+          "video_resnet": {"stem.0.weight": _w(rng, 4, 3, 3, 7, 7)},
+          "vissl_resnet": {"classy_state_dict": {"base_model": {"model": {"trunk": {
+              "_feature_blocks.stem.0.weight": _w(rng, 4, 3, 3, 7, 7)}}}}}}[layout]
+    path = _save(sd, tmp_path / "x.pth")
+    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1\.6"):
+        init_from_model(_tmodel(), [["backbone", path]])
+
+
+def test_an_unported_aggregator_raises_whole_and_not_for_the_backbone(jparams, tmp_path):
+    rng = np.random.default_rng(12)
+    sd = avt_sd(13)
+    agg, E = "temporal_aggregator.", 8  # the reference's Transformer aggregator, 1 layer
+    sd.update({agg + "downproject.weight": _w(rng, E, DIM), agg + "downproject.bias": _w(rng, E),
+               agg + "transformer_encoder.norm.weight": _w(rng, E),
+               agg + "transformer_encoder.norm.bias": _w(rng, E)})
+    layer = agg + "transformer_encoder.layers.0."
+    for name, shape in (("self_attn.in_proj_weight", (3 * E, E)),
+                        ("self_attn.in_proj_bias", (3 * E,)),
+                        ("self_attn.out_proj.weight", (E, E)), ("self_attn.out_proj.bias", (E,)),
+                        ("linear1.weight", (16, E)), ("linear1.bias", (16,)),
+                        ("linear2.weight", (E, 16)), ("linear2.bias", (E,)),
+                        ("norm1.weight", (E,)), ("norm1.bias", (E,)), ("norm2.weight", (E,)),
+                        ("norm2.bias", (E,))):
+        sd[layer + name] = _w(rng, *shape)
+    path = _save({"model": sd}, tmp_path / "x.pth")
+    with pytest.raises(NotImplementedError, match=r"Transformer aggregator.*Queue 1\.6"):
+        init_from_model(_tmodel(), [[path]])
+    loaded = both(jparams, [["backbone.model", path]])
+    assert loaded and all(k.startswith("backbone.model.") for k in loaded)
+
+
+def test_a_directory_is_an_avt_tpu_checkpoint(tmp_path):
+    (tmp_path / "checkpoint").mkdir()
+    with pytest.raises(ValueError, match="avt_tpu"):
+        init_from_model(_tmodel(), [[str(tmp_path / "checkpoint")]])
+    with pytest.raises(ValueError, match="avt_tpu"):
+        init_from_model(_tmodel(), [["backbone.model", str(tmp_path / "checkpoint")]])

@@ -1,7 +1,8 @@
 """The port stands alone: avt_tpu_torch and chip_smoke.py import neither JAX
-(nor flax, orbax or h5py) nor the JAX package, nor PyYAML, pandas or OpenCV
-(lmdb only inside LMDBFeatsReader.__init__), and its entry points do not
-run on the CPU unasked."""
+(nor flax, orbax or h5py) nor the JAX package, nor PyYAML or pandas (lmdb
+only inside LMDBFeatsReader.__init__, OpenCV only inside
+OpenCVVideoReader.__init__ and chip_smoke.py's video writer), and its
+entry points do not run on the CPU unasked."""
 import re
 import subprocess
 import sys
@@ -20,7 +21,7 @@ PORT_FILES = sorted(
 ) + [ROOT / "chip_smoke.py"]
 # `avt_tpu` not followed by `_torch` (the port's own name starts the same)
 FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|flax|orbax|h5py|yaml|pandas|cv2|avt_tpu(?!_torch))\b",
+    r"^\s*(?:import|from)\s+(?:jax|flax|orbax|h5py|yaml|pandas|avt_tpu(?!_torch))\b",
     re.MULTILINE)
 
 
@@ -32,6 +33,10 @@ NEW_MODULES = (
     "import avt_tpu_torch.data.anticipation, avt_tpu_torch.data.dataset\n"
     "import avt_tpu_torch.data.epic_kitchens, avt_tpu_torch.data.clip_samplers\n"
     "import avt_tpu_torch.data.loader, avt_tpu_torch.train_net\n"
+    "import avt_tpu_torch.data.video_decoder, avt_tpu_torch.data.breakfast_50salads\n"
+    "import avt_tpu_torch.models.import_torch\n"
+    "from avt_tpu_torch.models.import_torch import init_from_model\n"
+    "from avt_tpu_torch.data.readers import OpenCVVideoReader\n"
     "from avt_tpu_torch.config import Composer, instantiate\n"
     "from avt_tpu_torch.train_net import cli, main\n"
 )
@@ -86,6 +91,26 @@ def test_new_layers_import_with_yaml_pandas_and_cv2_blocked():
     assert res.stdout.strip() == "ok"
 
 
+def _imports(path, module):
+    return re.findall(rf"^( *)(?:import|from) {module}\b", path.read_text(), re.MULTILINE)
+
+
+def test_cv2_is_imported_by_the_opencv_reader_and_the_video_writer_alone():
+    readers = ROOT / "avt_tpu_torch" / "data" / "readers.py"
+    assert _imports(readers, "cv2") == ["        "]
+    src = readers.read_text()
+    assert src.index("import cv2") > src.index("class OpenCVVideoReader")
+    assert src.rindex("def __init__", 0, src.index("import cv2")) > src.index(
+        "class OpenCVVideoReader")
+    smoke = (ROOT / "chip_smoke.py").read_text()
+    assert _imports(ROOT / "chip_smoke.py", "cv2") == ["    "]
+    assert smoke.rindex("\ndef ", 0, smoke.index("import cv2")) == smoke.index(
+        "\ndef write_video(")
+    for path in PORT_FILES:
+        if path.name not in ("readers.py", "chip_smoke.py"):
+            assert not _imports(path, "cv2"), path
+
+
 def test_lmdb_is_imported_by_the_lmdb_reader_alone():
     src = (ROOT / "avt_tpu_torch" / "data" / "readers.py").read_text()
     imports = re.findall(r"^( *)import lmdb\b", src, re.MULTILINE)
@@ -106,7 +131,6 @@ def test_forbidden_pattern_catches_jax_package_only():
     assert FORBIDDEN.search("import jax.numpy as jnp")
     assert FORBIDDEN.search("    import h5py")
     assert FORBIDDEN.search("import yaml") and FORBIDDEN.search("  import pandas as pd")
-    assert FORBIDDEN.search("import cv2")
     assert not FORBIDDEN.search("from avt_tpu_torch.ops import x")
 
 

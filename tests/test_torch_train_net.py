@@ -14,8 +14,9 @@ weights (carried by `params_from_jax`), two train steps' losses and the
 eval logits after them, at 2e-4 (f32, the same math summed in another
 order). Then `train_net.cli` end to end under AVT_PLATFORM=cpu: it trains,
 checkpoints, evaluates, resumes without retraining, runs test_only, takes
-the raw-video branch through a frame reader defined here, exits 143 when
-preempted, and refuses what is not ported and the CPU unasked.
+the raw-video branch (expts/01 on raw videos through the native decoder,
+its backbone from a timm file), exits 143 when preempted, and refuses
+what is not ported and the CPU unasked.
 """
 import functools
 import os
@@ -44,7 +45,7 @@ from avt_tpu.train import make_eval_step as jmake_eval_step
 from avt_tpu.train import make_train_step as jmake_train_step
 import avt_tpu_torch.models.layers as tlayers
 from avt_tpu_torch import train_net
-from avt_tpu_torch.config import Composer, parse_override, parse_overrides_file, register_target
+from avt_tpu_torch.config import Composer, parse_override, parse_overrides_file, resolve_target
 from avt_tpu_torch.config.build import (
     build_all_datasets,
     build_model,
@@ -53,7 +54,6 @@ from avt_tpu_torch.config.build import (
     loss_weights,
 )
 from avt_tpu_torch.data.loader import DataLoader
-from avt_tpu_torch.data.readers import Reader
 from avt_tpu_torch.evaluate import RESULTS_SAVE_DIR, read_results
 from avt_tpu_torch.models.convert import load_jax_params
 from avt_tpu_torch.ops import flash_attention as tfa
@@ -246,58 +246,76 @@ def test_cli_balances_classes_and_steps_the_plateau(tree, tmp_path, monkeypatch)
     assert stepped == [metric] and np.isfinite(metric)
 
 
-class FramesReader(Reader):
-    """uint8 frames of a synthetic 10 fps video: frame i is filled with a
-    pattern of i, the frames whose time falls in [start, end]."""
-
-    def __init__(self, height: int = 40, width: int = 48):
-        self.height, self.width = height, width
-
-    def get_frame_rate(self, video_path):
-        return 10.0
-
-    def __call__(self, video_path, start_sec, end_sec, fps, row):
-        first, last = int(np.ceil(start_sec * 10)), int(np.floor(end_sec * 10))
-        idx = np.arange(first, last + 1)
-        base = np.arange(self.height * self.width * 3).reshape(self.height, self.width, 3)
-        frames = ((base[None] + 7 * idx[:, None, None, None]) % 251).astype(np.uint8)
-        return frames, {}
-
-
-RAW = ["train.init_from_model=null", "model.backbone_dim=32", "+model.backbone.embed_dim=32",
+RAW = ["model.backbone_dim=32", "+model.backbone.embed_dim=32",
        "+model.backbone.depth=1", "+model.backbone.num_heads=2", "+model.backbone.img_size=32",
        "model.future_predictor.n_layer=1", "model.future_predictor.inter_dim=64",
        "model.future_predictor.n_head=2", "data_train.num_frames=4", "data_train.scale_h=36-40",
        "data_train.crop_size=32", "data_eval.scale_h=36", "data_eval.crop_size=32",
        "train.batch_size=3", "eval.batch_size=3", "train.num_epochs=1",
-       "data_train.workers=2", "data_eval.workers=2",
-       "+dataset_train.reader_fn={_target_: tests.FramesReader}",
-       "+dataset_eval.reader_fn={_target_: tests.FramesReader}"]
+       "data_train.workers=2", "data_eval.workers=2"]
 
 
-def test_cli_raw_video_branch_preprocesses_on_the_device(tree, tmp_path, monkeypatch):
-    """expts/01 (ViT backbone on uint8 frames) at a tiny width, its frames
-    from a reader defined here: the raw-video branch builds the preprocess
-    functions, whose eval path equals avt_tpu's, and trains and evaluates."""
-    register_target("tests.FramesReader", FramesReader)
+@pytest.fixture(scope="module")
+def raw_tree(tmp_path_factory):
+    """The synthetic EK100 tree with raw videos (64x48 at 10 fps, actions
+    from 12 s on) in place of the feature store; returns its overrides."""
+    root = tmp_path_factory.mktemp("ek100_raw")
+    return chip_smoke.write_ek100_tree(str(root), train_videos=2, eval_videos=1,
+                                       actions_per_video=4, first_action_s=12, seed=3,
+                                       video=(64, 48, 10))
+
+
+def test_cli_raw_video_branch_preprocesses_on_the_device(raw_tree, tmp_path, monkeypatch):
+    """expts/01 (ViT backbone on uint8 frames) at a tiny width on raw
+    videos read by the file's DefaultReader (the native decoder), its
+    backbone loaded from a timm file at the path the file names under
+    ${cwd}: the raw-video branch builds the preprocess functions, whose
+    eval path equals avt_tpu's, and trains and evaluates."""
+    from avt_tpu_torch.data.video_decoder import LibavVideoReader
+
     monkeypatch.setenv("AVT_PLATFORM", "cpu")
-    overrides = [o for o in tree if "reader_fn" not in o] + RAW
+    monkeypatch.chdir(tmp_path)
+    timm = chip_smoke.write_timm_vit(str(tmp_path / chip_smoke.TIMM_IN21K), embed_dim=32,
+                                     depth=1, img_size=32, num_classes=10, seed=4)
     expt = str(ROOT / "expts" / "01_ek100_avt.txt")
     cfg = Composer(train_net.CONF_DIR).compose(
-        "config", parse_overrides_file(expt) + [parse_override(o) for o in overrides])
+        "config", parse_overrides_file(expt) + [parse_override(o) for o in raw_tree + RAW])
     jcfg = JComposer(train_net.CONF_DIR).compose(
-        "config", jparse_overrides_file(expt) + [jparse_override(o) for o in overrides])
-    frames = FramesReader()("v", 1.0, 1.3, 10.0, None)[0][None]  # (1, 4, 40, 48, 3)
+        "config", jparse_overrides_file(expt) + [jparse_override(o) for o in raw_tree + RAW])
+    video = Path(cfg["dataset"]["epic_kitchens100"]["common"]["data_dir_extension"])
+    reader = resolve_target("datasets.reader_fns.DefaultReader")()
+    assert type(reader) is LibavVideoReader
+    frames = reader(video / "P01" / "P01_01.MP4", 1.0, 1.3, 10.0, None)[0][None]
+    assert frames.shape == (1, 4, 48, 64, 3)
     _, eval_pp = build_preprocess_fns(cfg, "cpu")
     _, jeval_pp = jbuild_preprocess_fns(jcfg)
     out, ref = eval_pp(torch.from_numpy(frames)), jeval_pp(jnp.asarray(frames))
     assert out.shape == ref.shape == (1, 4, 6, 3, 1, 32, 32)  # 3 crops + flips
     np.testing.assert_allclose(_f32(out), np.asarray(ref), atol=1e-5)
+    readers, inits = [], []
+    real_build, real_init = train_net.build_all_datasets, train_net.init_from_model
+
+    def built(c):
+        train, evals = real_build(c)
+        readers.extend(type(d.reader) for d in train + list(evals.values()))
+        return train, evals
+
+    def init(model, specs):
+        inits.append(real_init(model, specs))
+        sd = model.state_dict()
+        assert all(torch.equal(sd["backbone.model." + k], timm[k]) for k in timm
+                   if not k.startswith(("head.", "pre_logits.")))
+        return inits[-1]
+
     with mock.patch.object(train_net, "build_preprocess_fns",
-                           wraps=train_net.build_preprocess_fns) as built:
+                           wraps=train_net.build_preprocess_fns) as pp, \
+            mock.patch.object(train_net, "build_all_datasets", built), \
+            mock.patch.object(train_net, "init_from_model", init):
         (metric,) = train_net.cli(["--config-file", expt, "--run-dir", str(tmp_path / "raw")]
-                                  + overrides)
-    assert built.call_count == 1 and np.isfinite(metric)
+                                  + raw_tree + RAW)
+    assert pp.call_count == 1 and np.isfinite(metric)
+    assert readers == [LibavVideoReader, LibavVideoReader]
+    assert len(inits) == 1 and len(inits[0]) == len(timm) - 4  # not head nor pre_logits
     stored = read_results(str(tmp_path / "raw" / RESULTS_SAVE_DIR))
     assert stored["logits/action"].shape == (4, chip_smoke.NUM_ACTIONS)
 
@@ -323,7 +341,7 @@ def test_main_refuses_the_cpu_unasked(tree, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("overrides,item", [
-    (["train.init_from_model=[[backbone.model, /x.pth]]"], "1.6"),
+    (["train.init_from_model=[[temporal_aggregator, {rulstm}]]"], "1.6"),
     (["train_eval_op=pred_future_feat"], "1.8"),
     (["model/temporal_aggregator=mean"], "1.6"),
     (["model/future_predictor=mlp"], "1.6"),
@@ -333,6 +351,16 @@ def test_main_refuses_the_cpu_unasked(tree, tmp_path, monkeypatch):
     (["+dataset_train._precomputed_metadata_file=/x.pkl"], "1.3"),
 ])
 def test_unported_options_raise_naming_their_roadmap_item(tree, tmp_path, overrides, item):
+    """Each raises naming its ROADMAP item; a RULSTM checkpoint is one whose
+    module is not ported, as it loads."""
+    if any("{rulstm}" in o for o in overrides):
+        rng = np.random.default_rng(0)
+        sd = {f"{lstm}.{w}_l0": torch.from_numpy(rng.standard_normal(s, np.float32))
+              for lstm in ("rolling_lstm", "unrolling_lstm")
+              for w, s in (("weight_ih", (16, DIM)), ("weight_hh", (16, 4)),
+                           ("bias_ih", (16,)), ("bias_hh", (16,)))}
+        torch.save(sd, str(tmp_path / "rulstm.pth.tar"))
+        overrides = [o.format(rulstm=tmp_path / "rulstm.pth.tar") for o in overrides]
     cfg, _ = _compose(tree + SMALL + overrides)
     with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue {item}"):
         train_net.main(cfg, str(tmp_path), device="cpu")
