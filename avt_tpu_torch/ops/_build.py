@@ -113,36 +113,44 @@ def _start_build(name: str, csrc: Path):
     return proc, tmp, out
 
 
-def _finish_build(name: str, started) -> Optional[str]:
-    """Waits for nvcc; returns its output (ptxas's registers and spills)."""
+def _log_path(library: Path) -> Path:
+    """nvcc's output for a library, kept beside it."""
+    return library.with_suffix(".nvcc.txt")
+
+
+def _finish_build(name: str, started) -> None:
+    """Waits for nvcc; keeps its output (ptxas's registers and spills)
+    beside the library."""
     if started is None:
-        return None
+        return
     proc, tmp, out = started
     log, _ = proc.communicate()
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {name} (exit {proc.returncode}):\n{log}")
+    _log_path(out).write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    return log
 
 
 def build(names: Iterable[str] = tuple(KERNELS), csrc: Path = CSRC) -> Dict[str, str]:
     """Compiles the named kernels from the sources in csrc, one nvcc process
-    each, all at once; returns nvcc's output for each library built now."""
+    each, all at once (a library already built is kept); returns nvcc's
+    output for each named library."""
     names = list(names)
     with _lock:
         started = [(n, _start_build(n, csrc)) for n in names]
-        logs, errors = {}, []
+        errors = []
         for n, s in started:
             try:
-                log = _finish_build(n, s)
+                _finish_build(n, s)
             except RuntimeError as e:
                 errors.append(str(e))
-            else:
-                if log is not None:
-                    logs[n] = log
         if errors:
             raise RuntimeError("\n".join(errors))
+        logs = {}
+        for n in names:
+            log = _log_path(library_path(n, csrc))
+            logs[n] = log.read_text() if log.exists() else ""
         return logs
 
 

@@ -45,11 +45,23 @@
 //   - each output is written once, the scores never leave registers.
 // PERF.md has the levers that were timed (a persistent grid with two
 // key/value buffers, whole-sequence blocks, other key steps and budgets) and
-// what each gave. The f32 storage type uses plain FMAs.
+// what each gave.
+//
+// Design (f32). The same 16-row warps and one online-softmax pass, with every
+// product on the tensor cores as three TF32 products (hi/lo split of each
+// f32 operand; short_attention_common.cuh), which keeps f32's accuracy: in
+// f32 the function does 4*N*H*T^2*D FLOPs on 16*N*T*C bytes (T/4 FLOP per
+// byte), so at T=197 the FMA pipes (67 TFLOP/s) would bound it at 2.5x the
+// memory time, and the three TF32 products (495 TFLOP/s) bring that bound
+// down to the memory's. The blocks hold at most 6 warps (3 blocks of 5 at
+// T=197; kMaxWarpsF32 says why), 2 an SM at D <= 64 (`f32_fwd_cfg`); k and
+// v are staged 128 keys at a time at D=64.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (avt_tpu_torch/ops/_build.py does it at first use).
 // Entry: short_attention_fwd(...) below; returns cudaGetLastError().
+
+#include <type_traits>
 
 #include "short_attention_common.cuh"
 
@@ -173,160 +185,261 @@ __global__ void __launch_bounds__(kMaxWarps * 32, fwd_cfg<D>().min_blocks)
   store_rows_bf16<D>(out + (size_t(n) * T + row0) * C + h * D, C, state, row0, row1, T, t);
 }
 
-// f32 storage: one thread per query row, plain FMAs, two passes over the keys
-// (row max, then exp2 and PV), so p is formed once against the final max as
-// in the reference.
-constexpr int kF32Rows = 64;
-constexpr int kF32Keys = 32;
+// ---------------------------------------------------------------- f32
+// The f32 form on the tensor cores, as three TF32 products
+// (short_attention_common.cuh): the bf16 kernel's loop on mma.m16n8k8
+// fragments. A warp's q' fragments come from device memory into
+// registers, (q + b_q) * scale in f32; the block stages k and v (bias added)
+// `kv_stage` keys at a time, padded to whole key steps and zero-filled; one
+// online-softmax pass in whole `key_step`-key steps; p . v on the score
+// accumulators read as A fragments (`acc_as_a`), normalised after p . v.
+// Blocks hold at most kMaxWarpsF32 warps.
+struct F32FwdCfg {
+  int min_blocks, key_step, kv_stage;
+};
 
 template <int D>
-constexpr size_t f32_smem_bytes() {
-  return sizeof(float) * (size_t(kF32Rows) * (D + 1) + 2 * size_t(kF32Keys) * D);
+__host__ __device__ constexpr F32FwdCfg f32_fwd_cfg() {
+  return D == 32 ? F32FwdCfg{2, 32, 256} : D == 64 ? F32FwdCfg{2, 32, 128} : F32FwdCfg{1, 16, 128};
 }
 
 template <int D>
-__global__ void __launch_bounds__(kF32Rows)
-    short_attn_fwd_f32(const float* __restrict__ qkv, const float* __restrict__ bias,
-                       float* __restrict__ out, int T, int H, int n_qtiles,
-                       int causal, float scale) {
-  constexpr int LDQ = D + 1;  // odd stride: row-per-thread reads are conflict-free
+__host__ __device__ int f32_kv_rows(int T) {
+  constexpr F32FwdCfg cfg = f32_fwd_cfg<D>();
+  return min(cfg.kv_stage, (T + cfg.key_step - 1) / cfg.key_step * cfg.key_step);
+}
+
+template <int D>
+size_t f32_smem_bytes(int T) {
+  return sizeof(float) * size_t(2 * f32_kv_rows<D>(T)) * (D + kPadF);
+}
+
+// q' fragments (16 rows x D) of a warp, straight from device memory: rows
+// from `valid` on are zero; (x + bias) * scale in f32 (bias may be null).
+template <int D>
+__device__ __forceinline__ void load_q_f32(float (&a)[D / 8][4], const float* rows, size_t ld,
+                                           int valid, const float* bias, float scale, int g,
+                                           int t) {
+  const bool v0 = g < valid, v1 = g + 8 < valid;
+  const float* r0 = rows + size_t(g) * ld + t;
+  const float* r1 = r0 + 8 * ld;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const int c = kk * 8;
+    const float b0 = bias ? __ldg(bias + c + t) : 0.f, b1 = bias ? __ldg(bias + c + t + 4) : 0.f;
+    a[kk][0] = v0 ? (__ldg(r0 + c) + b0) * scale : 0.f;
+    a[kk][1] = v1 ? (__ldg(r1 + c) + b0) * scale : 0.f;
+    a[kk][2] = v0 ? (__ldg(r0 + c + 4) + b1) * scale : 0.f;
+    a[kk][3] = v1 ? (__ldg(r1 + c + 4) + b1) * scale : 0.f;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMaxWarpsF32 * 32, f32_fwd_cfg<D>().min_blocks)
+    short_attn_fwd_tf32(const float* __restrict__ qkv, const float* __restrict__ bias,
+                        float* __restrict__ out, int T, int H, int n_qtiles, int causal,
+                        float scale) {
+  constexpr int LD = D + kPadF;  // row stride of Ks and Vs
+  constexpr int CH = D / 4;      // 16-byte chunks in one head row
+  constexpr int KB = f32_fwd_cfg<D>().key_step, KT = f32_fwd_cfg<D>().kv_stage;
+  const int q_rows = (blockDim.x >> 5) * 16;
+  const int kv_rows = f32_kv_rows<D>(T);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* Ks = Qs + kF32Rows * LDQ;
-  float* Vs = Ks + kF32Keys * D;
+  float* Ks = reinterpret_cast<float*>(smem_raw);
+  float* Vs = Ks + kv_rows * LD;
 
   const int n = blockIdx.x / n_qtiles;
-  const int q0 = (blockIdx.x % n_qtiles) * kF32Rows;
+  const int q0 = (blockIdx.x % n_qtiles) * q_rows;
   const int h = blockIdx.y;
   const int C = H * D;
   const size_t rs = 3 * size_t(C);
   const float* frame = qkv + size_t(n) * T * rs;
-  const int tid = threadIdx.x;
-  const int row = q0 + tid;
+  const float* kb = bias ? bias + C + h * D : nullptr;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
 
-  for (int i = tid; i < kF32Rows * D; i += blockDim.x) {
-    const int r = i / D, c = i % D, qrow = q0 + r;
-    float v = 0.f;
-    if (qrow < T) {
-      v = frame[size_t(qrow) * rs + h * D + c];
-      if (bias) v += bias[h * D + c];
-      v *= scale;
+  const int c = (tid % CH) * 4, rstep = blockDim.x / CH;
+  auto stage = [&](int ks0) {
+    for (int r = tid / CH; r < kv_rows; r += rstep) {
+      const int row = ks0 + r;
+      const float* src = frame + size_t(min(row, T - 1)) * rs + C + h * D + c;
+      cp_async16(Ks + r * LD + c, src, row < T);
+      cp_async16(Vs + r * LD + c, src + C, row < T);
     }
-    Qs[r * LDQ + c] = v;
-  }
+  };
+  stage(0);
 
-  int n_kt = (T + kF32Keys - 1) / kF32Keys;
-  if (causal) n_kt = min(n_kt, (min(q0 + kF32Rows, T) - 1) / kF32Keys + 1);
-  const float* q = Qs + tid * LDQ;
-
-  float m = -INFINITY;
-  for (int pass = 0; pass < 2; ++pass) {
-    float o[D];
+  const int qw = q0 + warp * 16;
+  const bool active = qw < T;
+  const int row0 = qw + g, row1 = qw + g + 8;
+  const int kmax = causal ? min(T, qw + 16) : T;
+  float qa[D / 8][4];
+  if (active)
+    load_q_f32<D>(qa, frame + size_t(qw) * rs + h * D, rs, T - qw, bias ? bias + h * D : nullptr,
+                  scale, g, t);
+  float o[D / 8][4];
 #pragma unroll
-    for (int d = 0; d < D; ++d) o[d] = 0.f;
-    float l = 0.f;
-    for (int kt = 0; kt < n_kt; ++kt) {
-      const int k0 = kt * kF32Keys;
-      __syncthreads();
-      for (int i = tid; i < kF32Keys * D; i += blockDim.x) {
-        const int r = i / D, c = i % D, krow = k0 + r;
-        float kv = 0.f, vv = 0.f;
-        if (krow < T) {
-          kv = frame[size_t(krow) * rs + C + h * D + c];
-          vv = frame[size_t(krow) * rs + 2 * C + h * D + c];
-          if (bias) {
-            kv += bias[C + h * D + c];
-            vv += bias[2 * C + h * D + c];
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  int n_st = (T + KT - 1) / KT;
+  if (causal) n_st = min(n_st, (min(q0 + q_rows, T) - 1) / KT + 1);
+  for (int st = 0; st < n_st; ++st) {
+    const int ks0 = st * KT;
+    if (st > 0) {
+      __syncthreads();  // every warp is done with the previous tile
+      stage(ks0);
+    }
+    cp_async_wait_all();
+    if (kb != nullptr) {
+      const float4 bk = *reinterpret_cast<const float4*>(kb + c);
+      const float4 bv = *reinterpret_cast<const float4*>(kb + C + c);
+      for (int r = tid / CH; r < kv_rows && ks0 + r < T; r += rstep) {
+        fix4(Ks + r * LD + c, bk, true, false, 1.f);
+        fix4(Vs + r * LD + c, bv, true, false, 1.f);
+      }
+    }
+    __syncthreads();
+    if (!active) continue;
+    // whole steps, no branch inside: keys past T are zero rows, masked
+    for (int k0 = ks0; k0 < ks0 + KT && k0 < kmax; k0 += KB) {
+      const float* Kc = Ks + (k0 - ks0) * LD;
+      const float* Vc = Vs + (k0 - ks0) * LD;
+      float s[KB / 8][4];
+#pragma unroll
+      for (int j = 0; j < KB / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const FragA qf = split_a(qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3]);
+#pragma unroll
+        for (int j = 0; j < KB / 8; ++j) {
+          float b0, b1;
+          load_b_nk<LD>(b0, b1, Kc + j * 8 * LD, kk, lane);
+          mma3(s[j], qf, b0, b1);
+        }
+      }
+      if (causal || k0 + KB > T) {
+#pragma unroll
+        for (int j = 0; j < KB / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + j * 8 + 2 * t + (e & 1);
+            if (key >= T || (causal && key > (e < 2 ? row0 : row1))) s[j][e] = -INFINITY;
           }
         }
-        Ks[i] = kv;
-        Vs[i] = vv;
       }
-      __syncthreads();
-      const int n_keys = min(kF32Keys, T - k0);
-      for (int j = 0; j < n_keys; ++j) {
-        const int key = k0 + j;
-        if (causal && key > row) break;
-        float s = 0.f;
+      float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-        for (int d = 0; d < D; ++d) s = fmaf(q[d], Ks[j * D + d], s);
-        if (pass == 0) {
-          m = fmaxf(m, s);
-        } else {
-          const float p = exp2f(s - m);
-          l += p;
+      for (int j = 0; j < KB / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      }
+      const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+      // a row with every key so far masked keeps max -inf: shift by 0
+      const float sh0 = mn0 == -INFINITY ? 0.f : mn0;
+      const float sh1 = mn1 == -INFINITY ? 0.f : mn1;
+      const float a0 = exp2f(m0 - sh0), a1 = exp2f(m1 - sh1);
+      m0 = mn0;
+      m1 = mn1;
+      float ls0 = 0.f, ls1 = 0.f;
 #pragma unroll
-          for (int d = 0; d < D; ++d) o[d] = fmaf(p, Vs[j * D + d], o[d]);
+      for (int j = 0; j < KB / 8; ++j) {
+        s[j][0] = exp2f(s[j][0] - sh0);
+        s[j][1] = exp2f(s[j][1] - sh0);
+        s[j][2] = exp2f(s[j][2] - sh1);
+        s[j][3] = exp2f(s[j][3] - sh1);
+        ls0 += s[j][0] + s[j][1];
+        ls1 += s[j][2] + s[j][3];
+      }
+      l0 = l0 * a0 + ls0;
+      l1 = l1 * a1 + ls1;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[j][0] *= a0;
+        o[j][1] *= a0;
+        o[j][2] *= a1;
+        o[j][3] *= a1;
+      }
+      // o += p . v: key tile j's probabilities are the A fragment, v's rows
+      // taken in the matching order
+#pragma unroll
+      for (int j = 0; j < KB / 8; ++j) {
+        const FragA pa = acc_as_a(s[j]);
+#pragma unroll
+        for (int jd = 0; jd < D / 8; ++jd) {
+          float b0, b1;
+          load_b_kn<LD>(b0, b1, Vc + j * 8 * LD, jd * 8, g, t);
+          mma3(o[jd], pa, b0, b1);
         }
       }
     }
-    if (pass == 1 && row < T) {
-      const float inv = 1.f / fmaxf(l, 1e-30f);
-      float* dst = out + (size_t(n) * T + row) * C + h * D;
+  }
+  if (!active) return;
+  const float inv0 = 1.f / fmaxf(quad_sum(l0), 1e-30f);
+  const float inv1 = 1.f / fmaxf(quad_sum(l1), 1e-30f);
+  float* p0 = out + (size_t(n) * T + row0) * C + h * D + 2 * t;
+  float* p1 = p0 + 8 * size_t(C);
 #pragma unroll
-      for (int d = 0; d < D; ++d) dst[d] = o[d] * inv;
-    }
+  for (int j = 0; j < D / 8; ++j) {
+    if (row0 < T) *reinterpret_cast<float2*>(p0 + j * 8) = make_float2(o[j][0] * inv0, o[j][1] * inv0);
+    if (row1 < T) *reinterpret_cast<float2*>(p1 + j * 8) = make_float2(o[j][2] * inv1, o[j][3] * inv1);
   }
 }
 
-// The bf16 kernel's launch at T: the sequence's 16-row groups split evenly
-// over the fewest query tiles of at most kMaxWarps warps.
+// The launch at T: the sequence's 16-row groups split evenly over the
+// fewest query tiles of at most kMaxWarps (bf16) or kMaxWarpsF32 warps.
 struct FwdLaunch {
   int n_qtiles, warps;
   size_t smem;
 };
 
-template <int D>
-FwdLaunch bf16_launch(int T) {
+template <bool kBf16, int D>
+FwdLaunch fwd_launch(int T) {
+  constexpr int max_warps = kBf16 ? kMaxWarps : kMaxWarpsF32;
   const int groups = (T + 15) / 16;
-  const int n_qtiles = (groups + kMaxWarps - 1) / kMaxWarps;
-  return {n_qtiles, (groups + n_qtiles - 1) / n_qtiles, bf16_smem_bytes<D>(T)};
+  const int n_qtiles = (groups + max_warps - 1) / max_warps;
+  return {n_qtiles, (groups + n_qtiles - 1) / n_qtiles,
+          kBf16 ? bf16_smem_bytes<D>(T) : f32_smem_bytes<D>(T)};
 }
 
-template <int D>
-cudaError_t set_bf16_smem(size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(short_attn_fwd_bf16<D>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+template <bool kBf16, int D>
+auto fwd_kernel() {
+  if constexpr (kBf16) {
+    return short_attn_fwd_bf16<D>;
+  } else {
+    return short_attn_fwd_tf32<D>;
+  }
 }
 
-template <int D>
-cudaError_t launch_bf16(const void* qkv, const void* bias, void* out, int N, int T,
-                        int H, int causal, float scale, cudaStream_t stream) {
-  const FwdLaunch geo = bf16_launch<D>(T);
-  cudaError_t err = set_bf16_smem<D>(geo.smem);
+template <typename K>
+cudaError_t set_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+}
+
+template <bool kBf16, int D>
+cudaError_t launch(const void* qkv, const void* bias, void* out, int N, int T, int H, int causal,
+                   float scale, cudaStream_t stream) {
+  using S = std::conditional_t<kBf16, __nv_bfloat16, float>;
+  const FwdLaunch geo = fwd_launch<kBf16, D>(T);
+  const auto kernel = fwd_kernel<kBf16, D>();
+  cudaError_t err = set_smem(kernel, geo.smem);
   if (err != cudaSuccess) return err;
-  short_attn_fwd_bf16<D><<<dim3(N * geo.n_qtiles, H), geo.warps * 32, geo.smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<const __nv_bfloat16*>(bias),
-      static_cast<__nv_bfloat16*>(out), T, H, geo.n_qtiles, causal, scale);
+  kernel<<<dim3(N * geo.n_qtiles, H), geo.warps * 32, geo.smem, stream>>>(
+      static_cast<const S*>(qkv), static_cast<const S*>(bias), static_cast<S*>(out), T, H,
+      geo.n_qtiles, causal, scale);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t residency_bf16(int T, int* warps, int* smem, int* blocks) {
-  const FwdLaunch geo = bf16_launch<D>(T);
+template <bool kBf16, int D>
+cudaError_t residency(int T, int* warps, int* smem, int* blocks) {
+  const FwdLaunch geo = fwd_launch<kBf16, D>(T);
   *warps = geo.warps;
   *smem = int(geo.smem);
-  cudaError_t err = set_bf16_smem<D>(geo.smem);
+  const auto kernel = fwd_kernel<kBf16, D>();
+  cudaError_t err = set_smem(kernel, geo.smem);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, short_attn_fwd_bf16<D>,
-                                                       geo.warps * 32, geo.smem);
-}
-
-template <int D>
-cudaError_t launch_f32(const void* qkv, const void* bias, void* out, int N, int T,
-                       int H, int causal, float scale, cudaStream_t stream) {
-  const int n_qtiles = (T + kF32Rows - 1) / kF32Rows;
-  const size_t smem = f32_smem_bytes<D>();
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        short_attn_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return err;
-  }
-  short_attn_fwd_f32<D><<<dim3(N * n_qtiles, H), kF32Rows, smem, stream>>>(
-      static_cast<const float*>(qkv), static_cast<const float*>(bias),
-      static_cast<float*>(out), T, H, n_qtiles, causal, scale);
-  return cudaGetLastError();
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, geo.warps * 32, geo.smem);
 }
 
 }  // namespace
@@ -343,28 +456,34 @@ int short_attention_fwd(const void* qkv, const void* bias, void* out, int N, int
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     switch (D) {
-      case 32: return launch_bf16<32>(qkv, bias, out, N, T, H, causal, scale, st);
-      case 64: return launch_bf16<64>(qkv, bias, out, N, T, H, causal, scale, st);
-      case 128: return launch_bf16<128>(qkv, bias, out, N, T, H, causal, scale, st);
+      case 32: return launch<true, 32>(qkv, bias, out, N, T, H, causal, scale, st);
+      case 64: return launch<true, 64>(qkv, bias, out, N, T, H, causal, scale, st);
+      case 128: return launch<true, 128>(qkv, bias, out, N, T, H, causal, scale, st);
     }
   } else {
     switch (D) {
-      case 32: return launch_f32<32>(qkv, bias, out, N, T, H, causal, scale, st);
-      case 64: return launch_f32<64>(qkv, bias, out, N, T, H, causal, scale, st);
-      case 128: return launch_f32<128>(qkv, bias, out, N, T, H, causal, scale, st);
+      case 32: return launch<false, 32>(qkv, bias, out, N, T, H, causal, scale, st);
+      case 64: return launch<false, 64>(qkv, bias, out, N, T, H, causal, scale, st);
+      case 128: return launch<false, 128>(qkv, bias, out, N, T, H, causal, scale, st);
     }
   }
   return int(cudaErrorInvalidValue);
 }
 
-// The bf16 kernel at sequence length T and head dim D: warps a block, its
-// dynamic shared memory in bytes, and how many blocks of it one SM holds
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Returns a cudaError_t.
-int short_attention_fwd_residency(int T, int D, int* warps, int* smem_bytes, int* blocks) {
+// The kernel at sequence length T, head dim D and storage type (is_bf16: bf16,
+// else f32): warps a block, its dynamic shared memory in bytes, and how many
+// blocks of it one SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+// is_bf16 comes last, so that a caller passing it to a library built from
+// sources older than it gets the bf16 form. Returns a cudaError_t.
+int short_attention_fwd_residency(int T, int D, int* warps, int* smem_bytes, int* blocks,
+                                  int is_bf16) {
   switch (D) {
-    case 32: return residency_bf16<32>(T, warps, smem_bytes, blocks);
-    case 64: return residency_bf16<64>(T, warps, smem_bytes, blocks);
-    case 128: return residency_bf16<128>(T, warps, smem_bytes, blocks);
+    case 32: return is_bf16 ? residency<true, 32>(T, warps, smem_bytes, blocks)
+                            : residency<false, 32>(T, warps, smem_bytes, blocks);
+    case 64: return is_bf16 ? residency<true, 64>(T, warps, smem_bytes, blocks)
+                            : residency<false, 64>(T, warps, smem_bytes, blocks);
+    case 128: return is_bf16 ? residency<true, 128>(T, warps, smem_bytes, blocks)
+                             : residency<false, 128>(T, warps, smem_bytes, blocks);
   }
   return int(cudaErrorInvalidValue);
 }

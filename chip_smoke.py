@@ -3,19 +3,25 @@
 
     python3 chip_smoke.py        # from the repo root, on a machine with a GPU
 
-1. Card and build: prints the card's name and power limit, turns TF32 off,
-   builds every kernel from the sources in the checkout (nvcc, sm_90a, one
-   process per source, all at once), and logs each template's registers
-   and spills and, for the packed kernels' bf16 templates and the fused
-   kernel's bf16 and f32 forms, warps a block, shared memory and blocks
-   resident on an SM at T=197.
+1. Card and build: prints the card's name and power limit, turns TF32 off
+   (for cuBLAS and cuDNN; the packed kernels' own f32 products run as
+   three TF32 products each, which keeps f32's accuracy), builds every
+   kernel from the sources in the checkout (nvcc, sm_90a, one process per
+   source, all at once), logs each template's registers and spills (and
+   fails if a packed kernel's f32 template at D=64 spills) and, for the
+   packed kernels' bf16 and f32 templates and the fused kernel's bf16 and
+   f32 forms, warps a block, shared memory and blocks resident on an SM at
+   T=197.
 2. Kernels: holds each kernel against its plain PyTorch version at the
    serving and training paths' shapes (tolerances below) and times both,
    the library call that computes the same function, and the card's bound
-   for the work: the attention forward (bits on a repeat), the attention
+   for the work (for the packed kernels' f32 forms also the floor of three
+   TF32 products a product, `tf32_floor_ms`): the attention forward and
    backward (dqkv and the qkv-bias gradient db; the no-db form at head dims
    32, 64 and 128; the query side, key side and db sum also timed apart from
-   a profile),
+   a profile), each with its bits on a repeat; the f32 forms also beside
+   those of PARENT_COMMIT, in turns, where the checkout's git history has
+   them,
    and the fused qkv projection + attention (out and qkv, bits on a repeat;
    bf16 and f32, causal and not; timed beside the split path, a matmul +
    the packed kernel).
@@ -121,7 +127,10 @@
    at this path's shapes (N=30 and 180 frames forward, 30 backward) and
    times them. Prints the reader that ran, the loop's ms a step, the
    host's decode wait a train batch and eval's ms a batch, beside the
-   card's name and power limit.
+   card's name and power limit; then a profile of one train step of the
+   model the call built, on its first batch (device busy, idle share,
+   kernel groups, the packed f32 kernels' share of device time), with
+   this checkout's packed kernels and with PARENT_COMMIT's.
 Only phase 4b launches the fused kernel. Prints one JSON line of kernel results, then {"ok": true, "device": ...}.
 Exits non-zero on any failure, and without a CUDA device.
 """
@@ -174,6 +183,7 @@ from avt_tpu_torch.train import loop as loop_module
 # bytes over memory rate and operations over the type's peak rate
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # tensor cores / FMA units
+TF32_FLOPS = 495e12  # tensor cores, TF32: the packed kernels' f32 products, 3 each
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
 NUM_ACTIONS = 3806
 VIT_BLOCKS = 12  # one packed-attention launch per ViT block per forward
@@ -246,13 +256,29 @@ def attention_inputs(N, T, H, D, dtype, seed):
     return qkv.to("cuda", dtype), bias.to("cuda")
 
 
-def attention_bound_ms(N, T, H, D, dtype):
+def roofline_ms(nbytes, flops, flops_per_s):
+    """(ms, what bounds it): the larger of bytes over the memory rate and
+    operations over `flops_per_s`."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def tf32_floor(nbytes, flops):
+    """The floor of an f32 kernel whose products run as three TF32 products
+    each on the tensor cores, under keys of its own beside the FMA bound."""
+    ms, by = roofline_ms(nbytes, 3 * flops, TF32_FLOPS)
+    return {"tf32_floor_ms": ms, "tf32_floor_by": by}
+
+
+def attention_work(N, T, H, D, dtype):
+    """Bytes (qkv, bias in; out) and operations of the packed forward."""
     s = torch.finfo(dtype).bits // 8
     C = H * D
-    nbytes = (N * T * 3 * C + 3 * C + N * T * C) * s  # qkv, bias in; out
-    flops = 4 * N * H * T * T * D
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    return (N * T * 3 * C + 3 * C + N * T * C) * s, 4 * N * H * T * T * D
+
+
+def attention_bound_ms(N, T, H, D, dtype):
+    return roofline_ms(*attention_work(N, T, H, D, dtype), PEAK_FLOPS[dtype])
 
 
 def check_attention(N, T, H, D, dtype, causal, seed):
@@ -280,9 +306,11 @@ def time_attention(N, T, H, D, dtype):
     plain_ms = cuda_ms(lambda: fa.packed_short_attention_reference(qkv + bias.to(dtype), H),
                        iters=2, reps=3)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-    bound_ms, bound_by = attention_bound_ms(N, T, H, D, dtype)
+    bound, bound_by = attention_bound_ms(N, T, H, D, dtype)
     res = dict(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-               bound_ms=bound_ms, bound_by=bound_by)
+               bound_ms=bound, bound_by=bound_by)
+    if dtype == torch.float32:
+        res.update(tf32_floor(*attention_work(N, T, H, D, dtype)))
     log(f"short_attention_fwd timing N={N} T={T} H={H} D={D}: " + fmt(res))
     return res
 
@@ -302,13 +330,13 @@ def time_unpaired_fwd(N, T, H, D, dtype):
     ref = fa.packed_short_attention_reference(qkv, H)
     err = (out.float() - ref.float()).abs().max().item()
     torch.testing.assert_close(out, ref, atol=TOL[dtype], rtol=TOL[dtype])
-    bound_ms, bound_by = attention_bound_ms(N, T, H, D, dtype)
-    bound_ms -= 1e3 * 3 * H * D * (torch.finfo(dtype).bits // 8) / HBM_BYTES_PER_S  # no bias
+    bound, bound_by = attention_bound_ms(N, T, H, D, dtype)
+    bound -= 1e3 * 3 * H * D * (torch.finfo(dtype).bits // 8) / HBM_BYTES_PER_S  # no bias
     res = dict(ms=cuda_ms(lambda: fa.packed_short_attention(qkv, H)),
                plain_ms=cuda_ms(lambda: fa.packed_short_attention_reference(qkv, H),
                                 iters=2, reps=3),
                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
-               bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+               bound_ms=bound, bound_by=bound_by, max_abs_err=err)
     log(f"short_attention_fwd unpaired N={N} T={T} H={H} D={D}: " + fmt(res))
     return res
 
@@ -346,19 +374,26 @@ def check_attention_bwd(N, T, H, D, dtype, causal, with_db, seed):
         db_err = rel_err(db, ref_db)
         msg += f"; db {db_err:.3g} of max|ref|"
         check(db_err <= TOL[dtype], msg)
-    log(msg + f" (tolerance {TOL[dtype]})")
+    again, db_again = fa._launch_bwd(qkv, bias, dout, H, causal, with_db)
+    check(torch.equal(again, dqkv) and (db is None or torch.equal(db_again, db)),
+          msg + ": bits differ on a repeat")
+    log(msg + f" (tolerance {TOL[dtype]}), same bits on a repeat")
     return max_abs
 
 
-def attention_bwd_bound_ms(N, T, H, D, dtype, with_db=True):
+def attention_bwd_work(N, T, H, D, dtype, with_db=True):
+    """Bytes (qkv, dout in, dqkv out; with db also the bias in and db out)
+    and operations of the packed backward."""
     s = torch.finfo(dtype).bits // 8
     C = H * D
-    nbytes = (N * T * 3 * C + N * T * C + N * T * 3 * C) * s  # qkv, dout in; dqkv out
+    nbytes = (N * T * 3 * C + N * T * C + N * T * 3 * C) * s
     if with_db:
-        nbytes += 2 * 3 * C * s  # bias in, db out
-    flops = 10 * N * H * T * T * D  # s, dp, dq, dk, dv: five T x T x D products
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+        nbytes += 2 * 3 * C * s
+    return nbytes, 10 * N * H * T * T * D  # s, dp, dq, dk, dv: five T x T x D products
+
+
+def attention_bwd_bound_ms(N, T, H, D, dtype, with_db=True):
+    return roofline_ms(*attention_bwd_work(N, T, H, D, dtype, with_db), PEAK_FLOPS[dtype])
 
 
 PACKED_SIDES = {"query_ms": "bwd_query", "key_ms": "bwd_key", "db_ms": "db_reduce"}
@@ -387,28 +422,34 @@ def packed_side_ms(fn, iters=10):
     return out
 
 
-def log_residency(csrc=_build.CSRC):
+def log_residency(csrc=_build.CSRC, f32=True):
     """Warps a block, dynamic shared memory and blocks resident on an SM of
-    the packed kernels' bf16 templates and of the fused kernel's bf16 and f32
-    forms at the ViT's T=197 (the card's occupancy calculator over the
-    kernels compiled from the sources in csrc)."""
+    the packed kernels' templates (bf16 and, with `f32`, f32) and of the
+    fused kernel's bf16 and f32 forms at the ViT's T=197 (the card's
+    occupancy calculator over the kernels compiled from the sources in
+    csrc). A library built from sources older than the packed kernels'
+    storage-type argument answers for bf16 alone: give it f32=False."""
     import ctypes
 
     out = {}
     ints = [ctypes.c_int() for _ in range(3)]
-    calls = [("short_attention_fwd", f"fwd D={D}", "bf16", (197, D)) for D in fa.HEAD_DIMS]
-    calls += [("short_attention_bwd", f"{side} D={D}", "bf16", (197, D, side_i))
-              for side_i, side in enumerate(("query", "key")) for D in fa.HEAD_DIMS]
-    calls += [("fused_qkv_attention_fwd", f"fused {dt}", dt, (197, int(dt == "bf16")))
+    types = ("bf16", "f32") if f32 else ("bf16",)
+    calls = [("short_attention_fwd", f"fwd D={D}", dt, (197, D), (dt == "bf16",))
+             for dt in types for D in fa.HEAD_DIMS]
+    calls += [("short_attention_bwd", f"{side} D={D}", dt, (197, D, side_i), (dt == "bf16",))
+              for dt in types for side_i, side in enumerate(("query", "key")) for D in fa.HEAD_DIMS]
+    calls += [("fused_qkv_attention_fwd", f"fused {dt}", dt, (197, int(dt == "bf16")), ())
               for dt in ("bf16", "f32")]
-    for kernel, key, dt, args in calls:
+    for kernel, key, dt, args, last in calls:
         fn = getattr(_build.load(kernel, csrc), f"{kernel}_residency", None)
         if fn is None:  # an older copy of the sources
             log(f"  {kernel}: no residency entry in {csrc}")
             continue
-        err = fn(*args, *(ctypes.byref(x) for x in ints))
+        err = fn(*args, *(ctypes.byref(x) for x in ints), *(int(x) for x in last))
         check(err == 0, f"{kernel}_residency{args}: CUDA error {err}")
         warps, smem, blocks = (x.value for x in ints)
+        if kernel != "fused_qkv_attention_fwd" and dt == "f32":
+            key = f"{key} f32"
         out[key] = dict(warps=warps, smem_bytes=smem, blocks_per_sm=blocks)
         log(f"  {kernel} {key} ({dt}) T=197: {warps} warps a block, {smem} B of shared "
             f"memory, {blocks} blocks an SM ({warps * blocks} warps)")
@@ -438,13 +479,71 @@ def time_attention_bwd(N, T, H, D, dtype, with_db=True):
 
     fwd_ms = cuda_ms(sdpa)
     fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa(), x, do4))
-    bound_ms, bound_by = attention_bwd_bound_ms(N, T, H, D, dtype, with_db)
+    bound, bound_by = attention_bwd_bound_ms(N, T, H, D, dtype, with_db)
     sides = packed_side_ms(lambda: fa._launch_bwd(qkv, bias, dout, H, False, with_db))
     res = dict(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=fwd_bwd_ms - fwd_ms,
                library_fwd_bwd_ms=fwd_bwd_ms, library_fwd_ms=fwd_ms,
-               bound_ms=bound_ms, bound_by=bound_by, **sides)
+               bound_ms=bound, bound_by=bound_by, **sides)
+    if dtype == torch.float32:
+        res.update(tf32_floor(*attention_bwd_work(N, T, H, D, dtype, with_db)))
     log(f"short_attention_bwd timing N={N} T={T} H={H} D={D} db={with_db}: " + fmt(res))
     return res
+
+
+# The commit before the packed kernels' f32 forms moved to TF32 tensor
+# cores: its f32 kernels are timed beside this checkout's in one run.
+PARENT_COMMIT = "07676704cf97f6366b248078737f6676dadb3508"
+
+
+def parent_csrc(commit=PARENT_COMMIT):
+    """The kernel sources (csrc/) of `commit`, unpacked from this checkout's
+    git history into the build directory (or a copy already unpacked
+    there); None, logged, where there is neither."""
+    dst = _build.BUILD_DIR / f"parent-{commit[:8]}"
+    csrc = dst / "avt_tpu_torch" / "ops" / "csrc"
+    if csrc.is_dir():
+        return csrc
+    root = os.path.dirname(os.path.abspath(__file__))
+    try:
+        tar = subprocess.run(["git", "-C", root, "archive", commit, "avt_tpu_torch/ops/csrc"],
+                             capture_output=True, check=True, timeout=60).stdout
+        dst.mkdir(parents=True, exist_ok=True)
+        subprocess.run(["tar", "-x", "-C", str(dst)], input=tar, check=True, timeout=60)
+    except (OSError, subprocess.SubprocessError) as e:
+        log(f"the kernels of {commit[:8]}: not timed (no git history to unpack them from: {e})")
+        return None
+    return csrc
+
+
+def time_f32_turns(parent):
+    """The packed kernels' f32 forms at expts/01's shapes, built from this
+    checkout's sources ("change") and from `parent`, timed in turns on one
+    card (parent, change, change, parent): the forward at a train step's
+    and an eval batch's frames, the backward with db at a train step's, its
+    sides from a profile. Returns {label: {shape: {"ms": [2 turns], ...}}}."""
+    sources = {"parent": parent, "change": _build.CSRC}
+    turns = ["parent", "change", "change", "parent"]
+    out = {label: {} for label in sources}
+    for N in (TNR_BATCH * TNR_FRAMES, TNR_BATCH * TNR_FRAMES * 6):
+        qkv, _, bias = bwd_inputs(N, 197, 12, 64, torch.float32, seed=24)
+        for label in turns:
+            out[label].setdefault(f"fwd N{N}", {"ms": []})["ms"].append(
+                cuda_ms(lambda: fa._launch(qkv, bias, 12, False, sources[label])))
+    N = TNR_BATCH * TNR_FRAMES
+    qkv, dout, bias = bwd_inputs(N, 197, 12, 64, torch.float32, seed=25)
+    for label in turns:
+        def run(csrc=sources[label]):
+            return fa._launch_bwd(qkv, bias, dout, 12, False, True, csrc)
+
+        res = out[label].setdefault(f"bwd N{N}", {"ms": []})
+        res["ms"].append(cuda_ms(run))
+        if "query_ms" not in res:
+            res.update(packed_side_ms(run))
+    for shape in out["change"]:
+        log(f"f32 packed kernels in turns, {shape}: " + "; ".join(
+            f"{label} " + fmt(dict(out[label][shape], ms="/".join(
+                f"{x:.4f}" for x in out[label][shape]["ms"]))) for label in sources))
+    return out
 
 
 def fused_inputs(N, T, H, dtype, seed):
@@ -486,8 +585,7 @@ def fused_bound_ms(N, T, H, dtype):
     C = 64 * H
     nbytes = (N * T * C + 3 * C * C + 3 * C + N * T * C + 3 * N * T * C) * s
     flops = 2 * N * T * C * 3 * C + 4 * N * H * T * T * 64
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    return roofline_ms(nbytes, flops, PEAK_FLOPS[dtype])
 
 
 def time_fused(N, T, H, dtype, csrc=_build.CSRC, yardsticks=True):
@@ -570,8 +668,7 @@ def flash_bound_ms(B, T, H, D, dtype, causal, backward):
         nbytes, flops = 7 * rows * s + 2 * B * H * T * 4, 10 * B * H * causal_pairs(T, causal) * D
     else:
         nbytes, flops = 4 * rows * s + B * H * T * 4, 4 * B * H * causal_pairs(T, causal) * D
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    return roofline_ms(nbytes, flops, PEAK_FLOPS[dtype])
 
 
 def flash_side_bound_ms(B, T, H, D, dtype, causal, side):
@@ -582,8 +679,7 @@ def flash_side_bound_ms(B, T, H, D, dtype, causal, side):
     rows, pairs = B * T * H * D, B * H * causal_pairs(T, causal) * D
     outs, products = (1, 3) if side == "dq" else (2, 4)
     nbytes, flops = (4 + outs) * rows * s + 2 * B * H * T * 4, 2 * products * pairs
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    return roofline_ms(nbytes, flops, PEAK_FLOPS[dtype])
 
 
 def flash_side_ms(fn, iters=10):
@@ -680,7 +776,7 @@ def kernel_group(name):
 
 def profile_run(fn, label):
     """Device time by kernel group over one fn() call (torch.profiler), after
-    one call outside the profile."""
+    one call outside the profile: (device busy ms, {group: ms}, wall ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -703,7 +799,7 @@ def profile_run(fn, label):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<4d} {e.key[:90]}")
     log(f"  {sum(e.count for e in kernels)} kernel launches")
-    return busy_ms, groups
+    return busy_ms, groups, wall_ms
 
 
 def kernel_entry(mangled):
@@ -724,14 +820,27 @@ def kernel_entry(mangled):
 
 
 def log_registers(name, text):
-    """Registers and spills of every template in one kernel's ptxas output."""
-    entry = "?"
+    """Logs the registers and spills of every template in one kernel's ptxas
+    output; returns {template: {"registers": n, "spill_bytes": stores +
+    loads}}."""
+    entry, out = "?", {}
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             entry = kernel_entry(m.group(1))
         elif "registers" in line or "spill" in line:
             log(f"  {name} {entry}: {line.split(':', 1)[-1].strip()}")
+            regs = re.search(r"Used (\d+) registers", line)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if regs:
+                out.setdefault(entry, {})["registers"] = int(regs.group(1))
+            if spill:
+                out.setdefault(entry, {})["spill_bytes"] = int(spill.group(1)) + int(spill.group(2))
+    return out
+
+
+# the packed kernels' f32 templates at the ViT's head dim, which must not spill
+F32_TEMPLATES = ("short_attn_fwd_tf32<64>", "bwd_query_tf32<64>", "bwd_key_tf32<64>")
 
 
 def main():
@@ -752,8 +861,13 @@ def main():
     t0 = time.time()
     build_logs = _build.build()
     log(f"built {sorted(_build.KERNELS)} in {time.time() - t0:.1f} s")
+    registers = {}
     for name, text in build_logs.items():
-        log_registers(name, text)
+        registers.update(log_registers(name, text))
+    for template in F32_TEMPLATES:
+        info = registers.get(template)
+        check(info is not None and info.get("spill_bytes") == 0,
+              f"{template}: ptxas reported {info} (want no spill)")
     residency = log_residency()
 
     # 2. every kernel against its plain version -----------------------------
@@ -814,6 +928,8 @@ def main():
     f32_fwd = {N: time_attention(N, 197, 12, 64, torch.float32)
                for N in (TNR_BATCH * TNR_FRAMES, TNR_BATCH * TNR_FRAMES * 6)}
     f32_bwd = time_attention_bwd(TNR_BATCH * TNR_FRAMES, 197, 12, 64, torch.float32)
+    parent = parent_csrc()
+    f32_turns = time_f32_turns(parent) if parent is not None else None
     flash_timing = time_flash(*FLASH_SHAPE, torch.float32, True)
     flash_timing_bf16 = time_flash(*FLASH_SHAPE, torch.bfloat16, True)
     flash_timing_d1024 = time_flash(*FLASH_SHAPE_D1024, torch.float32, True)
@@ -846,7 +962,7 @@ def main():
     tn_launches = train_net_phase(card)
 
     # 9. expts/01 from its file through train_net, on raw video (f32 ViT)
-    tnr_launches = train_net_raw_phase(card)
+    tnr_launches, expt01_profile = train_net_raw_phase(card, parent)
 
     paths = {"serve": serve_launches, "train": train_launches, "trainer": trainer_launches,
              "train_d32": d32_launches,
@@ -871,7 +987,10 @@ def main():
              residency={k: v for k, v in residency.items() if k.startswith("fwd")},
              unpaired_shape={k: {"shape": [160, 197, 768 // int(k[1:]), int(k[1:])], **v}
                              for k, v in unpaired.items()},
-             f32_shapes={f"N{N}": {"shape": [N, 197, 12, 64], **v} for N, v in f32_fwd.items()}),
+             f32_shapes={f"N{N}": {"shape": [N, 197, 12, 64], **v} for N, v in f32_fwd.items()},
+             f32_registers=registers.get("short_attn_fwd_tf32<64>"),
+             f32_turns=f32_turns and {label: {k: v for k, v in res.items() if k.startswith("fwd")}
+                                      for label, res in f32_turns.items()}),
         dict(name="short_attention_bwd", route=bwd_spec["route"], source=bwd_spec["source"],
              replaces=bwd_spec["replaces"], launches=train_launches["short_attention_bwd"],
              launches_by_path=by_path("short_attention_bwd"),
@@ -882,7 +1001,11 @@ def main():
              no_db_shape={k: {"shape": [160, 197, 768 // int(k[1:]), int(k[1:])], **v}
                           for k, v in no_db.items()},
              f32_shapes={f"N{TNR_BATCH * TNR_FRAMES}": {
-                 "shape": [TNR_BATCH * TNR_FRAMES, 197, 12, 64], **f32_bwd}}),
+                 "shape": [TNR_BATCH * TNR_FRAMES, 197, 12, 64], **f32_bwd}},
+             f32_registers={t: registers.get(t) for t in F32_TEMPLATES[1:]},
+             f32_turns=f32_turns and {label: {k: v for k, v in res.items() if k.startswith("bwd")}
+                                      for label, res in f32_turns.items()},
+             expt01_train_step=expt01_profile),
     ]
     for name, side, err, err_d1024 in (
             ("flash_attention_fwd", "fwd", flash_err[0], d1024_err[0]),
@@ -1092,7 +1215,7 @@ def train_phase():
         f"MFU {clips_s * TRAIN_FLOPS_PER_CLIP / PEAK_FLOPS[torch.bfloat16]:.4f} "
         f"of {PEAK_FLOPS[torch.bfloat16] / 1e12:.0f} TFLOP/s "
         f"({TRAIN_FLOPS_PER_CLIP / 1e12:.4f} TFLOP a clip); peak memory {peak_gb:.2f} GB")
-    busy_ms, _ = profile_run(lambda: step(batch, step_gen), f"train step, {TRAIN_CLIPS} clips")
+    busy_ms, _, _ = profile_run(lambda: step(batch, step_gen), f"train step, {TRAIN_CLIPS} clips")
     log(f"device busy {busy_ms:.2f} ms of the steady step's {step_s * 1e3:.2f} ms: "
         f"idle share {1 - busy_ms / (step_s * 1e3):.3f}")
 
@@ -1451,7 +1574,7 @@ def train_fused_phase(split):
             f"{TIMED_STEPS} after 2; split path {split['step_ms']:.2f} ms in phase 4), "
             f"{TRAIN_CLIPS / step_s:.2f} clips/s (split {split['clips_s']:.2f}); peak memory "
             f"{peak_gb:.2f} GB")
-        busy_ms, _ = profile_run(lambda: step(batch, step_gen), "fused train step")
+        busy_ms, _, _ = profile_run(lambda: step(batch, step_gen), "fused train step")
         log(f"device busy {busy_ms:.2f} ms of the steady fused step's {step_s * 1e3:.2f} ms: "
             f"idle share {1 - busy_ms / (step_s * 1e3):.3f}")
         # gradients on one clip of every block's qkv projection and norm1,
@@ -1533,7 +1656,7 @@ def ek55_adam_phase():
         f"{EK55_BATCH / step_s:.2f} clips/s, {flops / step_s / 1e12:.2f} TFLOP/s "
         f"({flops / 1e12:.3f} TFLOP a step, {flops / step_s / PEAK_FLOPS[torch.float32]:.4f} of "
         f"the f32 peak); peak memory {peak_gb:.2f} GB")
-    busy_ms, groups = profile_run(lambda: step(batch, step_gen), "ek55 adam train step")
+    busy_ms, groups, _ = profile_run(lambda: step(batch, step_gen), "ek55 adam train step")
     log(f"device busy {busy_ms:.2f} ms of the steady step's {step_s * 1e3:.2f} ms: idle share "
         f"{1 - busy_ms / (step_s * 1e3):.3f}; optimizer {groups.get('optimizer', 0.0):.2f} ms, "
         f"{groups.get('optimizer', 0.0) / busy_ms:.3f} of device time")
@@ -1680,7 +1803,7 @@ def feature_phase():
         f"{flops / step_s / 1e12:.2f} TFLOP/s ({flops / 1e12:.2f} TFLOP a step), "
         f"{flops / step_s / PEAK_FLOPS[torch.float32]:.4f} of the f32 peak; peak memory "
         f"{peak_gb:.2f} GB")
-    busy_ms, _ = profile_run(lambda: step(long_batch, step_gen),
+    busy_ms, _, _ = profile_run(lambda: step(long_batch, step_gen),
                              f"feature train step, {FEAT_BATCH} clips x {LONG_T} features")
     log(f"device busy {busy_ms:.2f} ms of the steady step's {step_s * 1e3:.2f} ms: "
         f"idle share {1 - busy_ms / (step_s * 1e3):.3f}")
@@ -2090,7 +2213,33 @@ TNR_STEPS = TNR_TRAIN_VIDEOS * TNR_ACTIONS // TNR_BATCH
 TNR_EVAL_BATCHES = -(-TNR_EVAL_VIDEOS * TNR_ACTIONS // TNR_BATCH)
 
 
-def train_net_raw_phase(card):
+def profile_expt01_step(step, batch, parent):
+    """One expts/01 train step (the step `train_net` built, on a batch its
+    loader gave) profiled with this checkout's packed kernels and, when
+    `parent` is given, with those built from `parent`: wall and device busy
+    ms, the idle share, the kernel groups and the packed f32 kernels' share
+    of device time. Returns {label: {...}}."""
+    gen = torch.Generator(device="cuda")
+    launch, launch_bwd = fa._launch, fa._launch_bwd
+    out = {}
+    for label, csrc in (("change", _build.CSRC), ("parent", parent)):
+        if csrc is None:
+            continue
+        with mock.patch.object(fa, "_launch", functools.partial(launch, csrc=csrc)), \
+                mock.patch.object(fa, "_launch_bwd", functools.partial(launch_bwd, csrc=csrc)):
+            gen.manual_seed(26)
+            busy, groups, wall = profile_run(lambda: step(batch, gen),
+                                             f"expts/01 train step, {label}'s packed kernels")
+        packed = groups.get("attention kernel", 0.0) + groups.get("attention bwd kernel", 0.0)
+        out[label] = dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
+                          packed_ms=packed, packed_share=packed / busy, groups=groups)
+        log(f"expts/01 train step, {label}'s packed kernels: wall {wall:.2f} ms, device busy "
+            f"{busy:.2f} ms (idle {100 * (1 - busy / wall):.1f}%), packed f32 attention "
+            f"{packed:.2f} ms ({100 * packed / busy:.1f}% of device time)")
+    return out
+
+
+def train_net_raw_phase(card, parent=None):
     """expts/01 from its experiment file through `train_net.cli` at full
     width (ViT-B/16 in f32, AVT-h of 6 layers, 4 heads, inter_dim 2048, 10
     frames at 1 fps, batch 3, 3 crops + flips at eval), on a synthetic EK100
@@ -2106,13 +2255,28 @@ def train_net_raw_phase(card):
     db, f32) launches a step and 12 forward an eval batch, nothing else.
     Prints the reader that ran, the loop's ms a step, the host's decode
     wait a train batch and eval's ms a batch beside the card's name and
-    power limit. Returns the launch counts of each call."""
+    power limit. Then profiles one train step of the model the first call
+    built, on its first batch (`profile_expt01_step`, with the kernels of
+    `parent` too when given). Returns the launch counts of each call and
+    the profile."""
     from avt_tpu_torch import train_net
     from avt_tpu_torch.data import video_decoder
     from avt_tpu_torch.models import import_torch
 
-    counts, inits, readers = {}, [], set()
+    counts, inits, readers, steps = {}, [], set(), []
     real_init, real_build = import_torch.init_from_model, train_net.build_all_datasets
+    real_make_step = train_net.make_train_step
+
+    def recorded_make_step(*args, **kwargs):
+        """The real train step, keeping it and its first batch."""
+        step = real_make_step(*args, **kwargs)
+
+        def recording(batch, generator=None):
+            if not steps:
+                steps.append((step, batch))
+            return step(batch, generator)
+
+        return recording
 
     def recorded_init(model, specs):
         """The real init, then the backbone held against the file."""
@@ -2156,9 +2320,12 @@ def train_net_raw_phase(card):
                 f"data_train.workers={TN_WORKERS}", f"data_eval.workers={TN_WORKERS}",
                 "train.num_epochs=1"]
             with mock.patch.object(train_net, "init_from_model", recorded_init), \
-                    mock.patch.object(train_net, "build_all_datasets", recorded_build):
+                    mock.patch.object(train_net, "build_all_datasets", recorded_build), \
+                    mock.patch.object(train_net, "make_train_step", recorded_make_step):
                 (metric,), rec = run_train_net(argv)
                 counts["train_net_raw"] = rec["launches"]
+                profile = profile_expt01_step(*steps[0], parent)
+                del steps[:]
                 (again,), rec2 = run_train_net(argv)
                 counts["train_net_raw_resume"] = rec2["launches"]
             ckpt_epoch = torch.load(os.path.join(run_dir, CKPT_NAME), map_location="cpu",
@@ -2219,7 +2386,7 @@ def train_net_raw_phase(card):
         f"({1e3 * rec2['eval_s'][0] / TNR_EVAL_BATCHES:.2f} ms a batch); final_acc/action/AR5 "
         f"{again:.4f} (first run {metric:.4f}); cli {rec2['wall_s']:.1f} s; launches "
         f"{rec2['launches']}")
-    return counts
+    return counts, profile
 
 if __name__ == "__main__":
     main()

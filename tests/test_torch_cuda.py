@@ -22,6 +22,18 @@ def _qkv(N, T, H, D, dtype, device, seed=0):
     return torch.from_numpy(x).to(device=device, dtype=getattr(torch, dtype))
 
 
+def _f32_grid(existing):
+    """The f32 form on the bf16 form's grid (cases not already in `existing`):
+    every sequence length at every head dim, causal and not, the bias on at
+    odd T; one frame, an odd frame count (db) and more blocks than the card
+    holds at T=197; and expts/01's eval batch of 180 frames."""
+    grid = [("float32", D, T, causal, T % 2 == 1, 6)
+            for D in (32, 64, 128) for T in (5, 17, 197, 300, 600) for causal in (False, True)]
+    grid += [("float32", 64, 197, causal, True, N) for N in (1, 5, 64) for causal in (False, True)]
+    grid += [("float32", 64, 197, False, True, 180)]
+    return existing + [case for case in grid if case not in existing]
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -30,7 +42,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,D,T,causal,bias,N", [
+@pytest.mark.parametrize("dtype,D,T,causal,bias,N", _f32_grid([
     ("bfloat16", 64, 197, False, False, 6), ("bfloat16", 64, 197, False, True, 6),
     ("float32", 64, 197, False, True, 6), ("bfloat16", 32, 197, True, False, 6),
     ("bfloat16", 128, 197, True, True, 6), ("float32", 128, 197, False, False, 6),
@@ -43,7 +55,7 @@ def cuda_device():
     ("bfloat16", 128, 17, False, False, 6), ("bfloat16", 32, 300, True, True, 6),
     ("bfloat16", 64, 300, False, True, 6), ("bfloat16", 128, 300, True, False, 6),
     ("bfloat16", 64, 197, True, True, 1), ("bfloat16", 64, 197, False, True, 64),
-])
+]))
 def test_cuda_kernel_matches_plain_version(cuda_device, dtype, D, T, causal, bias, N):
     H = 768 // D
     x = _qkv(N, T, H, D, dtype, cuda_device, seed=3)
@@ -73,7 +85,7 @@ def _rel_err(out, ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,D,T,causal,bias,N", [
+@pytest.mark.parametrize("dtype,D,T,causal,bias,N", _f32_grid([
     ("bfloat16", 64, 197, False, True, 6), ("float32", 64, 197, False, True, 6),
     ("bfloat16", 32, 197, False, False, 6), ("bfloat16", 32, 197, True, False, 6),
     ("bfloat16", 128, 197, False, False, 6), ("float32", 128, 197, True, True, 6),
@@ -90,7 +102,7 @@ def _rel_err(out, ref):
     ("bfloat16", 64, 300, True, True, 6), ("bfloat16", 128, 300, False, True, 6),
     ("bfloat16", 64, 197, False, True, 5), ("bfloat16", 64, 197, True, True, 1),
     ("bfloat16", 64, 197, False, True, 64),
-])
+]))
 def test_cuda_backward_matches_plain_version(cuda_device, dtype, D, T, causal, bias, N):
     H = 768 // D
     x = _qkv(N, T, H, D, dtype, cuda_device, seed=5)

@@ -2,7 +2,7 @@
 """Times the port's packed attention kernels and the fused qkv projection +
 attention kernel in turns on one GPU.
 
-    python3 tools/torch_packed_attention_turns.py [--source LABEL=DIR] ...
+    python3 tools/torch_packed_attention_turns.py [--f32] [--source LABEL=DIR] ...
                                                   [--unchecked LABEL=DIR] ...
 
 Builds `short_attention_fwd.cu` and `short_attention_bwd.cu` (the packed
@@ -18,8 +18,11 @@ change, then the same in reverse, so each label gets two numbers from one
 card), the packed backward also by side from a profile
 (`chip_smoke.packed_side_ms`), the fused kernel with `chip_smoke.time_fused`
 (its plain, library and split times once, in the first turn). A source
-given with --unchecked is timed without the checks (a phase skip). Ends with
-one JSON line of the times. Needs a CUDA device; run it from the repository root.
+given with --unchecked is timed without the checks (a phase skip). With
+--f32 the packed kernels' f32 forms are checked (f32 tolerance) and timed
+instead, at expts/01's shapes (the forward at 30 and 180 frames, the
+backward with db at 30), and the fused kernel is left out. Ends with one
+JSON line of the times. Needs a CUDA device; run it from the repository root.
 """
 import argparse
 import json
@@ -61,13 +64,17 @@ BWD_SHAPES = {  # label: (N, T, H, D, with_db)
     "no-db D64": (160, 197, 12, 64, False), "no-db D32": (160, 197, 24, 32, False),
     "no-db D128": (160, 197, 6, 128, False),
 }
+# --f32: expts/01's f32 ViT, a train step of 3 clips x 10 frames and an eval
+# batch of 3 clips x 6 views x 10 frames
+F32_FWD_SHAPES = {"N30": (30, 197, 12, 64, True), "N180": (180, 197, 12, 64, True)}
+F32_BWD_SHAPES = {"db N30": (30, 197, 12, 64, True)}
 
 
-def check_source(label, csrc):
+def check_source(label, csrc, dtype=BF16):
     """Both kernels of one source directory against the plain versions."""
-    tol = cs.TOL[BF16]
+    tol = cs.TOL[dtype]
     for N, T, H, D, causal, with_bias in CHECKS:
-        qkv, dout, bias = cs.bwd_inputs(N, T, H, D, BF16, seed=31)
+        qkv, dout, bias = cs.bwd_inputs(N, T, H, D, dtype, seed=31)
         bias = bias if with_bias else None
         ref_in = qkv if bias is None else qkv + bias
         out = fa._launch(qkv, bias, H, causal, csrc)
@@ -108,12 +115,14 @@ def time_fused_turns(sources):
     return results
 
 
-def time_turns(sources):
+def time_turns(sources, dtype=BF16):
     """label -> shape -> {"ms": [first turn, second turn], backward sides}."""
     labels = list(sources) + list(sources)[::-1]
     results = {label: {} for label in sources}
-    for shape, (N, T, H, D, flag) in FWD_SHAPES.items():
-        qkv, _, bias = cs.bwd_inputs(N, T, H, D, BF16, seed=33)
+    fwd_shapes, bwd_shapes = ((FWD_SHAPES, BWD_SHAPES) if dtype == BF16
+                              else (F32_FWD_SHAPES, F32_BWD_SHAPES))
+    for shape, (N, T, H, D, flag) in fwd_shapes.items():
+        qkv, _, bias = cs.bwd_inputs(N, T, H, D, dtype, seed=33)
         bias = bias if flag else None
         for label in labels:
             res = results[label].setdefault(f"fwd {shape}", {"ms": []})
@@ -121,8 +130,8 @@ def time_turns(sources):
         cs.log(f"fwd {shape}: " + "; ".join(
             f"{label} {'/'.join(f'{x:.4f}' for x in results[label][f'fwd {shape}']['ms'])}"
             for label in sources))
-    for shape, (N, T, H, D, with_db) in BWD_SHAPES.items():
-        qkv, dout, bias = cs.bwd_inputs(N, T, H, D, BF16, seed=34)
+    for shape, (N, T, H, D, with_db) in bwd_shapes.items():
+        qkv, dout, bias = cs.bwd_inputs(N, T, H, D, dtype, seed=34)
         bias = bias if with_db else None
         for label in labels:
             def run(csrc=sources[label]):
@@ -147,7 +156,10 @@ def main():
     ap.add_argument("--unchecked", action="append", default=[], metavar="LABEL=DIR",
                     help="as --source, but timed without the checks: a phase skip, an "
                          "edited copy that leaves out a part of the work")
+    ap.add_argument("--f32", action="store_true",
+                    help="the packed kernels' f32 forms at expts/01's shapes, no fused kernel")
     args = ap.parse_args()
+    dtype = torch.float32 if args.f32 else BF16
     if not torch.cuda.is_available():
         sys.exit("torch_packed_attention_turns: no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -162,20 +174,24 @@ def main():
         if spec in args.unchecked:
             unchecked.add(label)
     sources["change"] = _build.CSRC
+    kernels = (fa.KERNEL, fa.BWD_KERNEL) if args.f32 else (fa.KERNEL, fa.BWD_KERNEL, fa.FUSED_KERNEL)
     for label, csrc in sources.items():
-        for name, text in _build.build((fa.KERNEL, fa.BWD_KERNEL, fa.FUSED_KERNEL), csrc).items():
+        for name, text in _build.build(kernels, csrc).items():
             cs.log_registers(f"{label} {name}", text)
         cs.log(f"{label}:")
-        cs.log_residency(csrc)
+        # another source may predate the packed kernels' storage-type argument
+        cs.log_residency(csrc, f32=label == "change")
     for label, csrc in sources.items():
         if label in unchecked:
             cs.log(f"{label}: not checked (timed only)")
             continue
-        check_source(label, csrc)
-        check_fused_source(label, csrc)
-    results = time_turns(sources)
-    for label, res in time_fused_turns(sources).items():
-        results[label].update(res)
+        check_source(label, csrc, dtype)
+        if not args.f32:
+            check_fused_source(label, csrc)
+    results = time_turns(sources, dtype)
+    if not args.f32:
+        for label, res in time_fused_turns(sources).items():
+            results[label].update(res)
     print(json.dumps(results))
 
 
