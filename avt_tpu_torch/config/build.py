@@ -7,10 +7,13 @@ the reference's func/train.py:539-844 (transforms -> datasets -> model ->
 parameter groups -> optimizer) as build functions over the composed
 config dict, onto the port's modules.
 
-`build_model` builds what the port's zoo holds: the identity and ViT-B
-(`avt_b`) backbones, the identity aggregators, AVT-h at a one-step rollout
-and a linear classifier for every task. Every other module or option
-raises NotImplementedError naming the ROADMAP item that ports it.
+`build_model` builds what the port's zoo holds: the identity and ViT
+(`avt_b*`) backbones; the identity, mean, RULSTM and Transformer
+aggregators; AVT-h at a one-step rollout, the MLP and identity future
+predictors; the linear and MLP classifiers (on the first task only under
+`use_cls_mappings`); and AVTModel's options. The conv backbones (Queue 1.6)
+and AVT-h beyond one step (its rollout, KV cache and cluster-id inputs,
+Queue 1.5) raise NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -207,32 +210,31 @@ _AVTH_OFF = {"drop_last_n": 0, "quantize_before_rollout": False, "output_attenti
              "rollout_mode": "recompute"}
 
 
+_AGGREGATORS = ("IdentityAgg", "MeanAgg", "RULSTMAgg", "TransformerAgg")
+_CLASSIFIERS = ("LinearClassifier", "MLPClassifier")
+
+
+def _zoo(target: str, names, what: str):
+    """The port's class of an `avt_tpu.models.<name>` target among `names`."""
+    from avt_tpu_torch import models
+
+    if target.startswith("avt_tpu.models.") and _short(target) in names:
+        return getattr(models, _short(target))
+    raise _not_ported(f"{what} {_short(target)}", _ZOO_ITEM)
+
+
 def build_model(cfg: Dict, num_classes: Dict[str, int], class_mappings: Dict, *,
                 device=None, generator: Optional[torch.Generator] = None):
     """The AVTModel of cfg['model'] on `device` (CUDA unless the CPU is
     asked for), in eval mode, its weights drawn from `generator` (on that
     device; seeded from cfg['seed'] when None) with the JAX package's
     distributions (`flagship.init_weights`)."""
-    from avt_tpu_torch.models import (
-        AVTh,
-        AVTModel,
-        IdentityAgg,
-        IdentityBackbone,
-        LinearClassifier,
-        ViT,
-    )
+    from avt_tpu_torch import models
     from avt_tpu_torch.models.flagship import init_weights
     from avt_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(device)
     mcfg = cfg["model"]
-    for key, item in (("intermediate_featdim", "mapper_to_inter"),
-                      ("project_dim_for_nce", "project_mlp (NCE)")):
-        if mcfg.get(key):
-            raise _not_ported(f"model.{key} ({item})", _MODEL_ITEM)
-    for key in ("use_cls_mappings", "add_regression_head"):
-        if mcfg.get(key):
-            raise _not_ported(f"model.{key}", _MODEL_ITEM)
 
     def sub(group: str) -> Dict:
         c = dict(mcfg[group])
@@ -243,76 +245,89 @@ def build_model(cfg: Dict, num_classes: Dict[str, int], class_mappings: Dict, *,
     btarget = bcfg.pop("_target_")
     drop_n = mcfg.get("backbone_last_n_modules_to_drop", 0)
     if btarget == "avt_tpu.models.IdentityBackbone":
-        backbone, backbone_dim = IdentityBackbone(), mcfg["backbone_dim"]
+        backbone, backbone_dim = models.IdentityBackbone(), mcfg["backbone_dim"]
     elif btarget == "avt_tpu.models.ViT":
         if drop_n != 0:
             raise ValueError(
                 f"backbone_last_n_modules_to_drop={drop_n} with ViT: the backbone is built "
                 "headless (the reference's N=0); set model.backbone_last_n_modules_to_drop=0")
-        if bcfg.get("drop_rate", 0.0) or bcfg.get("gelu_approx") is not None:
-            raise _not_ported("ViT drop_rate and gelu_approx", _MODEL_ITEM)
-        bcfg.pop("drop_rate", None)
-        bcfg.pop("gelu_approx", None)
         if "dtype" in bcfg:
             bcfg["dtype"] = None if bcfg["dtype"] is None else _torch_dtype(bcfg["dtype"])
-        backbone = ViT(**bcfg, device=device)
+        backbone = models.ViT(**bcfg, device=device)
         backbone_dim = backbone.embed_dim
     else:
         raise _not_ported(f"backbone {_short(btarget)}", _ZOO_ITEM)
+    inter_dim = mcfg.get("intermediate_featdim") or backbone_dim
 
     def build_agg(group: str, in_features: int):
         c = sub(group)
-        t = c.pop("_target_")
-        if t != "avt_tpu.models.IdentityAgg":
-            raise _not_ported(f"temporal aggregator {_short(t)}", _ZOO_ITEM)
-        if c:
-            raise TypeError(f"IdentityAgg takes no options, got {sorted(c)}")
-        return IdentityAgg(in_features=in_features)
+        cls = _zoo(c.pop("_target_"), _AGGREGATORS, "temporal aggregator")
+        if cls is models.IdentityAgg or cls is models.MeanAgg:
+            if c:
+                raise TypeError(f"{cls.__name__} takes no options, got {sorted(c)}")
+            return cls(in_features=in_features)
+        return cls(in_features=in_features, device=device, **c)
 
-    temporal_aggregator = build_agg("temporal_aggregator", backbone_dim)
+    temporal_aggregator = build_agg("temporal_aggregator", inter_dim)
+    agg_dim = temporal_aggregator.output_dim
+    agg_dim_out = inter_dim if mcfg.get("same_temp_agg_dim") else agg_dim
 
     fcfg = sub("future_predictor")
     ftarget = fcfg.pop("_target_")
     fcfg.pop("future_pred_loss_wt", None)  # inert in the reference too
-    if ftarget != "avt_tpu.models.AVTh":
+    if ftarget == "avt_tpu.models.AVTh":
+        if fcfg.get("assign_to_centroids") is not None or fcfg.get("centroids") is not None:
+            raise _not_ported("AVT-h on cluster-id inputs (centroids)", _MODEL_ITEM)
+        fcfg.pop("assign_to_centroids", None)
+        fcfg.pop("centroids", None)
+        fcfg.pop("num_cluster_centers", None)
+        for key, off in _AVTH_OFF.items():
+            if fcfg.pop(key, off) != off:
+                raise _not_ported(f"AVT-h {key}", _MODEL_ITEM)
+        if fcfg.get("output_len", -1) > 1 or fcfg.get("output_len_eval", -1) > 1:
+            raise _not_ported("AVT-h rollouts longer than one step", _MODEL_ITEM)
+        loss_cfg = fcfg.pop("future_pred_loss", None)
+        floss = instantiate(loss_cfg, reduction="none") if loss_cfg else None
+        if "dtype" in fcfg:
+            fcfg["dtype"] = None if fcfg["dtype"] is None else _torch_dtype(fcfg["dtype"])
+        future_predictor = models.AVTh(in_features=agg_dim_out, future_pred_loss=floss,
+                                       device=device, **fcfg)
+    elif ftarget == "avt_tpu.models.IdentityFuture":
+        future_predictor = models.IdentityFuture(in_features=agg_dim_out)
+    elif ftarget == "avt_tpu.models.MLPFuture":
+        future_predictor = models.MLPFuture(in_features=agg_dim_out, device=device, **fcfg)
+    else:
         raise _not_ported(f"future predictor {_short(ftarget)}", _ZOO_ITEM)
-    if fcfg.get("assign_to_centroids") is not None or fcfg.get("centroids") is not None:
-        raise _not_ported("AVT-h on cluster-id inputs (centroids)", _MODEL_ITEM)
-    fcfg.pop("assign_to_centroids", None)
-    fcfg.pop("centroids", None)
-    fcfg.pop("num_cluster_centers", None)
-    for key, off in _AVTH_OFF.items():
-        if fcfg.pop(key, off) != off:
-            raise _not_ported(f"AVT-h {key}", _MODEL_ITEM)
-    if fcfg.get("output_len", -1) > 1 or fcfg.get("output_len_eval", -1) > 1:
-        raise _not_ported("AVT-h rollouts longer than one step", _MODEL_ITEM)
-    loss_cfg = fcfg.pop("future_pred_loss", None)
-    floss = instantiate(loss_cfg, reduction="none") if loss_cfg else None
-    if "dtype" in fcfg:
-        fcfg["dtype"] = None if fcfg["dtype"] is None else _torch_dtype(fcfg["dtype"])
-    future_predictor = AVTh(in_features=backbone_dim, future_pred_loss=floss, device=device,
-                            **fcfg)
     fut_dim = future_predictor.output_dim
     after_agg = build_agg("temporal_aggregator_after_future_pred", fut_dim)
+    cls_input_dim = after_agg.output_dim
 
     ccfg = sub("classifier")
-    ctarget = ccfg.pop("_target_")
-    if ctarget != "avt_tpu.models.LinearClassifier":
-        raise _not_ported(f"classifier {_short(ctarget)}", _ZOO_ITEM)
-    classifiers = {task: LinearClassifier(fut_dim, n, device=device, **ccfg)
-                   for task, n in num_classes.items()}
-    model = AVTModel(
+    cls = _zoo(ccfg.pop("_target_"), _CLASSIFIERS, "classifier")
+    classifiers = {}
+    for i, (task, n) in enumerate(num_classes.items()):
+        if mcfg.get("use_cls_mappings") and i > 0:
+            break  # the other tasks are marginalised from the first
+        classifiers[task] = cls(cls_input_dim, n, device=device, **ccfg)
+    model = models.AVTModel(
         backbone=backbone,
         temporal_aggregator=temporal_aggregator,
         future_predictor=future_predictor,
         temporal_aggregator_after_future_pred=after_agg,
         classifiers=classifiers,
         num_classes=tuple(num_classes.items()),
+        class_mappings=tuple(class_mappings.items()) if mcfg.get("use_cls_mappings") else (),
         backbone_dim=backbone_dim,
+        intermediate_featdim=mcfg.get("intermediate_featdim"),
+        temp_agg_output_dim=agg_dim,
+        same_temp_agg_dim=mcfg.get("same_temp_agg_dim", False),
+        project_dim_for_nce=mcfg.get("project_dim_for_nce"),
         dropout=mcfg.get("dropout", 0.0),
         classifier_on_past=mcfg.get("classifier_on_past", False),
+        cls_input_dim=cls_input_dim,
+        add_regression_head=mcfg.get("add_regression_head", False),
+        device=device,
     )
-    del class_mappings  # read only by use_cls_mappings, which raises above
     if generator is None:
         generator = torch.Generator(device=device)
         generator.manual_seed(int(cfg.get("seed", 42)))

@@ -1,16 +1,25 @@
-"""Model zoo: the modules of the AVT-b + AVT-h flagship and of its feature
-path (identity backbone + AVT-h)."""
+"""Model zoo: the AVT-b + AVT-h flagship and its feature path (identity
+backbone + AVT-h), the Mean, RULSTM and Transformer aggregators, the MLP
+and identity future predictors and the MLP classifier."""
 from avt_tpu_torch.models.backbones import IdentityBackbone
 from avt_tpu_torch.models.base import AVTModel
-from avt_tpu_torch.models.classifiers import LinearClassifier
+from avt_tpu_torch.models.classifiers import LinearClassifier, MLPClassifier
 from avt_tpu_torch.models.flagship import build_avt
-from avt_tpu_torch.models.future import AVTh
-from avt_tpu_torch.models.layers import GPT2Block, GPT2Core, SelfAttention, gelu_new
-from avt_tpu_torch.models.temporal_agg import IdentityAgg
+from avt_tpu_torch.models.future import AVTh, IdentityFuture, MLPFuture
+from avt_tpu_torch.models.layers import (
+    EncoderBlock,
+    GPT2Block,
+    GPT2Core,
+    SelfAttention,
+    gelu_new,
+    sincos_positional_encoding,
+)
+from avt_tpu_torch.models.temporal_agg import IdentityAgg, MeanAgg, RULSTMAgg, TransformerAgg
 from avt_tpu_torch.models.vit import ViT, ViTAttention, ViTBlock
 
 __all__ = [
-    "AVTModel", "AVTh", "GPT2Block", "GPT2Core", "IdentityAgg", "IdentityBackbone",
-    "LinearClassifier", "SelfAttention", "ViT", "ViTAttention", "ViTBlock", "build_avt",
-    "gelu_new",
+    "AVTModel", "AVTh", "EncoderBlock", "GPT2Block", "GPT2Core", "IdentityAgg",
+    "IdentityBackbone", "IdentityFuture", "LinearClassifier", "MLPClassifier", "MLPFuture",
+    "MeanAgg", "RULSTMAgg", "SelfAttention", "TransformerAgg", "ViT", "ViTAttention",
+    "ViTBlock", "build_avt", "gelu_new", "sincos_positional_encoding",
 ]

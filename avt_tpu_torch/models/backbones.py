@@ -6,11 +6,14 @@ pre-extracted-feature configurations (expts/02-06 and 08: features of
 """
 from __future__ import annotations
 
+from typing import Optional
+
+import torch
 from torch import nn
 
 
 class IdentityBackbone(nn.Module):
     """Pass-through for pre-extracted features; it has no parameters."""
 
-    def forward(self, video):
+    def forward(self, video, generator: Optional[torch.Generator] = None):
         return video

@@ -1,15 +1,23 @@
 """JAX package parameters -> the port's state_dict.
 
 The inverse of avt_tpu/models/import_torch.py (`timm_vit_to_flax`,
-`gpt2_to_flax`, `avt_checkpoint_to_flax`), kept here as the port's own copy
-of the name mapping. The input is a flax parameter tree as nested dicts of
-numpy arrays (a `{"params": ...}` wrapper is unwrapped); the output uses the
-reference's torch names: timm ViT, HF GPT-2 (Conv1D (in, out) weights),
-`classifiers.<task>`.
+`gpt2_to_flax`, `transformer_agg_to_flax`, `rulstm_to_flax`,
+`avt_checkpoint_to_flax`), kept here as the port's own copy of the name
+mapping. The input is a flax parameter tree as nested dicts of numpy arrays
+(a `{"params": ...}` wrapper is unwrapped); the output uses the reference's
+torch names: timm ViT, HF GPT-2 (Conv1D (in, out) weights), the Transformer
+aggregator's nn.TransformerEncoder, RULSTM's nn.LSTM layers,
+`future_predictor.model.<2i>`, `classifiers.<task>` (the MLP classifier's
+Linears at `classifiers.<task>.model.<2i>`, the port's own names), and
+AVTModel's `mapper_to_inter`, `reset_temp_agg_feat_dim`, `project_mlp.{0,2}`
+and `regression_head`.
 
 Layout changes: flax Dense kernel (in, out) -> torch Linear weight (out, in);
 flax Conv kernel (kh, kw, in, out) -> torch (out, in, kh, kw); LayerNorm
-scale -> weight. GPT-2's Conv1D weights keep the flax layout.
+scale -> weight. GPT-2's Conv1D weights keep the flax layout. An LSTM cell's
+per-gate kernels are packed [i|f|g|o] into weight_ih_l0 / weight_hh_l0; the
+cell's one bias (the JAX cell folds torch's two into its h side) becomes
+bias_hh_l0, and bias_ih_l0 is zeros.
 """
 from __future__ import annotations
 
@@ -87,6 +95,79 @@ def gpt2_from_jax(p: Mapping) -> Dict[str, np.ndarray]:
     return sd
 
 
+def encoder_block_from_jax(p: Mapping) -> Dict[str, np.ndarray]:
+    """avt_tpu EncoderBlock params -> nn.TransformerEncoderLayer names."""
+    sd: Dict[str, np.ndarray] = {
+        "self_attn.in_proj_weight": _t(p["attn"]["qkv"]["kernel"]),
+        "self_attn.in_proj_bias": _np(p["attn"]["qkv"]["bias"]),
+    }
+    _linear(sd, "self_attn.out_proj", p["attn"]["proj"])
+    _linear(sd, "linear1", p["ffn_fc"])
+    _linear(sd, "linear2", p["ffn_proj"])
+    _ln(sd, "norm1", p["ln_1"])
+    _ln(sd, "norm2", p["ln_2"])
+    return sd
+
+
+def transformer_agg_from_jax(p: Mapping) -> Dict[str, np.ndarray]:
+    """avt_tpu TransformerAgg params -> the reference Transformer's names.
+    The mask embedding exists only when the JAX model was initialised in
+    train mode with a cloze ratio; without it none is emitted."""
+    sd: Dict[str, np.ndarray] = {}
+    _linear(sd, "downproject", p["downproject"])
+    for i in _indices(p, "layer_"):
+        sd.update(_prefixed(f"transformer_encoder.layers.{i}.",
+                            encoder_block_from_jax(p[f"layer_{i}"])))
+    _ln(sd, "transformer_encoder.norm", p["norm"])
+    if "mask_embed" in p:
+        sd["extra_embeddings.weight"] = _np(p["mask_embed"]).reshape(1, -1)
+    return sd
+
+
+def _lstm_from_jax(sd: Dict, dst: str, p: Mapping) -> None:
+    sd[f"{dst}.weight_ih_l0"] = np.concatenate([_t(p[f"i{g}"]["kernel"]) for g in "ifgo"])
+    sd[f"{dst}.weight_hh_l0"] = np.concatenate([_t(p[f"h{g}"]["kernel"]) for g in "ifgo"])
+    bias = np.concatenate([_np(p[f"h{g}"]["bias"]) for g in "ifgo"])
+    sd[f"{dst}.bias_ih_l0"] = np.zeros_like(bias)
+    sd[f"{dst}.bias_hh_l0"] = bias
+
+
+def rulstm_from_jax(p: Mapping) -> Dict[str, np.ndarray]:
+    """avt_tpu RULSTMAgg params {rolling, unrolling} -> rolling_lstm.* and
+    unrolling_lstm.* (torch nn.LSTM names, gates [i|f|g|o])."""
+    sd: Dict[str, np.ndarray] = {}
+    _lstm_from_jax(sd, "rolling_lstm", p["rolling"])
+    _lstm_from_jax(sd, "unrolling_lstm", p["unrolling"])
+    return sd
+
+
+def agg_from_jax(p: Mapping) -> Dict[str, np.ndarray]:
+    if "downproject" in p:
+        return transformer_agg_from_jax(p)
+    if "rolling" in p:
+        return rulstm_from_jax(p)
+    raise NotImplementedError(f"no conversion for an aggregator with {sorted(p)[:5]}")
+
+
+def mlp_from_jax(p: Mapping) -> Dict[str, np.ndarray]:
+    """fc_<i> Dense layers (MLPFuture, MLPClassifier) -> a Sequential's
+    Linears at model.<2i> (a ReLU between each two)."""
+    sd: Dict[str, np.ndarray] = {}
+    for i in _indices(p, "fc_"):
+        _linear(sd, f"model.{2 * i}", p[f"fc_{i}"])
+    return sd
+
+
+def head_from_jax(p: Mapping) -> Dict[str, np.ndarray]:
+    """A classifier: LinearClassifier's `fc` or MLPClassifier's `fc_<i>`."""
+    if "fc" in p:
+        sd = {"weight": _t(p["fc"]["kernel"])}
+        if "bias" in p["fc"]:
+            sd["bias"] = _np(p["fc"]["bias"])
+        return sd
+    return mlp_from_jax(p)
+
+
 def avth_from_jax(p: Mapping) -> Dict[str, np.ndarray]:
     """avt_tpu AVTh params (linear encoder/decoder mode) -> the port's AVTh."""
     sd = {f"gpt_model.{k}": v for k, v in gpt2_from_jax(p["gpt"]).items()}
@@ -99,19 +180,36 @@ def _prefixed(prefix: str, sd: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray
     return {f"{prefix}{k}": v for k, v in sd.items()}
 
 
+# AVTModel's top-level subtrees besides the classifiers_<task> ones
+_AVT_KEYS = ("backbone", "future_predictor", "temporal_aggregator",
+             "temporal_aggregator_after_future_pred", "mapper_to_inter",
+             "reset_temp_agg_feat_dim", "project_mlp", "regression_head")
+
+
 def avt_from_jax(p: Mapping) -> Dict[str, np.ndarray]:
     """avt_tpu AVTModel params -> the reference BaseModel's names."""
-    handled = {"backbone", "future_predictor"}
+    handled = set(_AVT_KEYS)
     sd: Dict[str, np.ndarray] = {}
     if "backbone" in p:
         sd.update(_prefixed("backbone.model.", vit_from_jax(p["backbone"])))
     if "future_predictor" in p:
-        sd.update(_prefixed("future_predictor.", avth_from_jax(p["future_predictor"])))
+        fp = p["future_predictor"]
+        sd.update(_prefixed("future_predictor.",
+                            avth_from_jax(fp) if "gpt" in fp else mlp_from_jax(fp)))
+    for agg in ("temporal_aggregator", "temporal_aggregator_after_future_pred"):
+        if agg in p:
+            sd.update(_prefixed(f"{agg}.", agg_from_jax(p[agg])))
+    for name in ("mapper_to_inter", "reset_temp_agg_feat_dim", "regression_head"):
+        if name in p:
+            _linear(sd, name, p[name])
+    if "project_mlp" in p:
+        _linear(sd, "project_mlp.0", p["project_mlp"]["fc1"])
+        _linear(sd, "project_mlp.2", p["project_mlp"]["fc2"])
     for key, sub in p.items():
         m = re.fullmatch(r"classifiers_(.+)", key)
         if m:
             handled.add(key)
-            _linear(sd, f"classifiers.{m.group(1)}", sub["fc"])
+            sd.update(_prefixed(f"classifiers.{m.group(1)}.", head_from_jax(sub)))
     leftovers = sorted(set(p) - handled)
     if leftovers:
         raise NotImplementedError(f"no conversion for {leftovers} yet")
@@ -119,13 +217,14 @@ def avt_from_jax(p: Mapping) -> Dict[str, np.ndarray]:
 
 
 def params_from_jax(params: Mapping) -> StateDict:
-    """A JAX package parameter tree (full AVTModel, ViT, GPT2Core or AVTh)
-    -> the port's state_dict of f32 CPU tensors. An AVTModel on the identity
-    backbone (the feature path) has no `backbone` subtree and maps to no
-    `backbone.` names."""
+    """A JAX package parameter tree (full AVTModel, ViT, GPT2Core, AVTh,
+    TransformerAgg, RULSTMAgg, EncoderBlock, MLPFuture or MLPClassifier)
+    -> the port's state_dict of f32 CPU tensors. An AVTModel on
+    the identity backbone (the feature path) has no `backbone` subtree and
+    maps to no `backbone.` names."""
     if set(params) == {"params"}:
         params = params["params"]
-    if "backbone" in params or "future_predictor" in params:
+    if any(k in _AVT_KEYS or k.startswith("classifiers_") for k in params):
         sd = avt_from_jax(params)
     elif "cls_token" in params:
         sd = vit_from_jax(params)
@@ -133,15 +232,27 @@ def params_from_jax(params: Mapping) -> StateDict:
         sd = gpt2_from_jax(params)
     elif "gpt" in params:
         sd = avth_from_jax(params)
+    elif "downproject" in params or "rolling" in params:
+        sd = agg_from_jax(params)
+    elif "ffn_fc" in params:
+        sd = encoder_block_from_jax(params)
+    elif "fc_0" in params:
+        sd = mlp_from_jax(params)
     else:
         raise ValueError(f"unrecognised parameter tree (keys {sorted(params)[:5]})")
     return {k: torch.from_numpy(v) for k, v in sd.items()}
 
 
 def load_jax_params(model: nn.Module, params: Mapping) -> nn.Module:
-    """Loads a JAX package parameter tree into `model` (strict)."""
+    """Loads a JAX package parameter tree into `model`: strict, but for the
+    Transformer aggregator's mask embedding, which a JAX model has only when
+    it was initialised in train mode (the model's own draw is kept then)."""
     sd = params_from_jax(params)
-    model.load_state_dict(sd, strict=True)
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    missing = [k for k in missing if not k.endswith("extra_embeddings.weight")]
+    if missing or unexpected:
+        raise RuntimeError(f"load_jax_params: missing {missing[:5]}, unexpected "
+                           f"{unexpected[:5]}")
     return model
 
 
@@ -208,6 +319,8 @@ def _factored_from_jax(row: Mapping, col: Mapping, v: Mapping):
     probe(col), probe(v)
     out = {"row": {}, "col": {}, "v": {}}
     for name, x in placed.items():
+        if name.endswith("bias_ih_l0"):  # an LSTM's buffer: no optimizer state
+            continue
         i = int(x.reshape(-1)[0])
         r, c, full = leaves[i], leaves[n + i], leaves[2 * n + i]
         layout = tuple(x.shape)

@@ -3,10 +3,14 @@ feature-path variant, the identity backbone + AVT-h of expts/02.
 
 Counterpart of avt_tpu/models/flagship.py:build_avt. Weights are drawn from
 the JAX package's distributions (not its values): N(0, 0.01) for the ViT,
-AVT-h encoder/decoder and classifier linears,
-trunc-normal(0.02) for cls_token and pos_embed, flax's lecun-normal for the
-patch embedding, N(0, 0.02) for the GPT-2 weights and wpe; biases 0,
-LayerNorms at weight 1, bias 0.
+AVT-h encoder/decoder and classifier linears, and for every other Linear of
+the reference (the MLP heads, the Transformer aggregator's, AVTModel's
+optional heads); trunc-normal(0.02) for cls_token and pos_embed, flax's
+lecun-normal for the patch embedding, N(0, 0.02) for the GPT-2 weights and
+wpe and the cloze mask embedding, xavier-uniform for the Transformer
+aggregator's in_proj_weight; flax's LSTM cell defaults for the RULSTM:
+lecun-normal input kernels, orthogonal recurrent ones (each gate's block);
+biases 0, LayerNorms at weight 1, bias 0.
 """
 from __future__ import annotations
 
@@ -20,8 +24,13 @@ from avt_tpu_torch.models.backbones import IdentityBackbone
 from avt_tpu_torch.models.base import AVTModel
 from avt_tpu_torch.models.classifiers import LinearClassifier
 from avt_tpu_torch.models.future import AVTh
-from avt_tpu_torch.models.layers import init_normal_, lecun_normal_, trunc_normal_
-from avt_tpu_torch.models.temporal_agg import IdentityAgg
+from avt_tpu_torch.models.layers import (
+    EncoderSelfAttention,
+    init_normal_,
+    lecun_normal_,
+    trunc_normal_,
+)
+from avt_tpu_torch.models.temporal_agg import IdentityAgg, LSTMLayer, TransformerAgg
 from avt_tpu_torch.models.vit import ViT
 from avt_tpu_torch.utils.device import resolve_device
 
@@ -30,9 +39,33 @@ def _feat_loss(pred, tgt):
     return mse(pred, tgt, reduction="none")
 
 
+def _init_lstm(lstm: LSTMLayer, generator: torch.Generator) -> None:
+    """flax's OptimizedLSTMCell defaults, gate by gate: lecun-normal input
+    kernels, orthogonal recurrent kernels, zero biases."""
+    lecun_normal_(lstm.weight_ih_l0, lstm.weight_ih_l0.shape[1], generator)
+    for gate in lstm.weight_hh_l0.chunk(4, dim=0):
+        nn.init.orthogonal_(gate, generator=generator)
+    nn.init.zeros_(lstm.bias_ih_l0)
+    nn.init.zeros_(lstm.bias_hh_l0)
+
+
+def init_aggregator(agg: nn.Module, generator: torch.Generator) -> None:
+    """A temporal aggregator's parameters: N(0, 0.01) Linears, the RULSTM's
+    LSTM cells, xavier-uniform in_proj weights, N(0, 0.02) mask embedding."""
+    init_normal_(agg, 0.01, generator)
+    for sub in agg.modules():
+        if isinstance(sub, LSTMLayer):
+            _init_lstm(sub, generator)
+        elif isinstance(sub, EncoderSelfAttention):
+            nn.init.xavier_uniform_(sub.in_proj_weight, generator=generator)
+            nn.init.zeros_(sub.in_proj_bias)
+    if isinstance(agg, TransformerAgg) and hasattr(agg, "extra_embeddings"):
+        nn.init.normal_(agg.extra_embeddings.weight, std=0.02, generator=generator)
+
+
 def init_weights(model: AVTModel, generator: torch.Generator) -> None:
-    """Draws every parameter of a flagship-shaped model afresh (the ViT's
-    only when the backbone is one)."""
+    """Draws every parameter of the model afresh, each module's with the
+    JAX package's distribution (the ViT's only when the backbone is one)."""
     with torch.no_grad():
         vit = model.backbone["model"]
         if isinstance(vit, ViT):
@@ -43,10 +76,19 @@ def init_weights(model: AVTModel, generator: torch.Generator) -> None:
             lecun_normal_(w, w[0].numel(), generator)
             nn.init.zeros_(vit.patch_embed.proj.bias)
         fp = model.future_predictor
-        init_normal_(fp.gpt_model, 0.02, generator)
-        nn.init.normal_(fp.encoder.weight, std=0.01, generator=generator)
-        nn.init.normal_(fp.decoder.weight, std=0.01, generator=generator)
+        if isinstance(fp, AVTh):
+            init_normal_(fp.gpt_model, 0.02, generator)
+            nn.init.normal_(fp.encoder.weight, std=0.01, generator=generator)
+            nn.init.normal_(fp.decoder.weight, std=0.01, generator=generator)
+        else:
+            init_normal_(fp, 0.01, generator)
+        for agg in (model.temporal_aggregator, model.temporal_aggregator_after_future_pred):
+            init_aggregator(agg, generator)
         init_normal_(model.classifiers, 0.01, generator)
+        for name in ("mapper_to_inter", "reset_temp_agg_feat_dim", "project_mlp",
+                     "regression_head"):
+            if hasattr(model, name):
+                init_normal_(getattr(model, name), 0.01, generator)
 
 
 def build_avt(

@@ -1,9 +1,12 @@
-"""AVT-h: the causal decoder head that predicts future frame features.
+"""Future predictors: the identity and MLP pass-throughs, and AVT-h, the
+causal decoder head that predicts future frame features.
 
-Counterpart of avt_tpu/models/future.py:AVTh at a one-step rollout
+Counterpart of avt_tpu/models/future.py (`IdentityFuture`, `MLPFuture`;
+`AVTh` at a one-step rollout
 (output_len 1, every shipped configuration), which is one causal forward of
 the GPT-2 core. Longer rollouts, the KV-cache mode, cluster-id inputs,
-attention-map export and `drop_last_n` come later; the first two raise here.
+attention-map export and `drop_last_n` come later; the first two raise here).
+Each returns (updated past, future feature, losses, endpoints).
 """
 from __future__ import annotations
 
@@ -13,6 +16,37 @@ import torch
 from torch import nn
 
 from avt_tpu_torch.models.layers import GPT2Core
+
+
+class IdentityFuture(nn.Module):
+    """Pass-through: the features are both the past and the future."""
+
+    def __init__(self, in_features: int):
+        super().__init__()
+        self.in_features = in_features
+
+    output_dim = property(lambda self: self.in_features)
+
+    def forward(self, feats, target_shape=None, generator: Optional[torch.Generator] = None):
+        return feats, feats, {}, {}
+
+
+class MLPFuture(IdentityFuture):
+    """feats -> MLP(feats): `num_layers` Linear(in, in), a ReLU between
+    each two. The Linears sit at `model.<2i>`, the reference's Sequential
+    of [Linear, ReLU]*n minus the last ReLU."""
+
+    def __init__(self, in_features: int, num_layers: int = 2, device=None):
+        super().__init__(in_features)
+        layers = []
+        for i in range(num_layers):
+            layers.append(nn.Linear(in_features, in_features, device=device))
+            if i < num_layers - 1:
+                layers.append(nn.ReLU())
+        self.model = nn.Sequential(*layers)
+
+    def forward(self, feats, target_shape=None, generator: Optional[torch.Generator] = None):
+        return feats, self.model(feats), {}, {}
 
 
 class AVTh(nn.Module):

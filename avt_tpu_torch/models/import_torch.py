@@ -14,13 +14,18 @@ model's dtype), and a shape mismatch or an unknown name is skipped with a
 warning. The spec forms, the module names and every error are JAX's.
 
 Layouts read: a reference AVT checkpoint (`backbone.`, `future_predictor.`,
-`classifiers.` keys), which is also the port's own run checkpoint
-(`<run>/checkpoint`, train/checkpoint.py's `{"model": state_dict, ...}`);
-a raw timm ViT; a raw HF GPT-2; a bare `nn.Linear`. The BNInception,
-video-ResNet and RULSTM layouts, and an AVT checkpoint's Transformer or
-RULSTM aggregator loaded whole, raise NotImplementedError: their modules
-are not in the port (ROADMAP Queue 1.6). A directory is an avt_tpu (orbax)
-checkpoint, which the port does not read.
+`classifiers.` keys, a Transformer or RULSTM aggregator under
+`temporal_aggregator.` and `temporal_aggregator_after_future_pred.`), which
+is also the port's own run checkpoint (`<run>/checkpoint`,
+train/checkpoint.py's `{"model": state_dict, ...}`); a raw timm ViT; a raw
+HF GPT-2; an original RULSTM checkpoint (`rolling_lstm.*` and
+`unrolling_lstm.*`, bare nn.LSTM layers or OpenLSTM's `.lstm.` nesting;
+its classifier is taken only by a prefix spec, as a bare Linear); a bare
+`nn.Linear`. An LSTM's tensors load as the file holds them (both biases;
+the JAX package folds them into one, which sums to the same gates). The
+BNInception and video-ResNet layouts raise NotImplementedError: their
+modules are not in the port (ROADMAP Queue 1.6). A directory is an avt_tpu
+(orbax) checkpoint, which the port does not read.
 """
 from __future__ import annotations
 
@@ -91,6 +96,36 @@ def gpt2_leaves(sd: Mapping[str, torch.Tensor]) -> StateDict:
     return out
 
 
+_LSTM = ("weight_ih_l0", "weight_hh_l0", "bias_ih_l0", "bias_hh_l0")
+_ENCODER_LAYER = ("self_attn.in_proj_weight", "self_attn.in_proj_bias",
+                  "self_attn.out_proj.weight", "self_attn.out_proj.bias", "linear1.weight",
+                  "linear1.bias", "linear2.weight", "linear2.bias", "norm1.weight",
+                  "norm1.bias", "norm2.weight", "norm2.bias")
+
+
+def rulstm_leaves(sd: Mapping[str, torch.Tensor]) -> StateDict:
+    """The LSTM leaves of an original RULSTM state_dict that `rulstm_to_flax`
+    takes, under the port's names (OpenLSTM's `.lstm.` nesting removed);
+    the classifier is not among them."""
+    sd = {k.replace(".lstm.", "."): v for k, v in sd.items()}
+    return {f"{lstm}.{n}": sd[f"{lstm}.{n}"]
+            for lstm in ("rolling_lstm", "unrolling_lstm") for n in _LSTM}
+
+
+def transformer_agg_leaves(sd: Mapping[str, torch.Tensor]) -> StateDict:
+    """The leaves of the reference's Transformer aggregator that
+    `transformer_agg_to_flax` takes (not the positional table)."""
+    keys = ["downproject.weight", "downproject.bias", "transformer_encoder.norm.weight",
+            "transformer_encoder.norm.bias"]
+    i = 0
+    while f"transformer_encoder.layers.{i}.self_attn.in_proj_weight" in sd:
+        keys += [f"transformer_encoder.layers.{i}.{n}" for n in _ENCODER_LAYER]
+        i += 1
+    if "extra_embeddings.weight" in sd:
+        keys.append("extra_embeddings.weight")
+    return {k: sd[k] for k in keys}
+
+
 def _sub(sd: Mapping, prefix: str) -> StateDict:
     return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
 
@@ -99,10 +134,9 @@ def _with_prefix(prefix: str, sd: Mapping) -> StateDict:
     return {prefix + k: v for k, v in sd.items()}
 
 
-def avt_checkpoint_leaves(sd: Mapping[str, torch.Tensor]) -> Tuple[StateDict, List[str]]:
+def avt_checkpoint_leaves(sd: Mapping[str, torch.Tensor]) -> StateDict:
     """The leaves of a reference AVT state_dict that `avt_checkpoint_to_flax`
-    converts, under the port's names, and the aggregators it carries whose
-    modules the port lacks (a Transformer or RULSTM layout)."""
+    converts, under the port's names."""
     out: StateDict = {}
     vit = _sub(sd, "backbone.model.")
     if vit:
@@ -137,15 +171,14 @@ def avt_checkpoint_leaves(sd: Mapping[str, torch.Tensor]) -> Tuple[StateDict, Li
         if f"{src}.weight" in sd:
             out[f"{src}.weight"] = sd[f"{src}.weight"]
             out[f"{src}.bias"] = sd[f"{src}.bias"]
-    unported = []
     for agg in ("temporal_aggregator", "temporal_aggregator_after_future_pred"):
         sub = _sub(sd, agg + ".")
         if not sub:
             continue
         if "downproject.weight" in sub:
-            unported.append(f"{agg} (the Transformer aggregator)")
+            out.update(_with_prefix(agg + ".", transformer_agg_leaves(sub)))
         elif any("rolling_lstm" in k for k in sub):
-            unported.append(f"{agg} (the RULSTM aggregator)")
+            out.update(_with_prefix(agg + ".", rulstm_leaves(sub)))
         else:
             LOG.warning("Unrecognized %s. layout: %s", agg, sorted(sub)[:5])
     handled = {"backbone", "future_predictor", "classifiers", "mapper_to_inter",
@@ -156,33 +189,34 @@ def avt_checkpoint_leaves(sd: Mapping[str, torch.Tensor]) -> Tuple[StateDict, Li
     if leftovers:
         LOG.warning("avt checkpoint: no conversion for module(s) %s; they keep the model's "
                     "init", leftovers)
-    return out, unported
+    return out
 
 
-def convert_checkpoint(sd: Mapping[str, torch.Tensor]) -> Tuple[StateDict, bool, List[str]]:
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"init_from_model: a checkpoint in {what} loads into a module "
+                               f"that is not ported yet ({_ZOO_ITEM})")
+
+
+def convert_checkpoint(sd: Mapping[str, torch.Tensor]) -> Tuple[StateDict, bool]:
     """Detects the checkpoint's layout, as the JAX package's
     `_convert_checkpoint` does. Returns (its leaves, whether they are a
-    whole model's or one module's, the unported aggregators it carries)."""
+    whole model's or one module's)."""
     keys = set(sd)
     if any(k.startswith(("backbone.", "future_predictor.", "classifiers.", "mapper_to_inter.",
                          "reset_temp_agg_feat_dim.")) for k in keys):
-        leaves, unported = avt_checkpoint_leaves(sd)
-        return leaves, True, unported
+        return avt_checkpoint_leaves(sd), True
     if "cls_token" in keys and "patch_embed.proj.weight" in keys:
-        return timm_vit_leaves(sd), False, []
+        return timm_vit_leaves(sd), False
     if "wpe.weight" in keys:
-        return gpt2_leaves(sd), False, []
-    for what, hit in (
-            ("the BNInception layout (models/bninception.py)", "conv1_7x7_s2.weight" in keys),
-            ("the RULSTM layout (temporal_agg.py:RULSTM)", any("rolling_lstm" in k for k in keys)),
-            ("the video-ResNet layout (models/video_resnet.py)",
-             "stem.0.weight" in keys or "_feature_blocks.stem.0.weight" in keys)):
-        if hit:
-            raise NotImplementedError(
-                f"init_from_model: a checkpoint in {what} loads into a module that is not "
-                f"ported yet ({_ZOO_ITEM})")
+        return gpt2_leaves(sd), False
+    if "conv1_7x7_s2.weight" in keys:
+        raise _unported("the BNInception layout (models/bninception.py)")
+    if any("rolling_lstm" in k for k in keys):
+        return rulstm_leaves(sd), False
+    if "stem.0.weight" in keys or "_feature_blocks.stem.0.weight" in keys:
+        raise _unported("the video-ResNet layout (models/video_resnet.py)")
     if "weight" in keys and keys <= {"weight", "bias"}:  # a bare nn.Linear
-        return {k: sd[k] for k in ("weight", "bias") if k in sd}, False, []
+        return {k: sd[k] for k in ("weight", "bias") if k in sd}, False
     raise ValueError(f"init_from_model: unrecognized checkpoint layout (keys like "
                      f"{sorted(keys)[:5]})")
 
@@ -267,8 +301,8 @@ def init_from_model(model: torch.nn.Module, specs, loader=load_torch_state_dict)
             if not sd:
                 raise ValueError(f"init_from_model: prefix {ckpt_prefix!r} matches no keys in "
                                  f"{path}")
-        leaves, is_full_tree, unported = convert_checkpoint(sd)
-        if not leaves and not unported:
+        leaves, is_full_tree = convert_checkpoint(sd)
+        if not leaves:
             raise ValueError(f"init_from_model: nothing converted from {path} "
                              f"(spec module={module!r})")
         if module:
@@ -286,10 +320,6 @@ def init_from_model(model: torch.nn.Module, specs, loader=load_torch_state_dict)
             if not is_full_tree:
                 raise ValueError(f"init_from_model: {path} is a module-level checkpoint; give "
                                  "the spec a module name to load it into")
-            if unported:
-                raise NotImplementedError(
-                    f"init_from_model: {path} carries {', '.join(unported)}, a module that is "
-                    f"not ported yet ({_ZOO_ITEM})")
             merged = merge_params(merged, leaves)
     loaded = [k for k in state if merged[k] is not state[k]]
     with torch.no_grad():

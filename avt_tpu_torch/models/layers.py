@@ -1,11 +1,13 @@
-"""Shared transformer building blocks: the GPT-2 decoder of AVT-h.
+"""Shared transformer building blocks: the GPT-2 decoder of AVT-h and the
+encoder block of the Transformer aggregator.
 
 Counterpart of avt_tpu/models/layers.py (`gelu_new`, `SelfAttention`,
-`GPT2Block`, `GPT2Core`) for the recompute forward, in eval and train mode;
-the KV cache, `output_attentions` and position-stable dropout (rollouts
-longer than one step) come later. Parameter names
-are HF transformers' GPT2Model ones (Conv1D weights laid out (in, out)), so
-a reference GPT-2 state_dict loads unchanged.
+`GPT2Block`, `GPT2Core`, `sincos_positional_encoding`, `EncoderBlock`) for
+the recompute forward, in eval and train mode; the KV cache,
+`output_attentions` and position-stable dropout (rollouts longer than one
+step) come later. GPT-2's parameter names are HF transformers' GPT2Model
+ones (Conv1D weights laid out (in, out)), the encoder block's those of
+torch's nn.TransformerEncoderLayer, so reference state_dicts load unchanged.
 
 `dense` and `layer_norm` reproduce flax's `dtype=` semantics, which every
 module of the port follows: parameters stay f32; under a compute dtype the
@@ -165,6 +167,72 @@ class GPT2Core(nn.Module):
             x = block(x, generator)
         x = layer_norm(x, self.ln_f, self.dtype)
         return x.float() if self.dtype is not None else x
+
+
+def sincos_positional_encoding(max_len: int, d_model: int, device=None) -> torch.Tensor:
+    """Sin/cos table (max_len, d_model) in f32, computed as the JAX package
+    does (reference temporal_aggregation.py:50-70)."""
+    position = torch.arange(max_len, dtype=torch.float32, device=device)[:, None]
+    div_term = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32, device=device)
+                         * (-math.log(10000.0) / d_model))
+    pe = torch.zeros(max_len, d_model, device=device)
+    pe[:, 0::2] = torch.sin(position * div_term)
+    pe[:, 1::2] = torch.cos(position * div_term)
+    return pe
+
+
+class EncoderSelfAttention(nn.Module):
+    """nn.MultiheadAttention's parameters (a packed (3E, E) in_proj_weight,
+    whose transpose is the JAX package's qkv kernel with the same contiguous
+    per-head split, and out_proj), run as the JAX package's SelfAttention:
+    q, k and v are strided (B, T, H, D) views of one projection, which the
+    flash kernels read in place; dropout acts on the attention output."""
+
+    def __init__(self, dim: int, num_heads: int, dropout: float = 0.0, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dropout = dropout
+        self.in_proj_weight = nn.Parameter(torch.zeros(3 * dim, dim, device=device))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim, device=device))
+        self.out_proj = nn.Linear(dim, dim, device=device)
+
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                mask: Optional[torch.Tensor] = None):
+        B, T, C = x.shape
+        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        q, k, v = (t.reshape(B, T, self.num_heads, C // self.num_heads)
+                   for t in qkv.split(C, dim=-1))
+        out = dot_product_attention(q, k, v, causal=False, mask=mask)
+        out = dropout(out, self.dropout, generator, self.training).reshape(B, T, C)
+        return self.out_proj(out)
+
+
+class EncoderBlock(nn.Module):
+    """Post-LN encoder layer, torch.nn.TransformerEncoderLayer's semantics
+    and names (self_attn, linear1, linear2, norm1, norm2): attention, add +
+    LayerNorm, ReLU FFN, add + LayerNorm. Its LayerNorms take flax's
+    epsilon, 1e-6, as the JAX package's block does. `mask` (True = keep,
+    broadcastable to (B, H, T, T)) drops attention keys; without one, 128
+    tokens or more take the flash kernels on CUDA."""
+
+    def __init__(self, dim: int, num_heads: int, ffn_dim: int, dropout: float = 0.1,
+                 device=None):
+        super().__init__()
+        self.dropout = dropout
+        self.self_attn = EncoderSelfAttention(dim, num_heads, dropout, device=device)
+        self.linear1 = nn.Linear(dim, ffn_dim, device=device)
+        self.linear2 = nn.Linear(ffn_dim, dim, device=device)
+        self.norm1 = nn.LayerNorm(dim, eps=1e-6, device=device)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-6, device=device)
+
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                mask: Optional[torch.Tensor] = None):
+        def drop(t):
+            return dropout(t, self.dropout, generator, self.training)
+
+        x = self.norm1(x + drop(self.self_attn(x, generator, mask)))
+        h = drop(F.relu(self.linear1(x)))
+        return self.norm2(x + drop(self.linear2(h)))
 
 
 def init_normal_(module: nn.Module, std: float, generator: torch.Generator) -> None:

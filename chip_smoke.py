@@ -131,6 +131,28 @@
    model the call built, on its first batch (device busy, idle share,
    kernel groups, the packed f32 kernels' share of device time), with
    this checkout's packed kernels and with PARENT_COMMIT's.
+10. rulstm_expt05: expts/05 from its experiment file through
+   `train_net.cli` as shipped (test only, eval batch 128, 11 features at 30
+   fps read the RULSTM way, the RULSTM aggregator 1024 wide with 3 padding
+   steps, 3806 actions), on phase 8's synthetic tree read by the npy reader
+   with read_type=exact_rulstm, and a seeded file in the original RULSTM
+   layout (`write_rulstm`) where its two-entry `train.init_from_model`
+   spec points: the LSTMs and the action classifier must equal the file bit
+   for bit after init; no kernel launches; finite metrics. Prints them,
+   the host's data wait and `evaluate`'s ms a batch, and a profile of one
+   eval step of the model the cli built, on its first batch.
+11. zoo_transformer: the feature path with the Transformer aggregator at
+   its defaults (6 layers of 8 heads of 64, 512 wide, FFN 2048), the MLP
+   future predictor and the MLP classifier over 256 observed features, no
+   subclips, through `train_net.cli` with expts/02's data, reader and
+   optimizer lines on phase 8's tree (`zoo_transformer_overrides`), batch
+   64, f32, 1 epoch of 4 batches and 2 eval batches: 6 flash forward + 6
+   backward launches a step and 6 forward an eval batch, the kernels in
+   their non-causal form; finite losses and metric. Before it, phase 2
+   holds the non-causal flash forward and backward at (64, 256, 8, 64), f32
+   and bf16, against their plain versions (bits on a repeat) and times the
+   f32 ones beside SDPA and their bound. Prints the loop's ms a step and a
+   profile of one train step by kernel group with the flash kernels' share.
 Only phase 4b launches the fused kernel. Prints one JSON line of kernel results, then {"ok": true, "device": ...}.
 Exits non-zero on any failure, and without a CUDA device.
 """
@@ -920,6 +942,9 @@ def main():
     check_flash(8, 200, 2, 1024, torch.float32, True, seed=18)
     d1024_err = check_flash(*FLASH_SHAPE_D1024, torch.float32, True, seed=19)
     check_flash(*FLASH_SHAPE_D1024, torch.bfloat16, True, seed=19)
+    # the Transformer aggregator's encoder attention: non-causal, 8 heads of 64
+    zoo_err = check_flash(*ZOO_SHAPE, torch.float32, False, seed=28)
+    check_flash(*ZOO_SHAPE, torch.bfloat16, False, seed=28)
     # the packed kernels' f32 forms at expts/01's shapes: a train step of 3
     # clips x 10 frames and an eval batch of 3 clips x 10 frames x 6 views
     check_attention(TNR_BATCH * TNR_FRAMES, 197, 12, 64, torch.float32, False, seed=20)
@@ -933,6 +958,7 @@ def main():
     flash_timing = time_flash(*FLASH_SHAPE, torch.float32, True)
     flash_timing_bf16 = time_flash(*FLASH_SHAPE, torch.bfloat16, True)
     flash_timing_d1024 = time_flash(*FLASH_SHAPE_D1024, torch.float32, True)
+    flash_timing_zoo = time_flash(*ZOO_SHAPE, torch.float32, False)
 
     # 3. serving: the full-width flagship through its entry points ----------
     serve_launches = serve_phase()
@@ -964,10 +990,17 @@ def main():
     # 9. expts/01 from its file through train_net, on raw video (f32 ViT)
     tnr_launches, expt01_profile = train_net_raw_phase(card, parent)
 
+    # 10. expts/05 (the RULSTM aggregator) from its file, test only
+    rulstm_launches = rulstm_expt05_phase(card)
+
+    # 11. the Transformer aggregator over 256 features through train_net
+    zoo_launches, zoo_profile = zoo_transformer_phase(card)
+
     paths = {"serve": serve_launches, "train": train_launches, "trainer": trainer_launches,
              "train_d32": d32_launches,
              **feat_launches, "feature_d1024": d1024_launches, "train_fused": fused_launches,
-             "ek55_adam": ek55_launches, **tn_launches, **tnr_launches}
+             "ek55_adam": ek55_launches, **tn_launches, **tnr_launches, **rulstm_launches,
+             **zoo_launches}
     for path, counts in paths.items():
         if path != "train_fused":
             check(counts["fused_qkv_attention_fwd"] == 0, f"a fused launch on {path}: {counts}")
@@ -1007,9 +1040,9 @@ def main():
                                       for label, res in f32_turns.items()},
              expt01_train_step=expt01_profile),
     ]
-    for name, side, err, err_d1024 in (
-            ("flash_attention_fwd", "fwd", flash_err[0], d1024_err[0]),
-            ("flash_attention_bwd", "bwd", flash_err[1], d1024_err[1])):
+    for name, side, err, err_d1024, err_zoo in (
+            ("flash_attention_fwd", "fwd", flash_err[0], d1024_err[0], zoo_err[0]),
+            ("flash_attention_bwd", "bwd", flash_err[1], d1024_err[1], zoo_err[1])):
         spec, timing = _build.KERNELS[name], flash_timing[side]
         kernels.append(dict(
             name=name, route=spec["route"], source=spec["source"], replaces=spec["replaces"],
@@ -1019,7 +1052,13 @@ def main():
             bf16={"sdpa_backend": flash_timing_bf16["sdpa_backend"], **flash_timing_bf16[side]},
             d1024={"shape": list(FLASH_SHAPE_D1024), "dtype": "float32", "causal": True,
                    "max_abs_err": err_d1024, "sdpa_backend": flash_timing_d1024["sdpa_backend"],
-                   **flash_timing_d1024[side]}))
+                   **flash_timing_d1024[side]},
+            zoo_transformer={"shape": list(ZOO_SHAPE), "dtype": "float32", "causal": False,
+                             "max_abs_err": err_zoo,
+                             "sdpa_backend": flash_timing_zoo["sdpa_backend"],
+                             **flash_timing_zoo[side],
+                             "train_step": {k: v for k, v in zoo_profile.items()
+                                            if k != "groups"}}))
     spec = _build.KERNELS["fused_qkv_attention_fwd"]
     kernels.append(dict(
         name="fused_qkv_attention_fwd", route=spec["route"], source=spec["source"],
@@ -1913,7 +1952,7 @@ EXPT_02 = "expts/02_ek100_avt_tsn.txt"
 
 
 def write_ek100_tree(root, *, train_videos, eval_videos, actions_per_video, first_action_s,
-                     dim=FEAT_DIM, seed=0, video=None):
+                     dim=FEAT_DIM, seed=0, video=None, read_type="normal"):
     """A synthetic EK100 tree under `root`, written with numpy and csv only:
     EPIC_100_{verb,noun}_classes.csv (97 verbs, 300 nouns), RULSTM's
     actions.csv (3806 actions, action a = (verb a % 97, noun a // 97)), the
@@ -1922,7 +1961,9 @@ def write_ek100_tree(root, *, train_videos, eval_videos, actions_per_video, firs
     action a second from `first_action_s` on, `actions_per_video` a video,
     train and eval on their own videos), and a per-video .npy store of
     `dim`-d f32 features at 30 fps (row i = frame i + 1) reaching 2 s past
-    the last action. Returns the overrides that point expts/02 at it.
+    the last action. Returns the overrides that point expts/02 at it (the
+    npy reader taking `read_type`: expts/02's 'normal', expts/05's
+    'exact_rulstm').
 
     With video=(width, height, fps), raw videos take the store's place:
     `videos/<participant>/<video>.MP4` (mp4v, `write_video`), as long, and
@@ -1974,7 +2015,7 @@ def write_ek100_tree(root, *, train_videos, eval_videos, actions_per_video, firs
     if video is not None:
         return paths + [f"{common}.data_dir_extension={videos}"]
     reader = ("{_target_: avt_tpu.data.NpyFeatsReader, root: "
-              f"${{{common}.rulstm_feats_dir}}/rgb/, read_type: normal}}")
+              f"${{{common}.rulstm_feats_dir}}/rgb/, read_type: {read_type}}}")
     return paths + [f"{common}.rulstm_feats_dir={feats}/",
                     "~dataset_train.reader_fn", "~dataset_eval.reader_fn",
                     f"+dataset_train.reader_fn={reader}", f"+dataset_eval.reader_fn={reader}"]
@@ -2387,6 +2428,259 @@ def train_net_raw_phase(card, parent=None):
         f"{again:.4f} (first run {metric:.4f}); cli {rec2['wall_s']:.1f} s; launches "
         f"{rec2['launches']}")
     return counts, profile
+
+# ------------------------------------------------------------ rulstm_expt05
+EXPT_05 = "expts/05_ek100_rustm_test_testonly.txt"
+RULSTM_HIDDEN = 1024  # the released RULSTM's width (RULSTMAgg's default)
+RULSTM_BATCH = 128  # expts/05's eval batch
+
+
+def write_rulstm(path, *, feat_dim=FEAT_DIM, hidden=RULSTM_HIDDEN, num_actions=NUM_ACTIONS,
+                 seed=0):
+    """A seeded checkpoint in the original RULSTM layout (fpv-iplab/rulstm,
+    the file expts/05 names): `rolling_lstm.lstm.*` and
+    `unrolling_lstm.lstm.*` (torch nn.LSTM layers inside OpenLSTM, gates
+    [i|f|g|o], U(-1/sqrt(H), 1/sqrt(H)) as nn.LSTM draws them) and the
+    `classifier.1.{weight,bias}` Linear (num_actions, hidden), saved as its
+    .pth.tar holds them: {'state_dict': ..., 'epoch': ..., 'best_perf': ...}.
+    Returns the state_dict."""
+    rng = np.random.default_rng(seed)
+    k = hidden ** -0.5
+
+    def u(*shape):
+        return torch.from_numpy(rng.uniform(-k, k, size=shape).astype(np.float32))
+
+    sd = {}
+    for lstm in ("rolling_lstm", "unrolling_lstm"):
+        sd.update({f"{lstm}.lstm.weight_ih_l0": u(4 * hidden, feat_dim),
+                   f"{lstm}.lstm.weight_hh_l0": u(4 * hidden, hidden),
+                   f"{lstm}.lstm.bias_ih_l0": u(4 * hidden),
+                   f"{lstm}.lstm.bias_hh_l0": u(4 * hidden)})
+    sd.update({"classifier.1.weight": u(num_actions, hidden), "classifier.1.bias": u(num_actions)})
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save({"state_dict": sd, "epoch": 9, "best_perf": 0.0}, path)
+    return sd
+
+
+def rulstm_expt05_phase(card):
+    """expts/05 from its experiment file through `train_net.cli`, as
+    shipped (test only, eval batch 128, 11 features at 30 fps read the
+    RULSTM way, `num_pad_feats=3`, the RULSTM aggregator 1024 wide, 3806
+    actions), on the `train_net` phase's synthetic EK100 tree read by the npy
+    reader with read_type=exact_rulstm, and a seeded RULSTM checkpoint
+    (`write_rulstm`) where its `train.init_from_model` spec points. Checks:
+    after `init_from_model` the aggregator's LSTM tensors and the action
+    classifier equal the file's bit for bit; no kernel launches; one eval,
+    finite metrics. Prints them, the cli's wall s, the host's data wait an
+    eval batch, `evaluate`'s ms a batch, and a profile of one eval step of
+    the model the cli built on its first batch. Returns the launch counts."""
+    from avt_tpu_torch import train_net
+    from avt_tpu_torch.models import import_torch
+
+    inits, evals = [], []
+    real_init = import_torch.init_from_model
+    real_make_eval = train_net.make_eval_step
+
+    def recorded_make_eval(*args, **kwargs):
+        """The real eval step, keeping it and its first batch."""
+        eval_step = real_make_eval(*args, **kwargs)
+
+        def recording(batch):
+            if not evals:
+                evals.append((eval_step, batch))
+            return eval_step(batch)
+
+        return recording
+
+    def recorded_init(model, specs):
+        """The real init, then the model held against the file."""
+        loaded = real_init(model, specs)
+        sd = model.state_dict()
+        ckpt = import_torch.load_torch_state_dict(specs[0][-1])
+        want = {f"temporal_aggregator.{k.replace('.lstm.', '.')}": v
+                for k, v in ckpt.items() if "lstm" in k}
+        want.update({f"classifiers.action.{k}": ckpt[f"classifier.1.{k}"]
+                     for k in ("weight", "bias")})
+        inits.append({"equal": all(torch.equal(sd[k].cpu(), v) for k, v in want.items()),
+                      "loaded": sorted(loaded), "want": sorted(want)})
+        return loaded
+
+    expt = os.path.join(os.path.dirname(os.path.abspath(__file__)), EXPT_05)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        tree = write_ek100_tree(os.path.join(tmp, "tree"), train_videos=TN_TRAIN_VIDEOS,
+                                eval_videos=TN_EVAL_VIDEOS, actions_per_video=TN_ACTIONS,
+                                first_action_s=TN_FIRST_S, seed=24, read_type="exact_rulstm")
+        ckpt = os.path.join(tmp, "RULSTM-anticipation_0.25_6_8_rgb_mt5r_best.pth.tar")
+        write_rulstm(ckpt, seed=25)
+        log(f"rulstm_expt05: synthetic EK100 tree and a seeded RULSTM file written in "
+            f"{time.time() - t0:.1f} s")
+        argv = ["--config-file", expt, "--run-dir", os.path.join(tmp, "run")] + tree + [
+            f"train.init_from_model=[[temporal_aggregator,{ckpt}],"
+            f"[classifiers.action,classifier.1.,{ckpt}]]",
+            f"data_train.workers={TN_WORKERS}", f"data_eval.workers={TN_WORKERS}"]
+        with mock.patch.object(train_net, "init_from_model", recorded_init), \
+                mock.patch.object(train_net, "make_eval_step", recorded_make_eval):
+            (metric,), rec = run_train_net(argv)
+    busy, _, wall = profile_run(lambda: evals[0][0](evals[0][1]),
+                                f"expts/05 eval step, a batch of {RULSTM_BATCH}")
+    del evals[:]
+    check(len(inits) == 1 and inits[0]["equal"] and inits[0]["loaded"] == inits[0]["want"],
+          f"rulstm_expt05: the model differs from the RULSTM file after init: "
+          f"{inits and {k: v for k, v in inits[0].items() if k != 'loaded'}}")
+    want = {n: 0 for n in _build.KERNELS}
+    check(rec["launches"] == want, f"rulstm_expt05: launches {rec['launches']}, want none")
+    eval_wait = rec["waits"]["eval"]
+    n_eval = -(-TN_EVAL_VIDEOS * TN_ACTIONS // RULSTM_BATCH)
+    check(not rec["epochs"] and len(rec["finals"]) == 1 and len(eval_wait) == n_eval,
+          f"rulstm_expt05: epochs {rec['epochs']}, finals {len(rec['finals'])}, eval batches "
+          f"{len(eval_wait)}")
+    finals = rec["finals"][0]
+    check(all(np.isfinite(v) for v in finals.values()) and np.isfinite(metric)
+          and metric == finals["final_acc/action/AR5"], f"rulstm_expt05: metrics {finals}")
+    log(f"rulstm_expt05 ({card}): expts/05 as shipped (test only, RULSTM 1024 wide, 3 padding "
+        f"steps, 11 features at 30 fps, exact_rulstm reads), {rec['rows']['eval']} eval rows in "
+        f"{len(eval_wait)} batches of {RULSTM_BATCH}; the LSTMs and the action classifier equal "
+        f"the file bit for bit ({len(inits[0]['loaded'])} tensors); host data "
+        f"{1e3 * np.median(eval_wait):.2f} ms an eval batch (median of {len(eval_wait)}); eval "
+        f"{1e3 * rec['eval_s'][0] / len(eval_wait):.2f} ms a batch (evaluate, result files "
+        f"included); metrics " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(finals.items()))
+        + f"; cli {rec['wall_s']:.1f} s; launches {rec['launches']}; the eval step alone "
+        f"{wall:.2f} ms wall, {busy:.2f} ms device busy")
+    return {"rulstm_expt05": rec["launches"]}
+
+
+# ---------------------------------------------------------- zoo_transformer
+# the Transformer aggregator at its defaults (512 wide, 8 heads of 64, 6
+# layers, FFN 2048) over 256 observed features: (64, 256, 8, 64) attention
+ZOO_LAYERS, ZOO_HEADS, ZOO_DIM = 6, 8, 512
+ZOO_SHAPE = (TN_BATCH, LONG_T, ZOO_HEADS, ZOO_DIM // ZOO_HEADS)
+# expts/02's lines that the phase drops: its model head (AVT-h, the identity
+# aggregator, the past classifier, the dropout), its loss weights and its
+# subclips; it keeps the backbone lines and every data, dataset, reader,
+# batch and optimizer line
+EXPT02_DROPPED = ("model", "+model", "train.train_one_epoch_fn.loss_wts",
+                  "data_train.subclips", "data_eval.subclips")
+EXPT02_KEPT_MODEL = ("model/backbone=", "model.backbone_dim=")
+ZOO_MODEL = ["model/temporal_aggregator=transformer", "model/future_predictor=mlp",
+             "model/classifier=mlp", "model.classifier_on_past=false"]
+
+
+def expt02_kept_overrides():
+    """expts/02's lines but those of EXPT02_DROPPED: its data, dataset,
+    reader, batch, optimizer and backbone lines."""
+    kept = []
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), EXPT_02)) as f:
+        for line in f:
+            line = line.split("#")[0].strip()
+            if line and (line.startswith(EXPT02_KEPT_MODEL)
+                         or not line.startswith(EXPT02_DROPPED)):
+                kept.append(line)
+    return kept
+
+
+def zoo_transformer_overrides(tree, T=LONG_T):
+    """The zoo_transformer run's overrides: expts/02's kept lines, the
+    tree's, T observed features with no subclips (the aggregator sees all T
+    in one clip), then the Transformer aggregator at its defaults, the MLP
+    future predictor and the MLP classifier."""
+    return expt02_kept_overrides() + tree + long_context(T) + ZOO_MODEL
+
+
+def zoo_flops_per_clip(T, dim=ZOO_DIM, layers=ZOO_LAYERS, ffn=2048, feat=FEAT_DIM,
+                       actions=NUM_ACTIONS):
+    """Forward FLOPs of one clip: the down projection, each layer's qkv,
+    output and FFN products and its T x T attention, then the MLP future
+    predictor (2 x dim^2) and the MLP classifier."""
+    per_token = 2 * feat * dim + layers * (2 * dim * (3 * dim + dim + 2 * ffn) + 4 * T * dim)
+    return T * per_token + 2 * (2 * dim * dim) + 2 * (dim * dim + dim * actions)
+
+
+def zoo_transformer_phase(card):
+    """The feature path with the Transformer aggregator over 256 observed
+    features, through `train_net.cli`: expts/02's data, reader and
+    optimizer on the `train_net` phase's tree (`zoo_transformer_overrides`),
+    the aggregator at its defaults, batch 64, f32, 1 epoch of 4 batches and
+    2 eval batches. Checks: 6 flash forward + 6 flash backward launches a
+    train step and 6 forward launches an eval batch, nothing else; finite
+    losses and metric. Prints the loop's ms a step and a profile of one
+    train step of the model the cli built, on its first batch, by kernel
+    group with the flash kernels' share. Returns the launch counts."""
+    from avt_tpu_torch import train_net
+
+    steps = []
+    real_make_step = train_net.make_train_step
+
+    def recorded_make_step(*args, **kwargs):
+        step = real_make_step(*args, **kwargs)
+
+        def recording(batch, generator=None):
+            if not steps:
+                steps.append((step, batch))
+            return step(batch, generator)
+
+        return recording
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tree = write_ek100_tree(os.path.join(tmp, "tree"), train_videos=TN_TRAIN_VIDEOS,
+                                eval_videos=TN_EVAL_VIDEOS, actions_per_video=TN_ACTIONS,
+                                first_action_s=TN_FIRST_S, seed=26)
+        argv = ["--run-dir", os.path.join(tmp, "run")] + zoo_transformer_overrides(tree) + [
+            f"data_train.workers={TN_WORKERS}", f"data_eval.workers={TN_WORKERS}",
+            "train.num_epochs=1"]
+        with mock.patch.object(train_net, "make_train_step", recorded_make_step):
+            (metric,), rec = run_train_net(argv)
+        want = {**{n: 0 for n in _build.KERNELS},
+                "flash_attention_fwd": ZOO_LAYERS * (TN_STEPS + TN_EVAL_BATCHES),
+                "flash_attention_bwd": ZOO_LAYERS * TN_STEPS}
+        check(rec["launches"] == want, f"zoo_transformer: launches {rec['launches']}, "
+              f"want {want}")
+        check(rec["epochs"] == [0] and len(rec["waits"]["train"]) == TN_STEPS + 1
+              and len(rec["waits"]["eval"]) == TN_EVAL_BATCHES,
+              f"zoo_transformer: epochs {rec['epochs']}, batches {rec['waits']}")
+        meters = rec["loggers"][0].meters
+        losses = {k: m.global_avg for k, m in meters.items() if k.startswith("loss")}
+        check(meters["loss"].count == TN_STEPS and all(np.isfinite(list(losses.values()))),
+              f"zoo_transformer: losses {losses} over {meters['loss'].count} steps")
+        finals = rec["finals"]
+        check(len(finals) == 1 and np.isfinite(metric)
+              and metric == finals[0]["final_acc/action/AR5"],
+              f"zoo_transformer: final metrics {finals}, returned {metric}")
+        step, batch = steps[0]
+        gen = torch.Generator(device="cuda").manual_seed(27)
+        _build.reset_launch_counts()
+        busy, groups, wall = profile_run(lambda: step(batch, gen),
+                                         "zoo_transformer train step, 64 clips x 256 features")
+        torch.cuda.synchronize()
+        per_step = {**{n: 0 for n in _build.KERNELS}, "flash_attention_fwd": 2 * ZOO_LAYERS,
+                    "flash_attention_bwd": 2 * ZOO_LAYERS}  # profile_run takes 2 steps
+        check(_build.launch_counts == per_step,
+              f"zoo_transformer: 2 steps launched {_build.launch_counts}, want {per_step}")
+        flash = (groups.get("flash attention kernel", 0.0)
+                 + groups.get("flash attention bwd kernel", 0.0))
+        del steps[:]
+    train_wait, eval_wait = rec["waits"]["train"], rec["waits"]["eval"]
+    clips_s = meters["clips/s"]
+    flops = 3 * TN_BATCH * zoo_flops_per_clip(LONG_T)
+    profile = dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall, flash_ms=flash,
+                   flash_share=flash / busy, tflop=flops / 1e12, groups=groups)
+    log(f"zoo_transformer ({card}): the Transformer aggregator (6 layers of 8 heads of 64, 512 "
+        f"wide, FFN 2048) + MLP future + MLP classifier at {LONG_T} observed features, f32, "
+        f"rows train {rec['rows']['train']} / eval {rec['rows']['eval']}, {TN_STEPS} steps of "
+        f"{TN_BATCH} clips, {len(eval_wait)} eval batches; the loop "
+        f"{TN_BATCH / clips_s.median * 1e3:.2f} ms a step (its clips/s meter, median "
+        f"{clips_s.median:.2f}); host data {1e3 * np.median(train_wait):.2f} ms a train batch "
+        f"(median of {len(train_wait)}), {1e3 * np.median(eval_wait):.2f} ms an eval batch; "
+        f"eval {1e3 * rec['eval_s'][0] / len(eval_wait):.2f} ms a batch; losses "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(losses.items()))
+        + f"; final_acc/action/AR5 {metric:.4f}; cli {rec['wall_s']:.1f} s; launches "
+        f"{rec['launches']}")
+    log(f"zoo_transformer train step ({card}): wall {wall:.2f} ms, device busy {busy:.2f} ms "
+        f"(idle {100 * (1 - busy / wall):.1f}%), {flops / 1e12:.3f} TFLOP a step, "
+        f"{flops / busy / 1e9:.2f} TFLOP/s of device time; the flash kernels {flash:.2f} ms "
+        f"({100 * flash / busy:.1f}% of device time)")
+    return {"zoo_transformer": rec["launches"]}, profile
+
 
 if __name__ == "__main__":
     main()

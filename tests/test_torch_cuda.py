@@ -148,6 +148,8 @@ def _heads(B, T, H, D, dtype, device, seed):
 @pytest.mark.parametrize("dtype,D,H,T,causal", [
     # AVT-h of expts/02 (4 heads of 512) and of expts/13 (8 of 256), TransformerAgg's 8 of 64
     ("float32", 512, 4, 256, True), ("bfloat16", 512, 4, 256, False),
+    # the Transformer aggregator's encoder attention over 256 features: non-causal
+    ("float32", 64, 8, 256, False), ("bfloat16", 64, 8, 256, False),
     ("float32", 256, 8, 256, False), ("bfloat16", 256, 8, 200, True),
     ("float32", 128, 2, 130, True), ("bfloat16", 128, 2, 300, False),
     ("float32", 64, 8, 200, True), ("bfloat16", 64, 8, 256, True),
@@ -201,6 +203,44 @@ def _unequal_lengths(device, D, causal, Tq, Tk):
     assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
     for got, want in zip(grads, refs):
         assert _rel_err(got, want) <= TOL["float32"]
+
+
+@pytest.mark.cuda
+def test_cuda_transformer_agg_runs_the_flash_kernels_non_causal(cuda_device):
+    """The Transformer aggregator at its defaults (6 layers of 8 heads of 64)
+    over 256 features: one flash forward a layer and one backward, and the
+    output and gradients of the plain path (use_kernel=False)."""
+    from unittest import mock
+
+    import avt_tpu_torch.models.layers as tlayers
+    from avt_tpu_torch.models import TransformerAgg
+    from avt_tpu_torch.models.flagship import init_aggregator
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    agg = TransformerAgg(1024, device=cuda_device).train()
+    with torch.no_grad():
+        init_aggregator(agg, gen)
+    x = torch.randn(4, 256, 1024, device=cuda_device, generator=gen)
+    plain = tlayers.dot_product_attention
+
+    def run(use_kernel):
+        agg.zero_grad()
+        g = torch.Generator(device=cuda_device).manual_seed(1)  # the same dropout masks
+        with mock.patch.object(tlayers, "dot_product_attention",
+                               lambda *a, **k: plain(*a, **k, use_kernel=use_kernel)):
+            out, _ = agg(x, g)
+            out.square().sum().backward()
+        return out.detach(), {n: p.grad.clone() for n, p in agg.named_parameters()}
+
+    _build.reset_launch_counts()
+    out, grads = run(None)
+    torch.cuda.synchronize()
+    assert _build.launch_counts == {**{n: 0 for n in _build.KERNELS},
+                                    tfa.FLASH_KERNEL: 6, tfa.FLASH_BWD_KERNEL: 6}
+    ref, ref_grads = run(False)
+    assert _rel_err(out, ref) <= TOL["float32"]
+    for name, g in grads.items():
+        assert _rel_err(g, ref_grads[name]) <= 1e-3, name
 
 
 @pytest.mark.cuda

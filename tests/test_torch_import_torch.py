@@ -9,10 +9,15 @@ exactly. The files: a timm in21k ViT with its `head` and `pre_logits`
 (which neither loads) and a block more than the model has; a reference
 `{'model': sd}` AVT checkpoint with a shape-mismatched classifier; a prefix
 spec onto a bare `nn.Linear`; the port's own run checkpoint; a raw HF GPT-2;
-several specs in turn. Every error avt_tpu raises is raised here with the
-same type; the layouts whose modules the port lacks raise
-NotImplementedError naming ROADMAP Queue 1.6, and a directory (an avt_tpu
-orbax checkpoint) raises ValueError.
+several specs in turn; an original RULSTM checkpoint (bare nn.LSTM layers
+and OpenLSTM's nesting) through expts/05's two-entry spec, the aggregator
+and the `classifier.1.` prefix onto the action classifier; a reference AVT
+checkpoint carrying a Transformer aggregator, loaded whole. An LSTM's two
+biases load as the file holds them, where avt_tpu folds them into one: the
+port's are compared folded, and with the file bit for bit. Every error
+avt_tpu raises is raised here with the same type; the layouts whose
+modules the port lacks raise NotImplementedError naming ROADMAP Queue 1.6,
+and a directory (an avt_tpu orbax checkpoint) raises ValueError.
 """
 import numpy as np
 import pytest
@@ -26,12 +31,26 @@ from avt_tpu.models import (
     AVTh as JAVTh,
     AVTModel as JAVTModel,
     IdentityAgg as JIdentityAgg,
+    IdentityBackbone as JIdentityBackbone,
+    IdentityFuture as JIdentityFuture,
     LinearClassifier as JLinearClassifier,
+    RULSTMAgg as JRULSTMAgg,
+    TransformerAgg as JTransformerAgg,
     ViT as JViT,
 )
 from avt_tpu.models.import_torch import init_from_model as jinit_from_model
 from avt_tpu_torch.losses import mse
-from avt_tpu_torch.models import AVTh, AVTModel, IdentityAgg, LinearClassifier, ViT
+from avt_tpu_torch.models import (
+    AVTh,
+    AVTModel,
+    IdentityAgg,
+    IdentityBackbone,
+    IdentityFuture,
+    LinearClassifier,
+    RULSTMAgg,
+    TransformerAgg,
+    ViT,
+)
 from avt_tpu_torch.models.convert import load_jax_params, params_from_jax
 from avt_tpu_torch.models.import_torch import init_from_model, load_torch_state_dict
 from avt_tpu_torch.train import build_optimizer, save_checkpoint
@@ -112,18 +131,31 @@ def _save(obj, path):
     return str(path)
 
 
-def both(jparams, specs):
+def folded(sd):
+    """A state_dict with each LSTM's two biases folded into bias_hh_l0 (and
+    bias_ih_l0 zeros), as avt_tpu's cell holds them."""
+    out = dict(sd)
+    for k in sd:
+        if k.endswith("bias_ih_l0"):
+            hh = k[:-len("bias_ih_l0")] + "bias_hh_l0"
+            out[hh], out[k] = sd[k] + sd[hh], torch.zeros_like(sd[k])
+    return out
+
+
+def both(jparams, specs, tmodel=_tmodel):
     """Both packages' init_from_model from the same weights; the port's
-    parameters must equal avt_tpu's. Returns the names the port loaded."""
-    model = load_jax_params(_tmodel(), jparams)
+    parameters (LSTM biases folded) must equal avt_tpu's. Returns the names
+    the port loaded."""
+    model = load_jax_params(tmodel(), jparams)
     before = {k: v.clone() for k, v in model.state_dict().items()}
     ref = params_from_jax(jinit_from_model(jparams, specs))
     loaded = init_from_model(model, specs)
-    sd = model.state_dict()
+    raw = model.state_dict()
+    sd = folded(raw)
     assert set(sd) == set(ref)
     for k in sd:
         assert torch.equal(sd[k], ref[k]), k
-    assert set(loaded) == {k for k in sd if not torch.equal(sd[k], before[k])}
+    assert set(loaded) == {k for k in raw if not torch.equal(raw[k], before[k])}
     return loaded
 
 
@@ -228,45 +260,97 @@ def test_errors_match_avt_tpu(jparams, tmp_path, case):
     assert all(torch.equal(v, before[k]) for k, v in model.state_dict().items())
 
 
-def _lstm(rng, prefix):
-    return {f"{prefix}.weight_ih_l0": _w(rng, 16, DIM), f"{prefix}.weight_hh_l0": _w(rng, 16, 4),
-            f"{prefix}.bias_ih_l0": _w(rng, 16), f"{prefix}.bias_hh_l0": _w(rng, 16)}
+H = 24  # the RULSTM's width
 
 
-@pytest.mark.parametrize("layout", ["bninception", "rulstm", "video_resnet", "vissl_resnet"])
+def _lstm(rng, prefix, feat=DIM):
+    return {f"{prefix}.weight_ih_l0": _w(rng, 4 * H, feat),
+            f"{prefix}.weight_hh_l0": _w(rng, 4 * H, H),
+            f"{prefix}.bias_ih_l0": _w(rng, 4 * H), f"{prefix}.bias_hh_l0": _w(rng, 4 * H)}
+
+
+def _jagg_model(agg):
+    return JAVTModel(
+        backbone=JIdentityBackbone(), temporal_aggregator=agg,
+        future_predictor=JIdentityFuture(in_features=agg.output_dim),
+        temporal_aggregator_after_future_pred=JIdentityAgg(in_features=agg.output_dim),
+        classifiers={"action": JLinearClassifier(out_features=N_CLS)},
+        num_classes=(("action", N_CLS),), backbone_dim=DIM)
+
+
+def _tagg_model(agg):
+    return AVTModel(
+        backbone=IdentityBackbone(), temporal_aggregator=agg,
+        future_predictor=IdentityFuture(agg.output_dim),
+        temporal_aggregator_after_future_pred=IdentityAgg(agg.output_dim),
+        classifiers={"action": LinearClassifier(agg.output_dim, N_CLS, device="cpu")},
+        num_classes=(("action", N_CLS),), backbone_dim=DIM)
+
+
+def _agg_params(jm):
+    video = np.random.default_rng(1).standard_normal((1, 1, DIM, 6, 1, 1), np.float32)
+    return jax.jit(jm.init)(jax.random.PRNGKey(1), jnp.asarray(video))
+
+
+@pytest.mark.parametrize("nested", [False, True], ids=["bare", "openlstm"])
+def test_rulstm_checkpoint_loads_as_avt_tpu_through_the_expts05_spec(tmp_path, nested):
+    """expts/05's spec: the LSTMs into the aggregator, then the classifier
+    through the `classifier.1.` prefix; the file is an original
+    `{'state_dict': ..., 'epoch': ...}` RULSTM checkpoint."""
+    rng = np.random.default_rng(14)
+    sub = ".lstm" if nested else ""
+    sd = {**_lstm(rng, f"rolling_lstm{sub}"), **_lstm(rng, f"unrolling_lstm{sub}"),
+          "classifier.1.weight": _w(rng, N_CLS, H), "classifier.1.bias": _w(rng, N_CLS)}
+    path = _save({"state_dict": sd, "epoch": 40, "best_perf": 0.1}, tmp_path / "rulstm.pth.tar")
+    jparams = _agg_params(_jagg_model(JRULSTMAgg(in_features=DIM, intermediate_featdim=H)))
+    tmodel = lambda: _tagg_model(RULSTMAgg(DIM, H, device="cpu"))  # noqa: E731
+    specs = [["temporal_aggregator", path], ["classifiers.action", "classifier.1.", path]]
+    loaded = both(jparams, specs, tmodel)
+    lstm = {f"temporal_aggregator.{k.replace('.lstm.', '.')}": v for k, v in sd.items()
+            if "lstm" in k}
+    assert set(loaded) == set(lstm) | {"classifiers.action.weight", "classifiers.action.bias"}
+    model = load_jax_params(tmodel(), jparams)
+    init_from_model(model, specs)
+    got = model.state_dict()
+    for k, v in lstm.items():  # the file's tensors, both biases, bit for bit
+        assert torch.equal(got[k], v), k
+    assert torch.equal(got["classifiers.action.weight"], sd["classifier.1.weight"])
+
+
+def test_an_avt_checkpoint_with_a_transformer_aggregator_loads_whole(tmp_path):
+    """A reference AVT checkpoint carrying a Transformer aggregator (its
+    positional table and mask embedding too) loads whole as avt_tpu loads
+    it; a spec into one module takes only that module's part."""
+    E = 16
+    jagg = JTransformerAgg(in_features=DIM, inter_rep=E, nheads=2, nlayers=2, ffn_dim=32)
+    jparams = _agg_params(_jagg_model(jagg))
+    tmodel = lambda: _tagg_model(TransformerAgg(DIM, E, 2, 2, 32, device="cpu"))  # noqa: E731
+    g = torch.Generator().manual_seed(15)
+    sd = {k: torch.randn(v.shape, generator=g) for k, v in tmodel().state_dict().items()}
+    sd["temporal_aggregator.pos_encoder.pe"] = torch.zeros(1000, 1, E)  # a buffer: not loaded
+    path = _save({"model": sd}, tmp_path / "x.pth")
+    loaded = both(jparams, [[path]], tmodel)
+    assert set(loaded) == set(sd) - {"temporal_aggregator.pos_encoder.pe"}
+    loaded = both(jparams, [["temporal_aggregator", path]], tmodel)
+    assert loaded and all(k.startswith("temporal_aggregator.") for k in loaded)
+    # with a mask embedding (a cloze-trained aggregator): into a model that has one
+    sd["temporal_aggregator.extra_embeddings.weight"] = torch.randn(1, DIM, generator=g)
+    model = _tagg_model(TransformerAgg(DIM, E, 2, 2, 32, cloze_loss_ratio=0.2, device="cpu"))
+    init_from_model(model, [[_save({"model": sd}, tmp_path / "y.pth")]])
+    assert torch.equal(model.state_dict()["temporal_aggregator.extra_embeddings.weight"],
+                       sd["temporal_aggregator.extra_embeddings.weight"])
+
+
+@pytest.mark.parametrize("layout", ["bninception", "video_resnet", "vissl_resnet"])
 def test_layouts_of_unported_modules_raise_naming_queue_1_6(jparams, tmp_path, layout):
     rng = np.random.default_rng(11)
     sd = {"bninception": {"conv1_7x7_s2.weight": _w(rng, 4, 3, 7, 7)},
-          "rulstm": {**_lstm(rng, "rolling_lstm"), **_lstm(rng, "unrolling_lstm")},
           "video_resnet": {"stem.0.weight": _w(rng, 4, 3, 3, 7, 7)},
           "vissl_resnet": {"classy_state_dict": {"base_model": {"model": {"trunk": {
               "_feature_blocks.stem.0.weight": _w(rng, 4, 3, 3, 7, 7)}}}}}}[layout]
     path = _save(sd, tmp_path / "x.pth")
     with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1\.6"):
         init_from_model(_tmodel(), [["backbone", path]])
-
-
-def test_an_unported_aggregator_raises_whole_and_not_for_the_backbone(jparams, tmp_path):
-    rng = np.random.default_rng(12)
-    sd = avt_sd(13)
-    agg, E = "temporal_aggregator.", 8  # the reference's Transformer aggregator, 1 layer
-    sd.update({agg + "downproject.weight": _w(rng, E, DIM), agg + "downproject.bias": _w(rng, E),
-               agg + "transformer_encoder.norm.weight": _w(rng, E),
-               agg + "transformer_encoder.norm.bias": _w(rng, E)})
-    layer = agg + "transformer_encoder.layers.0."
-    for name, shape in (("self_attn.in_proj_weight", (3 * E, E)),
-                        ("self_attn.in_proj_bias", (3 * E,)),
-                        ("self_attn.out_proj.weight", (E, E)), ("self_attn.out_proj.bias", (E,)),
-                        ("linear1.weight", (16, E)), ("linear1.bias", (16,)),
-                        ("linear2.weight", (E, 16)), ("linear2.bias", (E,)),
-                        ("norm1.weight", (E,)), ("norm1.bias", (E,)), ("norm2.weight", (E,)),
-                        ("norm2.bias", (E,))):
-        sd[layer + name] = _w(rng, *shape)
-    path = _save({"model": sd}, tmp_path / "x.pth")
-    with pytest.raises(NotImplementedError, match=r"Transformer aggregator.*Queue 1\.6"):
-        init_from_model(_tmodel(), [[path]])
-    loaded = both(jparams, [["backbone.model", path]])
-    assert loaded and all(k.startswith("backbone.model.") for k in loaded)
 
 
 def test_a_directory_is_an_avt_tpu_checkpoint(tmp_path):

@@ -181,6 +181,62 @@ def test_expts02_steps_match_avt_tpu(tree, T, request):
         assert calls.call_count == 2 * 4
 
 
+ZOO_SMALL = [f"model.backbone_dim={DIM}", f"train.batch_size={B}", f"eval.batch_size={B}",
+             "data_train.workers=2", "data_eval.workers=2",
+             "+model.temporal_aggregator.inter_rep=128", "+model.temporal_aggregator.nheads=2",
+             "+model.temporal_aggregator.nlayers=1", "+model.temporal_aggregator.ffn_dim=64",
+             "+model.temporal_aggregator.dropout=0.0"]
+
+
+def test_zoo_transformer_steps_match_avt_tpu(tree, flash_path, monkeypatch):
+    """chip_smoke.py's zoo_transformer override list (expts/02's kept lines,
+    no subclips, the Transformer aggregator, the MLP future predictor and
+    classifier) at 128 features and a small width (1 layer of 2 heads of
+    64): an eval step, a train step and the eval after it against avt_tpu,
+    the encoder attention on the flash path in both (non-causal). The
+    aggregator's fixed 0.1 dropout is the identity on both sides."""
+    from flax import linen as nn
+
+    import avt_tpu_torch.models.temporal_agg as ttagg
+
+    monkeypatch.setattr(nn.Dropout, "__call__", lambda self, x, *a, **k: x)
+    monkeypatch.setattr(ttagg, "dropout", lambda x, *a, **k: x)
+    cfg, jcfg = _compose_lines(chip_smoke.zoo_transformer_overrides(tree, T=128) + ZOO_SMALL)
+    assert cfg["model"]["temporal_aggregator"]["_target_"] == "avt_tpu.models.TransformerAgg"
+    data = cfg["data_train"]
+    assert not data["subclips"]["num_frames"] and data["num_frames"] == 128
+    train, _ = build_all_datasets(cfg)
+    jtrain, _ = jbuild_all_datasets(jcfg)
+    keys = ["video", "target", "target_subclips", "idx", "uid"]
+    batch = next(iter(DataLoader(train[0], B, seed=cfg["seed"], num_workers=2, keys=keys)))
+    jbatch = next(iter(JDataLoader(jtrain[0], B, seed=cfg["seed"], num_workers=2, keys=keys)))
+    assert np.array_equal(batch["video"], jbatch["video"])
+    assert batch["video"].shape == (B, 1, DIM, 128, 1, 1)  # one clip of 128 features
+    num_classes = {"action": chip_smoke.NUM_ACTIONS}
+    jm = jbuild_model(jcfg, num_classes, jtrain[0].class_mappings)
+    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(jbatch["video"]), (B,))
+    tx, _ = jbuild_optimizer_from_cfg(jcfg, params, iters_per_epoch=2)
+    jstep = jmake_train_step(jm, tx, loss_weights(cfg), num_classes, donate=False)
+    jeval = jmake_eval_step(jm, num_classes)
+    model = build_model(cfg, num_classes, train[0].class_mappings, device="cpu")
+    load_jax_params(model, params)
+    opt, _ = build_optimizer_from_cfg(cfg, model, iters_per_epoch=2)
+    step = make_train_step(model, opt, loss_weights(cfg), num_classes)
+    eval_step = make_eval_step(model, num_classes)
+    tb, jb = _to_torch(batch), _to_jax(jbatch)
+    res, ref = eval_step(tb), jeval(params, jb)
+    for key in ("logits/action", "loss/cls_action"):
+        _close(res[key], ref[key], f"eval {key}")
+    state, jmetrics = jstep(TrainState.create(params, tx), jb, jax.random.PRNGKey(1))
+    metrics = step(tb)
+    assert set(jmetrics) <= set(metrics) and "loss/cls_action" in metrics
+    for k in ("loss", "loss/cls_action"):
+        _close(metrics[k], jmetrics[k], f"train step {k}")
+    _close(eval_step(tb)["logits/action"], jeval(state.params, jb)["logits/action"],
+           "eval logits after the step")
+    assert flash_path.call_count == 3  # 1 layer: an eval, a step, an eval
+
+
 def _cli_args(tree, run_dir, *extra):
     return (["--config-file", EXPT, "--run-dir", str(run_dir)] + tree + SMALL
             + ["train.num_epochs=2", "train.unroll_steps=2"] + list(extra))
@@ -341,29 +397,82 @@ def test_main_refuses_the_cpu_unasked(tree, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("overrides,item", [
-    (["train.init_from_model=[[temporal_aggregator, {rulstm}]]"], "1.6"),
     (["train_eval_op=pred_future_feat"], "1.8"),
-    (["model/temporal_aggregator=mean"], "1.6"),
-    (["model/future_predictor=mlp"], "1.6"),
-    (["model/classifier=mlp"], "1.6"),
-    (["model.intermediate_featdim=64"], "1.5"),
+    (["model/backbone=r2plus1d_34"], "1.6"),
+    (["model/backbone=bn_inception"], "1.6"),
     (["+model.future_predictor.output_len_eval=3"], "1.5"),
+    (["+model.future_predictor.rollout_mode=cache"], "1.5"),
     (["+dataset_train._precomputed_metadata_file=/x.pkl"], "1.3"),
 ])
 def test_unported_options_raise_naming_their_roadmap_item(tree, tmp_path, overrides, item):
-    """Each raises naming its ROADMAP item; a RULSTM checkpoint is one whose
-    module is not ported, as it loads."""
-    if any("{rulstm}" in o for o in overrides):
-        rng = np.random.default_rng(0)
-        sd = {f"{lstm}.{w}_l0": torch.from_numpy(rng.standard_normal(s, np.float32))
-              for lstm in ("rolling_lstm", "unrolling_lstm")
-              for w, s in (("weight_ih", (16, DIM)), ("weight_hh", (16, 4)),
-                           ("bias_ih", (16,)), ("bias_hh", (16,)))}
-        torch.save(sd, str(tmp_path / "rulstm.pth.tar"))
-        overrides = [o.format(rulstm=tmp_path / "rulstm.pth.tar") for o in overrides]
+    """Each raises naming its ROADMAP item."""
     cfg, _ = _compose(tree + SMALL + overrides)
     with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue {item}"):
         train_net.main(cfg, str(tmp_path), device="cpu")
+
+
+def _compose_lines(overrides):
+    cfg = Composer(train_net.CONF_DIR).compose("config", [parse_override(o) for o in overrides])
+    jcfg = JComposer(train_net.CONF_DIR).compose("config",
+                                                 [jparse_override(o) for o in overrides])
+    assert cfg == jcfg
+    return cfg, jcfg
+
+
+SMALL_FEAT = [f"model.backbone_dim={DIM}", f"train.batch_size={B}", f"eval.batch_size={B}",
+              "data_train.workers=2", "data_eval.workers=2", "test_only=true"]
+
+
+@pytest.mark.parametrize("overrides", [
+    ["model/temporal_aggregator=mean", "model/future_predictor=mlp", "model/classifier=mlp"],
+    ["model.intermediate_featdim=64", "model.add_regression_head=true"],
+    ["model/temporal_aggregator=rulstm", "+model.temporal_aggregator.intermediate_featdim=16",
+     "train.init_from_model=[[temporal_aggregator,{rulstm}],"
+     "[classifiers.action,classifier.1.,{rulstm}]]"],
+], ids=["mean_mlp_heads", "mapper_regression", "rulstm_checkpoint"])
+def test_zoo_options_evaluate_through_main(tree, tmp_path, overrides):
+    """Options that raised until the rest of the heads were ported build
+    and evaluate through `main` (test_only) on expts/02's kept data lines,
+    a RULSTM checkpoint through expts/05's spec form among them."""
+    path = tmp_path / "rulstm.pth.tar"
+    chip_smoke.write_rulstm(str(path), feat_dim=DIM, hidden=16, seed=0)
+    overrides = [o.format(rulstm=path) for o in overrides]
+    cfg, _ = _compose_lines(chip_smoke.expt02_kept_overrides() + tree + SMALL_FEAT + overrides)
+    metric = train_net.main(cfg, str(tmp_path / "run"), device="cpu")
+    assert np.isfinite(metric)
+
+
+def test_expt05_cli_evaluates_a_rulstm_file_on_the_cpu(tmp_path, monkeypatch):
+    """chip_smoke.py's rulstm_expt05 run at a small width on the CPU:
+    expts/05 from its file, exact_rulstm reads, the seeded RULSTM file
+    through the file's two-entry spec form; the LSTMs load bit for bit."""
+    monkeypatch.setenv("AVT_PLATFORM", "cpu")
+    tree = chip_smoke.write_ek100_tree(str(tmp_path / "tree"), train_videos=2, eval_videos=1,
+                                       actions_per_video=4, first_action_s=4, dim=DIM, seed=5,
+                                       read_type="exact_rulstm")
+    path = str(tmp_path / "rulstm.pth.tar")
+    sd = chip_smoke.write_rulstm(path, feat_dim=DIM, hidden=16, seed=6)
+    loaded = {}
+    real_init = train_net.init_from_model
+
+    def recorded_init(model, specs):
+        out = real_init(model, specs)
+        loaded.update(model.state_dict())
+        return out
+
+    argv = ["--config-file", str(ROOT / chip_smoke.EXPT_05), "--run-dir", str(tmp_path / "run"),
+            f"model.backbone_dim={DIM}", "+model.temporal_aggregator.intermediate_featdim=16",
+            f"train.batch_size={B}", f"eval.batch_size={B}", "data_train.workers=2",
+            "data_eval.workers=2",
+            f"train.init_from_model=[[temporal_aggregator,{path}],"
+            f"[classifiers.action,classifier.1.,{path}]]"] + tree
+    with mock.patch.object(train_net, "init_from_model", recorded_init):
+        (metric,) = train_net.cli(argv)
+    assert np.isfinite(metric)
+    for k, v in sd.items():
+        name = ("classifiers.action." + k.split(".")[-1] if k.startswith("classifier.")
+                else "temporal_aggregator." + k.replace(".lstm.", "."))
+        assert torch.equal(loaded[name], v), name
 
 
 def test_main_refuses_a_process_group(tree, tmp_path, monkeypatch):
