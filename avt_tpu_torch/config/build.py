@@ -9,11 +9,11 @@ config dict, onto the port's modules.
 
 `build_model` builds what the port's zoo holds: the identity and ViT
 (`avt_b*`) backbones; the identity, mean, RULSTM and Transformer
-aggregators; AVT-h at a one-step rollout, the MLP and identity future
-predictors; the linear and MLP classifiers (on the first task only under
-`use_cls_mappings`); and AVTModel's options. The conv backbones (Queue 1.6)
-and AVT-h beyond one step (its rollout, KV cache and cluster-id inputs,
-Queue 1.5) raise NotImplementedError naming their ROADMAP item.
+aggregators; AVT-h with every option (rollouts, the KV-cache mode,
+attention maps, cluster-id inputs and centroids), the MLP and identity
+future predictors; the linear and MLP classifiers (on the first task only
+under `use_cls_mappings`); and AVTModel's options. The conv backbones
+(Queue 1.6) raise NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -30,7 +30,6 @@ LOG = logging.getLogger(__name__)
 DATASET_TRAIN_KEY = "dataset_train"
 DATASET_EVAL_KEY = "dataset_eval"
 _ZOO_ITEM = "1.6"  # ROADMAP Queue 1.6: the rest of the zoo
-_MODEL_ITEM = "1.5"  # ROADMAP Queue 1.5: AVTModel and AVT-h beyond the flagship
 
 
 def _torch_dtype(name) -> torch.dtype:
@@ -205,11 +204,6 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue {item})")
 
 
-# AVT-h options the port's AVTh does not take, with the value that means off
-_AVTH_OFF = {"drop_last_n": 0, "quantize_before_rollout": False, "output_attentions": False,
-             "rollout_mode": "recompute"}
-
-
 _AGGREGATORS = ("IdentityAgg", "MeanAgg", "RULSTMAgg", "TransformerAgg")
 _CLASSIFIERS = ("LinearClassifier", "MLPClassifier")
 
@@ -276,22 +270,24 @@ def build_model(cfg: Dict, num_classes: Dict[str, int], class_mappings: Dict, *,
     ftarget = fcfg.pop("_target_")
     fcfg.pop("future_pred_loss_wt", None)  # inert in the reference too
     if ftarget == "avt_tpu.models.AVTh":
-        if fcfg.get("assign_to_centroids") is not None or fcfg.get("centroids") is not None:
-            raise _not_ported("AVT-h on cluster-id inputs (centroids)", _MODEL_ITEM)
-        fcfg.pop("assign_to_centroids", None)
-        fcfg.pop("centroids", None)
-        fcfg.pop("num_cluster_centers", None)
-        for key, off in _AVTH_OFF.items():
-            if fcfg.pop(key, off) != off:
-                raise _not_ported(f"AVT-h {key}", _MODEL_ITEM)
-        if fcfg.get("output_len", -1) > 1 or fcfg.get("output_len_eval", -1) > 1:
-            raise _not_ported("AVT-h rollouts longer than one step", _MODEL_ITEM)
+        # reference future_prediction.py:66-75: assign_to_centroids is a
+        # centroid file (a torch {'weight': K x C} or a .npy), which wins
+        # over an array given as `centroids`
+        cent = fcfg.pop("assign_to_centroids", None)
+        if cent is None:
+            cent = fcfg.pop("centroids", None)
+        else:
+            fcfg.pop("centroids", None)
+        if isinstance(cent, str):
+            from avt_tpu_torch.models.cluster import load_centroids
+
+            cent = load_centroids(cent)
         loss_cfg = fcfg.pop("future_pred_loss", None)
         floss = instantiate(loss_cfg, reduction="none") if loss_cfg else None
         if "dtype" in fcfg:
             fcfg["dtype"] = None if fcfg["dtype"] is None else _torch_dtype(fcfg["dtype"])
         future_predictor = models.AVTh(in_features=agg_dim_out, future_pred_loss=floss,
-                                       device=device, **fcfg)
+                                       centroids=cent, device=device, **fcfg)
     elif ftarget == "avt_tpu.models.IdentityFuture":
         future_predictor = models.IdentityFuture(in_features=agg_dim_out)
     elif ftarget == "avt_tpu.models.MLPFuture":

@@ -87,7 +87,12 @@ def _register_builtin_targets():
         NpyFeatsReader,
         VideoAsLabelOnehotReader,
     )
-    from avt_tpu_torch.losses import MSELoss, MultiDimCrossEntropy, NormedMSE
+    from avt_tpu_torch.losses import (
+        MSELoss,
+        MultiDimCrossEntropy,
+        NormedMSE,
+        QuantizeAndCrossEntropy,
+    )
 
     pairs = {
         # datasets and annotation functions (reference names)
@@ -101,8 +106,7 @@ def _register_builtin_targets():
         "torch.nn.MSELoss": MSELoss,
         "loss_fn.mse.NormedMSE": NormedMSE,
         "loss_fn.multidim_xentropy.MultiDimCrossEntropy": MultiDimCrossEntropy,
-        "loss_fn.multidim_xentropy.QuantizeAndCrossEntropy": not_ported(
-            "QuantizeAndCrossEntropy (AVT-h on cluster-id inputs)", "1.5"),
+        "loss_fn.multidim_xentropy.QuantizeAndCrossEntropy": QuantizeAndCrossEntropy,
         "loss_fn.simclr_infonce.DistributedSimclrInfoNCELoss": not_ported(
             "the InfoNCE losses (losses/infonce.py)", "1.8"),
         "loss_fn.simclr_infonce.MultiDimDistributedSimclrInfoNCELoss": not_ported(

@@ -1,7 +1,8 @@
 """Cross entropy over multi-dimensional inputs with ignore-index semantics.
 
 Counterpart of avt_tpu/losses/xent.py (`multidim_cross_entropy`,
-`MultiDimCrossEntropy`): (*, C) logits against (*,) integer targets; targets
+`MultiDimCrossEntropy`, `quantize_and_cross_entropy`,
+`QuantizeAndCrossEntropy`): (*, C) logits against (*,) integer targets; targets
 equal to `ignore_index` contribute 0 and are left out of the `mean`
 denominator, which sums the weights of the kept elements. Ignoring is done
 with masks, so the shapes never depend on the data.
@@ -62,3 +63,37 @@ class MultiDimCrossEntropy:
         return multidim_cross_entropy(logits, targets, weight=self.weight,
                                       ignore_index=self.ignore_index,
                                       reduction=self.reduction)
+
+
+def quantize_and_cross_entropy(inp: torch.Tensor, tgt: torch.Tensor, centroids: torch.Tensor,
+                               *, norm: bool = True, reduction: str = "none") -> torch.Tensor:
+    """Cross entropy of features scored against k-means centroids, in JAX's
+    order: both sides L2-normalised (with `norm`), logits = inp @ C^T, the
+    target class tgt's nearest centroid (reference
+    loss_fn/multidim_xentropy.py:28-54)."""
+    if norm:
+        inp = inp / torch.linalg.vector_norm(inp, dim=-1, keepdim=True).clamp_min(1e-12)
+        tgt = tgt / torch.linalg.vector_norm(tgt, dim=-1, keepdim=True).clamp_min(1e-12)
+    logits = inp @ centroids.T
+    d = (centroids ** 2).sum(dim=-1)[None] - 2.0 * (tgt.reshape(-1, tgt.shape[-1]) @ centroids.T)
+    tgt_ids = d.argmin(dim=-1).reshape(tgt.shape[:-1])
+    return multidim_cross_entropy(logits, tgt_ids, reduction=reduction)
+
+
+class QuantizeAndCrossEntropy:
+    """Configurable wrapper around `quantize_and_cross_entropy`, its
+    centroids read from a file (`models.cluster.load_centroids`) and moved
+    to the inputs' device at the first call there."""
+
+    def __init__(self, centroids_fpath, norm: bool = True, reduction: str = "none"):
+        from avt_tpu_torch.models.cluster import load_centroids
+
+        self.centroids = torch.as_tensor(load_centroids(centroids_fpath), dtype=torch.float32)
+        self.norm = norm
+        self.reduction = reduction
+
+    def __call__(self, inp: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
+        if self.centroids.device != inp.device:
+            self.centroids = self.centroids.to(inp.device)
+        return quantize_and_cross_entropy(inp, tgt, self.centroids, norm=self.norm,
+                                          reduction=self.reduction)

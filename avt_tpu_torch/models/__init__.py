@@ -1,9 +1,12 @@
 """Model zoo: the AVT-b + AVT-h flagship and its feature path (identity
-backbone + AVT-h), the Mean, RULSTM and Transformer aggregators, the MLP
-and identity future predictors and the MLP classifier."""
+backbone + AVT-h, with its rollouts, KV cache, attention maps and
+cluster-id inputs), the Mean, RULSTM and Transformer aggregators, the MLP
+and identity future predictors, the MLP classifier and the k-means
+centroids."""
 from avt_tpu_torch.models.backbones import IdentityBackbone
 from avt_tpu_torch.models.base import AVTModel
 from avt_tpu_torch.models.classifiers import LinearClassifier, MLPClassifier
+from avt_tpu_torch.models.cluster import KmeansAssigner, kmeans_fit, load_centroids
 from avt_tpu_torch.models.flagship import build_avt
 from avt_tpu_torch.models.future import AVTh, IdentityFuture, MLPFuture
 from avt_tpu_torch.models.layers import (
@@ -12,6 +15,7 @@ from avt_tpu_torch.models.layers import (
     GPT2Core,
     SelfAttention,
     gelu_new,
+    position_stable_dropout,
     sincos_positional_encoding,
 )
 from avt_tpu_torch.models.temporal_agg import IdentityAgg, MeanAgg, RULSTMAgg, TransformerAgg
@@ -19,7 +23,8 @@ from avt_tpu_torch.models.vit import ViT, ViTAttention, ViTBlock
 
 __all__ = [
     "AVTModel", "AVTh", "EncoderBlock", "GPT2Block", "GPT2Core", "IdentityAgg",
-    "IdentityBackbone", "IdentityFuture", "LinearClassifier", "MLPClassifier", "MLPFuture",
-    "MeanAgg", "RULSTMAgg", "SelfAttention", "TransformerAgg", "ViT", "ViTAttention",
-    "ViTBlock", "build_avt", "gelu_new", "sincos_positional_encoding",
+    "IdentityBackbone", "IdentityFuture", "KmeansAssigner", "LinearClassifier",
+    "MLPClassifier", "MLPFuture", "MeanAgg", "RULSTMAgg", "SelfAttention", "TransformerAgg",
+    "ViT", "ViTAttention", "ViTBlock", "build_avt", "gelu_new", "kmeans_fit",
+    "load_centroids", "position_stable_dropout", "sincos_positional_encoding",
 ]

@@ -169,10 +169,16 @@ def head_from_jax(p: Mapping) -> Dict[str, np.ndarray]:
 
 
 def avth_from_jax(p: Mapping) -> Dict[str, np.ndarray]:
-    """avt_tpu AVTh params (linear encoder/decoder mode) -> the port's AVTh."""
+    """avt_tpu AVTh params -> the port's AVTh: the linear encoder and
+    decoder, or the embedding (`encoder_embed`, cluster-id inputs) as
+    `encoder.weight` and the tied `decoder.weight`."""
     sd = {f"gpt_model.{k}": v for k, v in gpt2_from_jax(p["gpt"]).items()}
-    sd["encoder.weight"] = _t(p["encoder"]["kernel"])
-    sd["decoder.weight"] = _t(p["decoder"]["kernel"])
+    if "encoder_embed" in p:
+        sd["encoder.weight"] = _np(p["encoder_embed"]["embedding"])
+        sd["decoder.weight"] = sd["encoder.weight"]
+    else:
+        sd["encoder.weight"] = _t(p["encoder"]["kernel"])
+        sd["decoder.weight"] = _t(p["decoder"]["kernel"])
     return sd
 
 

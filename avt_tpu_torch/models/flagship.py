@@ -78,8 +78,12 @@ def init_weights(model: AVTModel, generator: torch.Generator) -> None:
         fp = model.future_predictor
         if isinstance(fp, AVTh):
             init_normal_(fp.gpt_model, 0.02, generator)
-            nn.init.normal_(fp.encoder.weight, std=0.01, generator=generator)
-            nn.init.normal_(fp.decoder.weight, std=0.01, generator=generator)
+            if fp.quantized_input:  # flax's Embed init; the decoder is tied to it
+                nn.init.normal_(fp.encoder.weight, std=fp.inter_dim ** -0.5,
+                                generator=generator)
+            else:
+                nn.init.normal_(fp.encoder.weight, std=0.01, generator=generator)
+                nn.init.normal_(fp.decoder.weight, std=0.01, generator=generator)
         else:
             init_normal_(fp, 0.01, generator)
         for agg in (model.temporal_aggregator, model.temporal_aggregator_after_future_pred):

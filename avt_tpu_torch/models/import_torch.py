@@ -148,13 +148,10 @@ def avt_checkpoint_leaves(sd: Mapping[str, torch.Tensor]) -> StateDict:
         enc = sd["future_predictor.encoder.weight"]
         dec = sd.get("future_predictor.decoder.weight")
         if enc.ndim == 2 and dec is not None:
-            if enc.shape == dec.shape and torch.equal(enc, dec):
-                # tied weights: an nn.Embedding encoder (quantized inputs),
-                # which the port's AVT-h does not have
-                out["future_predictor.encoder_embed.weight"] = enc
-            else:
-                out["future_predictor.encoder.weight"] = enc
-                out["future_predictor.decoder.weight"] = dec
+            # linear encoder and decoder, or an nn.Embedding with the decoder
+            # tied to it (cluster-id inputs): the port's AVT-h has both names
+            out["future_predictor.encoder.weight"] = enc
+            out["future_predictor.decoder.weight"] = dec
     for key, val in sd.items():
         # the MLP future predictor's Linears and the classifiers, as JAX's
         # converter matches them

@@ -1,13 +1,15 @@
 """Shared transformer building blocks: the GPT-2 decoder of AVT-h and the
 encoder block of the Transformer aggregator.
 
-Counterpart of avt_tpu/models/layers.py (`gelu_new`, `SelfAttention`,
-`GPT2Block`, `GPT2Core`, `sincos_positional_encoding`, `EncoderBlock`) for
-the recompute forward, in eval and train mode; the KV cache,
-`output_attentions` and position-stable dropout (rollouts longer than one
-step) come later. GPT-2's parameter names are HF transformers' GPT2Model
-ones (Conv1D weights laid out (in, out)), the encoder block's those of
-torch's nn.TransformerEncoderLayer, so reference state_dicts load unchanged.
+Counterpart of avt_tpu/models/layers.py (`gelu_new`,
+`position_stable_dropout`, `SelfAttention`, `GPT2Block`, `GPT2Core`,
+`sincos_positional_encoding`, `EncoderBlock`): the causal forward in eval
+and train mode, the KV-cache prefill and single-token decode, the
+attention-map export (`output_attentions`) and the position-stable dropout
+of rollouts longer than one step. GPT-2's parameter names are HF
+transformers' GPT2Model ones (Conv1D weights laid out (in, out)), the
+encoder block's those of torch's nn.TransformerEncoderLayer, so reference
+state_dicts load unchanged.
 
 `dense` and `layer_norm` reproduce flax's `dtype=` semantics, which every
 module of the port follows: parameters stay f32; under a compute dtype the
@@ -59,6 +61,73 @@ def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
+_M32 = 0xFFFFFFFF
+_GOLDEN = 0x9E3779B9
+
+
+def _mix32(x, c: int):
+    """(x * c) mod 2**32: x under 2**32 and c under 2**31, so that the
+    int64 product cannot overflow."""
+    return (x * c) & _M32
+
+
+def _hash32(x):
+    """A bijective hash of 32-bit values held in int64 tensors (or ints):
+    xorshift-multiply rounds with odd multipliers under 2**31."""
+    x = _mix32(x ^ (x >> 16), 0x7FEB352D)
+    x = _mix32(x ^ (x >> 15), 0x5BD1E995)
+    return x ^ (x >> 16)
+
+
+def fold_in(key, data):
+    """A new key, a pure function of `key` (an int64 tensor of 32-bit
+    values) and `data` (an int or an int64 tensor, broadcast against it):
+    the port's jax.random.fold_in."""
+    return _hash32(key ^ _hash32((data + _GOLDEN) & _M32))
+
+
+def position_stable_dropout(x: torch.Tensor, key: torch.Tensor, rate: float,
+                            offset: int = 0) -> torch.Tensor:
+    """Dropout of a (B, T, C) x whose mask is a pure function of (key,
+    absolute position, batch row, channel): position offset + t's mask is
+    drawn from fold_in(key, offset + t), so any pass that covers a position
+    regenerates its mask, whatever the length of the pass. A recomputed
+    rollout prefix thus equals what a KV cache keeps, under train-time
+    dropout too. One counter-based hash an element, on x's device, with no
+    loop over positions; keep and scale as `dropout` does. The bits differ
+    from JAX's threefry; the property and the sites are the same."""
+    if rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    B, T, C = x.shape
+    pos_keys = fold_in(key, torch.arange(offset, offset + T, device=x.device))
+    elems = _hash32(torch.arange(B * C, device=x.device).reshape(B, 1, C) + _GOLDEN)
+    keep = _hash32(pos_keys[None, :, None] ^ elems) < int((1.0 - rate) * (1 << 32))
+    keep_prob = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+def _dropout(x, rate, generator, training, key, offset):
+    """Position-stable dropout under a rollout key, `dropout` otherwise."""
+    if key is not None and training:
+        return position_stable_dropout(x, key, rate, offset)
+    return dropout(x, rate, generator, training)
+
+
+def _explicit_attention_probs(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+    """Softmax attention probabilities (B, H, Tq, Tk) of (B, T, H, D) q and
+    k, in q's type, causal as a query block ending at the last key
+    (tril(k=Tk-Tq), masked logits at the type's minimum). Only attention-map
+    export materialises them."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(q.shape[-1])
+    if causal:
+        Tq, Tk = logits.shape[-2:]
+        keep = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device).tril(Tk - Tq)
+        logits = logits.masked_fill(~keep, torch.finfo(logits.dtype).min)
+    return torch.softmax(logits, dim=-1)
+
+
 def gelu_new(x: torch.Tensor) -> torch.Tensor:
     """GPT-2's tanh-approximated GELU."""
     return F.gelu(x, approximate="tanh")
@@ -95,15 +164,50 @@ class SelfAttention(nn.Module):
         self.attn_dropout = attn_dropout
         self.resid_dropout = resid_dropout
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
+    def forward(self, x, generator: Optional[torch.Generator] = None, *,
+                output_attentions: bool = False, dropout_key: Optional[torch.Tensor] = None,
+                kv_cache=None, cache_index: Optional[int] = None, pos_offset: int = 0,
+                return_kv: bool = False):
+        """kv_cache (a (B, Tc, H, D) k, v pair) with cache_index: the
+        decode of the one (B, 1, C) token at that position, whose k and v
+        go into copies of the cache (out of place, so that an earlier
+        step's saved tensors stay intact) and whose query attends over
+        positions <= cache_index; returns (out, (k, v)) with the new
+        cache. return_kv: also return this pass's (k, v) (the prefill).
+        output_attentions: also return the probabilities (B, H, T, T).
+        dropout_key: position-stable dropout at token positions pos_offset
+        on, its sites fold_in(key, 0) (attention output) and 1 (c_proj)."""
         B, T, C = x.shape
         qkv = self.c_attn(x, self.dtype)
         q, k, v = (t.reshape(B, T, self.num_heads, C // self.num_heads)
                    for t in qkv.split(C, dim=-1))
-        out = dot_product_attention(q, k, v, causal=self.causal)
-        out = dropout(out, self.attn_dropout, generator, self.training).reshape(B, T, C)
-        return dropout(self.c_proj(out, self.dtype), self.resid_dropout, generator,
-                       self.training)
+        probs = None
+        if kv_cache is not None:
+            if output_attentions or T != 1:
+                raise ValueError("a cached decode takes one token and exports no attention map")
+            k, v = (cache.slice_scatter(new.to(cache.dtype), dim=1, start=cache_index,
+                                        end=cache_index + 1)
+                    for cache, new in zip(kv_cache, (k, v)))
+            visible = torch.arange(k.shape[1], device=x.device) <= cache_index
+            out = dot_product_attention(q, k, v, causal=False, mask=visible[None, None, None])
+        elif output_attentions:
+            probs = _explicit_attention_probs(q, k, self.causal)
+            out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+        else:
+            out = dot_product_attention(q, k, v, causal=self.causal)
+        if dropout_key is not None and self.training:
+            out = position_stable_dropout(out.reshape(B, T, C), fold_in(dropout_key, 0),
+                                          self.attn_dropout, pos_offset)
+        else:
+            out = dropout(out, self.attn_dropout, generator, self.training).reshape(B, T, C)
+        out = _dropout(self.c_proj(out, self.dtype), self.resid_dropout, generator,
+                       self.training, None if dropout_key is None else fold_in(dropout_key, 1),
+                       pos_offset)
+        if kv_cache is not None or return_kv:
+            return out, (k, v)
+        if output_attentions:
+            return out, probs
+        return out
 
 
 class GPT2MLP(nn.Module):
@@ -128,12 +232,29 @@ class GPT2Block(nn.Module):
         self.mlp = GPT2MLP(dim, mlp_ratio * dim, device=device)
         self.resid_dropout = resid_dropout
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
-        x = x + self.attn(layer_norm(x, self.ln_1, self.dtype), generator)
+    def forward(self, x, generator: Optional[torch.Generator] = None, *,
+                output_attentions: bool = False, dropout_key: Optional[torch.Tensor] = None,
+                kv_cache=None, cache_index: Optional[int] = None, pos_offset: int = 0,
+                return_kv: bool = False):
+        """The options are SelfAttention's; with any of kv_cache, return_kv
+        or output_attentions, returns (out, its second output). Dropout
+        sites under dropout_key: fold_in(key, 0) the attention's, 1 the
+        MLP's residual."""
+        attn = self.attn(layer_norm(x, self.ln_1, self.dtype), generator,
+                         output_attentions=output_attentions,
+                         dropout_key=None if dropout_key is None else fold_in(dropout_key, 0),
+                         kv_cache=kv_cache, cache_index=cache_index, pos_offset=pos_offset,
+                         return_kv=return_kv)
+        extra = None
+        if kv_cache is not None or return_kv or output_attentions:
+            attn, extra = attn
+        x = x + attn
         h = layer_norm(x, self.ln_2, self.dtype)
         h = gelu_new(self.mlp.c_fc(h, self.dtype))
         h = self.mlp.c_proj(h, self.dtype)
-        return x + dropout(h, self.resid_dropout, generator, self.training)
+        out = x + _dropout(h, self.resid_dropout, generator, self.training,
+                           None if dropout_key is None else fold_in(dropout_key, 1), pos_offset)
+        return out if extra is None else (out, extra)
 
 
 class GPT2Core(nn.Module):
@@ -157,16 +278,47 @@ class GPT2Core(nn.Module):
         self.ln_f = nn.LayerNorm(dim, eps=ln_eps, device=device)
 
     def forward(self, inputs_embeds, position_offset: int = 0,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, *, output_attentions: bool = False,
+                dropout_key: Optional[torch.Tensor] = None, kv_caches=None,
+                return_kv: bool = False):
+        """inputs_embeds (B, T, C) at token positions position_offset on.
+        wpe is sliced as jax.lax.dynamic_slice_in_dim does, its start
+        clamped so that T rows fit. dropout_key: position-stable dropout
+        (the same key for every pass of a rollout makes the masks a function
+        of the token position only, so recompute == KV cache); the sites
+        fold_in(key, 0) for the embedding, 1 + i for block i.
+        output_attentions: also return every layer's probabilities stacked
+        (B, n_layer, n_head, T, T). return_kv: also return each layer's (k,
+        v) of this pass (the prefill). kv_caches: each layer's (B, Tc, H, D)
+        k, v pair, for the decode of the one token at position_offset;
+        returns (out, the updated caches)."""
         T = inputs_embeds.shape[1]
-        x = inputs_embeds + self.wpe.weight[position_offset:position_offset + T][None]
+        n_positions = self.wpe.num_embeddings
+        if T > n_positions:
+            raise ValueError(f"{T} tokens do not fit n_positions={n_positions}")
+        start = min(max(position_offset, 0), n_positions - T)
+        x = inputs_embeds + self.wpe.weight[start:start + T][None]
         if self.dtype is not None:
             x = x.to(self.dtype)
-        x = dropout(x, self.embd_dropout, generator, self.training)
-        for block in self.h:
-            x = block(x, generator)
+        x = _dropout(x, self.embd_dropout, generator, self.training,
+                     None if dropout_key is None else fold_in(dropout_key, 0), position_offset)
+        extras = []
+        for i, block in enumerate(self.h):
+            x = block(x, generator, output_attentions=output_attentions,
+                      dropout_key=None if dropout_key is None else fold_in(dropout_key, 1 + i),
+                      kv_cache=None if kv_caches is None else kv_caches[i],
+                      cache_index=None if kv_caches is None else position_offset,
+                      pos_offset=position_offset, return_kv=return_kv)
+            if kv_caches is not None or return_kv or output_attentions:
+                x, extra = x
+                extras.append(extra)
         x = layer_norm(x, self.ln_f, self.dtype)
-        return x.float() if self.dtype is not None else x
+        out = x.float() if self.dtype is not None else x
+        if kv_caches is not None or return_kv:
+            return out, extras
+        if output_attentions:
+            return out, torch.stack(extras, dim=1)
+        return out
 
 
 def sincos_positional_encoding(max_len: int, d_model: int, device=None) -> torch.Tensor:

@@ -153,6 +153,27 @@
    and bf16, against their plain versions (bits on a repeat) and times the
    f32 ones beside SDPA and their bound. Prints the loop's ms a step and a
    profile of one train step by kernel group with the flash kernels' share.
+12. rollout: expts/02 from its file through `train_net.cli` at 256
+   observed features with AVT-h rollouts of 2 steps in training and 8 at
+   eval (`output_len=2`, `output_len_eval=8`; the file's dropout, so the
+   position-stable masks are live), on phase 8's kind of tree: 4 steps of
+   12 flash forward + 12 backward launches (6 layers x 2 passes, at 256 and
+   257 tokens) and 2 eval batches of 48 forward launches. Then, on the
+   trained weights and the first train batch, `rollout_mode=cache` against
+   the recompute mode: the eval outputs at L=8 and one train step's losses
+   and gradients at L=2 within ROLLOUT_TOL of their largest magnitude
+   (recompute 48 / 12 + 12 launches, cache 6 / 6 + 6), and a long eval
+   rollout of L=128 on 8 clips (up to 383 tokens; recompute 768 flash
+   launches, cache 6 and 127 plain masked decode steps), each mode timed
+   with its peak memory. Before it, phase 2 holds the flash kernels at
+   AVT-h's heads (4 x 512), causal, f32 and bf16, at T=257 (batch 64) and
+   T=383 (batch 8) against their plain versions.
+13. quantized: `kmeans_fit` on the card (k=4096 over every training
+   feature of a synthetic tree, timed); the centroids as .npy feed expts/02
+   at its shipped 10 features with `assign_to_centroids` and a
+   MultiDimCrossEntropy feat loss through `train_net.cli`: 4 steps and 2
+   eval batches, no kernel launches, finite losses and metric, the
+   checkpoint's encoder and tied decoder equal.
 Only phase 4b launches the fused kernel. Prints one JSON line of kernel results, then {"ok": true, "device": ...}.
 Exits non-zero on any failure, and without a CUDA device.
 """
@@ -187,7 +208,15 @@ from avt_tpu_torch import (
 )
 from avt_tpu_torch.evaluate import RESULTS_SAVE_DIR, evaluate, read_results
 from avt_tpu_torch.losses import mse
-from avt_tpu_torch.models import AVTh, AVTModel, IdentityAgg, LinearClassifier, ViT
+from avt_tpu_torch.models import (
+    AVTh,
+    AVTModel,
+    IdentityAgg,
+    LinearClassifier,
+    ViT,
+    kmeans_fit,
+    position_stable_dropout,
+)
 from avt_tpu_torch.models import vit as vit_module
 from avt_tpu_torch.models.flagship import init_weights
 from avt_tpu_torch.ops import _build, attention
@@ -200,6 +229,7 @@ from avt_tpu_torch.train import (
     weighted_loss_sum,
 )
 from avt_tpu_torch.train import loop as loop_module
+from avt_tpu_torch.train.step import _forward
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound is the larger of
 # bytes over memory rate and operations over the type's peak rate
@@ -942,6 +972,14 @@ def main():
     check_flash(8, 200, 2, 1024, torch.float32, True, seed=18)
     d1024_err = check_flash(*FLASH_SHAPE_D1024, torch.float32, True, seed=19)
     check_flash(*FLASH_SHAPE_D1024, torch.bfloat16, True, seed=19)
+    # the rollout's new lengths at AVT-h's heads: a training pass of 257
+    # tokens (batch 64) and the long eval rollout's last pass of 383 (batch 8)
+    rollout_errs = {}
+    for Bn, T in ((FEAT_BATCH, LONG_T + 1), (RO_LONG_B, RO_LONG_T)):
+        for dtype in (torch.float32, torch.bfloat16):
+            fwd_e, bwd_e = check_flash(Bn, T, AVTH_HEADS, AVTH_DIM // AVTH_HEADS, dtype, True,
+                                       seed=36)
+            rollout_errs[f"B{Bn}_T{T}_{str(dtype)[6:]}"] = {"fwd": fwd_e, "bwd": bwd_e}
     # the Transformer aggregator's encoder attention: non-causal, 8 heads of 64
     zoo_err = check_flash(*ZOO_SHAPE, torch.float32, False, seed=28)
     check_flash(*ZOO_SHAPE, torch.bfloat16, False, seed=28)
@@ -996,11 +1034,17 @@ def main():
     # 11. the Transformer aggregator over 256 features through train_net
     zoo_launches, zoo_profile = zoo_transformer_phase(card)
 
+    # 12. AVT-h rollouts through train_net (recompute and KV cache), long rollouts
+    rollout_launches, rollout_summary = rollout_phase(card)
+
+    # 13. quantized AVT-h: k-means on the card, then expts/02 on the centroids
+    quant_launches, quant_summary = quantized_phase(card)
+
     paths = {"serve": serve_launches, "train": train_launches, "trainer": trainer_launches,
              "train_d32": d32_launches,
              **feat_launches, "feature_d1024": d1024_launches, "train_fused": fused_launches,
              "ek55_adam": ek55_launches, **tn_launches, **tnr_launches, **rulstm_launches,
-             **zoo_launches}
+             **zoo_launches, **rollout_launches, **quant_launches}
     for path, counts in paths.items():
         if path != "train_fused":
             check(counts["fused_qkv_attention_fwd"] == 0, f"a fused launch on {path}: {counts}")
@@ -1058,7 +1102,9 @@ def main():
                              "sdpa_backend": flash_timing_zoo["sdpa_backend"],
                              **flash_timing_zoo[side],
                              "train_step": {k: v for k, v in zoo_profile.items()
-                                            if k != "groups"}}))
+                                            if k != "groups"}},
+            rollout_checks={k: v[side] for k, v in rollout_errs.items()},
+            rollout=rollout_summary))
     spec = _build.KERNELS["fused_qkv_attention_fwd"]
     kernels.append(dict(
         name="fused_qkv_attention_fwd", route=spec["route"], source=spec["source"],
@@ -1070,6 +1116,7 @@ def main():
         f32={"shape": [240, 197, 12, 64], **fused_timing_f32},
         residency={k.split(" ")[1]: v for k, v in residency.items() if k.startswith("fused")},
         train_step_ms={"fused": fused_train["step_ms"], "split": split_train["step_ms"]}))
+    log(f"quantized: {quant_summary}")
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2596,6 +2643,25 @@ def zoo_flops_per_clip(T, dim=ZOO_DIM, layers=ZOO_LAYERS, ffn=2048, feat=FEAT_DI
     return T * per_token + 2 * (2 * dim * dim) + 2 * (dim * dim + dim * actions)
 
 
+def recording_make_train_step(train_net, captured):
+    """A make_train_step for `train_net` whose step records (model, loss
+    weights, classes, first batch, the step) in `captured` at its first
+    call."""
+    real = train_net.make_train_step
+
+    def make(model, optimizer, loss_wts, num_classes, **kwargs):
+        step = real(model, optimizer, loss_wts, num_classes, **kwargs)
+
+        def recording(batch, generator=None):
+            if not captured:
+                captured.append((model, loss_wts, num_classes, batch, step))
+            return step(batch, generator)
+
+        return recording
+
+    return make
+
+
 def zoo_transformer_phase(card):
     """The feature path with the Transformer aggregator over 256 observed
     features, through `train_net.cli`: expts/02's data, reader and
@@ -2609,18 +2675,6 @@ def zoo_transformer_phase(card):
     from avt_tpu_torch import train_net
 
     steps = []
-    real_make_step = train_net.make_train_step
-
-    def recorded_make_step(*args, **kwargs):
-        step = real_make_step(*args, **kwargs)
-
-        def recording(batch, generator=None):
-            if not steps:
-                steps.append((step, batch))
-            return step(batch, generator)
-
-        return recording
-
     with tempfile.TemporaryDirectory() as tmp:
         tree = write_ek100_tree(os.path.join(tmp, "tree"), train_videos=TN_TRAIN_VIDEOS,
                                 eval_videos=TN_EVAL_VIDEOS, actions_per_video=TN_ACTIONS,
@@ -2628,7 +2682,8 @@ def zoo_transformer_phase(card):
         argv = ["--run-dir", os.path.join(tmp, "run")] + zoo_transformer_overrides(tree) + [
             f"data_train.workers={TN_WORKERS}", f"data_eval.workers={TN_WORKERS}",
             "train.num_epochs=1"]
-        with mock.patch.object(train_net, "make_train_step", recorded_make_step):
+        with mock.patch.object(train_net, "make_train_step",
+                               recording_make_train_step(train_net, steps)):
             (metric,), rec = run_train_net(argv)
         want = {**{n: 0 for n in _build.KERNELS},
                 "flash_attention_fwd": ZOO_LAYERS * (TN_STEPS + TN_EVAL_BATCHES),
@@ -2646,7 +2701,7 @@ def zoo_transformer_phase(card):
         check(len(finals) == 1 and np.isfinite(metric)
               and metric == finals[0]["final_acc/action/AR5"],
               f"zoo_transformer: final metrics {finals}, returned {metric}")
-        step, batch = steps[0]
+        _, _, _, batch, step = steps[0]
         gen = torch.Generator(device="cuda").manual_seed(27)
         _build.reset_launch_counts()
         busy, groups, wall = profile_run(lambda: step(batch, gen),
@@ -2680,6 +2735,288 @@ def zoo_transformer_phase(card):
         f"{flops / busy / 1e9:.2f} TFLOP/s of device time; the flash kernels {flash:.2f} ms "
         f"({100 * flash / busy:.1f}% of device time)")
     return {"zoo_transformer": rec["launches"]}, profile
+
+
+# ---------------------------------------------------------------- rollout
+# expts/02 at 256 observed features with AVT-h rollouts of 2 steps in
+# training (a recompute pass at 256 tokens, then the final one at 257) and 8
+# at eval (passes at 256-263 tokens); then a long eval rollout of 128 steps on
+# 8 clips (its last pass at 383 tokens)
+RO_TRAIN_L, RO_EVAL_L, RO_LONG_B, RO_LONG_L = 2, 8, 8, 128
+RO_OVERRIDES = [f"model.future_predictor.output_len={RO_TRAIN_L}",
+                f"+model.future_predictor.output_len_eval={RO_EVAL_L}"]
+RO_LONG_T = LONG_T + RO_LONG_L - 1
+ROLLOUT_TOL = 1e-3  # cache vs recompute, of each output's and gradient's max |value|
+QUANT_K = 4096  # centroids fit over the synthetic tree's training features
+
+
+def scaled_err(out, ref):
+    """max |out - ref| over max |ref|."""
+    return ((out.float() - ref.float()).abs().max() / ref.float().abs().max().clamp_min(1e-12)
+            ).item()
+
+
+def rollout_train_grads(model, batch, loss_wts, num_classes, seed):
+    """One train step's forward and backward without the update, as
+    make_train_step runs them (dropout from a generator seeded `seed`):
+    ({loss: value}, {parameter: gradient}, ms, peak GB, launches)."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.time()
+    _, losses, aux, _ = _forward(model, batch["video"], batch, num_classes, None, gen)
+    losses.update(aux)
+    total, mean_losses = weighted_loss_sum(losses, loss_wts)
+    total.backward()
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3
+    launches = dict(_build.launch_counts)
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return ({k: v.item() for k, v in mean_losses.items()}, grads, ms,
+            torch.cuda.max_memory_allocated() / 1e9, launches)
+
+
+def rollout_eval(model, video, tshape, reps):
+    """The eval forward: (outputs, ms of one call (host clock over `reps`
+    calls after the first, synchronised), peak GB, the first call's
+    launches)."""
+    model.eval()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        out, _ = model(video, tshape)
+        torch.cuda.synchronize()
+        launches = dict(_build.launch_counts)
+        t0 = time.time()
+        for _ in range(reps):
+            model(video, tshape)
+        torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3 / max(reps, 1)
+    return out, ms, torch.cuda.max_memory_allocated() / 1e9, launches
+
+
+def flash_launches(fwd, bwd=0):
+    return {**{n: 0 for n in _build.KERNELS}, "flash_attention_fwd": fwd,
+            "flash_attention_bwd": bwd}
+
+
+def rollout_phase(card):
+    """expts/02 from its file through `train_net.cli` at 256 observed
+    features with output_len=2 and output_len_eval=8 (the file's dropout, so
+    the position-stable masks are live), on a synthetic EK100 tree: 4 train
+    steps, 12 flash forward + 12 backward launches each (6 layers x 2
+    passes), and 2 eval batches, 48 forward launches each. Then, on the
+    trained weights and the first train batch, the cache mode against the
+    recompute mode: the eval outputs at L=8 and one train step's losses and
+    gradients at L=2, each within ROLLOUT_TOL of its largest magnitude, and
+    a long eval rollout of L=128 on 8 clips (recompute: 768 flash forward
+    launches; cache: 6 and 127 plain decode steps), each mode timed, with
+    its peak memory. Returns (the launch counts of each path, a summary)."""
+    from avt_tpu_torch import train_net
+
+    captured = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tree = write_ek100_tree(os.path.join(tmp, "tree"), train_videos=TN_TRAIN_VIDEOS,
+                                eval_videos=TN_EVAL_VIDEOS, actions_per_video=TN_ACTIONS,
+                                first_action_s=TN_FIRST_S, seed=33)
+        argv = (["--config-file", EXPT_02, "--run-dir", os.path.join(tmp, "run")] + tree
+                + [f"data_train.workers={TN_WORKERS}", f"data_eval.workers={TN_WORKERS}",
+                   "train.num_epochs=1"] + long_context(LONG_T) + RO_OVERRIDES)
+        with mock.patch.object(train_net, "make_train_step",
+                               recording_make_train_step(train_net, captured)):
+            (metric,), rec = run_train_net(argv)
+    passes = AVTH_LAYERS * RO_TRAIN_L
+    want = flash_launches(passes * TN_STEPS + AVTH_LAYERS * RO_EVAL_L * TN_EVAL_BATCHES,
+                          passes * TN_STEPS)
+    check(rec["launches"] == want, f"rollout: launches {rec['launches']}, want {want}")
+    meters = rec["loggers"][0].meters
+    losses = {k: m.global_avg for k, m in meters.items() if k.startswith("loss")}
+    check(meters["loss"].count == TN_STEPS and all(np.isfinite(list(losses.values())))
+          and np.isfinite(metric), f"rollout: losses {losses}, metric {metric}")
+    clips_s = meters["clips/s"]
+    log(f"rollout train_net ({card}): expts/02 at {LONG_T} observed features, output_len "
+        f"{RO_TRAIN_L}, output_len_eval {RO_EVAL_L}, {TN_STEPS} steps of {TN_BATCH} clips, "
+        f"{TN_EVAL_BATCHES} eval batches; the loop {TN_BATCH / clips_s.median * 1e3:.2f} ms a "
+        f"step (its clips/s meter); eval {1e3 * rec['eval_s'][0] / TN_EVAL_BATCHES:.2f} ms a "
+        f"batch; losses " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(losses.items()))
+        + f"; final_acc/action/AR5 {metric:.4f}; cli {rec['wall_s']:.1f} s; launches "
+        f"{rec['launches']}")
+
+    model, loss_wts, num_classes, batch, step = captured.pop()
+    fp = model.future_predictor
+    check(fp.output_len == RO_TRAIN_L and fp.output_len_eval == RO_EVAL_L
+          and fp.rollout_mode == "recompute" and max(fp.pdrops) > 0,
+          f"rollout: the model's AVT-h {fp.output_len}, {fp.output_len_eval}, "
+          f"{fp.rollout_mode}, dropout {fp.pdrops}")
+    video = batch["video"]
+    tshape = tuple(next(iter(batch["target"].values())).shape)
+    summary, counts = {}, {}
+    modes = ("recompute", "cache")
+    want_eval = {"recompute": flash_launches(AVTH_LAYERS * RO_EVAL_L),
+                 "cache": flash_launches(AVTH_LAYERS)}
+    want_train = {"recompute": flash_launches(passes, passes),
+                  "cache": flash_launches(AVTH_LAYERS, AVTH_LAYERS)}
+    evals, trains = {}, {}
+    for mode in modes:
+        fp.rollout_mode = mode
+        out, ms, peak, launches = rollout_eval(model, video, tshape, reps=2)
+        check(launches == want_eval[mode], f"rollout eval {mode}: launches {launches}, want "
+              f"{want_eval[mode]}")
+        evals[mode] = out
+        counts[f"rollout_eval_{mode}"] = launches
+        summary[f"eval_L{RO_EVAL_L}_{mode}"] = dict(ms=ms, peak_gb=peak)
+        loss_vals, grads, ms, peak, launches = rollout_train_grads(model, batch, loss_wts,
+                                                                   num_classes, seed=35)
+        check(launches == want_train[mode], f"rollout train {mode}: launches {launches}, want "
+              f"{want_train[mode]}")
+        trains[mode] = (loss_vals, grads)
+        counts[f"rollout_train_{mode}"] = launches
+        summary[f"train_L{RO_TRAIN_L}_{mode}"] = dict(ms=ms, peak_gb=peak, losses=loss_vals)
+    out_err = max(scaled_err(evals["cache"][k], evals["recompute"][k])
+                  for k in evals["recompute"] if evals["recompute"][k].is_floating_point())
+    (lr, gr), (lc, gc) = trains["recompute"], trains["cache"]
+    loss_err = max(abs(lc[k] - lr[k]) / max(abs(lr[k]), 1e-12) for k in lr)
+    grad_err = max(scaled_err(gc[n], g) for n, g in gr.items())
+    check(set(gc) == set(gr) and max(out_err, loss_err, grad_err) <= ROLLOUT_TOL,
+          f"rollout: cache vs recompute: eval outputs {out_err:.3g}, losses {loss_err:.3g}, "
+          f"gradients {grad_err:.3g} (tolerance {ROLLOUT_TOL})")
+    summary["cache_vs_recompute"] = dict(eval_outputs=out_err, losses=loss_err,
+                                         gradients=grad_err, tolerance=ROLLOUT_TOL)
+    log(f"rollout modes ({card}): 64 clips x {LONG_T} features; eval L={RO_EVAL_L}: "
+        + ", ".join(f"{m} {summary[f'eval_L{RO_EVAL_L}_{m}']['ms']:.2f} ms "
+                    f"(peak {summary[f'eval_L{RO_EVAL_L}_{m}']['peak_gb']:.2f} GB)"
+                    for m in modes)
+        + f"; train step (forward + backward, no update) L={RO_TRAIN_L}: "
+        + ", ".join(f"{m} {summary[f'train_L{RO_TRAIN_L}_{m}']['ms']:.2f} ms "
+                    f"(peak {summary[f'train_L{RO_TRAIN_L}_{m}']['peak_gb']:.2f} GB)"
+                    for m in modes)
+        + f"; cache vs recompute: eval outputs {out_err:.3g}, losses {loss_err:.3g}, "
+        f"gradients {grad_err:.3g} of their max (tolerance {ROLLOUT_TOL})")
+    del trains, gr, gc
+
+    fp.output_len_eval = RO_LONG_L
+    long_video = video[:RO_LONG_B]
+    want_long = {"recompute": flash_launches(AVTH_LAYERS * RO_LONG_L),
+                 "cache": flash_launches(AVTH_LAYERS)}
+    longs = {}
+    for mode in modes:
+        fp.rollout_mode = mode
+        out, ms, peak, launches = rollout_eval(model, long_video, (RO_LONG_B,), reps=1)
+        check(launches == want_long[mode], f"rollout long {mode}: launches {launches}, want "
+              f"{want_long[mode]}")
+        longs[mode] = out
+        counts[f"rollout_long_{mode}"] = launches
+        summary[f"eval_L{RO_LONG_L}_{mode}"] = dict(ms=ms, peak_gb=peak)
+    long_err = max(scaled_err(longs["cache"][k], longs["recompute"][k])
+                   for k in longs["recompute"] if longs["recompute"][k].is_floating_point())
+    check(long_err <= ROLLOUT_TOL and all(torch.isfinite(v).all() for v in longs["cache"].values()
+                                          if v.is_floating_point()),
+          f"rollout long: cache vs recompute {long_err:.3g} (tolerance {ROLLOUT_TOL})")
+    summary["long_cache_vs_recompute"] = long_err
+    rl, cl = (summary[f"eval_L{RO_LONG_L}_{m}"] for m in modes)
+    log(f"rollout long ({card}): {RO_LONG_B} clips, T0={LONG_T}, L={RO_LONG_L} (up to "
+        f"{RO_LONG_T} tokens): recompute {rl['ms']:.2f} ms ({AVTH_LAYERS * RO_LONG_L} flash "
+        f"launches, peak {rl['peak_gb']:.2f} GB), cache {cl['ms']:.2f} ms (prefill + "
+        f"{RO_LONG_L - 1} decode steps, peak {cl['peak_gb']:.2f} GB); cache vs recompute "
+        f"{long_err:.3g} of the max (tolerance {ROLLOUT_TOL})")
+    fp.output_len_eval, fp.rollout_mode = RO_EVAL_L, "recompute"
+    del evals, longs
+
+    # one train step of the loop (with its update), profiled, and one
+    # position-stable mask at a training pass's shape (19 a pass: the
+    # embedding's and 3 a layer)
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    busy, groups, wall = profile_run(lambda: step(batch, gen), f"rollout train step, "
+                                     f"{TN_BATCH} clips x {LONG_T} features, L={RO_TRAIN_L}")
+    x = torch.randn(TN_BATCH, LONG_T + 1, AVTH_DIM, device="cuda")
+    mask_ms = cuda_ms(lambda: position_stable_dropout(x, torch.tensor(5, device="cuda"), 0.1),
+                      iters=5, reps=3)
+    masks = RO_TRAIN_L * (1 + 3 * AVTH_LAYERS)
+    summary["train_step_profile"] = dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
+                                         groups=groups, mask_ms=mask_ms, masks_a_step=masks)
+    log(f"rollout train step ({card}): wall {wall:.2f} ms, device busy {busy:.2f} ms (idle "
+        f"{100 * (1 - busy / wall):.1f}%); one position-stable mask at ({TN_BATCH}, "
+        f"{LONG_T + 1}, {AVTH_DIM}) f32 {mask_ms:.3f} ms, {masks} a step's forward: "
+        f"{masks * mask_ms:.2f} ms ({100 * masks * mask_ms / busy:.1f}% of device time)")
+    del model, batch, step, x
+    torch.cuda.empty_cache()
+    return {"rollout": rec["launches"], **counts}, summary
+
+
+def quantized_phase(card):
+    """`kmeans_fit` on the card over every training feature of a synthetic
+    EK100 tree (k=4096, timed); the centroids, written as .npy, feed expts/02
+    at its shipped 10 features through `train_net.cli` with
+    `assign_to_centroids` and a MultiDimCrossEntropy feat loss over the ids
+    (AVT-h's embedding at the default 50000 ids, its decoder tied to it): 4
+    train steps and 2 eval batches, no kernel launches, finite losses and
+    metric, and the checkpoint's encoder and decoder weights equal. Returns
+    (the launch counts, a summary)."""
+    from avt_tpu_torch import train_net
+
+    captured = []
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "tree")
+        tree = write_ek100_tree(root, train_videos=TN_TRAIN_VIDEOS,
+                                eval_videos=TN_EVAL_VIDEOS, actions_per_video=TN_ACTIONS,
+                                first_action_s=TN_FIRST_S, seed=34)
+        rgb = os.path.join(root, "features", "rgb")
+        feats = np.concatenate([np.load(os.path.join(rgb, f)) for f in sorted(os.listdir(rgb))
+                                if f.startswith("P01_")])
+        torch.cuda.synchronize()
+        t0 = time.time()
+        cents = kmeans_fit(feats, k=QUANT_K, device="cuda")
+        kmeans_s = time.time() - t0
+        check(cents.shape == (QUANT_K, FEAT_DIM) and np.isfinite(cents).all(),
+              f"kmeans_fit: centroids {cents.shape}, finite {np.isfinite(cents).all()}")
+        path = os.path.join(tmp, "centroids.npy")
+        np.save(path, cents)
+        log(f"quantized ({card}): kmeans_fit k={QUANT_K} over {feats.shape[0]} x "
+            f"{feats.shape[1]} f32 training features in {kmeans_s:.2f} s (50 iterations)")
+        run_dir = os.path.join(tmp, "run")
+        argv = (["--config-file", EXPT_02, "--run-dir", run_dir] + tree
+                + [f"data_train.workers={TN_WORKERS}", f"data_eval.workers={TN_WORKERS}",
+                   "train.num_epochs=1", f"+model.future_predictor.assign_to_centroids={path}",
+                   "model.future_predictor.future_pred_loss="
+                   "{_target_: loss_fn.multidim_xentropy.MultiDimCrossEntropy}"])
+        with mock.patch.object(train_net, "make_train_step",
+                               recording_make_train_step(train_net, captured)):
+            (metric,), rec = run_train_net(argv)
+        ckpt = torch.load(os.path.join(run_dir, CKPT_NAME), map_location="cpu",
+                          weights_only=False)["model"]
+    check(rec["launches"] == flash_launches(0), f"quantized: launches {rec['launches']}")
+    meters = rec["loggers"][0].meters
+    losses = {k: m.global_avg for k, m in meters.items() if k.startswith("loss")}
+    check(meters["loss"].count == TN_STEPS and all(np.isfinite(list(losses.values())))
+          and np.isfinite(metric), f"quantized: losses {losses}, metric {metric}")
+    model, _, _, batch, step = captured.pop()
+    fp = model.future_predictor
+    enc, dec = (ckpt[f"future_predictor.{n}.weight"] for n in ("encoder", "decoder"))
+    check(fp.decoder.weight is fp.encoder.weight and enc.shape == (50000, AVTH_DIM)
+          and torch.equal(enc, dec) and fp.assigner.num_clusters == QUANT_K,
+          f"quantized: tied weights {fp.decoder.weight is fp.encoder.weight}, checkpoint "
+          f"{tuple(enc.shape)} equal {torch.equal(enc, dec)}")
+    clips_s = meters["clips/s"]
+    log(f"quantized train_net ({card}): expts/02 at {SHORT_T} features assigned to {QUANT_K} "
+        f"centroids, {TN_STEPS} steps of {TN_BATCH} clips, {TN_EVAL_BATCHES} eval batches; the "
+        f"loop {TN_BATCH / clips_s.median * 1e3:.2f} ms a step; losses "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(losses.items()))
+        + f"; final_acc/action/AR5 {metric:.4f}; the checkpoint's encoder and tied decoder "
+        f"equal; cli {rec['wall_s']:.1f} s; launches {rec['launches']}")
+    gen = torch.Generator(device="cuda").manual_seed(38)
+    busy, _, wall = profile_run(lambda: step(batch, gen), f"quantized train step, {TN_BATCH} "
+                                f"clips x {SHORT_T} features")
+    del model, batch, step, fp, ckpt
+    torch.cuda.empty_cache()
+    return {"quantized": rec["launches"]}, dict(kmeans_s=kmeans_s, k=QUANT_K,
+                                                rows=int(feats.shape[0]), losses=losses,
+                                                step_wall_ms=wall, step_busy_ms=busy)
 
 
 if __name__ == "__main__":

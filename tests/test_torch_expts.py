@@ -23,7 +23,8 @@ onto a seeded file in the original RULSTM layout (chip_smoke.py's
 `write_rulstm`); its LSTM biases load as the file holds them and are
 compared folded into one, as avt_tpu's cell holds them. expts/06 as
 shipped is refused by both packages, and the options the port does not run
-yet raise NotImplementedError naming their ROADMAP item.
+yet raise NotImplementedError naming their ROADMAP item; expts/02 with
+AVT-h's rollout options (ported since) matches avt_tpu's eval.
 """
 import os
 import sys
@@ -292,16 +293,62 @@ def test_expt06_as_shipped_is_refused_by_both(in_tree):
         build_all_datasets(cfg)
 
 
+def _eval_matches_avt_tpu(cfg, jcfg):
+    """Both packages' build_model on the composed configs, one eval step on
+    the first batch of each eval dataset from avt_tpu's weights; the logits
+    at TOL."""
+    _, evals = build_all_datasets(cfg)
+    _, jevals = jbuild_all_datasets(jcfg)
+    for suffix, ds in evals.items():
+        num_classes = {k: len(v) for k, v in ds.classes.items()}
+        tb, jb = _first(ds, jevals[suffix], cfg["seed"], shuffle=False)
+        jm = jbuild_model(jcfg, num_classes, jevals[suffix].class_mappings)
+        params = jax.jit(jm.init, static_argnums=2)(jax.random.PRNGKey(0), jb["video"], (B,))
+        model = load_jax_params(build_model(cfg, num_classes, ds.class_mappings, device="cpu"),
+                                params)
+        res = make_eval_step(model, num_classes)(tb)
+        ref = jmake_eval_step(jm, num_classes)(params, jb)
+        for task in num_classes:
+            key = f"logits/{task}"
+            if key in ref:
+                _close(res[key], ref[key], f"eval{suffix} {key}")
+
+
+ROLLOUT = ["model.future_predictor.output_len=2", "+model.future_predictor.output_len_eval=8"]
+
+
+@pytest.mark.parametrize("option", ["output_attentions", "assign_to_centroids"])
+def test_expt02_with_an_avth_option_matches_avt_tpu(in_tree, tmp_path, option):
+    """expts/02 with attention maps exported over a rollout, or with its
+    features assigned to 16 centroids from a .npy file (a cross-entropy
+    feat loss over the ids, as JAX's test_train_net runs it): eval as
+    avt_tpu's."""
+    if option == "output_attentions":
+        extra = ROLLOUT + ["+model.future_predictor.output_attentions=true"]
+    else:
+        cents = np.random.default_rng(3).standard_normal((16, 1024)).astype(np.float32)
+        np.save(tmp_path / "cents.npy", cents)
+        extra = [f"+model.future_predictor.assign_to_centroids={tmp_path / 'cents.npy'}",
+                 "model.future_predictor.future_pred_loss="
+                 "{_target_: loss_fn.multidim_xentropy.MultiDimCrossEntropy}"]
+    _eval_matches_avt_tpu(*_compose("02_ek100_avt_tsn", overrides=SMALL + extra))
+
+
 @pytest.mark.parametrize("overrides,item", [
     (["model/backbone=r2plus1d_34"], "1.6"),
     (["model/backbone=bn_inception"], "1.6"),
-    (["model.future_predictor.output_len=2"], "1.5"),
-    (["+model.future_predictor.rollout_mode=cache"], "1.5"),
+    (ROLLOUT, "1.5"),
+    (["+model.future_predictor.rollout_mode=cache"] + ROLLOUT, "1.5"),
     (["train_eval_op=pred_future_feat"], "1.8"),
 ], ids=["r2plus1d_34", "bn_inception", "output_len_2", "rollout_cache", "pred_future_feat"])
 def test_unported_option_raises_naming_its_roadmap_item(in_tree, tmp_path, overrides, item):
     """Every shipped file now runs; on expts/02 the options still to port
-    raise NotImplementedError naming their ROADMAP item."""
-    cfg, _ = _compose("02_ek100_avt_tsn", overrides=SMALL + overrides)
+    raise NotImplementedError naming their ROADMAP item. Those of item 1.5
+    (AVT-h rollouts, here of 2 steps in training and 8 at eval, recomputed
+    or through the KV cache), ported since, match avt_tpu's eval."""
+    cfg, jcfg = _compose("02_ek100_avt_tsn", overrides=SMALL + overrides)
+    if item == "1.5":
+        _eval_matches_avt_tpu(cfg, jcfg)
+        return
     with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue {item}"):
         train_net.main(cfg, str(tmp_path), device="cpu")

@@ -12,7 +12,10 @@ spec onto a bare `nn.Linear`; the port's own run checkpoint; a raw HF GPT-2;
 several specs in turn; an original RULSTM checkpoint (bare nn.LSTM layers
 and OpenLSTM's nesting) through expts/05's two-entry spec, the aggregator
 and the `classifier.1.` prefix onto the action classifier; a reference AVT
-checkpoint carrying a Transformer aggregator, loaded whole. An LSTM's two
+checkpoint carrying a Transformer aggregator, loaded whole; a reference
+checkpoint of AVT-h on cluster ids, whose nn.Embedding encoder and tied
+decoder load by their names, and round-trip through
+`avt_checkpoint_to_flax`. An LSTM's two
 biases load as the file holds them, where avt_tpu folds them into one: the
 port's are compared folded, and with the file bit for bit. Every error
 avt_tpu raises is raised here with the same type; the layouts whose
@@ -38,6 +41,7 @@ from avt_tpu.models import (
     TransformerAgg as JTransformerAgg,
     ViT as JViT,
 )
+from avt_tpu.models.import_torch import avt_checkpoint_to_flax
 from avt_tpu.models.import_torch import init_from_model as jinit_from_model
 from avt_tpu_torch.losses import mse
 from avt_tpu_torch.models import (
@@ -359,3 +363,51 @@ def test_a_directory_is_an_avt_tpu_checkpoint(tmp_path):
         init_from_model(_tmodel(), [[str(tmp_path / "checkpoint")]])
     with pytest.raises(ValueError, match="avt_tpu"):
         init_from_model(_tmodel(), [["backbone.model", str(tmp_path / "checkpoint")]])
+
+
+K_IDS = 12  # cluster ids of the quantized AVT-h
+
+
+def _quantized(cls, head, agg, backbone, **kw):
+    """AVT-h on cluster ids (in_features 1: an nn.Embedding encoder, the
+    decoder tied to it) behind an identity backbone, in either package."""
+    return cls[0](
+        backbone=backbone(), temporal_aggregator=agg(in_features=1),
+        future_predictor=cls[1](in_features=1, num_cluster_centers=K_IDS, inter_dim=64,
+                                n_layer=1, n_head=2, output_len=1, avg_last_n=1, **kw),
+        temporal_aggregator_after_future_pred=agg(in_features=64),
+        classifiers={"action": head}, num_classes=(("action", N_CLS),), backbone_dim=1)
+
+
+def test_a_tied_embedding_checkpoint_loads_by_name_into_a_quantized_avth(tmp_path):
+    """A reference AVT checkpoint whose future_predictor.encoder.weight and
+    decoder.weight are one tied (K, inter_dim) embedding loads by those
+    names into the port's quantized AVT-h as avt_tpu's converter loads it
+    (encoder_embed), and the port's state_dict maps back to it."""
+    jm = _quantized((JAVTModel, JAVTh), JLinearClassifier(out_features=N_CLS), JIdentityAgg,
+                    JIdentityBackbone)
+    ids = np.random.default_rng(6).integers(0, K_IDS, size=(2, 4, 1, 1, 1, 1))
+    jparams = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(ids, jnp.float32))
+
+    def tmodel():
+        return _quantized((AVTModel, AVTh), LinearClassifier(64, N_CLS, device="cpu"),
+                          IdentityAgg, IdentityBackbone, device="cpu")
+
+    g = torch.Generator().manual_seed(7)
+    sd = {k: torch.randn(v.shape, generator=g) * 0.02 for k, v in tmodel().state_dict().items()}
+    sd["future_predictor.decoder.weight"] = sd["future_predictor.encoder.weight"]
+    assert sd["future_predictor.encoder.weight"].shape == (K_IDS, 64)
+    loaded = both(jparams, [[_save({"model": sd}, tmp_path / "quantized.pth")]], tmodel)
+    assert {"future_predictor.encoder.weight", "future_predictor.decoder.weight"} <= set(loaded)
+    model = load_jax_params(tmodel(), jparams)
+    init_from_model(model, [[str(tmp_path / "quantized.pth")]])
+    fp = model.future_predictor
+    assert fp.decoder.weight is fp.encoder.weight
+    assert torch.equal(fp.encoder.weight, sd["future_predictor.encoder.weight"])
+    back = avt_checkpoint_to_flax({k: v.numpy() for k, v in model.state_dict().items()})
+    np.testing.assert_array_equal(back["future_predictor"]["encoder_embed"]["embedding"],
+                                  sd["future_predictor.encoder.weight"].numpy())
+    assert "encoder" not in back["future_predictor"]
+    with torch.no_grad():  # the loaded model runs on ids
+        out, _ = model.eval()(torch.from_numpy(ids.astype(np.float32)), (2,))
+    assert out["logits/action"].shape == (2, N_CLS)

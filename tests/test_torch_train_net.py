@@ -405,7 +405,15 @@ def test_main_refuses_the_cpu_unasked(tree, tmp_path, monkeypatch):
     (["+dataset_train._precomputed_metadata_file=/x.pkl"], "1.3"),
 ])
 def test_unported_options_raise_naming_their_roadmap_item(tree, tmp_path, overrides, item):
-    """Each raises naming its ROADMAP item."""
+    """Each raises naming its ROADMAP item; AVT-h's rollout options (item
+    1.5, ported since) train an epoch and evaluate through `main` (a
+    rollout of 2 steps in training, with the file's dropout) to a finite
+    metric."""
+    if item == "1.5":
+        cfg, _ = _compose(tree + SMALL + overrides + ["model.future_predictor.output_len=2",
+                                                      "train.num_epochs=1"])
+        assert np.isfinite(train_net.main(cfg, str(tmp_path), device="cpu"))
+        return
     cfg, _ = _compose(tree + SMALL + overrides)
     with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue {item}"):
         train_net.main(cfg, str(tmp_path), device="cpu")

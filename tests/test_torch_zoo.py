@@ -378,10 +378,24 @@ def test_build_model_train_forward_and_gradients_match_avt_tpu(case):
 
 
 def test_unported_model_options_raise_naming_their_roadmap_item():
+    """The conv backbones still raise naming their ROADMAP item; AVT-h's
+    rollout options (item 1.5, ported since) build and match avt_tpu's eval
+    forward."""
     for overrides, item in (
             (["model/backbone=r2plus1d_34"], "1.6"), (["model/backbone=bn_inception"], "1.6"),
             (FEATURES + SMALL_AVTH[:-4] + ["+model.future_predictor.output_len_eval=2"], "1.5"),
-            (FEATURES + SMALL_AVTH + ["+model.future_predictor.rollout_mode=cache"], "1.5")):
+            (FEATURES + SMALL_AVTH + ["+model.future_predictor.rollout_mode=cache",
+                                      "+model.future_predictor.output_len_eval=3"], "1.5")):
+        if item == "1.5":
+            video = _video(overrides)
+            jm, params, model = _models(overrides, video)
+            jout, _ = jm.apply(params, jnp.asarray(video))
+            with torch.no_grad():
+                out, _ = model(torch.from_numpy(video))
+            assert set(out) == set(jout)
+            for key in jout:
+                _close(out[key], jout[key], key)
+            continue
         cfg, _ = _compose(overrides)
         with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue {item}"):
             build_model(cfg, NUM_CLASSES, CLASS_MAPPINGS, device="cpu")
