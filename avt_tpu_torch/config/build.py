@@ -7,13 +7,14 @@ the reference's func/train.py:539-844 (transforms -> datasets -> model ->
 parameter groups -> optimizer) as build functions over the composed
 config dict, onto the port's modules.
 
-`build_model` builds what the port's zoo holds: the identity and ViT
-(`avt_b*`) backbones; the identity, mean, RULSTM and Transformer
-aggregators; AVT-h with every option (rollouts, the KV-cache mode,
-attention maps, cluster-id inputs and centroids), the MLP and identity
-future predictors; the linear and MLP classifiers (on the first task only
-under `use_cls_mappings`); and AVTModel's options. The conv backbones
-(Queue 1.6) raise NotImplementedError naming their ROADMAP item.
+`build_model` builds every model of conf/model: the identity, ViT
+(`avt_b*`), video-ResNet (r3d_18, r2plus1d_18/34/152, ir/ip-CSN) and
+BN-Inception backbones, the last two with `model.bn.{eps,mom}`; the
+identity, mean, RULSTM and Transformer aggregators; AVT-h with every option
+(rollouts, the KV-cache mode, attention maps, cluster-id inputs and
+centroids), the MLP and identity future predictors; the linear and MLP
+classifiers (on the first task only under `use_cls_mappings`); and
+AVTModel's options.
 """
 from __future__ import annotations
 
@@ -29,7 +30,6 @@ from avt_tpu_torch.config.registry import instantiate, resolve_target
 LOG = logging.getLogger(__name__)
 DATASET_TRAIN_KEY = "dataset_train"
 DATASET_EVAL_KEY = "dataset_eval"
-_ZOO_ITEM = "1.6"  # ROADMAP Queue 1.6: the rest of the zoo
 
 
 def _torch_dtype(name) -> torch.dtype:
@@ -200,8 +200,31 @@ def _short(target: str) -> str:
     return target.rsplit(".", 1)[-1]
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue {item})")
+def _not_in_zoo(what: str):
+    return NotImplementedError(f"{what} is not in the model zoo")
+
+
+# the conv backbones' output widths (avt_tpu/config/build.py:_BACKBONE_DIMS);
+# the config's model.backbone_dim is not read for them
+_BACKBONE_DIMS = {"r3d_18": 512, "r2plus1d_18": 512, "r2plus1d_34": 512, "r2plus1d_152": 2048,
+                  "ir_csn_152": 2048, "ip_csn_152": 2048, "ip_csn_50": 2048,
+                  "BNInceptionVideo": 1024}
+
+
+def _validate_backbone_drop(short: str, drop_n: int) -> None:
+    """backbone_last_n_modules_to_drop against the truncation the backbones
+    are built with. The reference chops the last N children off the built
+    backbone (base_model.py:27-33): N=2 strips a torchvision video ResNet's
+    avgpool and fc, N=0 suits timm's ViT (built headless) and BN-Inception
+    (whose last_linear the reference replaces itself). The port builds each
+    headless, so another N, which would have built another network in the
+    reference, raises."""
+    expected = 0 if short in ("ViT", "BNInceptionVideo") else 2
+    if drop_n != expected:
+        raise ValueError(
+            f"backbone_last_n_modules_to_drop={drop_n} with {short}: the backbone is built "
+            f"with the reference's N={expected} truncation; set "
+            f"model.backbone_last_n_modules_to_drop={expected}")
 
 
 _AGGREGATORS = ("IdentityAgg", "MeanAgg", "RULSTMAgg", "TransformerAgg")
@@ -214,7 +237,7 @@ def _zoo(target: str, names, what: str):
 
     if target.startswith("avt_tpu.models.") and _short(target) in names:
         return getattr(models, _short(target))
-    raise _not_ported(f"{what} {_short(target)}", _ZOO_ITEM)
+    raise _not_in_zoo(f"{what} {_short(target)}")
 
 
 def build_model(cfg: Dict, num_classes: Dict[str, int], class_mappings: Dict, *,
@@ -241,16 +264,21 @@ def build_model(cfg: Dict, num_classes: Dict[str, int], class_mappings: Dict, *,
     if btarget == "avt_tpu.models.IdentityBackbone":
         backbone, backbone_dim = models.IdentityBackbone(), mcfg["backbone_dim"]
     elif btarget == "avt_tpu.models.ViT":
-        if drop_n != 0:
-            raise ValueError(
-                f"backbone_last_n_modules_to_drop={drop_n} with ViT: the backbone is built "
-                "headless (the reference's N=0); set model.backbone_last_n_modules_to_drop=0")
+        _validate_backbone_drop("ViT", drop_n)
         if "dtype" in bcfg:
             bcfg["dtype"] = None if bcfg["dtype"] is None else _torch_dtype(bcfg["dtype"])
         backbone = models.ViT(**bcfg, device=device)
         backbone_dim = backbone.embed_dim
+    elif btarget.startswith("avt_tpu.models.") and _short(btarget) in _BACKBONE_DIMS:
+        short = _short(btarget)
+        _validate_backbone_drop(short, drop_n)
+        bn = mcfg.get("bn") or {}
+        bn_kw = dict(bn_eps=bn.get("eps", 1e-3), bn_mom=bn.get("mom", 0.1), device=device)
+        backbone = (models.BNInceptionVideo(**bn_kw) if short == "BNInceptionVideo"
+                    else models.VIDEO_RESNETS[short](**bn_kw))
+        backbone_dim = _BACKBONE_DIMS[short]
     else:
-        raise _not_ported(f"backbone {_short(btarget)}", _ZOO_ITEM)
+        raise _not_in_zoo(f"backbone {_short(btarget)}")
     inter_dim = mcfg.get("intermediate_featdim") or backbone_dim
 
     def build_agg(group: str, in_features: int):
@@ -293,7 +321,7 @@ def build_model(cfg: Dict, num_classes: Dict[str, int], class_mappings: Dict, *,
     elif ftarget == "avt_tpu.models.MLPFuture":
         future_predictor = models.MLPFuture(in_features=agg_dim_out, device=device, **fcfg)
     else:
-        raise _not_ported(f"future predictor {_short(ftarget)}", _ZOO_ITEM)
+        raise _not_in_zoo(f"future predictor {_short(ftarget)}")
     fut_dim = future_predictor.output_dim
     after_agg = build_agg("temporal_aggregator_after_future_pred", fut_dim)
     cls_input_dim = after_agg.output_dim

@@ -5,9 +5,6 @@ Counterpart of avt_tpu/config/registry.py (`register_target`,
 the reference's (`datasets.*`, `torch.nn.MSELoss`, `loss_fn.*`) and the
 JAX package's native names (`avt_tpu.data.NpyFeatsReader`, ...). These are
 strings only: each maps onto the port's class, never onto the JAX package.
-A target whose module is not ported yet is registered too, and raises
-NotImplementedError naming the ROADMAP item that ports it when it is
-instantiated.
 """
 from __future__ import annotations
 
@@ -51,16 +48,6 @@ def instantiate(cfg: Any, *args, _partial_: bool = False, **kwargs):
     return target(*args, **params)
 
 
-def not_ported(what: str, item: str) -> Callable:
-    """A constructor that raises: `what` is not ported yet (ROADMAP `item`)."""
-
-    def raise_not_ported(*args, **kwargs):
-        raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue {item})")
-
-    raise_not_ported.__name__ = f"not_ported_{what.replace(' ', '_')}"
-    return raise_not_ported
-
-
 def _default_video_reader(**kwargs):
     """The raw-video reader: the native libav decoder, or OpenCV when the
     decoder does not build or load (the JAX package's rule). Logs which one
@@ -90,8 +77,10 @@ def _register_builtin_targets():
     from avt_tpu_torch.losses import (
         MSELoss,
         MultiDimCrossEntropy,
+        MultiDimSimclrInfoNCE,
         NormedMSE,
         QuantizeAndCrossEntropy,
+        SimclrInfoNCE,
     )
 
     pairs = {
@@ -107,10 +96,8 @@ def _register_builtin_targets():
         "loss_fn.mse.NormedMSE": NormedMSE,
         "loss_fn.multidim_xentropy.MultiDimCrossEntropy": MultiDimCrossEntropy,
         "loss_fn.multidim_xentropy.QuantizeAndCrossEntropy": QuantizeAndCrossEntropy,
-        "loss_fn.simclr_infonce.DistributedSimclrInfoNCELoss": not_ported(
-            "the InfoNCE losses (losses/infonce.py)", "1.8"),
-        "loss_fn.simclr_infonce.MultiDimDistributedSimclrInfoNCELoss": not_ported(
-            "the InfoNCE losses (losses/infonce.py)", "1.8"),
+        "loss_fn.simclr_infonce.DistributedSimclrInfoNCELoss": SimclrInfoNCE,
+        "loss_fn.simclr_infonce.MultiDimDistributedSimclrInfoNCELoss": MultiDimSimclrInfoNCE,
         # native names
         "avt_tpu.data.EpicKitchens": EpicKitchens,
         "avt_tpu.data.NpyFeatsReader": NpyFeatsReader,

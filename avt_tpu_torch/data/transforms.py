@@ -11,6 +11,11 @@ Counterpart of avt_tpu/data/transforms.py (`_interp_taps`,
          computes it (a triangle kernel widened by 1/scale when it
          downscales) -> /255 -> random flip -> optional color jitter ->
          scale/reverse/Normalize, (B, 3, T, crop, crop).
+With a fixed scale_w other than scale_h (conf/data/default.yaml's 128 x 174,
+the reference's Resize((h, w)) before its random crop), the train path
+resizes to (scale_h, scale_w) instead, each side by its own factor. JAX's
+train path refuses that size (it resizes the smaller side only), so that
+form is the port's own, with the same resampling.
 `fold_subclips` cuts the preprocessed clip into subclips on the device.
 `random_resized_crop` is not ported yet (no shipped pipeline uses it).
 """
@@ -199,17 +204,15 @@ class VideoPreprocessor:
         U[-v, v])."""
         B, _, H, W, _ = frames_shape
         smin, smax = _parse_size(self.scale_h)
-        if not (self.scale_w == -1 or self.scale_w == self.scale_h):
-            raise NotImplementedError("the train path resizes the smaller side (scale_w=-1) only")
 
         def uniform(lo=0.0, hi=1.0):
             u = torch.rand(B, generator=generator, device=self.device, dtype=torch.float32)
             return u * (hi - lo) + lo
 
         s = torch.floor(uniform(smin, smax + 1.0))
-        f = s / min(H, W)
-        i = torch.floor(uniform() * torch.clamp_min(H * f - self.crop_size, 0.0))
-        j = torch.floor(uniform() * torch.clamp_min(W * f - self.crop_size, 0.0))
+        fh, fw = self._train_scales(s, H, W)
+        i = torch.floor(uniform() * torch.clamp_min(H * fh - self.crop_size, 0.0))
+        j = torch.floor(uniform() * torch.clamp_min(W * fw - self.crop_size, 0.0))
         draws = {"s": s, "i": i, "j": j, "flip": uniform() < self.flip_p}
         for name, v in zip(("brightness", "contrast", "saturation"), self.jitter[:3]):
             if v > 0:
@@ -218,19 +221,28 @@ class VideoPreprocessor:
             draws["hue"] = uniform(-self.jitter[3], self.jitter[3])
         return draws
 
+    def _train_scales(self, s: torch.Tensor, H: int, W: int):
+        """The train resize's (height, width) factors for the drawn side s:
+        s over the smaller side for both, or, with a fixed scale_w other
+        than scale_h, s / H and scale_w / W."""
+        if self.scale_w == -1 or self.scale_w == self.scale_h:
+            f = s / min(H, W)
+            return f, f
+        return s / H, torch.full_like(s, _parse_size(self.scale_w)[0] / W)
+
     def train_crop(self, frames, s: torch.Tensor, i: torch.Tensor, j: torch.Tensor,
                    flip: torch.Tensor, **jitter) -> torch.Tensor:
         """The deterministic part of `train_fn`: (B, T, H, W, 3) uint8 and
-        per-clip draws -> (B, 3, T, crop, crop). The resize to smaller side
-        s and the crop at (i, j) are one resampling, contracting the width
+        per-clip draws -> (B, 3, T, crop, crop). The resize (to smaller side
+        s, or to (s, scale_w)) and the crop at (i, j) are one resampling, contracting the width
         first and rounding the intermediate to compute_dtype, as XLA runs
         JAX's einsum."""
         frames = torch.as_tensor(frames).to(self.device)
         B, T, H, W, _ = frames.shape
         cs, dt = self.crop_size, self.compute_dtype
-        f = (s.float() / min(H, W)).to(dt)
-        w_h = _scale_weights(H, cs, f, (-i.float()).to(dt))  # (B, H, cs)
-        w_w = _scale_weights(W, cs, f, (-j.float()).to(dt))  # (B, W, cs)
+        fh, fw = (f.to(dt) for f in self._train_scales(s.float(), H, W))
+        w_h = _scale_weights(H, cs, fh, (-i.float()).to(dt))  # (B, H, cs)
+        w_w = _scale_weights(W, cs, fw, (-j.float()).to(dt))  # (B, W, cs)
         x = torch.einsum("bthwc,bwj->bthjc", frames.to(dt), w_w)
         x = torch.einsum("bthjc,bhi->btijc", x, w_h)  # (B, T, cs, cs, 3)
         x = x.float() / 255.0

@@ -18,11 +18,20 @@ scale -> weight. GPT-2's Conv1D weights keep the flax layout. An LSTM cell's
 per-gate kernels are packed [i|f|g|o] into weight_ih_l0 / weight_hh_l0; the
 cell's one bias (the JAX cell folds torch's two into its h side) becomes
 bias_hh_l0, and bias_ih_l0 is zeros.
+
+The conv backbones (the inverse of `video_resnet_to_flax` and
+`bninception_to_flax`) take the whole `{"params", "batch_stats"}` variables:
+a video ResNet's convs under torchvision's names, BN-Inception's under
+pretrainedmodels'; a conv kernel (kt, kh, kw, I/g, O) or (kh, kw, I, O) goes
+to (O, I/g, kt, kh, kw) or (O, I, kh, kw); each BatchNorm's params
+`scale`/`bias` to `weight`/`bias` and its batch_stats `mean`/`var` to
+`running_mean`/`running_var`. torch's `num_batches_tracked` has no JAX
+counterpart and is not emitted.
 """
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -37,6 +46,12 @@ def _np(x) -> np.ndarray:
 
 def _t(x) -> np.ndarray:
     return np.ascontiguousarray(_np(x).T)
+
+
+def _conv_k(x) -> np.ndarray:
+    """A flax conv kernel (*k, in, out) as torch's (out, in, *k)."""
+    x = _np(x)
+    return np.ascontiguousarray(np.transpose(x, (x.ndim - 1, x.ndim - 2, *range(x.ndim - 2))))
 
 
 def _indices(tree: Mapping, prefix: str):
@@ -73,6 +88,112 @@ def vit_from_jax(p: Mapping) -> Dict[str, np.ndarray]:
         _linear(sd, f"{dst}.mlp.fc2", src["mlp_fc2"])
     _ln(sd, "norm", p["norm"])
     return sd
+
+
+def _bn(sd: Dict, dst: str, p: Mapping, stats: Optional[Mapping]) -> None:
+    """A TorchExactBatchNorm's params (and its batch_stats, when given)."""
+    sd[f"{dst}.weight"] = _np(p["scale"])
+    sd[f"{dst}.bias"] = _np(p["bias"])
+    if stats is not None:
+        sd[f"{dst}.running_mean"] = _np(stats["mean"])
+        sd[f"{dst}.running_var"] = _np(stats["var"])
+
+
+def _sub_stats(stats: Optional[Mapping], *path: str) -> Optional[Mapping]:
+    for key in path:
+        if stats is None:
+            return None
+        stats = stats.get(key)
+    return stats
+
+
+def _video_resnet_maker(sd: Dict, dst: str, p: Mapping, stats: Optional[Mapping]) -> None:
+    """A conv maker's subtree at torch prefix `dst`: a plain conv (`conv`),
+    Conv2Plus1D (`conv_s`, `bn_mid`, `conv_t` -> .0, .1, .3) or
+    IPConv3DDepthwise (`conv_p`, `bn_mid`, `conv_dw` -> .0, .1, .2)."""
+    if "conv" in p:
+        sd[f"{dst}.weight"] = _conv_k(p["conv"]["kernel"])
+        return
+    first, last, idx = (("conv_s", "conv_t", 3) if "conv_s" in p else ("conv_p", "conv_dw", 2))
+    sd[f"{dst}.0.weight"] = _conv_k(p[first]["kernel"])
+    _bn(sd, f"{dst}.1", p["bn_mid"]["bn"], _sub_stats(stats, "bn_mid", "bn"))
+    sd[f"{dst}.{idx}.weight"] = _conv_k(p[last]["kernel"])
+
+
+def video_resnet_from_jax(p: Mapping, stats: Optional[Mapping] = None
+                          ) -> Dict[str, np.ndarray]:
+    """avt_tpu VideoResNet params (and batch_stats) -> torchvision's
+    VideoResNet names."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def bn(dst, name, tree=p, tstats=stats):
+        _bn(sd, dst, tree[name]["bn"], _sub_stats(tstats, name, "bn"))
+
+    if "stem_conv1" in p:  # R2Plus1dStem: conv bn relu conv bn relu
+        sd["stem.0.weight"] = _conv_k(p["stem_conv1"]["kernel"])
+        bn("stem.1", "stem_bn1")
+        sd["stem.3.weight"] = _conv_k(p["stem_conv2"]["kernel"])
+        bn("stem.4", "stem_bn2")
+    else:  # BasicStem[_Pool]: conv bn relu [pool]
+        sd["stem.0.weight"] = _conv_k(p["stem_conv"]["kernel"])
+        bn("stem.1", "stem_bn")
+    for key in sorted(k for k in p if re.fullmatch(r"layer\d_\d+", k)):
+        layer, i = key[len("layer"):].split("_")
+        src, bstats, dst = p[key], _sub_stats(stats, key), f"layer{layer}.{i}"
+        if "conv3" in src:  # Bottleneck: 1x1, maker, 1x1
+            sd[f"{dst}.conv1.0.weight"] = _conv_k(src["conv1"]["kernel"])
+            _video_resnet_maker(sd, f"{dst}.conv2.0", src["conv2"], _sub_stats(bstats, "conv2"))
+            sd[f"{dst}.conv3.0.weight"] = _conv_k(src["conv3"]["kernel"])
+            bn(f"{dst}.conv3.1", "bn3", src, bstats)
+        else:  # BasicBlock: maker, maker
+            _video_resnet_maker(sd, f"{dst}.conv1.0", src["conv1"], _sub_stats(bstats, "conv1"))
+            _video_resnet_maker(sd, f"{dst}.conv2.0", src["conv2"], _sub_stats(bstats, "conv2"))
+        bn(f"{dst}.conv1.1", "bn1", src, bstats)
+        bn(f"{dst}.conv2.1", "bn2", src, bstats)
+        if "ds_conv" in src:
+            sd[f"{dst}.downsample.0.weight"] = _conv_k(src["ds_conv"]["kernel"])
+            bn(f"{dst}.downsample.1", "ds_bn", src, bstats)
+    return sd
+
+
+# BNInceptionVideo's unit names -> pretrainedmodels'
+_BNINCEPTION_STEM = (("conv1", "conv1_7x7_s2"), ("conv2r", "conv2_3x3_reduce"),
+                     ("conv2", "conv2_3x3"))
+_BNINCEPTION_BRANCHES = (("b1", "1x1"), ("b3r", "3x3_reduce"), ("b3", "3x3"),
+                         ("bd3r", "double_3x3_reduce"), ("bd3a", "double_3x3_1"),
+                         ("bd3b", "double_3x3_2"), ("bpool", "pool_proj"))
+
+
+def bninception_from_jax(p: Mapping, stats: Optional[Mapping] = None
+                         ) -> Dict[str, np.ndarray]:
+    """avt_tpu BNInceptionVideo params (and batch_stats) -> pretrainedmodels'
+    BNInception names."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def unit(tree, tstats, dst):
+        sd[f"{dst}.weight"] = _conv_k(tree["conv"]["kernel"])
+        sd[f"{dst}.bias"] = _np(tree["conv"]["bias"])
+        _bn(sd, f"{dst}_bn", tree["bn"], _sub_stats(tstats, "bn"))
+
+    for src, dst in _BNINCEPTION_STEM:
+        unit(p[src], _sub_stats(stats, src), dst)
+    for key in sorted(k for k in p if k.startswith("inc_")):
+        for src, dst in _BNINCEPTION_BRANCHES:
+            if src in p[key]:  # the reduction blocks have no 1x1 nor pool_proj
+                unit(p[key][src], _sub_stats(stats, key, src),
+                     f"inception_{key[len('inc_'):]}_{dst}")
+    return sd
+
+
+def backbone_from_jax(p: Mapping, stats: Optional[Mapping] = None) -> Dict[str, np.ndarray]:
+    """A backbone's params: the ViT, a video ResNet or BN-Inception."""
+    if "cls_token" in p:
+        return vit_from_jax(p)
+    if "stem_conv" in p or "stem_conv1" in p:
+        return video_resnet_from_jax(p, stats)
+    if "inc_3a" in p:
+        return bninception_from_jax(p, stats)
+    raise NotImplementedError(f"no conversion for a backbone with {sorted(p)[:5]}")
 
 
 def gpt2_from_jax(p: Mapping) -> Dict[str, np.ndarray]:
@@ -192,12 +313,14 @@ _AVT_KEYS = ("backbone", "future_predictor", "temporal_aggregator",
              "reset_temp_agg_feat_dim", "project_mlp", "regression_head")
 
 
-def avt_from_jax(p: Mapping) -> Dict[str, np.ndarray]:
-    """avt_tpu AVTModel params -> the reference BaseModel's names."""
+def avt_from_jax(p: Mapping, stats: Optional[Mapping] = None) -> Dict[str, np.ndarray]:
+    """avt_tpu AVTModel params (and the backbone's batch_stats) -> the
+    reference BaseModel's names."""
     handled = set(_AVT_KEYS)
     sd: Dict[str, np.ndarray] = {}
     if "backbone" in p:
-        sd.update(_prefixed("backbone.model.", vit_from_jax(p["backbone"])))
+        sd.update(_prefixed("backbone.model.", backbone_from_jax(
+            p["backbone"], _sub_stats(stats, "backbone"))))
     if "future_predictor" in p:
         fp = p["future_predictor"]
         sd.update(_prefixed("future_predictor.",
@@ -223,17 +346,21 @@ def avt_from_jax(p: Mapping) -> Dict[str, np.ndarray]:
 
 
 def params_from_jax(params: Mapping) -> StateDict:
-    """A JAX package parameter tree (full AVTModel, ViT, GPT2Core, AVTh,
-    TransformerAgg, RULSTMAgg, EncoderBlock, MLPFuture or MLPClassifier)
-    -> the port's state_dict of f32 CPU tensors. An AVTModel on
-    the identity backbone (the feature path) has no `backbone` subtree and
-    maps to no `backbone.` names."""
-    if set(params) == {"params"}:
-        params = params["params"]
+    """A JAX package parameter tree (full AVTModel, ViT, VideoResNet,
+    BNInceptionVideo, GPT2Core, AVTh, TransformerAgg, RULSTMAgg,
+    EncoderBlock, MLPFuture or MLPClassifier), or its variables
+    `{"params": ..., "batch_stats": ...}` (the BatchNorms' running
+    statistics), -> the port's state_dict of f32 CPU tensors. An AVTModel
+    on the identity backbone (the feature path) has no `backbone` subtree
+    and maps to no `backbone.` names."""
+    stats = None
+    if "params" in params and set(params) <= {"params", "batch_stats"}:
+        params, stats = params["params"], params.get("batch_stats")
     if any(k in _AVT_KEYS or k.startswith("classifiers_") for k in params):
-        sd = avt_from_jax(params)
-    elif "cls_token" in params:
-        sd = vit_from_jax(params)
+        sd = avt_from_jax(params, stats)
+    elif "cls_token" in params or "stem_conv" in params or "stem_conv1" in params \
+            or "inc_3a" in params:
+        sd = backbone_from_jax(params, stats)
     elif "wpe" in params:
         sd = gpt2_from_jax(params)
     elif "gpt" in params:
@@ -252,10 +379,12 @@ def params_from_jax(params: Mapping) -> StateDict:
 def load_jax_params(model: nn.Module, params: Mapping) -> nn.Module:
     """Loads a JAX package parameter tree into `model`: strict, but for the
     Transformer aggregator's mask embedding, which a JAX model has only when
-    it was initialised in train mode (the model's own draw is kept then)."""
+    it was initialised in train mode (the model's own draw is kept then),
+    and the BatchNorms' `num_batches_tracked`, which JAX does not count."""
     sd = params_from_jax(params)
     missing, unexpected = model.load_state_dict(sd, strict=False)
-    missing = [k for k in missing if not k.endswith("extra_embeddings.weight")]
+    missing = [k for k in missing
+               if not k.endswith(("extra_embeddings.weight", "num_batches_tracked"))]
     if missing or unexpected:
         raise RuntimeError(f"load_jax_params: missing {missing[:5]}, unexpected "
                            f"{unexpected[:5]}")
@@ -269,6 +398,15 @@ _STATE_TREES = ("trace", "mu", "nu", "row", "col", "v")
 
 def _masked(x) -> bool:
     return type(x).__name__ == "MaskedNode"  # optax's leaf for another group's parameter
+
+
+def _without_batch_stats(tree):
+    """A parameter-shaped state tree without its `batch_stats` collection:
+    JAX freezes the running statistics (their optimizer state is masked in
+    every group), and the port's are buffers, which no optimizer holds."""
+    if isinstance(tree, Mapping) and "batch_stats" in tree:
+        return {k: v for k, v in tree.items() if k != "batch_stats"}
+    return tree
 
 
 def _merge(trees):
@@ -360,7 +498,7 @@ def opt_state_from_jax(state) -> dict:
         for st in states:
             for f in _STATE_TREES:
                 if f in st._fields:
-                    found.setdefault(f, []).append(getattr(st, f))
+                    found.setdefault(f, []).append(_without_batch_stats(getattr(st, f)))
             if "mult" in st._fields:
                 out["plateau"][label] = float(np.asarray(st.mult))
             if count is None and "count" in st._fields:  # the chain's counts move together

@@ -10,7 +10,11 @@ lecun-normal for the patch embedding, N(0, 0.02) for the GPT-2 weights and
 wpe and the cloze mask embedding, xavier-uniform for the Transformer
 aggregator's in_proj_weight; flax's LSTM cell defaults for the RULSTM:
 lecun-normal input kernels, orthogonal recurrent ones (each gate's block);
-biases 0, LayerNorms at weight 1, bias 0.
+biases 0, LayerNorms at weight 1, bias 0. The conv backbones: the video
+ResNets' convs from variance_scaling(2, fan_out, normal) (torchvision's
+kaiming_normal_; a depthwise conv's fan_out is O * kt * kh * kw),
+BN-Inception's from flax's lecun-normal with zero biases; every BatchNorm at
+weight 1, bias 0, running mean 0, running var 1.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from torch import nn
 from avt_tpu_torch.losses.mse import mse
 from avt_tpu_torch.models.backbones import IdentityBackbone
 from avt_tpu_torch.models.base import AVTModel
+from avt_tpu_torch.models.bninception import BNInceptionVideo
 from avt_tpu_torch.models.classifiers import LinearClassifier
 from avt_tpu_torch.models.future import AVTh
 from avt_tpu_torch.models.layers import (
@@ -31,6 +36,7 @@ from avt_tpu_torch.models.layers import (
     trunc_normal_,
 )
 from avt_tpu_torch.models.temporal_agg import IdentityAgg, LSTMLayer, TransformerAgg
+from avt_tpu_torch.models.video_resnet import VideoResNet
 from avt_tpu_torch.models.vit import ViT
 from avt_tpu_torch.utils.device import resolve_device
 
@@ -63,9 +69,23 @@ def init_aggregator(agg: nn.Module, generator: torch.Generator) -> None:
         nn.init.normal_(agg.extra_embeddings.weight, std=0.02, generator=generator)
 
 
+def init_conv_backbone(backbone: nn.Module, generator: torch.Generator) -> None:
+    """A video ResNet's or BN-Inception's convs and BatchNorms, drawn as the
+    JAX package draws them."""
+    for sub in backbone.modules():
+        if isinstance(sub, nn.modules.batchnorm._BatchNorm):
+            sub.reset_parameters()  # weight 1, bias 0, running mean 0, var 1
+        elif isinstance(sub, nn.Conv3d):  # the video ResNets: fan_out normal
+            fan_out = sub.weight.shape[0] * sub.weight[0, 0].numel()
+            nn.init.normal_(sub.weight, std=(2.0 / fan_out) ** 0.5, generator=generator)
+        elif isinstance(sub, nn.Conv2d):  # BN-Inception: flax's default conv init
+            lecun_normal_(sub.weight, sub.weight[0].numel(), generator)
+            nn.init.zeros_(sub.bias)
+
+
 def init_weights(model: AVTModel, generator: torch.Generator) -> None:
     """Draws every parameter of the model afresh, each module's with the
-    JAX package's distribution (the ViT's only when the backbone is one)."""
+    JAX package's distribution (the backbone's when it has parameters)."""
     with torch.no_grad():
         vit = model.backbone["model"]
         if isinstance(vit, ViT):
@@ -75,6 +95,8 @@ def init_weights(model: AVTModel, generator: torch.Generator) -> None:
             w = vit.patch_embed.proj.weight
             lecun_normal_(w, w[0].numel(), generator)
             nn.init.zeros_(vit.patch_embed.proj.bias)
+        elif isinstance(vit, (VideoResNet, BNInceptionVideo)):
+            init_conv_backbone(vit, generator)
         fp = model.future_predictor
         if isinstance(fp, AVTh):
             init_normal_(fp.gpt_model, 0.02, generator)

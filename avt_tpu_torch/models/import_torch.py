@@ -21,11 +21,20 @@ train/checkpoint.py's `{"model": state_dict, ...}`); a raw timm ViT; a raw
 HF GPT-2; an original RULSTM checkpoint (`rolling_lstm.*` and
 `unrolling_lstm.*`, bare nn.LSTM layers or OpenLSTM's `.lstm.` nesting;
 its classifier is taken only by a prefix spec, as a bare Linear); a bare
-`nn.Linear`. An LSTM's tensors load as the file holds them (both biases;
-the JAX package folds them into one, which sums to the same gates). The
-BNInception and video-ResNet layouts raise NotImplementedError: their
-modules are not in the port (ROADMAP Queue 1.6). A directory is an avt_tpu
-(orbax) checkpoint, which the port does not read.
+`nn.Linear`; pretrainedmodels' BN-Inception (`conv1_7x7_s2.weight`, its
+`last_linear` dropped); a torchvision video ResNet (`stem.0.weight`, its
+`fc` dropped); a VISSL trunk (`_feature_blocks.` keys inside
+`classy_state_dict`, unwrapped). The conv layouts load their convs and each
+BatchNorm's weight, bias and running statistics (not `num_batches_tracked`,
+which JAX does not hold). An LSTM's tensors load as the file holds them
+(both biases; the JAX package folds them into one, which sums to the same
+gates). A directory is an avt_tpu (orbax) checkpoint, which the port does
+not read.
+
+One layout loads here that the JAX package refuses: an AVT checkpoint whose
+`backbone.model.` holds a conv backbone (the port's own run checkpoint of
+such a model) loads it by name, where `avt_checkpoint_to_flax` reads
+`backbone.model.` only as a timm ViT.
 """
 from __future__ import annotations
 
@@ -40,7 +49,6 @@ import torch
 LOG = logging.getLogger(__name__)
 
 StateDict = Dict[str, torch.Tensor]
-_ZOO_ITEM = "ROADMAP Queue 1.6"
 
 _VIT_BLOCK = ("norm1.weight", "norm1.bias", "attn.qkv.weight", "attn.qkv.bias",
               "attn.proj.weight", "attn.proj.bias", "norm2.weight", "norm2.bias",
@@ -126,6 +134,26 @@ def transformer_agg_leaves(sd: Mapping[str, torch.Tensor]) -> StateDict:
     return {k: sd[k] for k in keys}
 
 
+def conv_backbone_leaves(sd: Mapping[str, torch.Tensor]) -> StateDict:
+    """The leaves of a conv backbone's file that `video_resnet_to_flax` and
+    `bninception_to_flax` take: every tensor but the classifier
+    (torchvision's `fc`, pretrainedmodels' `last_linear`) and the
+    BatchNorms' `num_batches_tracked`, which JAX does not hold. A VISSL
+    trunk's `_feature_blocks.` prefix is removed first."""
+    if any(k.startswith("_feature_blocks.") for k in sd):
+        sd = _sub(sd, "_feature_blocks.")
+    return {k: v for k, v in sd.items()
+            if not k.startswith(("fc.", "last_linear.")) and not k.endswith("num_batches_tracked")}
+
+
+def backbone_leaves(sd: Mapping[str, torch.Tensor]) -> StateDict:
+    """A backbone's leaves by its layout: video ResNet, BN-Inception or timm
+    ViT."""
+    if "stem.0.weight" in sd or "conv1_7x7_s2.weight" in sd:
+        return conv_backbone_leaves(sd)
+    return timm_vit_leaves(sd)
+
+
 def _sub(sd: Mapping, prefix: str) -> StateDict:
     return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
 
@@ -138,9 +166,9 @@ def avt_checkpoint_leaves(sd: Mapping[str, torch.Tensor]) -> StateDict:
     """The leaves of a reference AVT state_dict that `avt_checkpoint_to_flax`
     converts, under the port's names."""
     out: StateDict = {}
-    vit = _sub(sd, "backbone.model.")
-    if vit:
-        out.update(_with_prefix("backbone.model.", timm_vit_leaves(vit)))
+    backbone = _sub(sd, "backbone.model.")
+    if backbone:
+        out.update(_with_prefix("backbone.model.", backbone_leaves(backbone)))
     gpt = _sub(sd, "future_predictor.gpt_model.")
     if gpt:
         out.update(_with_prefix("future_predictor.gpt_model.", gpt2_leaves(gpt)))
@@ -189,11 +217,6 @@ def avt_checkpoint_leaves(sd: Mapping[str, torch.Tensor]) -> StateDict:
     return out
 
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"init_from_model: a checkpoint in {what} loads into a module "
-                               f"that is not ported yet ({_ZOO_ITEM})")
-
-
 def convert_checkpoint(sd: Mapping[str, torch.Tensor]) -> Tuple[StateDict, bool]:
     """Detects the checkpoint's layout, as the JAX package's
     `_convert_checkpoint` does. Returns (its leaves, whether they are a
@@ -206,12 +229,12 @@ def convert_checkpoint(sd: Mapping[str, torch.Tensor]) -> Tuple[StateDict, bool]
         return timm_vit_leaves(sd), False
     if "wpe.weight" in keys:
         return gpt2_leaves(sd), False
-    if "conv1_7x7_s2.weight" in keys:
-        raise _unported("the BNInception layout (models/bninception.py)")
+    if "conv1_7x7_s2.weight" in keys:  # pretrainedmodels BN-Inception
+        return conv_backbone_leaves(sd), False
     if any("rolling_lstm" in k for k in keys):
         return rulstm_leaves(sd), False
     if "stem.0.weight" in keys or "_feature_blocks.stem.0.weight" in keys:
-        raise _unported("the video-ResNet layout (models/video_resnet.py)")
+        return conv_backbone_leaves(sd), False  # torchvision or VISSL video ResNet
     if "weight" in keys and keys <= {"weight", "bias"}:  # a bare nn.Linear
         return {k: sd[k] for k in ("weight", "bias") if k in sd}, False
     raise ValueError(f"init_from_model: unrecognized checkpoint layout (keys like "

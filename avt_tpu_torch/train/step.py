@@ -1,8 +1,8 @@
 """The train and eval steps: forward, losses, backward, optimizer update.
 
 Counterpart of avt_tpu/train/step.py (`weighted_loss_sum`,
-`make_train_step`, `make_multi_step`, `make_eval_step`): per-loss mean
-reduction, the
+`make_train_step`, `make_ssl_train_step`, `make_multi_step`,
+`make_eval_step`): per-loss mean reduction, the
 loss_wts-weighted sum with zero-weight losses left out of the graph, the
 gradient, the update. The JAX
 step is one jitted program over a donated TrainState; here the model's
@@ -76,6 +76,87 @@ def make_train_step(
         _, losses, aux_losses, accuracies = _forward(model, video, batch, num_classes,
                                                      class_weights, generator)
         losses.update(aux_losses)
+        total, mean_losses = weighted_loss_sum(losses, loss_wts)
+        optimizer.zero_grad()
+        total.backward()
+        optimizer.step()
+        metrics = {"loss": total.detach()}
+        metrics.update({f"loss/{k}": v.detach() for k, v in mean_losses.items()})
+        metrics.update(accuracies)
+        return metrics
+
+    return step
+
+
+_COMBINE = {"min": torch.min, "max": torch.max, "mean": torch.mean, "sum": torch.sum}
+
+
+def make_ssl_train_step(
+    model,
+    optimizer,
+    loss_wts: Mapping[str, float],
+    num_classes: Mapping[str, int],
+    reg_criterion: Callable,
+    *,
+    nfutures: int = 1,
+    future_target: str = "temp_agg_projected",
+    incur_loss_style: str = "separately",
+    combine_future_losses: str = "min",
+    cumulative_future: bool = False,
+    class_weights: Optional[Mapping[str, torch.Tensor]] = None,
+    use_cls_loss: bool = True,
+) -> Callable[..., Dict[str, torch.Tensor]]:
+    """The self-supervised future-feature step (the reference's
+    PredFutureFeat, func/train_eval_ops.py:148-231): step(batch, generator)
+    -> metrics, as `make_train_step`'s.
+
+    The observed clips and their `nfutures` future clips (batch keys
+    'future_<i>_video') run as one forward of (1 + nfutures) * B clips. The
+    classification losses (when `use_cls_loss`) take the first B rows; the
+    auxiliary losses cover the whole batch. The 'reg' loss ties
+    'future_projected' of the observed clips to each future clip's
+    `future_target` feature: 'separately' (one `reg_criterion` a future,
+    combined by min, max, mean or sum; with `cumulative_future` each
+    future's features are first averaged cumulatively over the batch axis,
+    as the JAX step does) or 'together' (the futures stacked as
+    (B, nfutures, ...) positives). Like the JAX step, it takes feature or
+    preprocessed video batches (no preprocess_fn)."""
+    combine = _COMBINE[combine_future_losses]
+    if incur_loss_style not in ("separately", "together"):
+        raise NotImplementedError(incur_loss_style)
+
+    def step(batch, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        model.train()
+        target = batch["target"]
+        B = next(iter(target.values())).shape[0]
+        video = torch.cat([batch["video"]] + [batch[f"future_{i}_video"]
+                                              for i in range(nfutures)], dim=0)
+        outputs_full, aux_losses = model(video, generator=generator)
+        outputs = {k: v[:B] for k, v in outputs_full.items()}
+        if use_cls_loss:
+            tsub = batch.get("target_subclips")
+            if tsub is not None:
+                tsub = {k: v.reshape(v.shape[0], v.shape[1], -1) for k, v in tsub.items()}
+            losses, accuracies = basic_loss_accuracy(outputs, target, tsub,
+                                                     num_classes=num_classes,
+                                                     class_weights=class_weights)
+        else:
+            losses, accuracies = {}, {}
+        losses.update(aux_losses)
+        anchor = outputs["future_projected"]
+        if incur_loss_style == "separately":
+            reg_losses = []
+            for i in range(nfutures):
+                fut = outputs_full[future_target][(i + 1) * B:(i + 2) * B]
+                if cumulative_future:
+                    fut = torch.cumsum(fut, dim=0) / torch.arange(
+                        1, fut.shape[0] + 1, dtype=fut.dtype, device=fut.device)[:, None]
+                reg_losses.append(reg_criterion(anchor, fut))
+            losses["reg"] = combine(torch.stack(reg_losses))
+        else:
+            fut = outputs_full[future_target][B:]
+            fut = fut.reshape((nfutures, B) + tuple(fut.shape[1:])).transpose(0, 1)
+            losses["reg"] = reg_criterion(anchor, fut)
         total, mean_losses = weighted_loss_sum(losses, loss_wts)
         optimizer.zero_grad()
         total.backward()

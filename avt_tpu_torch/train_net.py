@@ -4,11 +4,12 @@ Counterpart of avt_tpu/train_net.py (`main`, `cli`), in one process:
 compose the config from conf/ and the overrides (sweeps expand to one run
 each), build the datasets, loaders and model, load train.init_from_model's
 checkpoints into it, build the optimizer, auto-resume from the run
-directory, train with an eval every eval_freq epochs, or only evaluate
-(test_only).
+directory, train with an eval every eval_freq epochs (the SSL step under
+train_eval_op=pred_future_feat), or only evaluate (test_only).
 
 Usage:
-  python -m avt_tpu_torch.train_net key=value [+key=value ...]
+  python -m avt_tpu_torch.train_net [key=value +key=value ...]  # conf/config.yaml:
+      # r2plus1d_34 on EK100 raw video
   python -m avt_tpu_torch.train_net --config-file expts/02_ek100_avt_tsn.txt \\
       [--run-dir OUTPUTS/x/0] [extra overrides]
 
@@ -36,6 +37,7 @@ from avt_tpu_torch.config.build import (
     build_preprocess_fns,
     loss_weights,
 )
+from avt_tpu_torch.config.registry import instantiate
 from avt_tpu_torch.data.clip_samplers import build_clip_samplers
 from avt_tpu_torch.data.dataset import ConcatDataset
 from avt_tpu_torch.data.loader import DataLoader
@@ -46,6 +48,7 @@ from avt_tpu_torch.train import (
     ReduceLROnPlateau,
     make_eval_step,
     make_multi_step,
+    make_ssl_train_step,
     make_train_step,
     run_training,
 )
@@ -68,10 +71,26 @@ def platform_device(device=None) -> torch.device:
     return resolve_device(device)
 
 
-def _refuse_unported(cfg: Dict) -> None:
-    if (cfg.get("train_eval_op") or {}).get("name") == "pred_future_feat":
-        raise NotImplementedError("train_eval_op=pred_future_feat (the SSL step) is not ported "
-                                  "yet (ROADMAP Queue 1.8)")
+def _ssl_step(cfg: Dict, op_cfg: Dict, batch0: Dict, model, optimizer, num_classes,
+              class_weights):
+    """train_eval_op=pred_future_feat's step (`make_ssl_train_step`), its
+    future count taken from the first batch's `future_<i>_video` keys."""
+    cls_cfg = op_cfg.get("cls_loss_acc_fn") or {}
+    combine = op_cfg.get("combine_future_losses", "min")
+    if isinstance(combine, dict):  # the reference's {_target_: torch.min}
+        combine = combine["_target_"].rsplit(".", 1)[-1]
+    nfutures = len([k for k in batch0 if k.startswith("future_") and k.endswith("_video")])
+    if nfutures == 0:
+        raise ValueError("train_eval_op=pred_future_feat needs future clips: set "
+                         "dataset_train.return_future_clips_too=true")
+    return make_ssl_train_step(
+        model, optimizer, loss_weights(cfg), num_classes,
+        reg_criterion=instantiate(op_cfg["reg_criterion"]), nfutures=nfutures,
+        future_target=op_cfg.get("future_target", "temp_agg_projected"),
+        incur_loss_style=op_cfg.get("incur_loss_style", "separately"),
+        combine_future_losses=combine,
+        cumulative_future=op_cfg.get("cumulative_future", False),
+        class_weights=class_weights, use_cls_loss=cls_cfg.get("name", "basic") != "no")
 
 
 def main(cfg: Dict, work_dir: str = ".", device=None) -> float:
@@ -79,7 +98,6 @@ def main(cfg: Dict, work_dir: str = ".", device=None) -> float:
     results, tb/); returns the primary metric of the last eval (0.0 when
     there is no eval dataset)."""
     require_one_process("train_net.main")
-    _refuse_unported(cfg)
     device = platform_device(device)
     logger = get_logger("avt_tpu_torch.train")
     seed = cfg.get("seed", 42)
@@ -156,8 +174,12 @@ def main(cfg: Dict, work_dir: str = ".", device=None) -> float:
         class_weights = {task: balance_weights_from_counts(
             train_dataset.classes_counts[task], n, device=device)
             for task, n in num_classes.items()}
-    train_step = make_train_step(model, optimizer, loss_weights(cfg), num_classes,
-                                 class_weights=class_weights, preprocess_fn=train_pp_fn)
+    if op_cfg.get("name") == "pred_future_feat":
+        train_step = _ssl_step(cfg, op_cfg, batch0, model, optimizer, num_classes,
+                               class_weights)
+    else:
+        train_step = make_train_step(model, optimizer, loss_weights(cfg), num_classes,
+                                     class_weights=class_weights, preprocess_fn=train_pp_fn)
     unroll_steps = int(cfg["train"].get("unroll_steps") or 1)
     multi_step = make_multi_step(train_step, unroll_steps) if unroll_steps > 1 else None
     eval_step = make_eval_step(

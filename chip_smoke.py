@@ -174,11 +174,40 @@
    MultiDimCrossEntropy feat loss through `train_net.cli`: 4 steps and 2
    eval batches, no kernel launches, finite losses and metric, the
    checkpoint's encoder and tied decoder equal.
+14. conv_default: conf/config.yaml through `train_net.cli` with no
+   --config-file (r2plus1d_34, 63.6 M parameters, the mean aggregator,
+   identity future, linear classifier; 16 frames at 112 after the fixed
+   128 x 174 resize; train batch 16, eval 64; f32 cuDNN convolutions, TF32
+   off) on a synthetic tree of raw mp4v videos (`write_ek100_tree` with
+   video, written in parallel), cut to 4 train batches and 2 eval batches:
+   no kernel launches, finite losses and metric, every BatchNorm running
+   statistic moved by training and none by an eval batch; the loop's ms a
+   step, the decode wait, a profiled step (conv and batch-norm groups,
+   TFLOP/s of the convolutions and linears, peak memory). Then, with train
+   clips read by center_clip and cuDNN deterministic, 2 epochs straight
+   against 2 crashed at the start of epoch 2 and resumed by a new cli
+   call: the final checkpoints within 1e-3 of each tensor's max, running
+   statistics included, and whether the bits are equal.
+15. bn_inception: the same tree with `model/backbone=bn_inception` (N=0) at
+   10 frames, smaller side 256, 224 crops, one train step of 64 clips and
+   one eval batch of 128, from a seeded pretrainedmodels-layout file
+   (`write_bninception`) that must load bit for bit (not last_linear nor
+   the counts); then a seeded torchvision-layout r2plus1d_18 file
+   (`write_video_resnet`) loads into `model/backbone=r2plus1d_18` bit for
+   bit, its eval forward finite. No launches.
+16. ssl: expts/02 at 256 features with `train_eval_op=pred_future_feat`
+   (`SSL_OVERRIDES`: the InfoNCE, a 2048-d projection, future clips, no
+   subclips and so no past classifier) through `train_net.cli`, on a tree
+   whose feature stores reach past each future clip: each step runs AVT-h
+   once over the 64 observed and 64 future clips, 6 flash forward + 6
+   backward launches, 6 forward an eval batch; finite losses (reg among
+   them); the loop's ms a step and a profiled step with its peak memory.
 Only phase 4b launches the fused kernel. Prints one JSON line of kernel results, then {"ok": true, "device": ...}.
 Exits non-zero on any failure, and without a CUDA device.
 """
 import csv
 import functools
+from concurrent.futures import ThreadPoolExecutor
 import json
 import os
 import re
@@ -809,7 +838,9 @@ def time_flash(B, T, H, D, dtype, causal):
 
 def kernel_group(name):
     low = name.lower()
-    for key, group in (("short_attn", "attention kernel"), ("bwd_query", "attention bwd kernel"),
+    for key, group in (("implicit_gemm", "conv"), ("wgrad", "conv"), ("dgrad", "conv"),
+                       ("convolve", "conv"), ("bn_fw", "batch norm"), ("bn_bw", "batch norm"),
+                       ("short_attn", "attention kernel"), ("bwd_query", "attention bwd kernel"),
                        ("flash_fwd", "flash attention kernel"),
                        ("fused_fwd", "fused qkv attention kernel"),
                        ("flash_bwd", "flash attention bwd kernel"),
@@ -980,6 +1011,12 @@ def main():
             fwd_e, bwd_e = check_flash(Bn, T, AVTH_HEADS, AVTH_DIM // AVTH_HEADS, dtype, True,
                                        seed=36)
             rollout_errs[f"B{Bn}_T{T}_{str(dtype)[6:]}"] = {"fwd": fwd_e, "bwd": bwd_e}
+    # the SSL step's one forward over 64 observed and 64 future clips
+    ssl_errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        fwd_e, bwd_e = check_flash(2 * TN_BATCH, LONG_T, AVTH_HEADS, AVTH_DIM // AVTH_HEADS, dtype,
+                                   True, seed=37)
+        ssl_errs[f"B{2 * TN_BATCH}_T{LONG_T}_{str(dtype)[6:]}"] = {"fwd": fwd_e, "bwd": bwd_e}
     # the Transformer aggregator's encoder attention: non-causal, 8 heads of 64
     zoo_err = check_flash(*ZOO_SHAPE, torch.float32, False, seed=28)
     check_flash(*ZOO_SHAPE, torch.bfloat16, False, seed=28)
@@ -1040,11 +1077,27 @@ def main():
     # 13. quantized AVT-h: k-means on the card, then expts/02 on the centroids
     quant_launches, quant_summary = quantized_phase(card)
 
+    # 14-15. conf/config.yaml's r2plus1d_34 and BN-Inception through train_net on raw video
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        cv_tree = write_ek100_tree(os.path.join(tmp, "tree"), train_videos=CV_TRAIN_VIDEOS,
+                                   eval_videos=CV_EVAL_VIDEOS, actions_per_video=CV_ACTIONS,
+                                   first_action_s=CV_FIRST_S, seed=44, video=TNR_VIDEO)
+        log(f"conv phases: synthetic EK100 tree ({CV_TRAIN_VIDEOS} + {CV_EVAL_VIDEOS} mp4v "
+            f"videos of {TNR_VIDEO[0]}x{TNR_VIDEO[1]} at {TNR_VIDEO[2]} fps, "
+            f"{CV_FIRST_S + CV_ACTIONS + 2} s) written in {time.time() - t0:.1f} s")
+        conv_launches, conv_summary = conv_default_phase(card, cv_tree)
+        bni_launches = bn_inception_phase(card, cv_tree)
+
+    # 16. the SSL op (pred_future_feat) on expts/02 at 256 features
+    ssl_launches, ssl_summary = ssl_phase(card)
+
     paths = {"serve": serve_launches, "train": train_launches, "trainer": trainer_launches,
              "train_d32": d32_launches,
              **feat_launches, "feature_d1024": d1024_launches, "train_fused": fused_launches,
              "ek55_adam": ek55_launches, **tn_launches, **tnr_launches, **rulstm_launches,
-             **zoo_launches, **rollout_launches, **quant_launches}
+             **zoo_launches, **rollout_launches, **quant_launches, **conv_launches,
+             **bni_launches, **ssl_launches}
     for path, counts in paths.items():
         if path != "train_fused":
             check(counts["fused_qkv_attention_fwd"] == 0, f"a fused launch on {path}: {counts}")
@@ -1104,7 +1157,9 @@ def main():
                              "train_step": {k: v for k, v in zoo_profile.items()
                                             if k != "groups"}},
             rollout_checks={k: v[side] for k, v in rollout_errs.items()},
-            rollout=rollout_summary))
+            ssl_checks={k: v[side] for k, v in ssl_errs.items()},
+            rollout=rollout_summary,
+            ssl_train_step={k: v for k, v in ssl_summary.items() if k != "groups"}))
     spec = _build.KERNELS["fused_qkv_attention_fwd"]
     kernels.append(dict(
         name="fused_qkv_attention_fwd", route=spec["route"], source=spec["source"],
@@ -1117,6 +1172,7 @@ def main():
         residency={k.split(" ")[1]: v for k, v in residency.items() if k.startswith("fused")},
         train_step_ms={"fused": fused_train["step_ms"], "split": split_train["step_ms"]}))
     log(f"quantized: {quant_summary}")
+    log(f"conv_default: {conv_summary}")
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1999,7 +2055,7 @@ EXPT_02 = "expts/02_ek100_avt_tsn.txt"
 
 
 def write_ek100_tree(root, *, train_videos, eval_videos, actions_per_video, first_action_s,
-                     dim=FEAT_DIM, seed=0, video=None, read_type="normal"):
+                     dim=FEAT_DIM, seed=0, video=None, read_type="normal", tail_s=2):
     """A synthetic EK100 tree under `root`, written with numpy and csv only:
     EPIC_100_{verb,noun}_classes.csv (97 verbs, 300 nouns), RULSTM's
     actions.csv (3806 actions, action a = (verb a % 97, noun a // 97)), the
@@ -2007,8 +2063,8 @@ def write_ek100_tree(root, *, train_videos, eval_videos, actions_per_video, firs
     start_frame, end_frame, verb, noun, action at 30 fps, no header; one
     action a second from `first_action_s` on, `actions_per_video` a video,
     train and eval on their own videos), and a per-video .npy store of
-    `dim`-d f32 features at 30 fps (row i = frame i + 1) reaching 2 s past
-    the last action. Returns the overrides that point expts/02 at it (the
+    `dim`-d f32 features at 30 fps (row i = frame i + 1) reaching `tail_s`
+    past the last action. Returns the overrides that point expts/02 at it (the
     npy reader taking `read_type`: expts/02's 'normal', expts/05's
     'exact_rulstm').
 
@@ -2034,8 +2090,9 @@ def write_ek100_tree(root, *, train_videos, eval_videos, actions_per_video, firs
         w.writerows([a, a % EK100_VERBS, a // EK100_VERBS,
                      f"verb{a % EK100_VERBS}_noun{a // EK100_VERBS}"]
                     for a in range(NUM_ACTIONS))
-    seconds = first_action_s + actions_per_video + 2
+    seconds = first_action_s + actions_per_video + tail_s
     uid = 0
+    jobs = []  # the videos, written in parallel below (OpenCV encodes without the GIL)
     for split, participant, n_videos in (("training", 1, train_videos),
                                          ("validation", 2, eval_videos)):
         rows = []
@@ -2045,8 +2102,8 @@ def write_ek100_tree(root, *, train_videos, eval_videos, actions_per_video, firs
                 np.save(os.path.join(feats, "rgb", f"{name}.npy"),
                         rng.standard_normal((seconds * FEATURE_FPS, dim), np.float32))
             else:
-                write_video(os.path.join(videos, f"P{participant:02d}", f"{name}.MP4"), *video,
-                            seconds=seconds, seed=int(rng.integers(2 ** 31)))
+                jobs.append((os.path.join(videos, f"P{participant:02d}", f"{name}.MP4"),
+                             int(rng.integers(2 ** 31))))
             for k in range(actions_per_video):
                 start = (first_action_s + k) * FEATURE_FPS
                 action = int(rng.integers(NUM_ACTIONS))
@@ -2055,6 +2112,11 @@ def write_ek100_tree(root, *, train_videos, eval_videos, actions_per_video, firs
                 uid += 1
         with open(os.path.join(rulstm, f"{split}.csv"), "w", newline="") as f:
             csv.writer(f).writerows(rows)
+    if jobs:
+        with ThreadPoolExecutor(min(len(jobs), os.cpu_count() or 1)) as pool:
+            for done in [pool.submit(write_video, path, *video, seconds=seconds, seed=seed)
+                         for path, seed in jobs]:
+                done.result()
     common = "dataset.epic_kitchens100.common"
     paths = [f"{common}.annot_dir={annot}/", f"{common}.rulstm_annot_dir={rulstm}/",
              f"dataset_train.annotation_path=[{rulstm}/training.csv]",
@@ -2137,11 +2199,16 @@ def long_context(T):
             f"dataset_eval.conv_to_anticipate_fn.tau_o={T}"]
 
 
-def run_train_net(argv):
+class Crash(Exception):
+    """A simulated crash of a train_net run (run_train_net's crash_epoch)."""
+
+
+def run_train_net(argv, crash_epoch=None):
     """`train_net.cli(argv)` with its loaders, loop meters, evaluator and
     final metrics recorded, and the kernel launch counts set to 0 just
-    before and read just after. Returns (the cli's metrics, a dict of what
-    was recorded)."""
+    before and read just after; with `crash_epoch`, the run raises Crash
+    when its loop starts that epoch. Returns (the cli's metrics, a dict of
+    what was recorded)."""
     from avt_tpu_torch import train_net
     from avt_tpu_torch.evaluate import evaluator as evaluator_module
 
@@ -2177,6 +2244,8 @@ def run_train_net(argv):
         return metric
 
     def counted_epoch(*args, **kwargs):
+        if kwargs["epoch"] == crash_epoch:
+            raise Crash(f"crashed at the start of epoch {crash_epoch}")
         rec["epochs"].append(kwargs["epoch"])
         return train_one_epoch(*args, **kwargs)
 
@@ -2643,11 +2712,11 @@ def zoo_flops_per_clip(T, dim=ZOO_DIM, layers=ZOO_LAYERS, ffn=2048, feat=FEAT_DI
     return T * per_token + 2 * (2 * dim * dim) + 2 * (dim * dim + dim * actions)
 
 
-def recording_make_train_step(train_net, captured):
-    """A make_train_step for `train_net` whose step records (model, loss
-    weights, classes, first batch, the step) in `captured` at its first
-    call."""
-    real = train_net.make_train_step
+def recording_make_train_step(train_net, captured, name="make_train_step"):
+    """A make_train_step (or `name`'s step maker) for `train_net` whose step
+    records (model, loss weights, classes, first batch, the step) in
+    `captured` at its first call."""
+    real = getattr(train_net, name)
 
     def make(model, optimizer, loss_wts, num_classes, **kwargs):
         step = real(model, optimizer, loss_wts, num_classes, **kwargs)
@@ -3017,6 +3086,402 @@ def quantized_phase(card):
     return {"quantized": rec["launches"]}, dict(kmeans_s=kmeans_s, k=QUANT_K,
                                                 rows=int(feats.shape[0]), losses=losses,
                                                 step_wall_ms=wall, step_busy_ms=busy)
+
+
+
+# ---------------------------------------------------- conv_default, bn_inception
+# conf/config.yaml as shipped (r2plus1d_34, 16 frames at 112, train batch 16,
+# eval 64) on raw video: 4 train videos and 8 eval videos of 16 actions a
+# second from 4 s on (tau_o 2.5 s before tau_a 1 s fits), so 64 train rows (4
+# batches of 16) and 128 eval rows (2 batches of 64)
+CV_TRAIN_VIDEOS, CV_EVAL_VIDEOS, CV_ACTIONS, CV_FIRST_S = 4, 8, 16, 4
+CV_BATCH, CV_EVAL_BATCH, CV_FRAMES, CV_CROP = 16, 64, 16, 112
+CV_STEPS = CV_TRAIN_VIDEOS * CV_ACTIONS // CV_BATCH
+CV_EVAL_BATCHES = CV_EVAL_VIDEOS * CV_ACTIONS // CV_EVAL_BATCH
+CV_RESUME_TOL = 1e-3  # straight vs crashed and resumed run, of each tensor's max |value|
+# BN-Inception at TSN's input: 10 frames, smaller side 256, 224 crops; one
+# train step of all 64 train rows and one eval batch of all 128 eval rows
+BNI_FRAMES, BNI_CROP = 10, 224
+BNI_OVERRIDES = ["model/backbone=bn_inception", "model.backbone_last_n_modules_to_drop=0",
+                 f"data_train.num_frames={BNI_FRAMES}", f"data_eval.num_frames={BNI_FRAMES}",
+                 "data_train.scale_h=256", "data_train.scale_w=-1", "data_eval.scale_h=256",
+                 "data_eval.scale_w=-1", f"data_train.crop_size={BNI_CROP}",
+                 f"data_eval.crop_size={BNI_CROP}",
+                 f"train.batch_size={CV_TRAIN_VIDEOS * CV_ACTIONS}",
+                 f"eval.batch_size={CV_EVAL_VIDEOS * CV_ACTIONS}"]
+BNI_FILE = "bn_inception-52deb4733.pth"  # pretrainedmodels' released name
+R2P1D_FILE = "r2plus1d_18-91a641e6.pth"  # torchvision's released name
+
+
+def _seeded_backbone_file(path, module, head, n_classes, seed):
+    """A seeded state_dict in `module`'s names and shapes (the released
+    layout the port's names follow), plus the classifier `head` over
+    `n_classes` that the released file carries and `num_batches_tracked`
+    counts: conv and linear weights N(0, 0.02), BatchNorm weights about 1,
+    running variances in [0.5, 1.5). Returns the state_dict."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, v in module.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            sd[k] = torch.tensor(1000)
+        elif k.endswith("running_var"):
+            sd[k] = torch.from_numpy(rng.uniform(0.5, 1.5, tuple(v.shape)).astype(np.float32))
+        else:
+            w = 0.02 * rng.standard_normal(tuple(v.shape), np.float32)
+            sd[k] = torch.from_numpy(w + (1.0 if k.endswith("_bn.weight") or (
+                k.endswith(".weight") and v.dim() == 1) else 0.0))
+    dim = module.output_dim
+    sd[f"{head}.weight"] = torch.from_numpy(0.02 * rng.standard_normal((n_classes, dim),
+                                                                       np.float32))
+    sd[f"{head}.bias"] = torch.zeros(n_classes)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(sd, path)
+    return sd
+
+
+def write_bninception(path, seed=0):
+    """A seeded BN-Inception file in pretrainedmodels' layout, with its
+    1000-class `last_linear`."""
+    from avt_tpu_torch.models import BNInceptionVideo
+
+    return _seeded_backbone_file(path, BNInceptionVideo(device="meta"), "last_linear", 1000,
+                                 seed)
+
+
+def write_video_resnet(path, factory="r2plus1d_18", seed=0):
+    """A seeded video ResNet file in torchvision's layout (a VideoResNet's
+    state_dict), with its 400-class Kinetics `fc`."""
+    from avt_tpu_torch.models import VIDEO_RESNETS
+
+    return _seeded_backbone_file(path, VIDEO_RESNETS[factory](device="meta"), "fc", 400, seed)
+
+
+def conv_flops(model, video):
+    """Forward FLOPs of `model` on `video` counted by its convolutions and
+    linears (2 per multiply-add, from the shapes a no-grad forward sees)."""
+    total = [0]
+
+    def hook(mod, inp, out):
+        if isinstance(mod, torch.nn.Linear):
+            total[0] += 2 * out.numel() * mod.in_features
+        else:
+            total[0] += 2 * out.numel() * mod.weight[0].numel()
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d, torch.nn.Linear))]
+    try:
+        with torch.no_grad():
+            model.eval()(video)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def recording_make_eval_step(train_net, moved):
+    """A make_eval_step for `train_net` whose step appends to `moved`
+    whether an eval batch changed any BatchNorm running statistic."""
+    real = train_net.make_eval_step
+
+    def make(model, *args, **kwargs):
+        step = real(model, *args, **kwargs)
+
+        def recording(batch):
+            before = [b.clone() for n, b in model.named_buffers() if "running" in n]
+            out = step(batch)
+            after = [b for n, b in model.named_buffers() if "running" in n]
+            moved.append(any(not torch.equal(x, y) for x, y in zip(before, after)))
+            return out
+
+        return recording
+
+    return make
+
+
+def conv_default_phase(card, tree):
+    """conf/config.yaml through `train_net.cli` with no --config-file
+    (r2plus1d_34, the mean aggregator, identity future, linear classifier,
+    16 frames at 112, train batch 16, eval 64, SGD under warmup multi-step)
+    on the raw-video tree `tree` (the overrides `write_ek100_tree` returned),
+    cut to 4 train batches and 2 eval batches. (1) As shipped, one epoch:
+    finite losses and metric, no kernel launches, every running statistic
+    moved in training and none in eval; prints the loop's ms a step, the
+    decode wait, eval's ms a batch; then a profile of one train step (busy,
+    idle share, kernel groups, conv TFLOP/s, peak memory). (2) With the
+    train clips read deterministically (center_clip: random_clip draws from
+    a stream the loader's threads share) and cuDNN deterministic, 2 epochs
+    straight, then 2 epochs crashed at the start of epoch 2 and resumed
+    from its checkpoint in a new cli call: the two final checkpoints equal within CV_RESUME_TOL of
+    each tensor's max |value|, running statistics included. Returns
+    (launch counts, a summary)."""
+    from avt_tpu_torch import train_net
+
+    captured, moved = [], []
+    cut = [f"data_train.workers={TN_WORKERS}", f"data_eval.workers={TN_WORKERS}"]
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "shipped")
+        argv = ["--run-dir", run_dir] + tree + cut + ["train.num_epochs=1"]
+        with mock.patch.object(train_net, "make_train_step",
+                               recording_make_train_step(train_net, captured)), \
+                mock.patch.object(train_net, "make_eval_step",
+                                  recording_make_eval_step(train_net, moved)):
+            (metric,), rec = run_train_net(argv)
+        ckpt = torch.load(os.path.join(run_dir, CKPT_NAME), map_location="cpu",
+                          weights_only=False)["model"]
+        stats = {k: v for k, v in ckpt.items() if "running" in k}
+        check(rec["launches"] == flash_launches(0), f"conv_default: launches {rec['launches']}")
+        check(rec["epochs"] == [0] and len(rec["waits"]["train"]) == CV_STEPS + 1
+              and len(rec["waits"]["eval"]) == CV_EVAL_BATCHES,
+              f"conv_default: epochs {rec['epochs']}, batches {rec['waits']}")
+        meters = rec["loggers"][0].meters
+        losses = {k: m.global_avg for k, m in meters.items() if k.startswith("loss")}
+        check(meters["loss"].count == CV_STEPS and all(np.isfinite(list(losses.values())))
+              and np.isfinite(metric), f"conv_default: losses {losses}, metric {metric}")
+        unmoved = [k for k, v in stats.items()
+                   if torch.equal(v, torch.zeros_like(v) if "mean" in k else torch.ones_like(v))]
+        check(stats and not unmoved and len(moved) == CV_EVAL_BATCHES and not any(moved),
+              f"conv_default: running stats unmoved by training {unmoved[:4]}, moved by eval "
+              f"batches {moved}")
+        model, _, _, batch, step = captured.pop()
+        train_wait, eval_wait = rec["waits"]["train"], rec["waits"]["eval"]
+        clips_s = meters["clips/s"]
+        loop_ms = CV_BATCH / clips_s.median * 1e3
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"conv_default ({card}): conf/config.yaml with no --config-file, r2plus1d_34 "
+            f"({n_params / 1e6:.1f} M parameters) + mean aggregator + identity future + "
+            f"linear classifier on "
+            f"{CV_FRAMES} frames at {CV_CROP}, f32 (TF32 off), rows train {rec['rows']['train']}"
+            f" / eval {rec['rows']['eval']}, {CV_STEPS} steps of {CV_BATCH} clips, "
+            f"{len(eval_wait)} eval batches of {CV_EVAL_BATCH}; the loop {loop_ms:.2f} ms a "
+            f"step (its clips/s meter, median {clips_s.median:.2f}); host decode wait "
+            f"{1e3 * np.median(train_wait):.2f} ms a train batch (median of {len(train_wait)}, "
+            f"max {1e3 * max(train_wait):.2f}), {1e3 * np.median(eval_wait):.2f} ms an eval "
+            f"batch; eval {1e3 * rec['eval_s'][0] / len(eval_wait):.2f} ms a batch; losses "
+            + ", ".join(f"{k} {v:.4f}" for k, v in sorted(losses.items()))
+            + f"; final_acc/action/AR5 {metric:.4f}; {len(stats)} running statistics moved in "
+            f"training, none in eval; cli {rec['wall_s']:.1f} s; launches {rec['launches']}")
+        gen = torch.Generator(device="cuda").manual_seed(39)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        busy, groups, wall = profile_run(lambda: step(batch, gen), f"conv_default train step, "
+                                         f"{CV_BATCH} clips of {CV_FRAMES} frames at {CV_CROP}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        flops_clip = conv_flops(model, torch.randn(1, 1, 3, CV_FRAMES, CV_CROP, CV_CROP,
+                                                   device="cuda"))
+        flops = 3 * CV_BATCH * flops_clip
+        log(f"conv_default train step ({card}): wall {wall:.2f} ms, device busy {busy:.2f} ms "
+            f"(idle {100 * (1 - busy / wall):.1f}%), {flops / 1e12:.3f} TFLOP a step (3 x the "
+            f"forward's {flops_clip / 1e9:.2f} GFLOP a clip in convolutions and linears), "
+            f"{flops / busy / 1e9:.2f} TFLOP/s of device time; peak memory {peak_gb:.2f} GB")
+        del model, batch, step, ckpt
+        torch.cuda.empty_cache()
+
+        # (2) a straight run and a crashed + resumed one, the train reads and
+        # cuDNN's algorithms deterministic (its default backward algorithms
+        # accumulate in no fixed order, which SGD at LR 0.1 amplifies)
+        runs = {}
+        two = tree + cut + ["train.num_epochs=2", "dataset_train.sample_strategy=center_clip"]
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            (runs["straight"],), rec_a = run_train_net(["--run-dir", os.path.join(tmp, "a")]
+                                                       + two)
+            try:
+                run_train_net(["--run-dir", os.path.join(tmp, "b")] + two, crash_epoch=1)
+                check(False, "conv_default: the run meant to crash at epoch 1 did not")
+            except Crash:
+                pass
+            (runs["resumed"],), rec_b = run_train_net(["--run-dir", os.path.join(tmp, "b")]
+                                                      + two)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        sd_a, sd_b = (torch.load(os.path.join(tmp, r, CKPT_NAME), map_location="cpu",
+                                 weights_only=False) for r in ("a", "b"))
+    check(rec_a["epochs"] == [0, 1] and rec_b["epochs"] == [1] and sd_a["epoch"] == 2.0
+          and sd_b["epoch"] == 2.0, f"conv_default resume: epochs {rec_a['epochs']} / "
+          f"{rec_b['epochs']}, checkpoints at {sd_a['epoch']} / {sd_b['epoch']}")
+    errs = {k: scaled_err(sd_b["model"][k].float(), v.float())
+            for k, v in sd_a["model"].items() if v.is_floating_point()}
+    worst = max(errs, key=errs.get)
+    stat_err = max(v for k, v in errs.items() if "running" in k)
+    bits = all(torch.equal(sd_b["model"][k], v) for k, v in sd_a["model"].items())
+    check(errs[worst] <= CV_RESUME_TOL, f"conv_default resume: {worst} differs by "
+          f"{errs[worst]:.3g} of its max (limit {CV_RESUME_TOL})")
+    log(f"conv_default resume ({card}): 2 epochs straight vs crashed at epoch 1 and resumed: "
+        f"final weights within {errs[worst]:.3g} of each tensor's max |value| (worst {worst}), "
+        f"running statistics within {stat_err:.3g}, bits equal: {bits}; metrics "
+        f"{runs['straight']:.4f} / {runs['resumed']:.4f}; launches {rec_a['launches']} / "
+        f"{rec_b['launches']}")
+    return ({"conv_default": rec["launches"], "conv_default_resume": rec_b["launches"]},
+            dict(loop_ms=loop_ms, decode_wait_ms=1e3 * float(np.median(train_wait)),
+                 step_wall_ms=wall, step_busy_ms=busy, idle_share=1 - busy / wall,
+                 tflop_per_step=flops / 1e12, peak_gb=peak_gb, groups=groups,
+                 resume_max_err=errs[worst], resume_bits_equal=bits))
+
+
+def bn_inception_phase(card, tree):
+    """BN-Inception (TSN's frame-level backbone) through `train_net.cli` on
+    the conv_default tree: conf/config.yaml with `model/backbone=bn_inception`
+    (N=0 truncation) at 10 frames, smaller side 256, 224 crops; its
+    `train.init_from_model` is a seeded file in pretrainedmodels' layout
+    (`write_bninception`, with its `last_linear`), which must load bit for
+    bit before step 1 (every conv, bias and BatchNorm with its running
+    statistics; not the head nor the counts). One train step of 64 clips and
+    one eval batch of 128: finite loss and metric, no kernel launches. Then
+    a seeded r2plus1d_18 file in torchvision's layout (`write_video_resnet`,
+    with its `fc`) loads through `init_from_model` into the model
+    `model/backbone=r2plus1d_18` builds, bit for bit, and its eval forward
+    on a 16-frame clip at 112 is finite. Returns the launch counts."""
+    from avt_tpu_torch import train_net
+    from avt_tpu_torch.config import Composer, parse_override
+    from avt_tpu_torch.config.build import build_model
+    from avt_tpu_torch.models import import_torch
+
+    inits = []
+    real_init = import_torch.init_from_model
+
+    def recorded_init(model, specs):
+        loaded = real_init(model, specs)
+        sd = model.state_dict()
+        src = import_torch.load_torch_state_dict(specs[-1][-1])
+        kept = import_torch.convert_checkpoint(src)[0]
+        inits.append({"equal": all(torch.equal(sd["backbone.model." + k].cpu(), v)
+                                   for k, v in kept.items()),
+                      "loaded": sorted(loaded), "want": sorted("backbone.model." + k for k in kept),
+                      "skipped": sorted(k for k in src if k not in kept)})
+        return loaded
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, BNI_FILE)
+        write_bninception(path, seed=40)
+        argv = (["--run-dir", os.path.join(tmp, "run")] + tree + BNI_OVERRIDES
+                + [f"data_train.workers={TN_WORKERS}", f"data_eval.workers={TN_WORKERS}",
+                   "train.num_epochs=1", f"train.init_from_model=[[backbone.model,{path}]]"])
+        with mock.patch.object(train_net, "init_from_model", recorded_init):
+            (metric,), rec = run_train_net(argv)
+        check(len(inits) == 1 and inits[0]["equal"] and inits[0]["loaded"] == inits[0]["want"]
+              and all(k.startswith("last_linear.") or k.endswith("num_batches_tracked")
+                      for k in inits[0]["skipped"]),
+              f"bn_inception: init {inits}")
+        check(rec["launches"] == flash_launches(0), f"bn_inception: launches {rec['launches']}")
+        meters = rec["loggers"][0].meters
+        losses = {k: m.global_avg for k, m in meters.items() if k.startswith("loss")}
+        check(meters["loss"].count == 1 and len(rec["waits"]["eval"]) == 1
+              and all(np.isfinite(list(losses.values()))) and np.isfinite(metric),
+              f"bn_inception: {meters['loss'].count} steps, {len(rec['waits']['eval'])} eval "
+              f"batches, losses {losses}, metric {metric}")
+        log(f"bn_inception ({card}): conf/config.yaml + model/backbone=bn_inception at "
+            f"{BNI_FRAMES} frames of {BNI_CROP}, init from a pretrainedmodels-layout file "
+            f"({len(inits[0]['loaded'])} tensors equal to the file, skipped "
+            f"{len(inits[0]['skipped'])}: last_linear and the counts), 1 step of "
+            f"{CV_TRAIN_VIDEOS * CV_ACTIONS} clips ({CV_TRAIN_VIDEOS * CV_ACTIONS * BNI_FRAMES} "
+            f"frames), 1 eval batch of {CV_EVAL_VIDEOS * CV_ACTIONS} clips; decode wait "
+            f"{1e3 * rec['waits']['train'][0]:.2f} ms (train) / "
+            f"{1e3 * rec['waits']['eval'][0]:.2f} ms (eval); eval {1e3 * rec['eval_s'][0]:.2f} "
+            f"ms; losses " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(losses.items()))
+            + f"; final_acc/action/AR5 {metric:.4f}; cli {rec['wall_s']:.1f} s")
+
+        path = os.path.join(tmp, R2P1D_FILE)
+        file_sd = write_video_resnet(path, "r2plus1d_18", seed=41)
+        cfg = Composer(train_net.CONF_DIR).compose("config", [parse_override(
+            "model/backbone=r2plus1d_18")])
+        model = build_model(cfg, {"action": NUM_ACTIONS}, {}, device="cuda")
+        loaded = import_torch.init_from_model(model, [["backbone.model", path]])
+        sd = model.state_dict()
+        want = {k for k in file_sd if not k.startswith("fc.")
+                and not k.endswith("num_batches_tracked")}
+        check(sorted(loaded) == sorted("backbone.model." + k for k in want)
+              and all(torch.equal(sd["backbone.model." + k].cpu(), file_sd[k]) for k in want),
+              f"r2plus1d_18 file: loaded {len(loaded)} of {len(want)}, equal "
+              f"{all(torch.equal(sd['backbone.model.' + k].cpu(), file_sd[k]) for k in want)}")
+        with torch.no_grad():
+            out, _ = model(torch.randn(2, 1, 3, CV_FRAMES, CV_CROP, CV_CROP, device="cuda"))
+        check(out["logits/action"].shape == (2, NUM_ACTIONS)
+              and bool(torch.isfinite(out["logits/action"]).all()),
+              f"r2plus1d_18 file: eval logits {tuple(out['logits/action'].shape)}")
+        log(f"bn_inception ({card}): a torchvision-layout r2plus1d_18 file loaded "
+            f"{len(loaded)} tensors into model/backbone=r2plus1d_18 bit for bit (not fc nor "
+            f"the counts); its eval forward finite")
+        del model
+        torch.cuda.empty_cache()
+    return {"bn_inception": rec["launches"]}
+
+
+# the ssl phase: expts/02 at 256 observed features with the SSL op: the
+# InfoNCE between the projected past (2048-d) and each clip's future clip,
+# no subclips (the reference's step slices the clip batch), so no past
+# classifier; a step runs AVT-h once over the 64 observed and 64 future clips
+SSL_OVERRIDES = ["train_eval_op=pred_future_feat", "train_eval_op/reg_criterion=simclr_infonce",
+                 "+dataset_train.return_future_clips_too=true", "model.project_dim_for_nce=2048",
+                 "data_train.subclips.num_frames=null", "data_train.subclips.stride=null",
+                 "data_eval.subclips.num_frames=null", "data_eval.subclips.stride=null",
+                 "model.classifier_on_past=false"]
+
+
+def ssl_phase(card):
+    """train_eval_op=pred_future_feat through `train_net.cli` on expts/02 at
+    256 observed features (the train_net phase's overrides and tree, 1024-d
+    features) with `SSL_OVERRIDES`: `make_ssl_train_step` forward and
+    backward on 2 x 64 clips a step, 1 epoch of 4 steps and 2 eval batches.
+    Checks: 6 flash forward + 6 flash backward launches a step and 6
+    forward an eval batch, nothing else; finite losses (reg among them) and
+    metric. Prints the loop's ms a step and a profile of one train step
+    with its peak memory. Returns (the launch counts, a summary)."""
+    from avt_tpu_torch import train_net
+
+    captured = []
+    with tempfile.TemporaryDirectory() as tmp:
+        # the stores reach past each action's future clip (its start + 256 s)
+        tree = write_ek100_tree(os.path.join(tmp, "tree"), train_videos=TN_TRAIN_VIDEOS,
+                                eval_videos=TN_EVAL_VIDEOS, actions_per_video=TN_ACTIONS,
+                                first_action_s=TN_FIRST_S, seed=42, tail_s=LONG_T + 2)
+        argv = (["--config-file", EXPT_02, "--run-dir", os.path.join(tmp, "run")] + tree
+                + [f"data_train.workers={TN_WORKERS}", f"data_eval.workers={TN_WORKERS}",
+                   "train.num_epochs=1"] + long_context(LONG_T) + SSL_OVERRIDES)
+        with mock.patch.object(train_net, "make_ssl_train_step", recording_make_train_step(
+                train_net, captured, "make_ssl_train_step")):
+            (metric,), rec = run_train_net(argv)
+    want = flash_launches(AVTH_LAYERS * (TN_STEPS + TN_EVAL_BATCHES), AVTH_LAYERS * TN_STEPS)
+    check(rec["launches"] == want, f"ssl: launches {rec['launches']}, want {want}")
+    meters = rec["loggers"][0].meters
+    losses = {k: m.global_avg for k, m in meters.items() if k.startswith("loss")}
+    check(meters["loss"].count == TN_STEPS and "loss/reg" in losses
+          and all(np.isfinite(list(losses.values()))) and np.isfinite(metric),
+          f"ssl: losses {losses} over {meters['loss'].count} steps, metric {metric}")
+    _, _, _, batch, step = captured.pop()
+    check(batch["future_0_video"].shape == batch["video"].shape == (TN_BATCH, 1, FEAT_DIM,
+                                                                     LONG_T, 1, 1),
+          f"ssl: batch {tuple(batch['video'].shape)}, future "
+          f"{tuple(batch['future_0_video'].shape)}")
+    clips_s = meters["clips/s"]
+    loop_ms = TN_BATCH / clips_s.median * 1e3
+    log(f"ssl ({card}): expts/02 + pred_future_feat (InfoNCE, 2048-d projection, 1 future "
+        f"clip) at {LONG_T} features, {TN_STEPS} steps of {TN_BATCH} + {TN_BATCH} future clips, "
+        f"{TN_EVAL_BATCHES} eval batches; the loop {loop_ms:.2f} ms a step (its clips/s meter "
+        f"counts the {TN_BATCH} observed clips); host data "
+        f"{1e3 * np.median(rec['waits']['train']):.2f} ms a train batch; losses "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(losses.items()))
+        + f"; final_acc/action/AR5 {metric:.4f}; cli {rec['wall_s']:.1f} s; launches "
+        f"{rec['launches']}")
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    busy, groups, wall = profile_run(lambda: step(batch, gen), f"ssl train step, {TN_BATCH} + "
+                                     f"{TN_BATCH} clips x {LONG_T} features")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(_build.launch_counts == flash_launches(2 * AVTH_LAYERS, 2 * AVTH_LAYERS),
+          f"ssl: 2 profiled steps launched {_build.launch_counts}")
+    flash = groups.get("flash attention kernel", 0.0) + groups.get("flash attention bwd kernel",
+                                                                   0.0)
+    log(f"ssl train step ({card}): wall {wall:.2f} ms, device busy {busy:.2f} ms (idle "
+        f"{100 * (1 - busy / wall):.1f}%), the flash kernels {flash:.2f} ms "
+        f"({100 * flash / busy:.1f}% of device time); peak memory {peak_gb:.2f} GB")
+    del batch, step
+    torch.cuda.empty_cache()
+    return {"ssl": rec["launches"]}, dict(loop_ms=loop_ms, step_wall_ms=wall, step_busy_ms=busy,
+                                          idle_share=1 - busy / wall, flash_ms=flash,
+                                          peak_gb=peak_gb, groups=groups)
 
 
 if __name__ == "__main__":

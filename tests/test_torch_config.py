@@ -27,6 +27,7 @@ from avt_tpu.config import expand_sweeps as jexpand_sweeps
 from avt_tpu.config import parse_overrides_file as jparse_overrides_file
 from avt_tpu.config import parse_override as jparse_override
 from avt_tpu.config.build import build_model as jbuild_model
+from avt_tpu.config.registry import instantiate as jinstantiate
 from avt_tpu.config.compose import load_yaml as jload_yaml
 from avt_tpu.config.overrides import _split_top_level_commas
 from avt_tpu.config.overrides import parse_value as jparse_value
@@ -211,8 +212,22 @@ def _expt02_future_loss_matches_avt_tpu(target, tmp_path):
     ("loss_fn.multidim_xentropy.QuantizeAndCrossEntropy", "1.5"),
 ])
 def test_unported_targets_raise_naming_their_roadmap_item(target, item, tmp_path):
-    """A target still to port raises naming its ROADMAP item; one ported
-    since builds its module in expts/02 and matches avt_tpu."""
+    """A target still to port raises naming its ROADMAP item. Those ported
+    since: QuantizeAndCrossEntropy (item 1.5) builds its module in expts/02
+    and matches avt_tpu; the InfoNCE (item 1.8), as
+    train_eval_op/reg_criterion=simclr_infonce composes it, gives avt_tpu's
+    loss on the same (2, 5, 16) embeddings."""
+    if item == "1.8":
+        cfg = Composer(CONF_DIR).compose("config", [parse_override(
+            "train_eval_op/reg_criterion=simclr_infonce")])
+        crit = cfg["train_eval_op"]["reg_criterion"]
+        assert crit["_target_"] == target
+        rng = np.random.default_rng(0)
+        out, tgt = (rng.standard_normal((2, 5, 16)).astype(np.float32) for _ in range(2))
+        ours = instantiate(crit)(torch.from_numpy(out), torch.from_numpy(tgt))
+        ref = jinstantiate(crit)(jnp.asarray(out), jnp.asarray(tgt))
+        np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=2e-4, atol=2e-4)
+        return
     if item in PORTED_ITEMS:
         _expt02_future_loss_matches_avt_tpu(target, tmp_path)
         return

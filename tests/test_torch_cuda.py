@@ -501,3 +501,62 @@ def test_cuda_train_net_runs_expts01_on_raw_video(cuda_device, tmp_path, monkeyp
     (again,), rec = chip_smoke.run_train_net(argv)
     assert rec["launches"] == {**want, tfa.KERNEL: layers, tfa.BWD_KERNEL: 0}
     assert rec["epochs"] == [] and np.isfinite(again)
+
+
+@pytest.mark.cuda
+def test_cuda_bn_backbone_train_step_saves_and_reloads_running_stats(cuda_device, tmp_path):
+    """One `make_train_step` step of an AVTModel on r2plus1d_18 (cuDNN's
+    conv3d in f32, TF32 off): a finite loss, the running statistics moved
+    by the step and not by an eval forward after it, and a checkpoint that
+    restores them (and the weights) bit for bit into a fresh model."""
+    from avt_tpu_torch.models import (
+        AVTModel,
+        IdentityAgg,
+        IdentityFuture,
+        LinearClassifier,
+        MeanAgg,
+        r2plus1d_18,
+    )
+    from avt_tpu_torch.models.flagship import init_weights
+    from avt_tpu_torch.train import (
+        build_optimizer,
+        make_train_step,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+
+    def model():
+        m = AVTModel(backbone=r2plus1d_18(device=cuda_device), temporal_aggregator=MeanAgg(512),
+                     future_predictor=IdentityFuture(512),
+                     temporal_aggregator_after_future_pred=IdentityAgg(512),
+                     classifiers={"action": LinearClassifier(512, 10, device=cuda_device)},
+                     num_classes=(("action", 10),), backbone_dim=512, device=cuda_device)
+        init_weights(m, torch.Generator(device=cuda_device).manual_seed(0))
+        return m
+
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        net = model()
+        opt, _ = build_optimizer(net, [["__all__", 0.01, 1e-4]], iters_per_epoch=1,
+                                 num_epochs=1, scheduler_name="constant")
+        gen = torch.Generator(device=cuda_device).manual_seed(1)
+        batch = {"video": torch.randn(4, 1, 3, 8, 112, 112, device=cuda_device, generator=gen),
+                 "target": {"action": torch.tensor([0, 3, 5, 9], device=cuda_device)}}
+        stats0 = {k: v.clone() for k, v in net.state_dict().items() if "running" in k}
+        metrics = make_train_step(net, opt, {"cls_action": 1.0}, {"action": 10})(batch)
+        assert torch.isfinite(metrics["loss"])
+        stats = {k: v.clone() for k, v in net.state_dict().items() if "running" in k}
+        assert all(not torch.equal(stats[k], stats0[k]) for k in stats)
+        with torch.no_grad():
+            net.eval()(batch["video"])
+        assert all(torch.equal(net.state_dict()[k], v) for k, v in stats.items())
+        save_checkpoint(str(tmp_path), net, opt, 1.0)
+        fresh = model()
+        opt2, _ = build_optimizer(fresh, [["__all__", 0.01, 1e-4]], iters_per_epoch=1,
+                                  num_epochs=1, scheduler_name="constant")
+        assert restore_checkpoint(str(tmp_path), fresh, opt2) == 1.0
+        want = net.state_dict()
+        assert all(torch.equal(v, want[k]) for k, v in fresh.state_dict().items())
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow

@@ -22,9 +22,10 @@ expts/05 (RULSTM) runs at a 64-wide RULSTM with its own two-entry spec
 onto a seeded file in the original RULSTM layout (chip_smoke.py's
 `write_rulstm`); its LSTM biases load as the file holds them and are
 compared folded into one, as avt_tpu's cell holds them. expts/06 as
-shipped is refused by both packages, and the options the port does not run
-yet raise NotImplementedError naming their ROADMAP item; expts/02 with
-AVT-h's rollout options (ported since) matches avt_tpu's eval.
+shipped is refused by both packages. expts/02 with the options that once
+raised naming their ROADMAP item: AVT-h's rollout options match avt_tpu's
+eval, the conv backbones build with avt_tpu's names and shapes, and the SSL
+op's step matches avt_tpu's.
 """
 import os
 import sys
@@ -334,21 +335,99 @@ def test_expt02_with_an_avth_option_matches_avt_tpu(in_tree, tmp_path, option):
     _eval_matches_avt_tpu(*_compose("02_ek100_avt_tsn", overrides=SMALL + extra))
 
 
+CONV_VIDEO = (2, 1, 3, 4, 33, 33)  # (B, #clips, C, T, H, W) raw clips for a conv backbone
+SSL = ["train_eval_op/reg_criterion=simclr_infonce", "model.project_dim_for_nce=32",
+       "+dataset_train.return_future_clips_too=true"]
+
+
+def _expt02_conv_backbone_matches_avt_tpu(cfg, jcfg, monkeypatch):
+    """expts/02 on a conv backbone: both packages' `build_model`; the port's
+    parameters and buffers named and shaped as avt_tpu's converter maps
+    `jax.eval_shape` of its init; AVT-h on the backbone's width (512 or
+    1024, not the file's backbone_dim); a finite eval forward on raw clips."""
+    import avt_tpu_torch.models.convert as convert
+
+    num_classes = {"action": 7}
+    jm = jbuild_model(jcfg, num_classes, {})
+    shapes = jax.eval_shape(lambda key, video: jm.init(key, video, (B,)),
+                            jax.random.PRNGKey(0), jax.ShapeDtypeStruct(CONV_VIDEO, jnp.float32))
+    monkeypatch.setattr(convert, "_np", lambda x: np.broadcast_to(np.float32(0), np.shape(x)))
+    monkeypatch.setattr(convert, "_conv_k", lambda x: np.broadcast_to(
+        np.float32(0), (np.shape(x)[-1], np.shape(x)[-2], *np.shape(x)[:-2])))
+    want = convert.avt_from_jax(shapes["params"], shapes["batch_stats"])
+    model = build_model(cfg, num_classes, {}, device="cpu")
+    sd = model.state_dict()
+    assert {k: tuple(v.shape) for k, v in sd.items() if not k.endswith("num_batches_tracked")} \
+        == {k: v.shape for k, v in want.items()}
+    width = 1024 if cfg["model"]["backbone"]["_target_"].endswith("BNInceptionVideo") else 512
+    assert sd["future_predictor.encoder.weight"].shape[1] == width
+    with torch.no_grad():
+        out, _ = model(torch.from_numpy(np.random.default_rng(0).standard_normal(
+            CONV_VIDEO).astype(np.float32)), (B,))
+    assert out["logits/action"].shape == (B, 7) and torch.isfinite(out["logits/action"]).all()
+
+
+def _expt02_ssl_step_matches_avt_tpu(cfg, jcfg, tmp_path):
+    """pred_future_feat on expts/02: without future clips `main` raises
+    avt_tpu's ValueError; with them (and the InfoNCE, a 32-d projection), one
+    SSL step from avt_tpu's weights on a seeded feature batch and its future
+    clips matches avt_tpu's `make_ssl_train_step`: losses and parameters."""
+    from avt_tpu.config.registry import instantiate as jinstantiate
+    from avt_tpu.train.step import make_ssl_train_step as jmake_ssl_train_step
+    from avt_tpu_torch.config.registry import instantiate
+    from avt_tpu_torch.train import make_ssl_train_step
+
+    with pytest.raises(ValueError, match="return_future_clips_too"):
+        train_net.main(cfg, str(tmp_path), device="cpu")
+    cfg, jcfg = _compose("02_ek100_avt_tsn", overrides=SMALL + ["train_eval_op=pred_future_feat"]
+                         + SSL + ["opt.warmup.num_epochs=0"])  # a step at a nonzero LR
+    num_classes = {"action": 7}
+    rng = np.random.default_rng(0)
+    # one clip of 10 features: the reference's step slices the clip batch,
+    # so it takes no subclips (both packages' shapes break on expts/02's 10)
+    batch = {k: rng.standard_normal((B, 1, 1024, 10, 1, 1)).astype(np.float32)
+             for k in ("video", "future_0_video")}
+    batch["target"] = {"action": np.array([2, 5], np.int32)}
+    jm = jbuild_model(jcfg, num_classes, {})
+    params = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(batch["video"]))
+    model = load_jax_params(build_model(cfg, num_classes, {}, device="cpu"), params)
+    tx, _ = jbuild_optimizer_from_cfg(jcfg, params, iters_per_epoch=1)
+    opt, _ = build_optimizer_from_cfg(cfg, model, iters_per_epoch=1)
+    state, ref = jmake_ssl_train_step(
+        jm, tx, loss_weights(jcfg), num_classes, jinstantiate(jcfg["train_eval_op"][
+            "reg_criterion"]), donate=False)(TrainState.create(params, tx),
+                                             jax.tree.map(jnp.asarray, batch),
+                                             jax.random.PRNGKey(1))
+    metrics = make_ssl_train_step(model, opt, loss_weights(cfg), num_classes, instantiate(
+        cfg["train_eval_op"]["reg_criterion"]))(
+        {k: ({kk: torch.from_numpy(vv).long() for kk, vv in v.items()} if isinstance(v, dict)
+             else torch.from_numpy(v)) for k, v in batch.items()})
+    for key in ("loss", "loss/reg", "loss/cls_action", "loss/feat"):
+        _close(metrics[key], ref[key], key)
+    want = params_from_jax(state.params)
+    for name, p in model.named_parameters():
+        _close(p, want[name], name)
+
+
 @pytest.mark.parametrize("overrides,item", [
     (["model/backbone=r2plus1d_34"], "1.6"),
-    (["model/backbone=bn_inception"], "1.6"),
+    (["model/backbone=bn_inception", "model.backbone_last_n_modules_to_drop=0"], "1.6"),
     (ROLLOUT, "1.5"),
     (["+model.future_predictor.rollout_mode=cache"] + ROLLOUT, "1.5"),
     (["train_eval_op=pred_future_feat"], "1.8"),
 ], ids=["r2plus1d_34", "bn_inception", "output_len_2", "rollout_cache", "pred_future_feat"])
-def test_unported_option_raises_naming_its_roadmap_item(in_tree, tmp_path, overrides, item):
-    """Every shipped file now runs; on expts/02 the options still to port
-    raise NotImplementedError naming their ROADMAP item. Those of item 1.5
-    (AVT-h rollouts, here of 2 steps in training and 8 at eval, recomputed
-    or through the KV cache), ported since, match avt_tpu's eval."""
+def test_unported_option_raises_naming_its_roadmap_item(in_tree, tmp_path, monkeypatch,
+                                                        overrides, item):
+    """Every shipped file now runs, and so do the options on expts/02 that
+    once raised naming their ROADMAP item. Item 1.5's (AVT-h rollouts, of 2
+    steps in training and 8 at eval, recomputed or through the KV cache)
+    match avt_tpu's eval; item 1.6's conv backbones build as avt_tpu's
+    (`_expt02_conv_backbone_matches_avt_tpu`); item 1.8's SSL step matches
+    avt_tpu's (`_expt02_ssl_step_matches_avt_tpu`)."""
     cfg, jcfg = _compose("02_ek100_avt_tsn", overrides=SMALL + overrides)
     if item == "1.5":
         _eval_matches_avt_tpu(cfg, jcfg)
-        return
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue {item}"):
-        train_net.main(cfg, str(tmp_path), device="cpu")
+    elif item == "1.6":
+        _expt02_conv_backbone_matches_avt_tpu(cfg, jcfg, monkeypatch)
+    else:
+        _expt02_ssl_step_matches_avt_tpu(cfg, jcfg, tmp_path)

@@ -18,8 +18,9 @@ decoder load by their names, and round-trip through
 `avt_checkpoint_to_flax`. An LSTM's two
 biases load as the file holds them, where avt_tpu folds them into one: the
 port's are compared folded, and with the file bit for bit. Every error
-avt_tpu raises is raised here with the same type; the layouts whose
-modules the port lacks raise NotImplementedError naming ROADMAP Queue 1.6,
+avt_tpu raises is raised here with the same type; the conv layouts
+(pretrainedmodels BN-Inception, torchvision video ResNet, a VISSL trunk)
+load what avt_tpu's converters load, BatchNorm running statistics included;
 and a directory (an avt_tpu orbax checkpoint) raises ValueError.
 """
 import numpy as np
@@ -345,16 +346,73 @@ def test_an_avt_checkpoint_with_a_transformer_aggregator_loads_whole(tmp_path):
                        sd["temporal_aggregator.extra_embeddings.weight"])
 
 
+def _conv_models(layout):
+    """An AVTModel on a conv backbone in both packages: BN-Inception, or a
+    video ResNet of one (2+1)D block a stage; mean aggregator, identity
+    future, 5 actions."""
+    import avt_tpu.models.video_resnet as jvr
+    import avt_tpu_torch.models.video_resnet as tvr
+    from avt_tpu.models import MeanAgg as JMeanAgg
+    from avt_tpu.models.bninception import BNInceptionVideo as JBNInceptionVideo
+    from avt_tpu_torch.models import BNInceptionVideo, MeanAgg
+
+    if layout == "bninception":
+        jb, tb, dim = JBNInceptionVideo(), BNInceptionVideo(device="cpu"), 1024
+    else:
+        jb = jvr.VideoResNet(block=jvr.BasicBlock3D, conv_maker=jvr.Conv2Plus1D,
+                             layers=(1, 1, 1, 1), stem="r2plus1d")
+        tb = tvr.VideoResNet(tvr.BasicBlock3D, tvr.Conv2Plus1D, (1, 1, 1, 1), "r2plus1d",
+                             device="cpu")
+        dim = 512
+    heads = dict(future_predictor=JIdentityFuture(in_features=dim),
+                 temporal_aggregator_after_future_pred=JIdentityAgg(in_features=dim),
+                 classifiers={"action": JLinearClassifier(out_features=N_CLS)},
+                 num_classes=(("action", N_CLS),), backbone_dim=dim)
+    jm = JAVTModel(backbone=jb, temporal_aggregator=JMeanAgg(in_features=dim), **heads)
+    tm = AVTModel(backbone=tb, temporal_aggregator=MeanAgg(dim),
+                  future_predictor=IdentityFuture(dim),
+                  temporal_aggregator_after_future_pred=IdentityAgg(dim),
+                  classifiers={"action": LinearClassifier(dim, N_CLS, device="cpu")},
+                  num_classes=(("action", N_CLS),), backbone_dim=dim)
+    return jm, tm
+
+
 @pytest.mark.parametrize("layout", ["bninception", "video_resnet", "vissl_resnet"])
-def test_layouts_of_unported_modules_raise_naming_queue_1_6(jparams, tmp_path, layout):
-    rng = np.random.default_rng(11)
-    sd = {"bninception": {"conv1_7x7_s2.weight": _w(rng, 4, 3, 7, 7)},
-          "video_resnet": {"stem.0.weight": _w(rng, 4, 3, 3, 7, 7)},
-          "vissl_resnet": {"classy_state_dict": {"base_model": {"model": {"trunk": {
-              "_feature_blocks.stem.0.weight": _w(rng, 4, 3, 3, 7, 7)}}}}}}[layout]
-    path = _save(sd, tmp_path / "x.pth")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1\.6"):
-        init_from_model(_tmodel(), [["backbone", path]])
+def test_layouts_of_unported_modules_raise_naming_queue_1_6(tmp_path, layout):
+    """The conv layouts, whose modules raised naming ROADMAP Queue 1.6 until
+    they were ported: a pretrainedmodels BN-Inception file (with its
+    `last_linear`), a torchvision video ResNet (with its `fc`) and the same
+    as a VISSL trunk (`_feature_blocks.` inside `classy_state_dict`), seeded,
+    with `num_batches_tracked` counts. `init_from_model` into
+    `backbone.model` loads what avt_tpu's does, bit for bit: every conv and
+    every BatchNorm's weight, bias and running statistics, not the head nor
+    the counts."""
+    jm, tm = _conv_models(layout)
+    video = np.random.default_rng(0).standard_normal((1, 1, 3, 4, 33, 33), np.float32)
+    jvars = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(video))
+    load_jax_params(tm, jvars)
+    g = torch.Generator().manual_seed(12)
+    backbone = {k[len("backbone.model."):]: v for k, v in tm.state_dict().items()
+                if k.startswith("backbone.model.")}
+    sd = {k: (torch.tensor(3) if k.endswith("num_batches_tracked")
+              else torch.rand(v.shape, generator=g) + 0.5 if k.endswith("running_var")
+              else torch.randn(v.shape, generator=g) * 0.05) for k, v in backbone.items()}
+    head = "last_linear" if layout == "bninception" else "fc"
+    sd.update({f"{head}.weight": torch.randn(400, 8, generator=g),
+               f"{head}.bias": torch.randn(400, generator=g)})
+    obj = sd if layout != "vissl_resnet" else {"classy_state_dict": {"base_model": {"model": {
+        "trunk": {"_feature_blocks." + k: v for k, v in sd.items()}}}}}
+    path = _save(obj, tmp_path / "x.pth")
+    loaded = init_from_model(tm, [["backbone.model", path]])
+    ref = params_from_jax(jinit_from_model(jvars, [["backbone.model", path]]))
+    got = tm.state_dict()
+    assert set(ref) == {k for k in got if not k.endswith("num_batches_tracked")}
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+    assert set(loaded) == {"backbone.model." + k for k in backbone
+                           if not k.endswith("num_batches_tracked")}
+    assert all(torch.equal(got["backbone.model." + k], sd[k]) for k in backbone
+               if not k.endswith("num_batches_tracked"))
 
 
 def test_a_directory_is_an_avt_tpu_checkpoint(tmp_path):

@@ -104,3 +104,58 @@ def test_train_fn_shape_and_flip():
     d = pp.train_draws(frames.shape, torch.Generator().manual_seed(0))
     flipped = pp.train_crop(frames, d["s"], d["i"], d["j"], torch.ones(2, dtype=torch.bool))
     torch.testing.assert_close(flipped, out.flip(-1))
+
+
+# conf/data/default.yaml's train form, the reference's Resize((h, w)) before
+# its random crop, at a small size: a fixed scale_w other than scale_h
+FIXED_W = dict(crop_size=28, scale_h=32, scale_w=44, flip_p=0.5, **NORM)
+
+
+def _per_axis_reference(frames, pp, s, i, j, flip, dtype):
+    """Each clip resized to (s, scale_w), each side by its own factor, and
+    cropped at (i, j) by jax.image.scale_and_translate with scale (s / H,
+    scale_w / W) and translation (-i, -j), then /255, the flip and the
+    normalisation: (B, 3, T, crop, crop)."""
+    B, T, H, W, _ = frames.shape
+    cs, dt = pp.crop_size, getattr(jnp, dtype)
+    out = []
+    for b in range(B):
+        x = jax.image.scale_and_translate(
+            jnp.asarray(frames[b]).astype(dt), shape=(T, cs, cs, 3), spatial_dims=(1, 2),
+            scale=jnp.array([np.float32(s[b]) / H, np.float32(pp.scale_w / W)], dt),
+            translation=jnp.array([-i[b], -j[b]], dt), method="linear")
+        x = np.asarray(x, np.float32) / 255.0
+        if flip[b]:
+            x = x[:, :, ::-1]
+        out.append(((x - 0.5) / 0.5).transpose(3, 0, 1, 2))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("frames_shape", [
+    pytest.param((2, 2, 40, 64, 3), id="down"),
+    pytest.param((2, 2, 24, 40, 3), id="up"),
+])
+def test_train_crop_with_a_fixed_scale_w_matches_a_per_axis_reference(frames_shape, dtype):
+    """Non-square frames resized to (scale_h, scale_w) = (32, 44), down or
+    up on both sides by different factors, and cropped at offsets other than
+    0 on both axes, one clip flipped."""
+    frames = np.random.default_rng(4).integers(0, 256, size=frames_shape, dtype=np.uint8)
+    pp = ttf.VideoPreprocessor(**FIXED_W, compute_dtype=getattr(torch, dtype), device="cpu")
+    s, i, j, flip = [32.0, 32.0], [3.0, 1.0], [11.0, 6.0], [False, True]
+    out = pp.train_crop(torch.from_numpy(frames), torch.tensor(s), torch.tensor(i),
+                        torch.tensor(j), torch.tensor(flip))
+    ref = _per_axis_reference(frames, pp, s, i, j, flip, dtype)
+    assert out.shape == ref.shape == (2, 3, 2, 28, 28)
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=TOL[dtype], rtol=0)
+
+
+def test_train_draws_with_a_fixed_scale_w():
+    """The crop offsets range over the resized (scale_h, scale_w) frame:
+    i below scale_h - crop, j below scale_w - crop."""
+    pp = ttf.VideoPreprocessor(**FIXED_W, device="cpu")
+    d = pp.train_draws((4000, 1, 40, 64, 3), torch.Generator().manual_seed(0))
+    assert (d["s"] == 32).all()
+    for name, span in (("i", 32 - 28), ("j", 44 - 28)):
+        x = d[name]
+        assert torch.equal(x, x.floor()) and x.min() == 0 and x.max() == span - 1, name

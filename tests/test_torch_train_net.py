@@ -15,8 +15,9 @@ eval logits after them, at 2e-4 (f32, the same math summed in another
 order). Then `train_net.cli` end to end under AVT_PLATFORM=cpu: it trains,
 checkpoints, evaluates, resumes without retraining, runs test_only, takes
 the raw-video branch (expts/01 on raw videos through the native decoder,
-its backbone from a timm file), exits 143 when preempted, and refuses
-what is not ported and the CPU unasked.
+its backbone from a timm file), runs conf/config.yaml's conv backbone on
+raw video with no experiment file and the SSL op on expts/02, exits 143
+when preempted, and refuses what is not ported and the CPU unasked.
 """
 import functools
 import os
@@ -396,6 +397,23 @@ def test_main_refuses_the_cpu_unasked(tree, tmp_path, monkeypatch):
     assert train_net.platform_device("cpu") == torch.device("cpu")
 
 
+# conf/config.yaml as shipped on the raw-video tree, at a small input: 4
+# frames, 32x32 crops of 48x36 frames, batches of 2, one epoch
+CONV_DEFAULT = ["data_train.num_frames=4", "data_eval.num_frames=4", "data_train.scale_h=36",
+                "data_train.scale_w=48", "data_eval.scale_h=36", "data_eval.scale_w=48",
+                "data_train.crop_size=32", "data_eval.crop_size=32", "train.batch_size=2",
+                "eval.batch_size=2", "train.num_epochs=1", "data_train.workers=2",
+                "data_eval.workers=2"]
+# the SSL op on expts/02: the InfoNCE, a 32-d projection, future clips, no
+# subclips (the reference's step slices the clip batch, which subclips
+# multiply) and so no past classifier (it classifies subclips)
+SSL_EXPT02 = ["train_eval_op/reg_criterion=simclr_infonce", "model.project_dim_for_nce=32",
+              "+dataset_train.return_future_clips_too=true", "data_train.subclips.num_frames=null",
+              "data_train.subclips.stride=null", "data_eval.subclips.num_frames=null",
+              "data_eval.subclips.stride=null", "model.classifier_on_past=false",
+              "train.num_epochs=1"]
+
+
 @pytest.mark.parametrize("overrides,item", [
     (["train_eval_op=pred_future_feat"], "1.8"),
     (["model/backbone=r2plus1d_34"], "1.6"),
@@ -404,14 +422,31 @@ def test_main_refuses_the_cpu_unasked(tree, tmp_path, monkeypatch):
     (["+model.future_predictor.rollout_mode=cache"], "1.5"),
     (["+dataset_train._precomputed_metadata_file=/x.pkl"], "1.3"),
 ])
-def test_unported_options_raise_naming_their_roadmap_item(tree, tmp_path, overrides, item):
-    """Each raises naming its ROADMAP item; AVT-h's rollout options (item
-    1.5, ported since) train an epoch and evaluate through `main` (a
-    rollout of 2 steps in training, with the file's dropout) to a finite
-    metric."""
+def test_unported_options_raise_naming_their_roadmap_item(tree, tmp_path, monkeypatch, request,
+                                                          overrides, item):
+    """What is still to port (item 1.3) raises naming its ROADMAP item.
+    What was ported since trains an epoch and evaluates through the driver
+    to a finite metric: AVT-h's rollout options (item 1.5: a rollout of 2
+    steps in training, with the file's dropout); the conv backbones (item
+    1.6) through `cli` with no experiment file, conf/config.yaml's
+    r2plus1d_34 (or BN-Inception, built with N=0) on raw video; the SSL op
+    (item 1.8) on expts/02 with future clips and the InfoNCE."""
     if item == "1.5":
         cfg, _ = _compose(tree + SMALL + overrides + ["model.future_predictor.output_len=2",
                                                       "train.num_epochs=1"])
+        assert np.isfinite(train_net.main(cfg, str(tmp_path), device="cpu"))
+        return
+    if item == "1.6":
+        monkeypatch.setenv("AVT_PLATFORM", "cpu")
+        extra = (["model.backbone_last_n_modules_to_drop=0"] if "bn_inception" in overrides[0]
+                 else [])
+        (metric,) = train_net.cli(["--run-dir", str(tmp_path / "conv")]
+                                  + request.getfixturevalue("raw_tree") + CONV_DEFAULT
+                                  + overrides + extra)
+        assert np.isfinite(metric)
+        return
+    if item == "1.8":
+        cfg, _ = _compose(tree + SMALL + overrides + SSL_EXPT02)
         assert np.isfinite(train_net.main(cfg, str(tmp_path), device="cpu"))
         return
     cfg, _ = _compose(tree + SMALL + overrides)

@@ -377,28 +377,51 @@ def test_build_model_train_forward_and_gradients_match_avt_tpu(case):
         _scaled_close(grad, jgrads[name], f"d{name}")
 
 
+def _conv_backbone_builds_as_avt_tpu(overrides):
+    """conf/config.yaml on a conv backbone: the port builds it with
+    model.bn's eps and torch momentum (set here to 1e-4 and 0.2) and its own
+    width (not model.backbone_dim, 2048 in the config), and raises avt_tpu's
+    ValueError for a backbone_last_n_modules_to_drop the backbone was not
+    built with (BN-Inception's is 0, the config's 2)."""
+    cfg, jcfg = _compose(overrides)
+    if "bn_inception" in overrides[0]:
+        for build, c in ((jbuild_model, jcfg), (functools.partial(build_model, device="cpu"),
+                                                 cfg)):
+            with pytest.raises(ValueError, match="backbone_last_n_modules_to_drop=2"):
+                build(c, NUM_CLASSES, CLASS_MAPPINGS)
+        overrides = overrides + ["model.backbone_last_n_modules_to_drop=0"]
+    cfg, _ = _compose(overrides + ["model.bn.eps=0.0001", "model.bn.mom=0.2"])
+    model = build_model(cfg, NUM_CLASSES, CLASS_MAPPINGS, device="cpu")
+    backbone = model.backbone["model"]
+    norms = {(m.eps, m.momentum) for m in backbone.modules()
+             if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)}
+    assert norms == {(1e-4, 0.2)}
+    assert model.backbone_dim == backbone.output_dim == (
+        1024 if "bn_inception" in overrides[0] else 512)
+    assert model.classifiers["action"].weight.shape[1] == backbone.output_dim
+
+
 def test_unported_model_options_raise_naming_their_roadmap_item():
-    """The conv backbones still raise naming their ROADMAP item; AVT-h's
-    rollout options (item 1.5, ported since) build and match avt_tpu's eval
-    forward."""
+    """The options that once raised naming their ROADMAP item: the conv
+    backbones (item 1.6) build as avt_tpu's `build_model` does
+    (`_conv_backbone_builds_as_avt_tpu`); AVT-h's rollout options (item 1.5)
+    build and match avt_tpu's eval forward."""
     for overrides, item in (
             (["model/backbone=r2plus1d_34"], "1.6"), (["model/backbone=bn_inception"], "1.6"),
             (FEATURES + SMALL_AVTH[:-4] + ["+model.future_predictor.output_len_eval=2"], "1.5"),
             (FEATURES + SMALL_AVTH + ["+model.future_predictor.rollout_mode=cache",
                                       "+model.future_predictor.output_len_eval=3"], "1.5")):
-        if item == "1.5":
-            video = _video(overrides)
-            jm, params, model = _models(overrides, video)
-            jout, _ = jm.apply(params, jnp.asarray(video))
-            with torch.no_grad():
-                out, _ = model(torch.from_numpy(video))
-            assert set(out) == set(jout)
-            for key in jout:
-                _close(out[key], jout[key], key)
+        if item == "1.6":
+            _conv_backbone_builds_as_avt_tpu(overrides)
             continue
-        cfg, _ = _compose(overrides)
-        with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue {item}"):
-            build_model(cfg, NUM_CLASSES, CLASS_MAPPINGS, device="cpu")
+        video = _video(overrides)
+        jm, params, model = _models(overrides, video)
+        jout, _ = jm.apply(params, jnp.asarray(video))
+        with torch.no_grad():
+            out, _ = model(torch.from_numpy(video))
+        assert set(out) == set(jout)
+        for key in jout:
+            _close(out[key], jout[key], key)
 
 
 ROUND_TRIP = {
