@@ -15,40 +15,38 @@ and flash_attention_bwd.cu); and the trainer core around those steps
 (`run_training` with `make_multi_step`, `save_checkpoint` and
 `restore_checkpoint` with fractional-epoch resume, the meters, and
 `avt_tpu_torch.evaluate.evaluate` with its numpy result sink; the function
-is not re-exported here, where its name would hide the subpackage).
+is not re-exported here, where its name would hide the subpackage); and
+the serving export through `torch.export` (`avt_tpu_torch.serve`) and
+data-parallel training over processes (`avt_tpu_torch.parallel`,
+`avt_tpu_torch.launch`).
 """
-from avt_tpu_torch.data.transforms import VideoPreprocessor
-from avt_tpu_torch.losses import multidim_cross_entropy
-from avt_tpu_torch.models.convert import load_jax_params, params_from_jax
-from avt_tpu_torch.models.flagship import build_avt
-from avt_tpu_torch.serve import batch_predict, make_eval_forward
-from avt_tpu_torch.train import (
-    basic_loss_accuracy,
-    build_optimizer,
-    build_schedule,
-    make_eval_step,
-    make_multi_step,
-    make_train_step,
-    restore_checkpoint,
-    run_training,
-    save_checkpoint,
-)
+import importlib
 
-__all__ = [
-    "VideoPreprocessor",
-    "basic_loss_accuracy",
-    "batch_predict",
-    "build_avt",
-    "build_optimizer",
-    "build_schedule",
-    "load_jax_params",
-    "make_eval_forward",
-    "make_eval_step",
-    "make_multi_step",
-    "make_train_step",
-    "multidim_cross_entropy",
-    "params_from_jax",
-    "restore_checkpoint",
-    "run_training",
-    "save_checkpoint",
-]
+# name -> the module that defines it; imported at first use (PEP 562), so
+# that importing one subpackage (avt_tpu_torch.ops, to load an exported
+# program) does not import the models, the config or the trainer
+_EXPORTS = {
+    "VideoPreprocessor": "avt_tpu_torch.data.transforms",
+    "basic_loss_accuracy": "avt_tpu_torch.train",
+    "batch_predict": "avt_tpu_torch.serve",
+    "build_avt": "avt_tpu_torch.models.flagship",
+    "build_optimizer": "avt_tpu_torch.train",
+    "build_schedule": "avt_tpu_torch.train",
+    "load_jax_params": "avt_tpu_torch.models.convert",
+    "make_eval_forward": "avt_tpu_torch.serve",
+    "make_eval_step": "avt_tpu_torch.train",
+    "make_multi_step": "avt_tpu_torch.train",
+    "make_train_step": "avt_tpu_torch.train",
+    "multidim_cross_entropy": "avt_tpu_torch.losses",
+    "params_from_jax": "avt_tpu_torch.models.convert",
+    "restore_checkpoint": "avt_tpu_torch.train",
+    "run_training": "avt_tpu_torch.train",
+    "save_checkpoint": "avt_tpu_torch.train",
+}
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(_EXPORTS[name]), name)

@@ -360,9 +360,11 @@ def build_model(cfg: Dict, num_classes: Dict[str, int], class_mappings: Dict, *,
 
 
 # ------------------------------------------------------------- optimizer
-def build_optimizer_from_cfg(cfg: Dict, model, *, iters_per_epoch: int):
+def build_optimizer_from_cfg(cfg: Dict, model, *, iters_per_epoch: int, world_size: int = 1):
     """(optimizer, {group: schedule}) of cfg['opt'] over `model`'s
-    parameters (the port's `build_optimizer`), for one process."""
+    parameters (the port's `build_optimizer`). world_size: the number of
+    data-parallel processes, which scales the learning rate as the
+    reference's does (its per-GPU batch times the GPUs)."""
     from avt_tpu_torch.train import build_optimizer
 
     opt = cfg["opt"]
@@ -402,7 +404,7 @@ def build_optimizer_from_cfg(cfg: Dict, model, *, iters_per_epoch: int):
         scheduler_name=sched_name,
         iters_per_epoch=iters_per_epoch,
         num_epochs=num_epochs,
-        world_size=1,
+        world_size=world_size,
         batch_size=cfg["train"]["batch_size"],
         scale_lr_by_bs=opt.get("scale_lr_by_bs", False),
         bias_bn_wd_scale=opt.get("bias_bn_wd_scale", 1.0),

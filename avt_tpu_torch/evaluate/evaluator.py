@@ -6,8 +6,12 @@ logits, targets, uids and unreduced losses to this process's result files,
 recompute the final metrics from the stored files (so offline analysis and
 the in-train eval agree), return the suffix-less loader's primary metric.
 The eval step holds the model, so no parameters are passed; the batches
-go to `device` (CUDA unless the CPU is asked for). Runs in one process
-until the DDP slice.
+go to `device` (CUDA unless the CPU is asked for).
+
+Under data parallelism over processes each rank evaluates its shard of the
+loaders: rank 0 clears the results directory behind a barrier, each rank
+appends to `<dir>/<rank>/`, the meters are summed over the ranks, and a
+barrier comes before the merge, which every rank reads whole.
 """
 from __future__ import annotations
 
@@ -21,7 +25,8 @@ import torch
 from avt_tpu_torch.evaluate.metrics import final_accuracies_from_results
 from avt_tpu_torch.evaluate.results import read_results, store_append
 from avt_tpu_torch.train.meters import MetricLogger
-from avt_tpu_torch.utils.device import batch_to_device, require_one_process, resolve_device
+from avt_tpu_torch.parallel import ddp
+from avt_tpu_torch.utils.device import batch_to_device, resolve_device
 
 RESULTS_SAVE_DIR = "results"
 
@@ -63,7 +68,7 @@ def evaluate(
     store: bool = True,
     only_run_featext: bool = False,
     logger=None,
-    rank: int = 0,
+    rank: Optional[int] = None,
     device=None,
     place_batch: Optional[Callable] = None,
     pad_multiple: int = 1,
@@ -75,8 +80,9 @@ def evaluate(
     (batch) puts the eval step's keys on the device (default: onto
     `device`). pad_multiple: a ragged final batch is padded to a multiple
     of it by repeating leading rows; read_results' mean per idx removes the
-    duplicates again, while the online meters see them."""
-    require_one_process("evaluate")
+    duplicates again, while the online meters see them. rank: this
+    process's (None: the process group's)."""
+    rank = ddp.rank() if rank is None else rank
     if place_batch is None:
         target_device = resolve_device(device)
 
@@ -87,8 +93,10 @@ def evaluate(
     for data_key, loader in data_loaders.items():
         metric_logger = MetricLogger(logger=logger)
         this_save_dir = os.path.join(save_dir, RESULTS_SAVE_DIR + data_key)
-        if store and not only_run_featext and rank == 0:
-            shutil.rmtree(this_save_dir, ignore_errors=True)
+        if store and not only_run_featext:
+            if rank == 0:
+                shutil.rmtree(this_save_dir, ignore_errors=True)
+            ddp.barrier()  # no rank appends before rank 0 has cleared the directory
         for batch in metric_logger.log_every(loader, print_freq=50, header=f"[{data_key}] Test:",
                                              total=len(loader)):
             if pad_multiple > 1:
@@ -128,6 +136,7 @@ def evaluate(
         metric_logger.synchronize_between_processes()
         accs = {k: m.global_avg for k, m in metric_logger.meters.items()}
         if store:
+            ddp.barrier()  # every rank's results are written
             results = read_results(this_save_dir)
             accs.update(final_accuracies_from_results(results, loader.dataset.classes_manyshot))
         if logger is not None:

@@ -1,4 +1,4 @@
-"""SimCLR / MIL-NCE InfoNCE losses, in one process.
+"""SimCLR / MIL-NCE InfoNCE losses, with the negatives of every rank.
 
 Counterpart of avt_tpu/losses/infonce.py (`mil_cross_entropy`,
 `simclr_infonce`, `SimclrInfoNCE`, `MultiDimSimclrInfoNCE`), itself the
@@ -10,15 +10,21 @@ reference's loss_fn/simclr_infonce.py:
   * simclr_infonce: f32, l2-normalised embeddings, one-hot positives,
     self-similarity masked with LARGE_NUM, K positives a row (MIL-NCE) and
     the optional target -> output term, which takes the first positive.
-The negatives are the process's own batch: JAX's `_gather_embeddings` is
-the identity without a mesh axis, and the port's all-gather comes with its
-DDP slice. Positives are chosen with masks, so no shape depends on the data.
+Under data parallelism over processes the negatives are the global
+batch's: each rank's embeddings are gathered with their gradient
+(`parallel.all_gather_with_grad`, JAX's `_gather_embeddings` over the mesh
+axis), and this rank's positives sit at columns rank * b onward, as
+`jax.lax.axis_index` places them. The loss is the mean over this rank's
+rows; the averaged gradients (`parallel.allreduce_gradients`) make it the
+global batch's mean. In one process the gather is the identity. Positives
+are chosen with masks, so no shape depends on the data.
 """
 from __future__ import annotations
 
 import torch
 
 from avt_tpu_torch.losses.mse import l2_normalize
+from avt_tpu_torch.parallel.ddp import all_gather_with_grad, rank
 
 LARGE_NUM = 1e9
 
@@ -62,19 +68,24 @@ def simclr_infonce(output: torch.Tensor, target: torch.Tensor, *, temperature: f
         target_flat = target
     else:
         raise ValueError(f"target must be 2D or 3D, got {tuple(target.shape)}")
-    B = output.shape[0]
-    labels = torch.eye(B, dtype=output.dtype, device=output.device)
+    output_all = all_gather_with_grad(output)
+    target_flat_all = all_gather_with_grad(target_flat)
+    B, full = output.shape[0], output_all.shape[0]
+    # one-hot positives: this rank's rows at columns [rank * B, (rank + 1) * B)
+    cols = torch.arange(full, device=output.device)[None, :]
+    rows = torch.arange(B, device=output.device)[:, None] + rank() * B
+    labels = (cols == rows).to(output.dtype)
     extra_zeros = torch.zeros_like(labels)
-    logits_aa = output @ output.T / temperature - labels * LARGE_NUM  # no self-similarity
-    logits_ab = output @ target_flat.T / temperature
+    logits_aa = output @ output_all.T / temperature - labels * LARGE_NUM  # no self-similarity
+    logits_ab = output @ target_flat_all.T / temperature
     loss = mil_cross_entropy(
         torch.cat([logits_ab, logits_aa], dim=1),
         torch.cat([labels.repeat_interleave(num_matching, dim=1), extra_zeros], dim=1),
         mil_type=mil_type, reduction=reduction)
     if target_to_output_loss:  # only the first of the K positives takes part
-        target_all = target_flat[::num_matching]
+        target_all = target_flat_all[::num_matching]
         logits_bb = target @ target_all.T / temperature - labels * LARGE_NUM
-        logits_ba = target @ output.T / temperature
+        logits_ba = target @ output_all.T / temperature
         loss = loss + mil_cross_entropy(
             torch.cat([logits_ba, logits_bb], dim=1), torch.cat([labels, extra_zeros], dim=1),
             mil_type=mil_type, reduction=reduction)
@@ -83,7 +94,7 @@ def simclr_infonce(output: torch.Tensor, target: torch.Tensor, *, temperature: f
 
 class SimclrInfoNCE:
     """`simclr_infonce` with its options bound (the reference's
-    DistributedSimclrInfoNCELoss, in one process)."""
+    DistributedSimclrInfoNCELoss)."""
 
     def __init__(self, temperature: float = 0.1, target_to_output_loss: bool = True,
                  mil_type: str = "sum", reduction: str = "mean"):

@@ -23,6 +23,7 @@ from torch import nn
 
 from avt_tpu_torch.models.cluster import KmeansAssigner
 from avt_tpu_torch.models.layers import GPT2Core
+from avt_tpu_torch.parallel.ddp import shared_generator
 
 
 class IdentityFuture(nn.Module):
@@ -173,7 +174,10 @@ class AVTh(nn.Module):
         encoded = self.encoder(feats)  # (B, T0, inter_dim)
         dkey = None
         if self.training and L > 1 and max(self.pdrops) > 0:
-            dkey = torch.randint(0, 1 << 32, (), generator=generator, device=encoded.device)
+            # one key for every rank of a data-parallel step (the masks are
+            # keyed by global row, models/layers.py)
+            dkey = torch.randint(0, 1 << 32, (), generator=shared_generator(generator),
+                                 device=encoded.device)
         if self.rollout_mode == "cache" and L > 1 and not self.output_attentions:
             hidden = self._cached_rollout(encoded, L, generator, dkey)
         else:

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from avt_tpu_torch.ops import dot_product_attention
+from avt_tpu_torch.parallel.ddp import rank
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
@@ -51,7 +52,10 @@ def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
     """flax Dropout: in training, keep each element with probability 1 - p
     and divide it by 1 - p, both in x's type (a weakly typed float takes
     the array's type); the mask is drawn from `generator` (torch's default
-    when None), which nn.Dropout cannot take."""
+    when None), which nn.Dropout cannot take. Under data parallelism each
+    rank draws its own rows' mask from its own generator
+    (`train.step.step_generator`), not rows of the global batch's mask, so
+    these masks differ from a one-process run's."""
     if not training or p == 0.0:
         return x
     if p >= 1.0:
@@ -95,14 +99,20 @@ def position_stable_dropout(x: torch.Tensor, key: torch.Tensor, rate: float,
     rollout prefix thus equals what a KV cache keeps, under train-time
     dropout too. One counter-based hash an element, on x's device, with no
     loop over positions; keep and scale as `dropout` does. The bits differ
-    from JAX's threefry; the property and the sites are the same."""
+    from JAX's threefry; the property and the sites are the same.
+
+    The row is the global batch's under data parallelism, rank * B + b (the
+    global batch being the ranks' batches in rank order), so that with one
+    key on every rank the ranks draw the one-process masks."""
     if rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     B, T, C = x.shape
     pos_keys = fold_in(key, torch.arange(offset, offset + T, device=x.device))
-    elems = _hash32(torch.arange(B * C, device=x.device).reshape(B, 1, C) + _GOLDEN)
+    first = rank() * B * C
+    elems = _hash32(torch.arange(first, first + B * C, device=x.device).reshape(B, 1, C)
+                    + _GOLDEN)
     keep = _hash32(pos_keys[None, :, None] ^ elems) < int((1.0 - rate) * (1 << 32))
     keep_prob = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))

@@ -24,8 +24,14 @@ long observed context on the main path. The kernels read strided (B, T, H,
 D) views in place, so the q, k and v views of a fused qkv projection need
 no copy (the JAX path pads and transposes them to (B*H, T_pad, D)).
 
-Every entry point is differentiable through a `torch.autograd.Function`. On
-a CUDA tensor it launches the hand-written Hopper kernels
+Each kernel is a `torch.library` custom op of the namespace `avt_tpu_torch`
+(`packed_short_attention` and its `_bwd`, `fused_qkv_attention`,
+`flash_attention` and its `_bwd`), with a fake implementation for the shapes
+and its backward registered as a formula over the backward ops, so that one
+route serves eager training, data-parallel training and `torch.export`: an
+exported program names the ops, and a process that imports
+`avt_tpu_torch.ops` can run it. On
+a CUDA tensor an op launches the hand-written Hopper kernels
 `csrc/short_attention_{fwd,bwd}.cu` (bf16 or f32 storage, head dim 32, 64
 or 128), `csrc/fused_qkv_attention_fwd.cu` (bf16 or f32, head dim 64, an
 even head count) and `csrc/flash_attention_{fwd,bwd}.cu` (bf16 or f32, head
@@ -58,6 +64,7 @@ FLASH_HEAD_DIMS = (64, 128, 256, 512, 1024)  # 512: expts/02; 1024: expts/04
 FLASH_BLOCK_K = 128  # the TPU kernel's key block, which the plain version repeats
 FUSED_KERNEL = "fused_qkv_attention_fwd"
 FUSED_HEAD_DIM = 64  # the fused kernel exists in head-pair form only
+NAMESPACE = "avt_tpu_torch"  # of the custom ops
 _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 
 
@@ -254,53 +261,73 @@ def _launch_bwd(qkv: torch.Tensor, bias, dout: torch.Tensor, num_heads: int, cau
     return dqkv, db
 
 
-class _PackedShortAttention(torch.autograd.Function):
-    """packed_short_attention with the recompute backward; residual: qkv."""
-
-    @staticmethod
-    def forward(ctx, qkv, num_heads, causal):
-        ctx.save_for_backward(qkv)
-        ctx.num_heads, ctx.causal = num_heads, causal
-        if qkv.device.type == "cpu":
-            return packed_short_attention_reference(qkv, num_heads, causal)
-        return _launch(qkv, None, num_heads, causal)
-
-    @staticmethod
-    def backward(ctx, dout):
-        (qkv,) = ctx.saved_tensors
-        dout = _aligned(dout)
-        if qkv.device.type == "cpu":
-            dqkv, _ = packed_short_attention_bwd_reference(qkv, dout, ctx.num_heads, ctx.causal)
-        else:
-            dqkv, _ = _launch_bwd(qkv, None, dout, ctx.num_heads, ctx.causal, with_db=False)
-        return dqkv, None, None
+def _check_device(name: str, x: torch.Tensor) -> None:
+    """An entry point takes CPU tensors (the plain version) or CUDA tensors
+    (the kernel); any other device raises before the op is reached."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(
+            f"{name} runs on CUDA tensors (or, through its plain version, on "
+            f"CPU tensors); got a tensor on {x.device}")
 
 
-class _PackedBiasAttention(torch.autograd.Function):
-    """packed_qkv_bias_attention with the bias gradient from the backward
-    kernel; residuals: the unbiased qkv and the bias (the kernels add it as
-    they load, so the biased qkv is never stored)."""
+@torch.library.custom_op(f"{NAMESPACE}::packed_short_attention", mutates_args=(),
+                         device_types="cpu")
+def _packed_op(qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int,
+               causal: bool) -> torch.Tensor:
+    """(N, T, 3C) [+ bias (3C)] -> (N, T, C); on the CPU the plain version."""
+    return packed_short_attention_reference(qkv if bias is None else qkv + bias,
+                                            num_heads, causal)
 
-    @staticmethod
-    def forward(ctx, qkv_nobias, bias_c, num_heads, causal):
-        ctx.save_for_backward(qkv_nobias, bias_c)
-        ctx.num_heads, ctx.causal = num_heads, causal
-        if qkv_nobias.device.type == "cpu":
-            return packed_short_attention_reference(qkv_nobias + bias_c, num_heads, causal)
-        return _launch(qkv_nobias, bias_c, num_heads, causal)
 
-    @staticmethod
-    def backward(ctx, dout):
-        qkv_nobias, bias_c = ctx.saved_tensors
-        dout = _aligned(dout)
-        if qkv_nobias.device.type == "cpu":
-            dqkv, db = packed_short_attention_bwd_reference(
-                qkv_nobias + bias_c, dout, ctx.num_heads, ctx.causal, with_db=True)
-            db = db.to(bias_c.dtype)
-        else:
-            dqkv, db = _launch_bwd(qkv_nobias, bias_c, dout, ctx.num_heads, ctx.causal,
-                                   with_db=True)
-        return dqkv, db, None, None
+@_packed_op.register_kernel("cuda")
+def _(qkv, bias, num_heads, causal):
+    return _launch(qkv, bias, num_heads, causal)
+
+
+@_packed_op.register_fake
+def _(qkv, bias, num_heads, causal):
+    N, T, C3 = qkv.shape
+    return qkv.new_empty((N, T, C3 // 3))
+
+
+@torch.library.custom_op(f"{NAMESPACE}::packed_short_attention_bwd", mutates_args=(),
+                         device_types="cpu")
+def _packed_bwd_op(qkv: torch.Tensor, bias: Optional[torch.Tensor], dout: torch.Tensor,
+                   num_heads: int, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dqkv, db): db (3C) in the storage type when a bias is given, else an
+    empty tensor; on the CPU the plain version."""
+    if bias is None:
+        dqkv, _ = packed_short_attention_bwd_reference(qkv, dout, num_heads, causal)
+        return dqkv, qkv.new_empty((0,))
+    dqkv, db = packed_short_attention_bwd_reference(qkv + bias, dout, num_heads, causal,
+                                                    with_db=True)
+    return dqkv, db.to(qkv.dtype)
+
+
+@_packed_bwd_op.register_kernel("cuda")
+def _(qkv, bias, dout, num_heads, causal):
+    dqkv, db = _launch_bwd(qkv, bias, dout, num_heads, causal, with_db=bias is not None)
+    return dqkv, qkv.new_empty((0,)) if db is None else db
+
+
+@_packed_bwd_op.register_fake
+def _(qkv, bias, dout, num_heads, causal):
+    return qkv.new_empty(qkv.shape), qkv.new_empty((0,) if bias is None else (qkv.shape[-1],))
+
+
+def _packed_setup(ctx, inputs, output):
+    qkv, bias, ctx.num_heads, ctx.causal = inputs
+    ctx.save_for_backward(qkv, bias)
+
+
+def _packed_backward(ctx, dout):
+    """The recompute backward kernel; with a bias, also its gradient db."""
+    qkv, bias = ctx.saved_tensors
+    dqkv, db = _packed_bwd_op(qkv, bias, dout.contiguous(), ctx.num_heads, ctx.causal)
+    return dqkv, (None if bias is None else db), None, None
+
+
+_packed_op.register_autograd(_packed_backward, setup_context=_packed_setup)
 
 
 def packed_short_attention(
@@ -309,7 +336,8 @@ def packed_short_attention(
     """Attention straight off the packed qkv projection: qkv (N, T, 3*H*D),
     thirds q, k, v; returns (N, T, H*D). Differentiable: the backward is
     the recompute kernel (no db)."""
-    return _PackedShortAttention.apply(qkv, num_heads, causal)
+    _check_device(KERNEL, qkv)
+    return _packed_op(qkv, None, num_heads, causal)
 
 
 def packed_qkv_bias_attention(
@@ -320,8 +348,8 @@ def packed_qkv_bias_attention(
     through device memory; the backward returns the bias gradient in the
     storage type, and the cast to the bias's own type stays outside, as in
     the JAX package."""
-    bias_c = bias.to(qkv_nobias.dtype).contiguous()
-    return _PackedBiasAttention.apply(qkv_nobias, bias_c, num_heads, causal)
+    _check_device(KERNEL, qkv_nobias)
+    return _packed_op(qkv_nobias, bias.to(qkv_nobias.dtype).contiguous(), num_heads, causal)
 
 
 # ---------------------------------------------------------------------------
@@ -393,38 +421,49 @@ def _launch_fused(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, num_heads: 
     return out, qkv
 
 
-class _FusedQkvAttention(torch.autograd.Function):
-    """fused_qkv_attention in x's type; residuals (x, wc, qkv), as
-    `_fused_fwd_rule` keeps them. The backward is `_fused_bwd_rule`'s: dqkv
-    from the packed backward kernel (no db), then dx = dqkv . wc^T and dw =
-    x^T . dqkv as library products in the storage type (XLA's, outside the
-    TPU kernel), db = the f32 column sums of dqkv rounded to the storage
-    type."""
+@torch.library.custom_op(f"{NAMESPACE}::fused_qkv_attention", mutates_args=(),
+                         device_types="cpu")
+def _fused_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, num_heads: int,
+              causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out (N, T, C), qkv (N, T, 3C)) in x's type; on the CPU the plain
+    version."""
+    return fused_qkv_attention_reference(x, w, b, num_heads, causal)
 
-    @staticmethod
-    def forward(ctx, x, wc, bc, num_heads, causal):
-        if x.device.type == "cpu":
-            out, qkv = fused_qkv_attention_reference(x, wc, bc, num_heads, causal)
-        else:
-            out, qkv = _launch_fused(x, wc, bc, num_heads, causal)
-        ctx.save_for_backward(x, wc, qkv)
-        ctx.num_heads, ctx.causal = num_heads, causal
-        return out
 
-    @staticmethod
-    def backward(ctx, dout):
-        x, wc, qkv = ctx.saved_tensors
-        dout = _aligned(dout)
-        if qkv.device.type == "cpu":
-            dqkv, _ = packed_short_attention_bwd_reference(qkv, dout, ctx.num_heads, ctx.causal)
-        else:
-            dqkv, _ = _launch_bwd(qkv, None, dout, ctx.num_heads, ctx.causal, with_db=False)
-        N, T, C3 = dqkv.shape
-        d2 = dqkv.reshape(N * T, C3)
-        dx = torch.matmul(d2, wc.t()).reshape(x.shape)
-        dw = torch.matmul(x.reshape(N * T, -1).t(), d2)
-        db = d2.float().sum(dim=0).to(d2.dtype)
-        return dx, dw, db, None, None
+@_fused_op.register_kernel("cuda")
+def _(x, w, b, num_heads, causal):
+    return _launch_fused(x, w, b, num_heads, causal)
+
+
+@_fused_op.register_fake
+def _(x, w, b, num_heads, causal):
+    N, T, C = x.shape
+    return x.new_empty((N, T, C)), x.new_empty((N, T, 3 * C))
+
+
+def _fused_setup(ctx, inputs, output):
+    x, w, _, ctx.num_heads, ctx.causal = inputs
+    ctx.mark_non_differentiable(output[1])
+    ctx.save_for_backward(x, w, output[1])
+
+
+def _fused_backward(ctx, dout, _):
+    """`_fused_bwd_rule`'s backward; residuals (x, wc, qkv), as
+    `_fused_fwd_rule` keeps them: dqkv from the packed backward kernel (no
+    db), then dx = dqkv . wc^T and dw = x^T . dqkv as library products in
+    the storage type (XLA's, outside the TPU kernel), db = the f32 column
+    sums of dqkv rounded to the storage type."""
+    x, wc, qkv = ctx.saved_tensors
+    dqkv, _ = _packed_bwd_op(qkv, None, dout.contiguous(), ctx.num_heads, ctx.causal)
+    N, T, C3 = dqkv.shape
+    d2 = dqkv.reshape(N * T, C3)
+    dx = torch.matmul(d2, wc.t()).reshape(x.shape)
+    dw = torch.matmul(x.reshape(N * T, -1).t(), d2)
+    db = d2.float().sum(dim=0).to(d2.dtype)
+    return dx, dw, db, None, None
+
+
+_fused_op.register_autograd(_fused_backward, setup_context=_fused_setup)
 
 
 def fused_qkv_attention(
@@ -432,10 +471,11 @@ def fused_qkv_attention(
 ) -> torch.Tensor:
     """The qkv projection x (N, T, C) . w (C, 3C) + b (3C) and the head-pair
     attention in one kernel; returns (N, T, C). Head dim 64, an even head
-    count. The casts of w and b to x's type stay outside the autograd
-    Function, so the parameters' gradients come back in their own type, as
-    in the JAX package."""
-    return _FusedQkvAttention.apply(x, w.to(x.dtype), b.to(x.dtype), num_heads, causal)
+    count. The casts of w and b to x's type stay outside the op, so the
+    parameters' gradients come back in their own type, as in the JAX
+    package."""
+    _check_device(FUSED_KERNEL, x)
+    return _fused_op(x, w.to(x.dtype), b.to(x.dtype), num_heads, causal)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -632,28 +672,64 @@ def _launch_flash_bwd(q, k, v, dout, lse, delta, causal: bool):
     return dq, dk, dv
 
 
-class _FlashAttention(torch.autograd.Function):
-    """flash_attention with the recompute backward; residuals (q, k, v, out,
-    lse), as `_fa_fwd` keeps them."""
+@torch.library.custom_op(f"{NAMESPACE}::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+              want_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out (B, Tq, H, D), lse (B, H, Tq) f32, or an empty tensor when not
+    wanted); on the CPU the plain version."""
+    out, lse = flash_attention_reference(q, k, v, causal)
+    return out, lse if want_lse else lse.new_empty((0,))
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal):
-        if q.device.type == "cpu":
-            out, lse = flash_attention_reference(q, k, v, causal)
-        else:
-            out, lse = _launch_flash(q, k, v, causal, want_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal = causal
-        return out
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        if q.device.type == "cpu":
-            dq, dk, dv = flash_attention_bwd_reference(q, k, v, dout, out, lse, ctx.causal)
-        else:
-            dq, dk, dv = _launch_flash_bwd(q, k, v, dout, lse, _delta(dout, out), ctx.causal)
-        return dq, dk, dv, None
+@_flash_op.register_kernel("cuda")
+def _(q, k, v, causal, want_lse):
+    out, lse = _launch_flash(q, k, v, causal, want_lse)
+    return out, q.new_empty((0,), dtype=torch.float32) if lse is None else lse
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal, want_lse):
+    B, Tq, H, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((B, H, Tq) if want_lse else (0,),
+                                             dtype=torch.float32)
+
+
+@torch.library.custom_op(f"{NAMESPACE}::flash_attention_bwd", mutates_args=(),
+                         device_types="cpu")
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
+                  out: torch.Tensor, lse: torch.Tensor, causal: bool
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) in the storage type; on the CPU the plain version."""
+    return flash_attention_bwd_reference(q, k, v, dout, out, lse, causal)
+
+
+@_flash_bwd_op.register_kernel("cuda")
+def _(q, k, v, dout, out, lse, causal):
+    return _launch_flash_bwd(q, k, v, dout, lse, _delta(dout, out), causal)
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, dout, out, lse, causal):
+    return q.new_empty(q.shape), q.new_empty(k.shape), q.new_empty(k.shape)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, ctx.causal, _ = inputs
+    out, lse = output
+    ctx.mark_non_differentiable(lse)
+    ctx.save_for_backward(q, k, v, out, lse)
+
+
+def _flash_backward(ctx, dout, _):
+    """The recompute backward; residuals (q, k, v, out, lse), as `_fa_fwd`
+    keeps them."""
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = _flash_bwd_op(q, k, v, dout, out, lse, ctx.causal)
+    return dq, dk, dv, None, None
+
+
+_flash_op.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 
 def flash_attention(
@@ -662,8 +738,7 @@ def flash_attention(
     """Flash attention over (B, T, H, D) with scale 1/sqrt(D); returns (B, Tq,
     H, D). Differentiable (the recompute backward); the logsumexp is only
     written when autograd will need it."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, causal)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal)[0]
-    return _launch_flash(q, k, v, causal, want_lse=False)[0]
+    _check_device(FLASH_KERNEL, q)
+    want_lse = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                            or v.requires_grad)
+    return _flash_op(q, k, v, causal, want_lse)[0]

@@ -9,9 +9,11 @@ orbax. A checkpoint is one file holding
      "epoch": float,            # fractional for a save inside an epoch
      "host": {...}}             # optional host state (the plateau counters)
 written to `<name>.tmp` and renamed over `<name>`, so a crash mid-write
-leaves the previous checkpoint whole. Restoring loads on the CPU and copies
-into the live tensors, so a checkpoint does not depend on the device it
-was written on.
+leaves the previous checkpoint whole. Restoring loads on the CPU and
+copies into the live tensors, so a checkpoint does not depend on the device
+it was written on. Under data parallelism rank 0 writes and every rank
+waits at a barrier until the file is whole; every rank resumes from the
+same file (the ranks hold the same model and optimizer).
 """
 from __future__ import annotations
 
@@ -20,19 +22,27 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from avt_tpu_torch.parallel import ddp
+
 CKPT_NAME = "checkpoint"
 BEST_NAME = "checkpoint_best"
 
 
 def save_checkpoint(ckpt_dir: str, model, optimizer, epoch: float, *,
-                    names: Tuple[str, ...] = (CKPT_NAME,), rank: int = 0,
+                    names: Tuple[str, ...] = (CKPT_NAME,), rank: Optional[int] = None,
                     host_state: Optional[dict] = None) -> None:
-    """Writes the rolling checkpoint (and any other `names`) on rank 0.
+    """Writes the rolling checkpoint (and any other `names`) on rank 0 (the
+    process group's, unless `rank` is given), then waits at a barrier for
+    every rank: a collective, called by every rank at the same point.
 
     host_state: a small dict of host-side values saved beside the tensors
     (e.g. `ReduceLROnPlateau.state_dict()`)."""
-    if rank != 0:
-        return
+    if (ddp.rank() if rank is None else rank) == 0:
+        _write(ckpt_dir, model, optimizer, epoch, names, host_state)
+    ddp.barrier()
+
+
+def _write(ckpt_dir, model, optimizer, epoch, names, host_state) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
     payload = {
         "model": {k: v.detach().cpu() for k, v in model.state_dict().items()},

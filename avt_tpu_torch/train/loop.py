@@ -13,8 +13,14 @@ host numpy arrays; `place_batch` moves the step's keys to the model's
 device and leaves `idx` and `uid` on the host. Step j of the run draws its
 dropout masks and crops from `step_generator(seed, j)` alone, in place of
 JAX's `fold_in(rng, j)`: a run chunked by `unroll_steps` and a resumed run
-take the same steps as a plain run (the masks differ from JAX's). Runs in
-one process until the DDP slice.
+take the same steps as a plain run (the masks differ from JAX's).
+
+Under data parallelism over processes (parallel/ddp.py) every rank runs this
+loop on its shard of each batch, in lockstep: the checkpoints are written by
+rank 0 behind a barrier, and the two decisions that a rank's own clock or
+signal would make alone are taken together, every PREEMPT_SYNC_EVERY chunks,
+so that no rank is left waiting in a collective: the wall-clock save is rank
+0's, the preemption stop any rank's. TensorBoard is written on rank 0.
 """
 from __future__ import annotations
 
@@ -30,12 +36,13 @@ import torch
 from avt_tpu_torch.train.checkpoint import BEST_NAME, CKPT_NAME, restore_checkpoint, save_checkpoint
 from avt_tpu_torch.train.meters import MetricLogger, make_tb_writer
 from avt_tpu_torch.train.step import step_generator
-from avt_tpu_torch.utils.device import batch_to_device, require_one_process
+from avt_tpu_torch.parallel import ddp
+from avt_tpu_torch.utils.device import batch_to_device
 
 _JIT_KEYS = ("video", "target", "target_subclips")
 _VIDEO_LOG_DISABLED = False
-# how often (in chunks) the multi-process form agrees on a preemption; kept
-# for the DDP slice, which ports that branch
+# how often (in chunks) the ranks of a multi-process run agree on a
+# preemption stop and on a wall-clock save
 PREEMPT_SYNC_EVERY = 16
 
 
@@ -119,7 +126,7 @@ def train_one_epoch(
     save_intermediates: bool = False,
     ckpt_dir: Optional[str] = None,
     last_saved_time: Optional[datetime.datetime] = None,
-    rank: int = 0,
+    rank: Optional[int] = None,
     writer=None,
     host_state_fn: Optional[Callable] = None,
     preempt_check: Optional[Callable[[], bool]] = None,
@@ -135,8 +142,10 @@ def train_one_epoch(
 
     preempt_check: polled once per chunk; when it turns true the in-flight
     chunk is drained, the rolling checkpoint is written at the current
-    batch boundary, and Preempted is raised."""
-    require_one_process("train_one_epoch")
+    batch boundary, and Preempted is raised. rank: this process's (None:
+    the process group's)."""
+    rank = ddp.rank() if rank is None else rank
+    n_procs = ddp.world_size()
     if place_batch is None:
         device = next(model.parameters()).device
 
@@ -208,8 +217,8 @@ def train_one_epoch(
             for k, v in per_step[-1].items():
                 metric_logger.write_scalar(f"train_per_iter/{k}", v, sid0 + n_steps - 1)
 
-    for chunk in metric_logger.log_every(chunked(), print_freq, f"Epoch [{epoch}]",
-                                         total=n_chunks):
+    for chunk_idx, chunk in enumerate(metric_logger.log_every(
+            chunked(), print_freq, f"Epoch [{epoch}]", total=n_chunks)):
         cur_epoch = step_id / batches_per_epoch
         if preempt_check is not None and preempt_check():
             if pending is not None:
@@ -222,6 +231,10 @@ def train_one_epoch(
         now = datetime.datetime.now()
         mins_since = (now - last_saved_time).total_seconds() / 60.0
         time_due = bool(save_freq_min and mins_since >= save_freq_min)
+        if save_freq_min and n_procs > 1:
+            # the save is a collective and clocks differ between ranks: rank
+            # 0's clock decides, on a chunk schedule that every rank keeps
+            time_due = (chunk_idx % PREEMPT_SYNC_EVERY == 0) and ddp.from_rank0(time_due)
         bucket = step_id // save_freq_steps if save_freq_steps else -1
         if ckpt_dir and ((save_freq_steps and bucket > last_save_bucket) or time_due):
             # drain the in-flight chunk first, so that its NaN abort fires
@@ -284,7 +297,7 @@ def run_training(
     save_intermediates: bool = False,
     seed: int = 42,
     logger=None,
-    rank: int = 0,
+    rank: Optional[int] = None,
     tb_dir: Optional[str] = None,
     graceful_signals: Tuple[int, ...] = (),
 ):
@@ -294,8 +307,11 @@ def run_training(
     graceful_signals: OS signals (e.g. SIGTERM) that trigger a graceful
     checkpoint-and-exit: the current chunk finishes, the rolling checkpoint
     is written, and Preempted propagates so the launcher can requeue. The
-    original handlers are restored on exit; main thread only."""
-    require_one_process("run_training")
+    original handlers are restored on exit; main thread only. Under data
+    parallelism the stop is collective: every PREEMPT_SYNC_EVERY chunks the
+    ranks learn whether any of them got a signal, and all stop at the same
+    chunk. rank: this process's (None: the process group's)."""
+    rank = ddp.rank() if rank is None else rank
     writer = make_tb_writer(tb_dir, rank) if tb_dir else None
     # the plateau counters ride the checkpoint's host state
     host_state_fn = plateau.state_dict if hasattr(plateau, "state_dict") else None
@@ -328,7 +344,15 @@ def run_training(
                         "boundary", signum)
 
     preempt_check = None
-    if graceful_signals:
+    if graceful_signals and ddp.world_size() > 1:
+        polls = {"n": 0}
+
+        def preempt_check():
+            # the poll count advances alike on every rank (one loader length)
+            n = polls["n"]
+            polls["n"] = n + 1
+            return n % PREEMPT_SYNC_EVERY == 0 and ddp.any_rank(preempt_sig["signum"] is not None)
+    elif graceful_signals:
         def preempt_check():
             return preempt_sig["signum"] is not None
     try:

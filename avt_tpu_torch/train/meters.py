@@ -15,7 +15,7 @@ from typing import Dict, Iterable, Optional
 import numpy as np
 import torch
 
-from avt_tpu_torch.utils.device import require_one_process
+from avt_tpu_torch.parallel.ddp import all_reduce_sum, world_size
 
 
 class SmoothedValue:
@@ -119,9 +119,16 @@ class MetricLogger:
         return self.meters[key]
 
     def synchronize_between_processes(self):
-        """Nothing to do in one process; the cross-process sum waits for the
-        DDP slice."""
-        require_one_process("MetricLogger.synchronize_between_processes")
+        """Each meter's (total, count) becomes its sum over the ranks, so
+        that global_avg is the mean over every rank's updates; nothing to do
+        in one process. Every rank must hold the same meter names."""
+        if world_size() == 1:
+            return
+        keys = sorted(self.meters)
+        summed = all_reduce_sum([[self.meters[k].total, self.meters[k].count] for k in keys])
+        for i, k in enumerate(keys):
+            self.meters[k].total = float(summed[i, 0])
+            self.meters[k].count = int(summed[i, 1])
 
     def __str__(self):
         return self.delimiter.join(

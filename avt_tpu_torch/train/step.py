@@ -8,6 +8,14 @@ gradient, the update. The JAX
 step is one jitted program over a donated TrainState; here the model's
 parameters and the optimizer's buffers are updated in place, and the
 returned metrics stay device tensors, so a step never waits for the device.
+
+Under data parallelism over processes (parallel/ddp.py) each rank steps on
+its shard of the global batch; the gradients are averaged over the ranks
+between the backward and the optimizer (`allreduce_gradients`), so that
+every rank takes the update of the global batch's mean loss. (A loss mean
+that leaves ignored targets out, or weighs classes, is each rank's mean
+averaged, as the reference's DDP takes it; it is the global batch's when
+every rank keeps the same weight.) In one process nothing changes.
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from avt_tpu_torch.parallel.ddp import RankGenerator, allreduce_gradients, rank, world_size
 from avt_tpu_torch.train.ops import basic_loss_accuracy
 
 
@@ -79,6 +88,7 @@ def make_train_step(
         total, mean_losses = weighted_loss_sum(losses, loss_wts)
         optimizer.zero_grad()
         total.backward()
+        allreduce_gradients(model.parameters())
         optimizer.step()
         metrics = {"loss": total.detach()}
         metrics.update({f"loss/{k}": v.detach() for k, v in mean_losses.items()})
@@ -160,6 +170,7 @@ def make_ssl_train_step(
         total, mean_losses = weighted_loss_sum(losses, loss_wts)
         optimizer.zero_grad()
         total.backward()
+        allreduce_gradients(model.parameters())
         optimizer.step()
         metrics = {"loss": total.detach()}
         metrics.update({f"loss/{k}": v.detach() for k, v in mean_losses.items()})
@@ -169,15 +180,33 @@ def make_ssl_train_step(
     return step
 
 
+def _seeded(cls, seed: int, step_id: int, device, spawn_key=()) -> torch.Generator:
+    seq = np.random.SeedSequence([int(seed), int(step_id)], spawn_key=spawn_key)
+    state = seq.generate_state(2, np.uint32)
+    gen = cls(device=device)
+    gen.manual_seed(int(state[0]) << 32 | int(state[1]))
+    return gen
+
+
 def step_generator(seed: int, step_id: int, device) -> torch.Generator:
     """The generator of global step `step_id` on `device`, seeded from
     (seed, step_id) alone, so that a run takes the same dropout masks and
     crop draws whether its steps are chunked or not, and whether it ran
     through or was resumed. This takes the place of JAX's
-    `fold_in(rng, step_id)`; the masks themselves differ from JAX's."""
-    state = np.random.SeedSequence([int(seed), int(step_id)]).generate_state(2, np.uint32)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(state[0]) << 32 | int(state[1]))
+    `fold_in(rng, step_id)`; the masks themselves differ from JAX's.
+
+    Under data parallelism the rank is folded in (as the seed sequence's
+    spawn key: a trailing 0 in its entropy would be no fold at all), so
+    that no two ranks draw the same dropout mask or crop for their different
+    clips; `shared` keeps the one-process generator. The port goes this way
+    rather than drawing each mask for the global batch and keeping this
+    rank's rows: plain dropout's masks and the crops then differ from the
+    one-process run's, while the position-stable masks (keyed by the shared
+    generator and the global row, models/layers.py) equal them."""
+    if world_size() == 1:
+        return _seeded(torch.Generator, seed, step_id, device)
+    gen = _seeded(RankGenerator, seed, step_id, device, spawn_key=(rank(),))
+    gen.shared = _seeded(torch.Generator, seed, step_id, device)
     return gen
 
 

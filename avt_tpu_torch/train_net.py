@@ -1,8 +1,8 @@
 """Training entry point.
 
-Counterpart of avt_tpu/train_net.py (`main`, `cli`), in one process:
-compose the config from conf/ and the overrides (sweeps expand to one run
-each), build the datasets, loaders and model, load train.init_from_model's
+Counterpart of avt_tpu/train_net.py (`main`, `cli`): compose the config
+from conf/ and the overrides (sweeps expand to one run each), build the
+datasets, loaders and model, load train.init_from_model's
 checkpoints into it, build the optimizer, auto-resume from the run
 directory, train with an eval every eval_freq epochs (the SSL step under
 train_eval_op=pred_future_feat), or only evaluate (test_only).
@@ -15,7 +15,13 @@ Usage:
 
 It runs on the GPU. The CPU is taken only when asked for: AVT_PLATFORM=cpu
 (the JAX package's switch) or main(..., device="cpu"); with neither and no
-GPU it raises. Its multi-process form waits for the DDP slice.
+GPU it raises.
+
+Under a launcher (`avt_tpu_torch.launch --spawn N`, torchrun, SLURM) each
+process is one data-parallel rank (parallel/ddp.py): it joins the process
+group the environment describes (backend from `dist_backend`), takes
+cuda:LOCAL_RANK, feeds the config's per-replica batch size from its shard
+of the loaders, and steps in lockstep with the others.
 """
 from __future__ import annotations
 
@@ -53,7 +59,8 @@ from avt_tpu_torch.train import (
     run_training,
 )
 from avt_tpu_torch.train.ops import balance_weights_from_counts
-from avt_tpu_torch.utils.device import require_one_process, resolve_device
+from avt_tpu_torch.parallel import ddp
+from avt_tpu_torch.utils.device import resolve_device
 from avt_tpu_torch.utils.logging import get_logger
 
 CONF_DIR = Path(__file__).resolve().parent.parent / "conf"
@@ -97,9 +104,12 @@ def main(cfg: Dict, work_dir: str = ".", device=None) -> float:
     """One run of the composed config `cfg` in `work_dir` (checkpoints,
     results, tb/); returns the primary metric of the last eval (0.0 when
     there is no eval dataset)."""
-    require_one_process("train_net.main")
     device = platform_device(device)
     logger = get_logger("avt_tpu_torch.train")
+    # the process group first: the dense sampler's shard reads it
+    ddp.setup_distributed(cfg.get("dist_backend"), device.type, logger)
+    ddp.check_model_parallel(cfg)
+    rank, world = ddp.rank(), ddp.world_size()
     seed = cfg.get("seed", 42)
     np.random.seed(seed)
     torch.manual_seed(seed)
@@ -110,8 +120,8 @@ def main(cfg: Dict, work_dir: str = ".", device=None) -> float:
     num_classes = {k: len(v) for k, v in train_dataset.classes.items()}
     class_mappings = train_dataset.class_mappings
 
-    # one process: the config's per-replica batch size is the batch; a null
-    # eval batch size falls back to 4x the train one (no backward)
+    # the config's batch size is per replica (per process); a null eval
+    # batch size falls back to 4x the train one (no backward)
     batch_size = cfg["train"]["batch_size"]
     eval_bs = cfg["eval"].get("batch_size") or batch_size * 4
     # SSL future clips: one key per future_<i>_start column of the tables
@@ -125,6 +135,7 @@ def main(cfg: Dict, work_dir: str = ".", device=None) -> float:
         train_dataset, eval_datasets,
         train_bs_multiplier=cfg["data_train"].get("train_bs_multiplier", 5),
         val_clips_per_video=cfg["data_eval"].get("val_clips_per_video", 1),
+        rank=rank, world_size=world,
         shuffle_data=cfg["train"].get("shuffle_data", True),
     )
     train_loader = DataLoader(
@@ -133,14 +144,26 @@ def main(cfg: Dict, work_dir: str = ".", device=None) -> float:
         drop_last=True,
         num_workers=cfg["data_train"].get("workers", 8),
         seed=seed,
+        rank=rank,
+        world_size=world,
         keys=keys,
         sampler=train_sampler,
     )
     only_featext = bool(cfg["eval"]["eval_fn"].get("only_run_featext"))
+    # independent per-process feature extraction (the reference's featext:
+    # dense_clip_sampler's shard_per_worker shards the videos per rank, and
+    # data_eval.use_dist_sampler=false turns the distributed sampler off):
+    # every rank then runs its own dataset, so the eval loaders stay unsharded
+    dense_eval_cfg = (cfg.get("dataset_eval") or {}).get("sample_clips_densely_fn") or {}
+    independent_eval = world > 1 and only_featext and (
+        bool(dense_eval_cfg.get("shard_per_worker"))
+        or not cfg["data_eval"].get("use_dist_sampler", True))
     eval_loaders = {
         suffix: DataLoader(
             ds, eval_bs, shuffle=False, drop_last=False,
             num_workers=cfg["data_eval"].get("workers", 8), keys=keys,
+            rank=0 if independent_eval else rank,
+            world_size=1 if independent_eval else world,
             sampler=eval_samplers[suffix],
             # failed reads repeat an in-batch row (same idx, averaged away
             # on merge) rather than bring a foreign sample into the metrics
@@ -156,6 +179,7 @@ def main(cfg: Dict, work_dir: str = ".", device=None) -> float:
         # before the optimizer; a checkpoint in the run directory still wins
         # (run_training restores it)
         init_from_model(model, cfg["train"]["init_from_model"])
+    ddp.broadcast_module(model)  # every rank starts from rank 0's weights, as DDP does
     # raw-video batches (B, T, H, W, 3 uint8) are preprocessed on the device
     # inside the steps: resize, crop, augment and the subclip fold
     batch0 = next(iter(train_loader))
@@ -165,7 +189,8 @@ def main(cfg: Dict, work_dir: str = ".", device=None) -> float:
         train_pp_fn, eval_pp_fn = build_preprocess_fns(cfg, device)
 
     iters_per_epoch = max(len(train_loader), 1)
-    optimizer, _ = build_optimizer_from_cfg(cfg, model, iters_per_epoch=iters_per_epoch)
+    optimizer, _ = build_optimizer_from_cfg(cfg, model, iters_per_epoch=iters_per_epoch,
+                                            world_size=world)
     op_cfg = cfg.get("train_eval_op") or {}
     cls_cfg = op_cfg.get("cls_loss_acc_fn") or {}
     class_weights = None
@@ -206,7 +231,7 @@ def main(cfg: Dict, work_dir: str = ".", device=None) -> float:
         metric = evaluate(
             eval_step, eval_loaders, save_dir=work_dir, epoch=epoch,
             store=cfg["eval"]["eval_fn"].get("store", True),
-            only_run_featext=only_featext, logger=logger, device=device)
+            only_run_featext=only_featext, logger=logger, rank=rank, device=device)
         last_eval["metric"] = metric
         return metric
 
@@ -238,6 +263,7 @@ def main(cfg: Dict, work_dir: str = ".", device=None) -> float:
         save_intermediates=tcfg.get("save_intermediates", False),
         seed=seed,
         logger=logger,
+        rank=rank,
         tb_dir=os.path.join(work_dir, "tb"),
     )
     if not eval_loaders:
@@ -275,6 +301,7 @@ def cli(argv=None):
     composer = Composer(args.conf_dir)
     logger = get_logger("avt_tpu_torch.train")
     results = []
+    joins_group = not torch.distributed.is_initialized()  # main joins it under a launcher
     for run_id, variant in enumerate(variants):
         if args.run_id is not None and run_id != args.run_id:
             continue
@@ -286,8 +313,10 @@ def cli(argv=None):
             work_dir = os.path.join("OUTPUTS", expt, str(run_id))
         os.makedirs(work_dir, exist_ok=True)
         logger.info("Run %d -> %s", run_id, work_dir)
-        # run.pid lets a launcher stop this run by its exact PID
-        pid_file = os.path.join(work_dir, "run.pid")
+        # run.pid (run.<rank>.pid on the other ranks) lets a launcher stop
+        # this run by its exact PIDs
+        rank = ddp.env_rank()
+        pid_file = os.path.join(work_dir, "run.pid" if rank == 0 else f"run.{rank}.pid")
         with open(pid_file, "w") as f:
             f.write(str(os.getpid()))
         try:
@@ -302,6 +331,8 @@ def cli(argv=None):
                 os.remove(pid_file)
             except OSError:
                 pass
+    if joins_group:
+        ddp.cleanup()
     return results
 
 

@@ -1,30 +1,26 @@
 """Where the port's entry points run: CUDA unless the CPU is asked for."""
 from __future__ import annotations
 
+import os
+
 import torch
 
 
 def resolve_device(device=None) -> torch.device:
     """`device` as a torch.device; None means the GPU, and raises when
-    there is none rather than running on the CPU unasked."""
+    there is none rather than running on the CPU unasked. Under a launcher
+    the GPU is this process's: cuda:LOCAL_RANK, modulo the host's card count
+    so that gloo ranks can share a card (setup_distributed refuses that
+    under NCCL)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
+        local = os.environ.get("LOCAL_RANK") or os.environ.get("SLURM_LOCALID")
+        if local is None:
+            return torch.device("cuda")
+        return torch.device("cuda", int(local) % torch.cuda.device_count())
     return torch.device(device)
-
-
-def require_one_process(what: str) -> None:
-    """Raises NotImplementedError under a torch.distributed group of more
-    than one process: `what` runs as one process until the DDP slice
-    (ROADMAP Queue 1.9) ports its multi-process branches, rather than as
-    several unsynchronised copies of a one-process run."""
-    if (torch.distributed.is_available() and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            f"{what} runs in one process; its multi-process form waits for the DDP slice "
-            "(ROADMAP Queue 1.9)")
 
 
 def batch_to_device(node, device):

@@ -202,6 +202,22 @@
    once over the 64 observed and 64 future clips, 6 flash forward + 6
    backward launches, 6 forward an eval batch; finite losses (reg among
    them); the loop's ms a step and a profiled step with its peak memory.
+17. export: the serving flagship of phase 3 with its preprocessing as a
+   `torch.export` program (`export_eval_forward`) at batch 4 and 32, saved
+   as .pt2 and loaded in a fresh process that imports only
+   `avt_tpu_torch.ops` (and serve's host loop): 12 packed forward launches
+   a forward, nothing else; logits/action within the serving tolerance of
+   `make_eval_forward` on the same clips (the largest difference and
+   whether the bits are equal printed); a request's ms through the loaded
+   program and through the eager forward at batch 4 and 32. Then the
+   program with bake_params=False at batch 4 on `model_params`.
+18. ddp: expts/02 at 256 features, 2 steps of 64 clips and 1 eval batch,
+   in this process, as one NCCL rank and as 2 gloo ranks of 32 clips
+   sharing the card, the ranks started by `avt_tpu_torch.launch --spawn`:
+   6 + 6 flash launches a step on each rank, 6 an eval batch; one rank
+   equal to the process bit for bit (else the gap printed); 2 ranks' mean
+   losses, a parameter of the checkpoint rank 0 wrote and the merged eval
+   results within 1e-4 of the process; each way's step ms.
 Only phase 4b launches the fused kernel. Prints one JSON line of kernel results, then {"ok": true, "device": ...}.
 Exits non-zero on any failure, and without a CUDA device.
 """
@@ -1092,12 +1108,18 @@ def main():
     # 16. the SSL op (pred_future_feat) on expts/02 at 256 features
     ssl_launches, ssl_summary = ssl_phase(card)
 
+    # 17. the serving export: saved, loaded in a fresh process, run
+    export_launches, export_summary = export_phase(card)
+
+    # 18. data-parallel training: expts/02 as 1 NCCL rank and 2 gloo ranks
+    ddp_launches, ddp_summary = ddp_phase(card)
+
     paths = {"serve": serve_launches, "train": train_launches, "trainer": trainer_launches,
              "train_d32": d32_launches,
              **feat_launches, "feature_d1024": d1024_launches, "train_fused": fused_launches,
              "ek55_adam": ek55_launches, **tn_launches, **tnr_launches, **rulstm_launches,
              **zoo_launches, **rollout_launches, **quant_launches, **conv_launches,
-             **bni_launches, **ssl_launches}
+             **bni_launches, **ssl_launches, "export": export_launches, **ddp_launches}
     for path, counts in paths.items():
         if path != "train_fused":
             check(counts["fused_qkv_attention_fwd"] == 0, f"a fused launch on {path}: {counts}")
@@ -1120,7 +1142,8 @@ def main():
              f32_shapes={f"N{N}": {"shape": [N, 197, 12, 64], **v} for N, v in f32_fwd.items()},
              f32_registers=registers.get("short_attn_fwd_tf32<64>"),
              f32_turns=f32_turns and {label: {k: v for k, v in res.items() if k.startswith("fwd")}
-                                      for label, res in f32_turns.items()}),
+                                      for label, res in f32_turns.items()},
+             export=export_summary),
         dict(name="short_attention_bwd", route=bwd_spec["route"], source=bwd_spec["source"],
              replaces=bwd_spec["replaces"], launches=train_launches["short_attention_bwd"],
              launches_by_path=by_path("short_attention_bwd"),
@@ -1159,7 +1182,8 @@ def main():
             rollout_checks={k: v[side] for k, v in rollout_errs.items()},
             ssl_checks={k: v[side] for k, v in ssl_errs.items()},
             rollout=rollout_summary,
-            ssl_train_step={k: v for k, v in ssl_summary.items() if k != "groups"}))
+            ssl_train_step={k: v for k, v in ssl_summary.items() if k != "groups"},
+            ddp=ddp_summary))
     spec = _build.KERNELS["fused_qkv_attention_fwd"]
     kernels.append(dict(
         name="fused_qkv_attention_fwd", route=spec["route"], source=spec["source"],
@@ -3484,5 +3508,328 @@ def ssl_phase(card):
                                           peak_gb=peak_gb, groups=groups)
 
 
+
+# ----------------------------------------------------------------- export
+# a fresh process that imports the port's ops (and serve's host loop), none
+# of its models or config, loads the saved programs and answers requests
+EXPORT_LOAD_SCRIPT = """
+import json, sys, time
+import numpy as np
+import torch
+from avt_tpu_torch.ops import _build
+from avt_tpu_torch.serve import batch_predict, load_exported, serving_fn
+clips, out_path = np.load(sys.argv[1]), sys.argv[2]
+res = {}
+for arg in sys.argv[3:]:  # <batch size>=<path>
+    bs, path = int(arg.split("=", 1)[0]), arg.split("=", 1)[1]
+    t0 = time.time()
+    prog = load_exported(path)
+    load_s = time.time() - t0
+    t0 = time.time()
+    call = serving_fn(prog)  # what a server builds once and keeps
+    module_s = time.time() - t0
+    batch = np.concatenate([clips] * 4)[:bs]
+    _build.reset_launch_counts()
+    logits = batch_predict(call, batch)["logits/action"]  # one forward
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    if bs == 4:
+        np.save(out_path, logits)
+    t0 = time.time()
+    for _ in range(3):
+        batch_predict(call, batch)
+    res[bs] = dict(load_s=load_s, module_s=module_s, launches=launches,
+                   request_ms=(time.time() - t0) / 3 * 1e3)
+bad = [m for m in sys.modules if m.startswith(("avt_tpu_torch.models", "avt_tpu_torch.config",
+                                               "avt_tpu_torch.train", "avt_tpu."))]
+res["foreign_modules"] = bad
+print(json.dumps(res))
+"""
+
+
+def export_phase(card):
+    """The full-width bf16 flagship with its preprocessing (serve_phase's
+    model and preprocessor) exported through `export_eval_forward` at batch
+    4 and 32 on uint8 clips of CLIP, saved, then loaded and run in a fresh
+    process that imports only `avt_tpu_torch.ops` and serve's host loop:
+    12 packed forward launches a forward and nothing else, logits/action
+    within the serving phase's bf16 tolerance of `make_eval_forward` on the
+    same clips (the largest difference and whether the bits are equal are
+    printed), a request's ms at batch 4 and 32 beside the eager forward's.
+    Then the program with bake_params=False at batch 4, called on
+    `model_params(model)`: the same checks. Returns the loaded program's
+    launch counts of one forward."""
+    from avt_tpu_torch.serve import (
+        export_eval_forward,
+        model_params,
+        save_exported,
+        serving_fn,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = build_avt(num_actions=NUM_ACTIONS, vit_dtype=torch.bfloat16, generator=gen)
+    pp = VideoPreprocessor(crop_size=224, scale_h=248, scale_w=-1, mean=(0.5,) * 3,
+                           std=(0.5,) * 3, eval_num_crops=3, eval_flip_crops=True,
+                           compute_dtype=torch.bfloat16, out_dtype=torch.bfloat16)
+    fwd = make_eval_forward(model, pp)
+    clips = np.random.default_rng(5).integers(0, 256, size=(8,) + CLIP, dtype=np.uint8)
+    eager = fwd(clips[:BATCH])["logits/action"].float().cpu().numpy()
+    eager_ms = {}
+    for bs in (BATCH, 32):
+        batch = np.concatenate([clips] * 4)[:bs]
+        batch_predict(fwd, batch, bs)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(3):
+            batch_predict(fwd, batch, bs)
+        eager_ms[bs] = (time.time() - t0) / 3 * 1e3
+
+    def compare(logits, what):
+        diff = float(np.abs(logits - eager).max())
+        check(logits.shape == eager.shape and np.isfinite(logits).all(),
+              f"export {what}: logits {logits.shape}")
+        np.testing.assert_allclose(logits, eager, atol=1e-2, rtol=2e-2, err_msg=what)
+        return diff, bool(np.array_equal(logits, eager))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, export_s, sizes = [], {}, {}
+        for bs in (BATCH, 32):
+            t0 = time.time()
+            prog = export_eval_forward(model, (bs,) + CLIP, preprocessor=pp, platforms=("cuda",))
+            export_s[bs] = time.time() - t0
+            targets = [str(n.target) for n in prog.graph.nodes if n.op == "call_function"]
+            n_ops = targets.count("avt_tpu_torch.packed_short_attention.default")
+            check(n_ops == VIT_BLOCKS, f"export: the program calls the packed op {n_ops} times")
+            path = os.path.join(tmp, f"flagship_b{bs}.pt2")
+            save_exported(prog, path)
+            sizes[bs] = os.path.getsize(path) / 1e9
+            paths.append(f"{bs}={path}")
+            del prog
+        np.save(os.path.join(tmp, "clips.npy"), clips)
+        out_path = os.path.join(tmp, "logits.npy")
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, "-c", EXPORT_LOAD_SCRIPT,
+                               os.path.join(tmp, "clips.npy"), out_path] + paths,
+                              capture_output=True, text=True, timeout=600,
+                              env=dict(os.environ, PYTHONPATH=os.getcwd()))
+        check(proc.returncode == 0, f"export: the loading process failed:\n{proc.stderr[-4000:]}")
+        loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+        load_wall = time.time() - t0
+        logits = np.load(out_path)
+    check(not loaded["foreign_modules"], f"export: the loading process imported "
+          f"{loaded['foreign_modules']}")
+    want = {**{n: 0 for n in _build.KERNELS}, "short_attention_fwd": VIT_BLOCKS}
+    for bs in (BATCH, 32):
+        got = loaded[str(bs)]["launches"]
+        check(got == want, f"export: one forward of the loaded batch-{bs} program launched "
+              f"{got}, want {want}")
+    diff, same = compare(logits, "loaded program")
+
+    t0 = time.time()
+    unbaked = export_eval_forward(model, (BATCH,) + CLIP, preprocessor=pp, bake_params=False)
+    unbaked_s = time.time() - t0
+    call = serving_fn(unbaked)
+    call(model_params(model), clips[:BATCH])
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    u_logits = call(model_params(model), clips[:BATCH])["logits/action"].float().cpu().numpy()
+    torch.cuda.synchronize()
+    u_launches = dict(_build.launch_counts)
+    check(u_launches == want, f"export: one unbaked forward launched {u_launches}, want {want}")
+    u_diff, u_same = compare(u_logits, "unbaked program")
+    log(f"export ({card}): the bf16 flagship with 3-crop + flip preprocessing, exported in "
+        f"{export_s[BATCH]:.1f} s (batch {BATCH}) and {export_s[32]:.1f} s (batch 32), "
+        f"{sizes[BATCH]:.2f} GB a .pt2; loaded in a fresh process importing avt_tpu_torch.ops "
+        f"({load_wall:.1f} s with its requests; load {loaded[str(BATCH)]['load_s']:.1f} s, "
+        f"serving_fn {loaded[str(BATCH)]['module_s']:.2f} s); "
+        f"one forward {loaded[str(BATCH)]['launches']}; logits/action vs make_eval_forward "
+        f"max |diff| {diff:.3g} (bits equal: {same}); a request (uint8 clips in, logits out) "
+        f"batch {BATCH}: exported {loaded[str(BATCH)]['request_ms']:.2f} ms, eager "
+        f"{eager_ms[BATCH]:.2f} ms; batch 32: exported {loaded['32']['request_ms']:.2f} ms, "
+        f"eager {eager_ms[32]:.2f} ms; unbaked (params as input) exported in {unbaked_s:.1f} s, "
+        f"max |diff| {u_diff:.3g} (bits equal: {u_same}), launches {u_launches}")
+    del model, fwd, unbaked, call
+    torch.cuda.empty_cache()
+    return loaded[str(BATCH)]["launches"], dict(
+        export_s=export_s[BATCH], artifact_gb=sizes[BATCH], max_abs_diff=diff, bits_equal=same,
+        request_ms={"exported": {BATCH: loaded[str(BATCH)]["request_ms"],
+                                 32: loaded["32"]["request_ms"]},
+                    "eager": eager_ms},
+        unbaked_max_abs_diff=u_diff)
+
+
+# -------------------------------------------------------------------- ddp
+# expts/02 at 256 features on a tree of 4 train videos of 32 actions (2
+# steps of 64) and 1 eval video (1 eval batch), dropout off (plain dropout
+# draws per rank), LR scaled by the per-replica batch (scale_lr_by_bs), so
+# that 2 ranks x 32 clips and 1 process x 64 take the same LR
+DDP_TRAIN_VIDEOS, DDP_EVAL_VIDEOS, DDP_ACTIONS = 4, 1, 32
+DDP_STEPS = DDP_TRAIN_VIDEOS * DDP_ACTIONS // TN_BATCH
+DDP_TOL = 1e-4  # 2 ranks vs 1 process, relative: f32 sums in another order
+DDP_PARAM = "future_predictor.gpt_model.h.0.attn.c_attn.weight"
+DDP_OVERRIDES = ["train.num_epochs=1", "opt.scale_lr_by_bs=true", "model.dropout=0.0",
+                 "+model.future_predictor.embd_pdrop=0.0", "+model.future_predictor.attn_pdrop=0.0",
+                 "+model.future_predictor.resid_pdrop=0.0"]
+
+
+def timed_make_train_step(train_net, times):
+    """A make_train_step for `train_net` whose step appends its own ms (a
+    device sync before and after each step) to `times`."""
+    real = train_net.make_train_step
+
+    def make(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def timed(batch, generator=None):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            metrics = step(batch, generator)
+            torch.cuda.synchronize()
+            times.append((time.time() - t0) * 1e3)
+            return metrics
+
+        return timed
+
+    return make
+
+
+def ddp_rank_main(argv):
+    """One rank of the ddp phase, started by `avt_tpu_torch.launch --spawn`
+    in place of `python -m avt_tpu_torch.train_net` with the same arguments:
+    `train_net.cli(argv)` recorded (`run_train_net`, each step timed), which
+    joins the process group of the launcher's environment; writes what it
+    recorded to <run dir>/rank<r>.json."""
+    from avt_tpu_torch import train_net
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    times = []
+    with mock.patch.object(train_net, "make_train_step", timed_make_train_step(train_net, times)):
+        (metric,), rec = run_train_net(argv)
+    meters = rec["loggers"][0].meters
+    rank = int(os.environ["RANK"])
+    out = dict(rank=rank, world=int(os.environ["WORLD_SIZE"]), metric=metric,
+               launches=rec["launches"], wall_s=rec["wall_s"],
+               losses={k: m.global_avg for k, m in meters.items() if k.startswith("loss")},
+               loss_count=meters["loss"].count, step_ms=times)
+    with open(os.path.join(argv[argv.index("--run-dir") + 1], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def ddp_phase(card):
+    """expts/02 at 256 observed features, 2 steps of 64 clips and 1 eval
+    batch, three ways: in this process through `train_net.cli`; as one rank
+    of a process group over NCCL; as 2 ranks over gloo on this one card, 32
+    + 32 clips a step. The ranks are started by `avt_tpu_torch.launch.main`
+    with --spawn, running `ddp_rank_main` (train_net.cli recorded) in place
+    of the train_net module; each step is timed with a device sync around
+    it (the second step's ms is the one printed: the first warms the
+    process up). Checks: each rank's flash launches are 6 + 6 a step and 6
+    an eval batch; the one-rank NCCL group equals the process
+    bit for bit on the losses and the checkpoint (else the gap is printed);
+    the 2 gloo ranks' mean losses, DDP_PARAM in the checkpoint rank 0 wrote,
+    and the merged eval results within DDP_TOL of the one-process run's
+    (the measured errors printed). Prints the step ms each way. Returns the
+    launch counts of each rank."""
+    from avt_tpu_torch import launch, train_net
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        tree = write_ek100_tree(os.path.join(tmp, "tree"), train_videos=DDP_TRAIN_VIDEOS,
+                                eval_videos=DDP_EVAL_VIDEOS, actions_per_video=DDP_ACTIONS,
+                                first_action_s=TN_FIRST_S, seed=46)
+        common = tree + long_context(LONG_T) + DDP_OVERRIDES + [
+            f"data_train.workers={TN_WORKERS}", f"data_eval.workers={TN_WORKERS}"]
+        one_dir = os.path.join(tmp, "one")
+        one_times = []
+        with mock.patch.object(train_net, "make_train_step",
+                               timed_make_train_step(train_net, one_times)):
+            (one_metric,), one = run_train_net(["--config-file", EXPT_02, "--run-dir", one_dir]
+                                               + common + [f"train.batch_size={TN_BATCH}",
+                                                           f"eval.batch_size={TN_BATCH}"])
+        one_losses = {k: m.global_avg for k, m in one["loggers"][0].meters.items()
+                      if k.startswith("loss")}
+        one_step_ms = one_times[-1]
+        runs = {}
+        for label, world, backend in (("ddp_w1_nccl", 1, "nccl"), ("ddp_w2_gloo", 2, "gloo")):
+            run_dir = os.path.join(tmp, label)
+            bs = TN_BATCH // world
+            t1 = time.time()
+            with mock.patch.object(launch, "TRAIN_MODULE", "chip_smoke"):
+                rcs = launch.main(["-c", EXPT_02, "--spawn", str(world), "--run-dir", run_dir]
+                                  + common + [f"dist_backend={backend}",
+                                              f"train.batch_size={bs}", f"eval.batch_size={bs}"])
+            check(rcs == [0] * world, f"{label}: ranks exited {rcs}")
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(run_dir, f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            runs[label] = dict(ranks=ranks, wall_s=time.time() - t1, run_dir=run_dir)
+        want = flash_launches(AVTH_LAYERS * (DDP_STEPS + 1), AVTH_LAYERS * DDP_STEPS)
+        check(one["launches"] == want, f"ddp one process: launches {one['launches']}, want {want}")
+        counts = {"ddp_one": one["launches"]}
+        for label, run in runs.items():
+            for rank in run["ranks"]:
+                counts[f"{label}_rank{rank['rank']}"] = rank["launches"]
+                check(rank["launches"] == want and rank["loss_count"] == DDP_STEPS
+                      and len(rank["step_ms"]) == DDP_STEPS,
+                      f"{label} rank {rank['rank']}: launches {rank['launches']} over "
+                      f"{rank['loss_count']} steps, want {want}")
+                check(all(np.isfinite(list(rank["losses"].values()))),
+                      f"{label} rank {rank['rank']}: losses {rank['losses']}")
+
+        def ckpt(run_dir):
+            return torch.load(os.path.join(run_dir, CKPT_NAME), map_location="cpu",
+                              weights_only=True)["model"]
+
+        one_ckpt = ckpt(one_dir)
+        one_res = read_results(os.path.join(one_dir, RESULTS_SAVE_DIR))
+        # one rank of NCCL: the same program as one process, bit for bit
+        w1 = runs["ddp_w1_nccl"]
+        w1_ckpt = ckpt(w1["run_dir"])
+        loss_gap = max(abs(w1["ranks"][0]["losses"][k] - v) for k, v in one_losses.items())
+        param_gap = max(float((w1_ckpt[k].float() - v.float()).abs().max())
+                        for k, v in one_ckpt.items())
+        # two ranks of gloo on one card against one process on the global batch
+        w2 = runs["ddp_w2_gloo"]
+        w2_losses = {k: float(np.mean([r["losses"][k] for r in w2["ranks"]]))
+                     for k in one_losses}
+        loss_err = max(abs(w2_losses[k] - v) / max(abs(v), 1e-12) for k, v in one_losses.items())
+        p_one, p_two = one_ckpt[DDP_PARAM].float(), ckpt(w2["run_dir"])[DDP_PARAM].float()
+        param_err = float((p_two - p_one).abs().max() / p_one.abs().max())
+        res = read_results(os.path.join(w2["run_dir"], RESULTS_SAVE_DIR))
+        check(np.array_equal(res["idx"], one_res["idx"]), "ddp: merged eval idx differ")
+        eval_err = {k: scaled_err(torch.from_numpy(res[k]), torch.from_numpy(one_res[k]))
+                    for k in ("logits/action", "loss/cls_action")}
+        log(f"ddp ({card}): expts/02 at {LONG_T} features, {DDP_STEPS} steps of {TN_BATCH} clips "
+            f"and 1 eval batch, each step timed (ms: the second; first in parentheses). One "
+            f"process: {one_step_ms:.2f} ({one_times[0]:.2f}) ms a step, losses "
+            + ", ".join(f"{k} {v:.6f}" for k, v in sorted(one_losses.items()))
+            + f". One NCCL rank: {w1['ranks'][0]['step_ms'][-1]:.2f} "
+            f"({w1['ranks'][0]['step_ms'][0]:.2f}) ms a step; losses "
+            + ("equal bit for bit" if loss_gap == 0 else f"differ by up to {loss_gap:.3g}")
+            + ", checkpoint "
+            + ("equal bit for bit" if param_gap == 0 else f"differs by up to {param_gap:.3g}")
+            + f"; launch to exit {w1['wall_s']:.1f} s. Two gloo ranks on one card ("
+            f"{TN_BATCH // 2} + {TN_BATCH // 2} clips): "
+            + ", ".join(f"{r['step_ms'][-1]:.2f} ({r['step_ms'][0]:.2f})" for r in w2["ranks"])
+            + f" ms a step (rank 0, 1); mean losses max relative error {loss_err:.3g}, "
+            f"{DDP_PARAM} {param_err:.3g} of its max |value|, merged eval "
+            + ", ".join(f"{k} {v:.3g}" for k, v in eval_err.items())
+            + f" (limit {DDP_TOL}); launch to exit {w2['wall_s']:.1f} s; launches a rank "
+            f"{w2['ranks'][0]['launches']}; tree and runs {time.time() - t0:.1f} s")
+        check(loss_err <= DDP_TOL and param_err <= DDP_TOL
+              and all(v <= DDP_TOL for v in eval_err.values()),
+              f"ddp: 2 ranks vs 1 process: losses {loss_err:.3g}, {DDP_PARAM} {param_err:.3g}, "
+              f"eval {eval_err}")
+    return counts, dict(one_step_ms=one_step_ms, w1_step_ms=w1["ranks"][0]["step_ms"][-1],
+                        w2_step_ms=[r["step_ms"][-1] for r in w2["ranks"]], w1_loss_gap=loss_gap,
+                        w1_param_gap=param_gap, w2_loss_rel_err=loss_err,
+                        w2_param_rel_err=param_err, w2_eval_err=eval_err)
+
+
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 1:  # a rank of the ddp phase (avt_tpu_torch.launch's child)
+        ddp_rank_main(sys.argv[1:])
+    else:
+        main()

@@ -560,3 +560,83 @@ def test_cuda_bn_backbone_train_step_saves_and_reloads_running_stats(cuda_device
         assert all(torch.equal(v, want[k]) for k, v in fresh.state_dict().items())
     finally:
         torch.backends.cudnn.allow_tf32 = allow
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_custom_ops_equal_the_launches_they_wrap(cuda_device, dtype):
+    """Each `torch.library` op on its CUDA route is the ctypes launch it
+    wraps, bit for bit, with one launch counted a call; the backward ops and
+    the registered autograd too."""
+    tdt = getattr(torch, dtype)
+    x = _qkv(6, 197, 12, 64, dtype, cuda_device, seed=30)
+    b = torch.randn(3 * 768, generator=torch.Generator().manual_seed(31)).to(cuda_device, tdt)
+    do = _qkv(6, 197, 12, 64, dtype, cuda_device, seed=32)[..., :768].contiguous()
+    for bias in (None, b):
+        _build.reset_launch_counts()
+        out = tfa._packed_op(x, bias, 12, False)
+        dqkv, db = tfa._packed_bwd_op(x, bias, do, 12, True)
+        torch.cuda.synchronize()
+        assert _build.launch_counts[tfa.KERNEL] == _build.launch_counts[tfa.BWD_KERNEL] == 1
+        assert torch.equal(out, tfa._launch(x, bias, 12, False))
+        ref, ref_db = tfa._launch_bwd(x, bias, do, 12, True, with_db=bias is not None)
+        assert torch.equal(dqkv, ref)
+        assert db.numel() == 0 if bias is None else torch.equal(db, ref_db)
+    xg, bg = x.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    tfa.packed_qkv_bias_attention(xg, bg, 12).backward(do)
+    ref, ref_db = tfa._launch_bwd(x, b, do, 12, False, with_db=True)
+    assert torch.equal(xg.grad, ref) and torch.equal(bg.grad, ref_db)
+
+    fx, fw, fb = _fused_inputs(4, 197, 12, dtype, cuda_device, seed=33)
+    got, got_qkv = tfa._fused_op(fx, fw, fb, 12, False)
+    want, want_qkv = tfa._launch_fused(fx, fw, fb, 12, False)
+    assert torch.equal(got, want) and torch.equal(got_qkv, want_qkv)
+
+    q, k, v, dout = (_heads(4, 256, 4, 512, dtype, cuda_device, seed) for seed in range(34, 38))
+    _build.reset_launch_counts()
+    out, lse = tfa._flash_op(q, k, v, True, True)
+    grads = tfa._flash_bwd_op(q, k, v, dout, out, lse, True)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[tfa.FLASH_KERNEL] == _build.launch_counts[tfa.FLASH_BWD_KERNEL] == 1
+    ref, ref_lse = tfa._launch_flash(q, k, v, True, want_lse=True)
+    assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
+    refs = tfa._launch_flash_bwd(q, k, v, dout, ref_lse, tfa._delta(dout, ref), True)
+    assert all(torch.equal(a, r) for a, r in zip(grads, refs))
+    no_lse, empty = tfa._flash_op(q, k, v, True, False)
+    assert torch.equal(no_lse, ref) and empty.numel() == 0
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    tfa.flash_attention(qg, kg, vg, causal=True).backward(dout)
+    assert all(torch.equal(t.grad, r) for t, r in zip((qg, kg, vg), refs))
+
+
+@pytest.mark.cuda
+def test_cuda_exported_program_launches_the_packed_kernel(cuda_device, tmp_path):
+    """A small ViT + AVT-h exported for CUDA names the packed op; loaded back,
+    one forward launches the kernel once a block and equals the eager
+    forward."""
+    from avt_tpu_torch.models import AVTh, AVTModel, IdentityAgg, LinearClassifier, ViT
+    from avt_tpu_torch.serve import (batch_predict, export_eval_forward, load_exported,
+                                     make_eval_forward, save_exported)
+
+    torch.manual_seed(0)
+    model = AVTModel(
+        backbone=ViT(img_size=128, patch_size=16, embed_dim=128, depth=2, num_heads=2,
+                     device=cuda_device),
+        temporal_aggregator=IdentityAgg(in_features=128),
+        future_predictor=AVTh(in_features=128, inter_dim=128, n_layer=1, n_head=2,
+                              output_len=1, avg_last_n=1, return_past_too=True,
+                              device=cuda_device),
+        temporal_aggregator_after_future_pred=IdentityAgg(in_features=128),
+        classifiers={"action": LinearClassifier(128, 10, device=cuda_device)},
+        num_classes=(("action", 10),), backbone_dim=128, dropout=0.0).eval()
+    video = torch.randn(2, 1, 3, 2, 128, 128, device=cuda_device)
+    prog = export_eval_forward(model, tuple(video.shape), platforms=("cuda",))
+    path = tmp_path / "small.pt2"
+    save_exported(prog, str(path))
+    loaded = load_exported(str(path))
+    _build.reset_launch_counts()
+    got = batch_predict(loaded, video.cpu().numpy())["logits/action"]
+    torch.cuda.synchronize()
+    assert _build.launch_counts[tfa.KERNEL] == 2
+    want = make_eval_forward(model)(video)["logits/action"].float().cpu().numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)

@@ -519,10 +519,11 @@ def test_expt05_cli_evaluates_a_rulstm_file_on_the_cpu(tmp_path, monkeypatch):
 
 
 def test_main_refuses_a_process_group(tree, tmp_path, monkeypatch):
-    cfg, _ = _compose(tree + SMALL)
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="Queue 1.9"):
+    """A process group that asks for tensor parallelism (parallel.model_size
+    > 1) is refused before any data is read: the port shards the batch
+    only (data parallelism over processes is tests/test_torch_ddp.py's)."""
+    cfg, _ = _compose(tree + SMALL + ["parallel.model_size=2"])
+    with pytest.raises(NotImplementedError, match="Queue 1.9b"):
         train_net.main(cfg, str(tmp_path), device="cpu")
 
 
