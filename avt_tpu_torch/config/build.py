@@ -179,10 +179,15 @@ def _build_dense_sampler(dense_cfg: Dict, root) -> Any:
 @functools.lru_cache(maxsize=None)
 def _video_len_cached(abs_path: str) -> float:
     """A video's duration, probed once a process (a dense-sampled dataset
-    may be built twice in a run)."""
-    from avt_tpu_torch.data.video_decoder import get_video_info
+    may be built twice in a run): by the native decoder, or by OpenCV where
+    the decoder does not build (the DefaultReader's rule)."""
+    from avt_tpu_torch.data.video_decoder import get_video_info, native_decoder_error
 
-    return get_video_info(abs_path)["len"]
+    if native_decoder_error() is None:
+        return get_video_info(abs_path)["len"]
+    from avt_tpu_torch.data.readers import OpenCVVideoReader
+
+    return OpenCVVideoReader().duration(abs_path)
 
 
 def build_all_datasets(cfg: Dict) -> Tuple[list, Dict[str, Any]]:

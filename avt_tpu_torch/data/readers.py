@@ -208,18 +208,36 @@ class NpyFeatsReader(FeatsReaderBase):
         return row
 
     def _read_root(self, root_idx: int, video_stem: str, frames: np.ndarray) -> np.ndarray:
-        """`read_window` over one root. When every frame of the window is in
-        the shard and none is a NaN row, no search is needed and the rows
-        come in one gather (a window of 'normal' reads at 30 fps holds
-        thousands of frames); otherwise the frame-by-frame search runs.
-        Both give the same array."""
+        """`read_window` over one root, its backward search done for every
+        frame at once on one read of the window's rows (a window of 'normal'
+        reads at 30 fps holds thousands of frames, and a store packed at a
+        stride has most of them missing): the nearest present row at most
+        search_radius - 1 frames back, zeros where there is none. The same
+        array as `read_window`, and the same warnings and error."""
         arr = self._get_arr(root_idx, video_stem)
-        if arr is not None and frames.min() >= 1 and frames.max() <= arr.shape[0]:
-            rows = np.asarray(arr[frames - 1])
-            if not np.isnan(rows).all(axis=-1).any():
-                return rows.astype(np.float32)
-        return self.read_window(video_stem, frames,
-                                fetch=lambda s, f: self._fetch_root(root_idx, s, f))
+        lo = max(1, int(frames.min()) - self.search_radius + 1)
+        hi = min(arr.shape[0], int(frames.max())) if arr is not None else 0
+        if hi < lo:  # no row of the shard in reach
+            raise ValueError(f"No features found for {video_stem} at {frames}")
+        block = np.asarray(arr[lo - 1:hi])
+        present = ~np.isnan(block).all(axis=-1)  # NaN rows mark missing frames
+        last = np.maximum.accumulate(np.where(present, np.arange(lo, hi + 1), 0))
+        top = np.minimum(frames, hi)  # the last present id at or before each frame
+        cand = np.where(top >= lo, last[np.clip(top - lo, 0, None)], 0)
+        found = np.where(cand >= frames - self.search_radius + 1, cand, 0)  # 0: none
+        hit = found > 0
+        if not hit.any():
+            raise ValueError(f"No features found for {video_stem} at {frames}")
+        if self.warn_if_using_closeby_frame:
+            for want, got in zip(frames[hit], found[hit]):
+                if got != want:
+                    LOG.warning("Using frame %d instead of %d for %s", int(got), int(want),
+                                video_stem)
+        if hit.all():
+            return block[found - lo].astype(np.float32)
+        out = np.zeros((len(frames),) + block.shape[1:], dtype=np.float32)
+        out[hit] = block[found[hit] - lo]
+        return out
 
     def __call__(self, video_path, start_sec, end_sec, fps, row):
         frames = self.frame_ids_for_window(start_sec, end_sec, fps)
@@ -272,6 +290,15 @@ class OpenCVVideoReader(Reader):
         cap = self._cv2.VideoCapture(str(video_path))
         try:
             return float(cap.get(self._cv2.CAP_PROP_FPS))
+        finally:
+            cap.release()
+
+    def duration(self, video_path) -> float:
+        """Seconds of video: the frame count over the frame rate."""
+        cap = self._cv2.VideoCapture(str(video_path))
+        try:
+            fps = float(cap.get(self._cv2.CAP_PROP_FPS))
+            return float(cap.get(self._cv2.CAP_PROP_FRAME_COUNT)) / fps if fps > 0 else 0.0
         finally:
             cap.release()
 

@@ -17,7 +17,11 @@ resizes to (scale_h, scale_w) instead, each side by its own factor. JAX's
 train path refuses that size (it resizes the smaller side only), so that
 form is the port's own, with the same resampling.
 `fold_subclips` cuts the preprocessed clip into subclips on the device.
-`random_resized_crop` is not ported yet (no shipped pipeline uses it).
+The reference's transform library also exports a RandomResizedCrop, a
+temporal center crop and UnfoldClips, which no shipped pipeline wires in:
+`random_resized_crop` (over `resized_crop_bilinear_torch`, a crop box given
+at run time), `temporal_center_crop` and `unfold_clips` are their
+counterparts, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -71,6 +75,97 @@ def resize_bilinear_torch(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tens
     returns float32 for any input type."""
     x = _resize_axis_torch(x, out_h, x.dim() - 3)
     return _resize_axis_torch(x, out_w, x.dim() - 2)
+
+
+def _resize_axis_dynamic(x: torch.Tensor, start, length, out_size: int,
+                         axis: int) -> torch.Tensor:
+    """One bilinear pass over the window [start, start + length) of `axis`,
+    the window given at run time: the taps of `_interp_taps` (src = (i +
+    0.5) * length / out - 0.5, clamped at 0, the upper tap clamped inside
+    the window), with the scale an f32 division, as JAX computes it for a
+    traced box."""
+    dev = x.device
+    start = torch.as_tensor(start, dtype=torch.int64, device=dev)
+    length = torch.as_tensor(length, dtype=torch.int64, device=dev)
+    scale = length.to(torch.float32) / torch.tensor(out_size, dtype=torch.float32, device=dev)
+    src = (torch.arange(out_size, dtype=torch.float32, device=dev) + 0.5) * scale - 0.5
+    src = torch.clamp_min(src, 0.0)
+    lo = torch.floor(src)
+    frac = src - lo
+    lo_i = lo.to(torch.int64)
+    hi_i = torch.minimum(lo_i + 1, length - 1)
+    lo_v = x.index_select(axis, start + lo_i).float()
+    hi_v = x.index_select(axis, start + hi_i).float()
+    shape = [1] * x.dim()
+    shape[axis] = out_size
+    f = frac.reshape(shape)
+    return lo_v * (1.0 - f) + hi_v * f
+
+
+def resized_crop_bilinear_torch(x: torch.Tensor, i, j, h, w, out_h: int,
+                                out_w: int) -> torch.Tensor:
+    """Crop the (i, j, h, w) box of (..., H, W, C) and resize it bilinearly
+    to (out_h, out_w): torchvision's `resized_crop` (crop, then
+    F.interpolate bilinear without antialiasing), the box given as ints or
+    0-d tensors. Taps outside the box clamp to its edge, as torch's do on the
+    cropped tensor. Returns float32."""
+    x = _resize_axis_dynamic(x, i, h, out_h, x.dim() - 3)
+    return _resize_axis_dynamic(x, j, w, out_w, x.dim() - 2)
+
+
+def random_resized_crop_box(H: int, W: int, area_frac: torch.Tensor, log_ratio: torch.Tensor,
+                            u_i, u_j, ratio: Tuple[float, float] = (3.0 / 4.0, 4.0 / 3.0)):
+    """The box (i, j, h, w) of torchvision's RandomResizedCrop.get_params
+    from its draws: 10 attempts of area `area_frac` * H * W and aspect
+    exp(`log_ratio`) ((10,) f32 each), the first that fits wins, placed at
+    floor(u * (room + 1)) for the uniforms u_i and u_j; when none fits, the
+    whole image clamped to the ratio range (at least a pixel), centered.
+    Computed in f32, as the JAX package computes it."""
+    area_frac = torch.as_tensor(area_frac, dtype=torch.float32)
+    log_ratio = torch.as_tensor(log_ratio, dtype=torch.float32)
+    target_area = area_frac * float(H * W)
+    ar = torch.exp(log_ratio)
+    ws = torch.round(torch.sqrt(target_area * ar)).to(torch.int32)
+    hs = torch.round(torch.sqrt(target_area / ar)).to(torch.int32)
+    valid = (ws > 0) & (ws <= W) & (hs > 0) & (hs <= H)
+    in_ratio = W / H
+    if in_ratio < ratio[0]:
+        fw, fh = W, max(1, int(round(W / ratio[0])))
+    elif in_ratio > ratio[1]:
+        fw, fh = max(1, int(round(H * ratio[1]))), H
+    else:
+        fw, fh = W, H
+    if not bool(valid.any()):
+        h, w = fh, fw
+        return (H - h) // 2, (W - w) // 2, h, w
+    pick = int(torch.nonzero(valid)[0, 0])
+    h, w = int(hs[pick]), int(ws[pick])
+
+    def offset(u, room):
+        u = torch.as_tensor(u, dtype=torch.float32)
+        return int(torch.clamp(torch.floor(u * float(room + 1)), 0, room))
+
+    return offset(u_i, H - h), offset(u_j, W - w), h, w
+
+
+def random_resized_crop(x: torch.Tensor, out_size: Union[int, Tuple[int, int]],
+                        scale: Tuple[float, float] = (0.08, 1.0),
+                        ratio: Tuple[float, float] = (3.0 / 4.0, 4.0 / 3.0),
+                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """torchvision's RandomResizedCrop of (..., H, W, C), one box a call,
+    so that a (T, H, W, C) clip is cropped the same in every frame. The
+    draws come from `generator` (a CPU generator) as area ~ U(scale),
+    log aspect ~ U(log ratio) and two offsets ~ U[0, 1); the distribution
+    is torchvision's, the draws are not JAX's. Returns float32."""
+    out_h, out_w = ((int(out_size), int(out_size)) if isinstance(out_size, int)
+                    else (int(out_size[0]), int(out_size[1])))
+    H, W = x.shape[-3], x.shape[-2]
+    u = torch.rand(22, generator=generator, dtype=torch.float32)
+    area_frac = scale[0] + (scale[1] - scale[0]) * u[:10]
+    lo, hi = float(np.log(ratio[0])), float(np.log(ratio[1]))
+    log_ratio = lo + (hi - lo) * u[10:20]
+    i, j, h, w = random_resized_crop_box(H, W, area_frac, log_ratio, u[20], u[21], ratio)
+    return resized_crop_bilinear_torch(x, i, j, h, w, out_h, out_w)
 
 
 def _scale_weights(in_size: int, out_size: int, scale: torch.Tensor,
@@ -302,3 +397,26 @@ def fold_subclips(video: torch.Tensor, num_frames: int, stride: int) -> torch.Te
                          f"T={T} exactly")
     return torch.stack([video[:, :, i:i + num_frames]
                         for i in range(0, T - num_frames + 1, stride)], dim=1)
+
+
+def temporal_center_crop(video: torch.Tensor, clip_len: int) -> torch.Tensor:
+    """The center clip_len frames of (..., 3, T, H, W), from T // 2 -
+    clip_len // 2 (the reference's start, not (T - clip_len) // 2); a clip
+    no longer than clip_len comes back whole."""
+    T = video.shape[-3]
+    if T <= clip_len:
+        return video
+    start = T // 2 - clip_len // 2
+    return video[..., start:start + clip_len, :, :]
+
+
+def unfold_clips(video: torch.Tensor, clip_len: int) -> torch.Tensor:
+    """(3, T, H, W) -> (#clips, 3, clip_len, H, W), stepping by clip_len
+    frames: the reference's UnfoldClips passes clip_len as the step and
+    never its computed overlap step, so the port takes no overlap; a clip
+    shorter than clip_len comes back whole as one clip."""
+    T = video.shape[1]
+    if T < clip_len:
+        return video[None]
+    return torch.stack([video[:, i:i + clip_len]
+                        for i in range(0, T - clip_len + 1, clip_len)], dim=0)

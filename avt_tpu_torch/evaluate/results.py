@@ -8,7 +8,9 @@ uncompressed `np.savez` file, `<output_dir>/<rank>/<n>.npz` with n counting
 from 000000, uids as S64 as in the H5 file. `read_results` is the interface
 the rest of the code uses, and it merges as JAX's does: the files of every
 rank, each key a dense [max_idx + 1, ...] array, multiple predictions of
-one idx averaged.
+one idx averaged. `read_all_results`, `get_epoch_from_resdir` and
+`get_logits_from_results` are the readers of the offline analysis
+(evaluate/analysis.py), on the same files.
 """
 from __future__ import annotations
 
@@ -95,3 +97,36 @@ def read_results(resdir: str) -> Dict[str, np.ndarray]:
             arr[idx] = np.mean(vals, axis=0) if numeric else vals[0]
         final_res[key] = arr
     return final_res
+
+
+def read_all_results(run_dir: str, prefix: str = "results") -> Dict[str, Dict]:
+    """Every results<suffix>/ directory under run_dir, read by `read_results`
+    and keyed by its name."""
+    all_res = {}
+    for resdir in glob.glob(osp.join(run_dir, prefix + "*")):
+        all_res[osp.basename(resdir)] = read_results(resdir)
+    return all_res
+
+
+def get_epoch_from_resdir(resdir: str):
+    """The (fractional) epoch the stored results were computed at, the
+    least over the first rank's rows, or None when none was stored: it
+    tells a finished eval from a stale or partial one."""
+    data = next(gen_load_resfiles(resdir))
+    if "epoch" not in data:
+        return None
+    return float(np.min(data["epoch"]))
+
+
+def get_logits_from_results(results: Dict[str, np.ndarray]):
+    """The logits of a `read_results` dict: the one 'logits/<task>' entry
+    (or a bare 'logits'), else a dict of every logits key when the run
+    stored several tasks."""
+    if "logits" in results:
+        return results["logits"]
+    keys = [k for k in results if k.startswith("logits/")]
+    if not keys:
+        raise KeyError(f"no logits keys in results: {sorted(results)}")
+    if len(keys) == 1:
+        return results[keys[0]]
+    return {k: results[k] for k in keys}

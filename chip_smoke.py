@@ -218,6 +218,30 @@
    equal to the process bit for bit (else the gap printed); 2 ranks' mean
    losses, a parameter of the checkpoint rank 0 wrote and the merged eval
    results within 1e-4 of the process; each way's step ms.
+19. featext: the tools' workflow in a scratch working directory
+   (`featext_phase`): a synthetic EK100 tree of 4 fps mp4v videos with 256
+   s before every action and a seeded timm ViT-B/16 file;
+   `tools/torch_extract_features.py -c expts/01_ek100_avt.txt` in this
+   process (ViT-B/16 f32 at 224 with the file's weights, the mean
+   aggregator's temp_agg over one frame a dense clip every 0.25 s, batches
+   of 64): 12 packed forward launches an eval batch and nothing else, the
+   first and last batches' features within 1e-3 of their scale of plain
+   attention's, every packed row read back bit for bit through
+   NpyFeatsReader, a profiled extraction batch; expts/02 through `train_net.cli` on the
+   768-d store at 256 observed features (4 steps of 64, 2 eval batches): 6
+   + 6 flash launches a step, 6 an eval batch; on its results the EPIC
+   metrics, a self-fusion at (0.5, 0.5) equal to the run, the EK100
+   submission zip with every eval uid and a discarded one;
+   `tools/torch_compute_centroids.py` (k=64) on the store, no launches;
+   `tools/torch_viz_attention.py`'s maps of expts/01's model at
+   output_len 2 (12 packed launches, rows summing to 1 within 1e-5, the
+   causal block's upper triangle 0, within 1e-3 of plain attention's maps,
+   the figures when matplotlib is there). Before it, phase 2 holds the
+   packed f32 forward against its plain version at this phase's batches
+   (N=64, the last extraction batch's 48, and 60 = 10 frames x 6 views).
+   Prints the extraction's clips/s and decode wait, the packed kernel's
+   share of a batch, pack s and the store's MB, the loop's ms a step and
+   data wait, the analysis s, beside the card's name and power limit.
 Only phase 4b launches the fused kernel. Prints one JSON line of kernel results, then {"ok": true, "device": ...}.
 Exits non-zero on any failure, and without a CUDA device.
 """
@@ -1041,6 +1065,10 @@ def main():
     check_attention(TNR_BATCH * TNR_FRAMES, 197, 12, 64, torch.float32, False, seed=20)
     check_attention(TNR_BATCH * TNR_FRAMES * 6, 197, 12, 64, torch.float32, False, seed=20)
     check_attention_bwd(TNR_BATCH * TNR_FRAMES, 197, 12, 64, torch.float32, False, True, seed=21)
+    # and at the featext phase's: an extraction batch, the last (partial)
+    # one, and viz_attention's one clip of 10 frames x 6 views
+    featext_errs = {f"N{N}": check_attention(N, 197, 12, 64, torch.float32, False, seed=22)
+                    for N in FX_ATTENTION_N}
     f32_fwd = {N: time_attention(N, 197, 12, 64, torch.float32)
                for N in (TNR_BATCH * TNR_FRAMES, TNR_BATCH * TNR_FRAMES * 6)}
     f32_bwd = time_attention_bwd(TNR_BATCH * TNR_FRAMES, 197, 12, 64, torch.float32)
@@ -1114,12 +1142,16 @@ def main():
     # 18. data-parallel training: expts/02 as 1 NCCL rank and 2 gloo ranks
     ddp_launches, ddp_summary = ddp_phase(card)
 
+    # 19. the tools: raw video -> a packed store -> expts/02 on it -> analysis
+    featext_launches, featext_summary = featext_phase(card)
+
     paths = {"serve": serve_launches, "train": train_launches, "trainer": trainer_launches,
              "train_d32": d32_launches,
              **feat_launches, "feature_d1024": d1024_launches, "train_fused": fused_launches,
              "ek55_adam": ek55_launches, **tn_launches, **tnr_launches, **rulstm_launches,
              **zoo_launches, **rollout_launches, **quant_launches, **conv_launches,
-             **bni_launches, **ssl_launches, "export": export_launches, **ddp_launches}
+             **bni_launches, **ssl_launches, "export": export_launches, **ddp_launches,
+             **featext_launches}
     for path, counts in paths.items():
         if path != "train_fused":
             check(counts["fused_qkv_attention_fwd"] == 0, f"a fused launch on {path}: {counts}")
@@ -1143,7 +1175,9 @@ def main():
              f32_registers=registers.get("short_attn_fwd_tf32<64>"),
              f32_turns=f32_turns and {label: {k: v for k, v in res.items() if k.startswith("fwd")}
                                       for label, res in f32_turns.items()},
-             export=export_summary),
+             export=export_summary,
+             featext={**{k: v for k, v in featext_summary["featext"].items() if k != "groups"},
+                      "kernel_checks": featext_errs}),
         dict(name="short_attention_bwd", route=bwd_spec["route"], source=bwd_spec["source"],
              replaces=bwd_spec["replaces"], launches=train_launches["short_attention_bwd"],
              launches_by_path=by_path("short_attention_bwd"),
@@ -1183,7 +1217,7 @@ def main():
             ssl_checks={k: v[side] for k, v in ssl_errs.items()},
             rollout=rollout_summary,
             ssl_train_step={k: v for k, v in ssl_summary.items() if k != "groups"},
-            ddp=ddp_summary))
+            ddp=ddp_summary, featext_train=featext_summary["featext_train"]))
     spec = _build.KERNELS["fused_qkv_attention_fwd"]
     kernels.append(dict(
         name="fused_qkv_attention_fwd", route=spec["route"], source=spec["source"],
@@ -2234,6 +2268,14 @@ def run_train_net(argv, crash_epoch=None):
     when its loop starts that epoch. Returns (the cli's metrics, a dict of
     what was recorded)."""
     from avt_tpu_torch import train_net
+
+    return record_train_net(lambda: train_net.cli(argv), crash_epoch)
+
+
+def record_train_net(call, crash_epoch=None):
+    """call() (a run of `train_net.main`, through the cli or a tool) recorded
+    as `run_train_net` records it. Returns (call's result, the record)."""
+    from avt_tpu_torch import train_net
     from avt_tpu_torch.evaluate import evaluator as evaluator_module
 
     rec = {"waits": {"train": [], "eval": []}, "rows": {}, "loggers": [], "epochs": [],
@@ -2288,7 +2330,7 @@ def run_train_net(argv, crash_epoch=None):
             mock.patch.object(loop_module, "train_one_epoch", counted_epoch), \
             mock.patch.object(evaluator_module, "final_accuracies_from_results",
                               recorded_finals):
-        metrics = train_net.cli(argv)
+        metrics = call()
     torch.cuda.synchronize()
     rec["wall_s"] = time.time() - t0
     rec["launches"] = dict(_build.launch_counts)
@@ -3826,6 +3868,325 @@ def ddp_phase(card):
                         w2_step_ms=[r["step_ms"][-1] for r in w2["ranks"]], w1_loss_gap=loss_gap,
                         w1_param_gap=param_gap, w2_loss_rel_err=loss_err,
                         w2_param_rel_err=param_err, w2_eval_err=eval_err)
+
+
+# ------------------------------------------------------------------ featext
+# raw video -> expts/01's ViT-B/16 features (f32, the mean over each clip's
+# one frame) packed into an npy store -> expts/02 trained on it at 256
+# observed features -> EPIC metrics, a self-fusion and the submission zip;
+# k-means on the store; attention maps of expts/01's model. 2 train videos
+# and 1 eval video of 128 actions a second from 258 s on (256 observed
+# seconds before each), 4 fps so that OpenCV decodes the tree quickly:
+# 256 train rows (4 batches of 64), 128 eval rows (2 batches), and one more
+# eval action 0.5 s in, which the anticipation shift discards
+FX_TRAIN_VIDEOS, FX_EVAL_VIDEOS, FX_ACTIONS, FX_FIRST_S = 2, 1, 128, LONG_T + 2
+FX_VIDEO = (456, 256, 4)  # 256 px high, as EK100's videos_extension_ht256px
+FX_STRIDE = 0.25  # s: store keys 7-8 frames apart at 30 fps, inside the readers' search of 10
+FX_EVAL_BATCH, FX_K, VIT_DIM = 64, 64, 768
+FX_STEPS = FX_TRAIN_VIDEOS * FX_ACTIONS // TN_BATCH
+FX_EVAL_BATCHES = -(-FX_EVAL_VIDEOS * FX_ACTIONS // TN_BATCH)
+FX_DISCARDED_UID = 10 ** 6
+# every video's dense clips (write_ek100_tree's videos end 2 s after the last action)
+FX_CLIPS = round((FX_TRAIN_VIDEOS + FX_EVAL_VIDEOS) * (FX_FIRST_S + FX_ACTIONS + 2) / FX_STRIDE)
+FX_VIZ_VIEWS = 6  # expts/01's eval views: 3 crops x 2 flips
+# the packed forward's batches on the phase's paths, each checked in phase 2:
+# a full extraction batch, the last one, viz_attention's clip of 10 frames
+FX_ATTENTION_N = (FX_EVAL_BATCH, FX_CLIPS % FX_EVAL_BATCH, TNR_FRAMES * FX_VIZ_VIEWS)
+FX_E2E_TOL = 1e-3  # kernels vs plain attention, of the output's max |value|
+
+
+def featext_phase(card):
+    """The feature-extraction workflow of the port's tools at full width, in
+    a scratch working directory: a synthetic EK100 tree of raw videos and a
+    seeded timm ViT-B/16 file; `tools/torch_extract_features.py -c
+    expts/01_ek100_avt.txt` in this process (ViT-B/16 in f32 at 224, the
+    file's weights by init_from_model, the mean aggregator's `temp_agg`,
+    one frame a dense clip every FX_STRIDE s over every video, one view,
+    extraction batches of FX_EVAL_BATCH): 12 packed forward launches an
+    eval batch and nothing else, the first and last batches' features
+    against plain attention (within FX_E2E_TOL of their scale), every packed
+    row read back through NpyFeatsReader bit for bit, and a profile of one
+    extraction batch;
+    expts/02 through `train_net.cli` on the store (768-d features, 256
+    observed, 4 steps of 64 and 2 eval batches): 6 flash forward + 6
+    backward launches a step, 6 an eval batch; on its eval results the
+    EPIC metrics, the run fused with itself at (0.5, 0.5) equal to its
+    scores bit for bit, and the EK100 submission zip listing every eval uid
+    and the discarded one; `tools/torch_compute_centroids.py` (k=FX_K) on
+    the store, no launches; `tools/torch_viz_attention.py`'s device part on
+    one clip with expts/01's model at output_len 2 (rows summing to 1, the
+    causal block's upper triangle 0, the maps within FX_E2E_TOL of plain
+    attention's; the figures when matplotlib is there).
+    Prints each stage's time beside the card's name and power limit.
+    Returns (the launch counts of each path, a summary)."""
+    import importlib.util
+    import zipfile
+
+    from avt_tpu_torch import train_net
+    from avt_tpu_torch.config import Composer, parse_override, parse_overrides_file
+    from avt_tpu_torch.config.build import build_dataset
+    from avt_tpu_torch.evaluate import analysis, softmax_np
+    from avt_tpu_torch.models import import_torch, load_centroids
+
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def load_tool(name):  # by its path: tools/ also holds the JAX package's tools
+        spec = importlib.util.spec_from_file_location(name, os.path.join(here, "tools",
+                                                                         f"{name}.py"))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        return module
+
+    torch_compute_centroids = load_tool("torch_compute_centroids")
+    txf = load_tool("torch_extract_features")
+    torch_viz_attention = load_tool("torch_viz_attention")
+
+    expt01, expt02 = os.path.join(here, EXPT_01), os.path.join(here, EXPT_02)
+    counts, summary, cwd = {}, {}, os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)  # ${cwd} of expts/01's timm path
+        try:
+            t0 = time.time()
+            root = os.path.join(tmp, "tree")
+            tree = write_ek100_tree(root, train_videos=FX_TRAIN_VIDEOS,
+                                    eval_videos=FX_EVAL_VIDEOS, actions_per_video=FX_ACTIONS,
+                                    first_action_s=FX_FIRST_S, seed=47, video=FX_VIDEO)
+            rulstm = os.path.join(root, "annotations", "rulstm", "ek100")
+            with open(os.path.join(rulstm, "validation.csv"), "a", newline="") as f:
+                csv.writer(f).writerow([FX_DISCARDED_UID, "P02_01", 15, 30, 0, 0, 0])
+            write_timm_vit(os.path.join(tmp, TIMM_IN21K), seed=48)
+            log(f"featext: synthetic EK100 tree ({FX_TRAIN_VIDEOS} + {FX_EVAL_VIDEOS} mp4v videos "
+                f"of {FX_VIDEO[0]}x{FX_VIDEO[1]} at {FX_VIDEO[2]} fps, "
+                f"{FX_FIRST_S + FX_ACTIONS + 2} s) and the timm file written in "
+                f"{time.time() - t0:.1f} s")
+            workers = [f"data_train.workers={TN_WORKERS}", f"data_eval.workers={TN_WORKERS}"]
+
+            # 1. extraction through the tool, in this process ---------------
+            run_dir, store = os.path.join(tmp, "featext"), os.path.join(tmp, "store")
+            argv = (["-c", expt01, "--run-dir", run_dir, "--out", store, "--stride",
+                     str(FX_STRIDE), "--clip-len", "1.0", "--formats", "npy", "--no-verify"]
+                    + tree + workers
+                    + ["model/temporal_aggregator=mean", "data_eval.num_frames=1",
+                       "data_eval.eval_num_crops=1", "data_eval.eval_flip_crops=false",
+                       f"eval.batch_size={FX_EVAL_BATCH}",
+                       f"dataset_eval.annotation_path=[{rulstm}/training.csv, "
+                       f"{rulstm}/validation.csv]"])
+            captured, pack_s = {}, []
+            real_make_eval, real_pack = train_net.make_eval_step, txf.pack
+
+            def recorded_make_eval(*args, **kwargs):
+                step = real_make_eval(*args, **kwargs)
+
+                def recording(batch):  # the run's first and last batches
+                    captured.setdefault("first", (step, batch))
+                    captured["last"] = (step, batch)
+                    return step(batch)
+
+                return recording
+
+            def timed_pack(*args, **kwargs):
+                t1 = time.time()
+                out = real_pack(*args, **kwargs)
+                pack_s.append(time.time() - t1)
+                return out
+
+            with mock.patch.object(train_net, "make_eval_step", recorded_make_eval), \
+                    mock.patch.object(txf, "pack", timed_pack):
+                stats, rec = record_train_net(lambda: txf.main(argv))
+            counts["featext"] = rec["launches"]
+            n_batches = len(rec["waits"]["eval"])
+            want = {**{n: 0 for n in _build.KERNELS},
+                    "short_attention_fwd": VIT_BLOCKS * n_batches}
+            check(rec["launches"] == want and n_batches == -(-rec["rows"]["eval"]
+                                                             // FX_EVAL_BATCH),
+                  f"featext: launches {rec['launches']} over {n_batches} batches, want {want}")
+            index = txf.read_index(os.path.join(run_dir, txf.INDEX_NAME))
+            check(stats["rows"] == len(index) == rec["rows"]["eval"] == FX_CLIPS
+                  and stats["skipped"] == 0 and stats["videos"] == FX_TRAIN_VIDEOS + FX_EVAL_VIDEOS,
+                  f"featext: packed {stats}, index {len(index)}, rows {rec['rows']}, want "
+                  f"{FX_CLIPS}")
+            # the first and last batches' features, kernels vs plain attention
+            e2e = {}
+            for name, (step, batch) in captured.items():
+                n = batch["video"].shape[0]
+                got = step(batch)["temp_agg"]
+                with mock.patch.object(fa, "packed_qkv_bias_attention", plain_bias_attention):
+                    want_feats = step(batch)["temp_agg"]
+                scale = want_feats.abs().max().item()
+                e2e[f"{name}_N{n}"] = diff = (got - want_feats).abs().max().item()
+                check(n in FX_ATTENTION_N and diff <= FX_E2E_TOL * scale,
+                      f"featext: the {name} batch of {n} clips, kernels vs plain attention "
+                      f"differ by {diff} (scale {scale}; kernel checked at N {FX_ATTENTION_N})")
+                log(f"featext: the {name} extraction batch ({n} clips), temp_agg kernels vs "
+                    f"plain attention: max |diff| {diff:.3g} of scale {scale:.3g} (limit "
+                    f"{FX_E2E_TOL} of the scale)")
+            t1 = time.time()
+            n_read = txf.verify_roundtrip(os.path.join(run_dir, txf.RESULTS_DIR), index, store,
+                                          endpoint="temp_agg", n_check=None)
+            verify_s = time.time() - t1
+            check(n_read == len(index), f"featext: {n_read} readbacks of {len(index)} rows")
+            npys = sorted(os.path.join(store, "npy", f) for f in os.listdir(
+                os.path.join(store, "npy")))
+            store_mb = sum(os.path.getsize(f) for f in npys) / 1e6
+            step, batch = captured["first"]
+            busy, groups, wall = profile_run(lambda: step(batch), "extraction batch, "
+                                             f"{FX_EVAL_BATCH} clips x 1 frame, ViT-B/16 f32")
+            packed = groups.get("attention kernel", 0.0)
+            captured.clear()
+            del step, batch
+            eval_wait = rec["waits"]["eval"]
+            ext_s = rec["eval_s"][0]
+            summary["featext"] = dict(
+                clips=len(index), batches=n_batches, extract_s=ext_s,
+                clips_per_s=len(index) / ext_s, decode_ms=1e3 * float(np.median(eval_wait)),
+                batch_wall_ms=wall, batch_busy_ms=busy, packed_ms=packed,
+                packed_share=packed / busy, pack_s=pack_s[0], verify_s=verify_s,
+                store_mb=store_mb, groups=groups, kernel_vs_plain=e2e)
+            log(f"featext ({card}): expts/01's ViT-B/16 f32 over {len(index)} dense clips "
+                f"(every {FX_STRIDE} s, 1 frame, 1 view) in {n_batches} batches of "
+                f"{FX_EVAL_BATCH}: {ext_s:.2f} s, {len(index) / ext_s:.2f} clips/s = "
+                f"{len(index) / ext_s:.2f} ViT frames/s; decode wait "
+                f"{1e3 * np.median(eval_wait):.2f} ms a batch (median of {len(eval_wait)}, max "
+                f"{1e3 * max(eval_wait):.2f}); a profiled batch {wall:.2f} ms wall, {busy:.2f} ms "
+                f"busy, the packed f32 kernel {packed:.2f} ms ({100 * packed / busy:.1f}% of "
+                f"device time); pack {pack_s[0]:.2f} s, {store_mb:.1f} MB of npy store "
+                f"({stats['videos']} videos); every row read back bit for bit in "
+                f"{verify_s:.2f} s; launches {rec['launches']}")
+
+            # 2. expts/02 trained on the store at 256 features ---------------
+            reader = ("{_target_: avt_tpu.data.NpyFeatsReader, root: " + store
+                      + "/npy/, read_type: normal, warn_if_using_closeby_frame: false}")
+            overrides = (tree[:4] + workers + long_context(LONG_T)
+                         + [f"model.backbone_dim={VIT_DIM}", "train.num_epochs=1",
+                            "~dataset_train.reader_fn", "~dataset_eval.reader_fn",
+                            f"+dataset_train.reader_fn={reader}",
+                            f"+dataset_eval.reader_fn={reader}"])
+            train_dir = os.path.join(tmp, "train")
+            (metric,), rec2 = run_train_net(["--config-file", expt02, "--run-dir", train_dir]
+                                            + overrides)
+            counts["featext_train"] = rec2["launches"]
+            want = flash_launches(AVTH_LAYERS * (FX_STEPS + FX_EVAL_BATCHES),
+                                  AVTH_LAYERS * FX_STEPS)
+            check(rec2["launches"] == want,
+                  f"featext_train: launches {rec2['launches']}, want {want}")
+            meters = rec2["loggers"][0].meters
+            losses = {k: m.global_avg for k, m in meters.items() if k.startswith("loss")}
+            check(meters["loss"].count == FX_STEPS and all(np.isfinite(list(losses.values())))
+                  and np.isfinite(metric) and rec2["rows"] == {
+                      "train": FX_TRAIN_VIDEOS * FX_ACTIONS, "eval": FX_EVAL_VIDEOS * FX_ACTIONS},
+                  f"featext_train: losses {losses}, metric {metric}, rows {rec2['rows']}")
+            loop_ms = TN_BATCH / meters["clips/s"].median * 1e3
+            wait_ms = 1e3 * float(np.median(rec2["waits"]["train"]))
+            summary["featext_train"] = dict(loop_ms=loop_ms, data_wait_ms=wait_ms,
+                                            losses=losses, metric=metric)
+            log(f"featext_train ({card}): expts/02 on the extracted {VIT_DIM}-d store at "
+                f"{LONG_T} observed features, {FX_STEPS} steps of {TN_BATCH} clips, "
+                f"{FX_EVAL_BATCHES} eval batches: the loop {loop_ms:.2f} ms a step, host data "
+                f"{wait_ms:.2f} ms a train batch (median); losses "
+                + ", ".join(f"{k} {v:.4f}" for k, v in sorted(losses.items()))
+                + f"; final_acc/action/AR5 {metric:.4f}; cli {rec2['wall_s']:.1f} s; launches "
+                f"{rec2['launches']}")
+
+            # 3. the analysis of that run's eval results ---------------------
+            t1 = time.time()
+            cfg = Composer(os.path.join(here, "conf")).compose("config", parse_overrides_file(
+                expt02) + [parse_override(o) for o in overrides])
+            ds = build_dataset(cfg["dataset_eval"], cfg["data_eval"])
+            accs, scores = analysis.get_marginalized_scores(os.path.join(train_dir, "results"), ds)
+            run = analysis.scores_with_uids([scores[0], scores[1], softmax_np(scores[2])], ds)
+            fused_accs, fused = analysis.late_fuse([run, run], weights=[0.5, 0.5], dataset=ds)
+            sub_dir = os.path.join(tmp, "challenge")
+            analysis.package_results_for_submission_ek100(fused, ds, sub_dir, uid_key="uid")
+            with zipfile.ZipFile(os.path.join(sub_dir, "submit.zip")) as zf:
+                submitted = json.loads(zf.read("test.json"))
+            analysis_s = time.time() - t1
+            want_uids = {str(u) for u in ds.df["uid"]} | {str(FX_DISCARDED_UID)}
+            check(all(np.isfinite(accs[k]) for k in ("vtop1", "ntop5", "arec5", "atop1"))
+                  and len(ds.df) == FX_EVAL_VIDEOS * FX_ACTIONS and len(ds.discarded_df) == 1,
+                  f"featext analysis: metrics {accs}, rows {len(ds.df)}")
+            check(all(np.array_equal(f[u], r[u]) for f, r in zip(fused, run) for u in r)
+                  and fused_accs["arec5"] == analysis.compute_accuracies_epic(
+                      [scores[0], scores[1], softmax_np(scores[2])], ds)["arec5"],
+                  "featext analysis: the run fused with itself differs from the run")
+            check(set(submitted["results"]) == want_uids and submitted["sls_pt"] == 1,
+                  f"featext analysis: test.json lists {len(submitted['results'])} uids, want "
+                  f"{len(want_uids)}")
+            summary["analysis"] = dict(seconds=analysis_s, arec5=accs["arec5"],
+                                       vtop1=accs["vtop1"], uids=len(submitted["results"]))
+            log(f"featext analysis ({card}): EPIC metrics (verb/noun marginalized from "
+                f"{NUM_ACTIONS} actions) " + "; ".join(analysis.format_accuracies_epic(accs))
+                + f"; self-fusion equal to the run; test.json of {len(submitted['results'])} "
+                f"uids (one discarded) in submit.zip; {analysis_s:.2f} s")
+
+            # 4. k-means centroids over the store ----------------------------
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            t1 = time.time()
+            torch_compute_centroids.main(npys + ["-k", str(FX_K), "-o",
+                                                 os.path.join(tmp, "centroids.npy")])
+            torch.cuda.synchronize()
+            cent_s = time.time() - t1
+            cents = load_centroids(os.path.join(tmp, "centroids.npy"))
+            check(dict(_build.launch_counts) == {n: 0 for n in _build.KERNELS}
+                  and cents.shape == (FX_K, VIT_DIM) and np.isfinite(cents).all(),
+                  f"featext centroids: {cents.shape}, launches {dict(_build.launch_counts)}")
+            summary["centroids_s"] = cent_s
+            log(f"featext centroids ({card}): k={FX_K} over the store's {len(index)} features "
+                f"in {cent_s:.2f} s (50 iterations)")
+
+            # 5. attention maps of expts/01's model at output_len 2 ----------
+            vcfg = torch_viz_attention.compose(expt01, tree + [
+                "model.future_predictor.output_len=2"])
+            frames = torch_viz_attention.decode_frames(
+                os.path.join(root, "videos", "P02", "P02_01.MP4"), FX_FIRST_S - 10.0,
+                float(FX_FIRST_S), vcfg["data_eval"]["num_frames"])
+            model = train_net.build_model(vcfg, {"action": NUM_ACTIONS}, {}, device="cuda")
+            import_torch.init_from_model(model, vcfg["train"]["init_from_model"])
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            t1 = time.time()
+            maps = torch_viz_attention.attention_maps(vcfg, frames, model=model, device="cuda")
+            viz_ms = 1e3 * (time.time() - t1)
+            counts["viz_attention"] = dict(_build.launch_counts)
+            T = TNR_FRAMES
+            want = {**{n: 0 for n in _build.KERNELS}, "short_attention_fwd": VIT_BLOCKS}
+            att0, att1 = maps.get("gpt2_att_0"), maps.get("gpt2_att_1")
+            check(counts["viz_attention"] == want and sorted(maps) == ["gpt2_att_0", "gpt2_att_1"]
+                  and att0.shape == (AVTH_LAYERS, AVTH_HEADS, T, T)
+                  and att1.shape == (AVTH_LAYERS, AVTH_HEADS, 1, T + 1),
+                  f"viz_attention: launches {counts['viz_attention']}, maps "
+                  f"{ {k: v.shape for k, v in maps.items()} }")
+            row_err = max(float(np.abs(m.sum(-1) - 1).max()) for m in maps.values())
+            upper = float(np.abs(np.triu(att0, 1)).max())
+            check(row_err <= 1e-5 and upper == 0.0,
+                  f"viz_attention: rows sum to 1 within {row_err:.3g}, upper triangle {upper}")
+            with mock.patch.object(fa, "packed_qkv_bias_attention", plain_bias_attention):
+                plain_maps = torch_viz_attention.attention_maps(vcfg, frames, model=model,
+                                                                device="cuda")
+            map_diff = max(float(np.abs(maps[k] - plain_maps[k]).max()) for k in maps)
+            check(map_diff <= FX_E2E_TOL, f"viz_attention: maps with kernels vs plain attention "
+                  f"differ by {map_diff} (limit {FX_E2E_TOL}), N={T * FX_VIZ_VIEWS} checked in "
+                  f"phase 2: {T * FX_VIZ_VIEWS in FX_ATTENTION_N}")
+            figures = "no matplotlib: figures skipped"
+            if importlib.util.find_spec("matplotlib") is not None:
+                written = torch_viz_attention.render(maps, frames, os.path.join(tmp, "viz"))
+                check(len(written) == 4 and all(os.path.getsize(w) > 0 for w in written),
+                      f"viz_attention: figures {written}")
+                figures = f"{len(written)} figures"
+            del model
+            torch.cuda.empty_cache()
+            summary["viz_attention"] = dict(forward_ms=viz_ms, row_err=row_err,
+                                            kernel_vs_plain=map_diff)
+            log(f"viz_attention ({card}): expts/01's model (ViT-B/16 f32 + AVT-h) on one clip "
+                f"of {T} frames x {FX_VIZ_VIEWS} views, rollout of 2: maps "
+                f"{[m.shape for m in maps.values()]}, rows sum to 1 within {row_err:.2e}, "
+                f"causal upper triangle 0, max |diff| {map_diff:.3g} from plain attention (limit "
+                f"{FX_E2E_TOL}); {viz_ms:.2f} ms "
+                f"(first call, with the decode's preprocessing); {figures}; launches "
+                f"{counts['viz_attention']}")
+        finally:
+            os.chdir(cwd)
+    return counts, summary
 
 
 if __name__ == "__main__":

@@ -1,8 +1,11 @@
-"""The port stands alone: avt_tpu_torch and chip_smoke.py import neither JAX
-(nor flax, orbax or h5py) nor the JAX package, nor PyYAML or pandas (lmdb
-only inside LMDBFeatsReader.__init__, OpenCV only inside
-OpenCVVideoReader.__init__ and chip_smoke.py's video writer), and its
-entry points do not run on the CPU unasked."""
+"""The port stands alone: avt_tpu_torch, its tools (tools/torch_*.py) and
+chip_smoke.py import neither JAX (nor flax, orbax or h5py) nor the JAX
+package, nor PyYAML or pandas (lmdb only inside the functions that read or
+write an LMDB store, OpenCV only inside OpenCVVideoReader.__init__, the
+video writers and analysis.overlay_text, matplotlib and seaborn only inside
+the functions that draw), and its entry points do not run on the CPU
+unasked."""
+import ast
 import re
 import subprocess
 import sys
@@ -18,7 +21,7 @@ from avt_tpu_torch.utils.device import resolve_device
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(
     f for f in (ROOT / "avt_tpu_torch").rglob("*.py") if "_build" not in f.parts
-) + [ROOT / "chip_smoke.py"]
+) + sorted((ROOT / "tools").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
 # `avt_tpu` not followed by `_torch` (the port's own name starts the same)
 FORBIDDEN = re.compile(
     r"^\s*(?:import|from)\s+(?:jax|flax|orbax|h5py|yaml|pandas|avt_tpu(?!_torch))\b",
@@ -95,29 +98,77 @@ def _imports(path, module):
     return re.findall(rf"^( *)(?:import|from) {module}\b", path.read_text(), re.MULTILINE)
 
 
-def test_cv2_is_imported_by_the_opencv_reader_and_the_video_writer_alone():
-    readers = ROOT / "avt_tpu_torch" / "data" / "readers.py"
-    assert _imports(readers, "cv2") == ["        "]
-    src = readers.read_text()
-    assert src.index("import cv2") > src.index("class OpenCVVideoReader")
-    assert src.rindex("def __init__", 0, src.index("import cv2")) > src.index(
-        "class OpenCVVideoReader")
-    smoke = (ROOT / "chip_smoke.py").read_text()
-    assert _imports(ROOT / "chip_smoke.py", "cv2") == ["    "]
-    assert smoke.rindex("\ndef ", 0, smoke.index("import cv2")) == smoke.index(
-        "\ndef write_video(")
+def _importers(module):
+    """{(file name, enclosing function): count} of every import of `module`
+    in the port's files; the function is '<module>' at the top level."""
+    found = {}
     for path in PORT_FILES:
-        if path.name not in ("readers.py", "chip_smoke.py"):
-            assert not _imports(path, "cv2"), path
+        tree = ast.parse(path.read_text())
+        stack = [(tree, "<module>")]
+        while stack:
+            node, where = stack.pop()
+            for child in ast.iter_child_nodes(node):
+                inner = where
+                if isinstance(child, (ast.FunctionDef, ast.ClassDef)):
+                    inner = child.name if where == "<module>" else f"{where}.{child.name}"
+                names = ([a.name for a in child.names] if isinstance(child, ast.Import) else
+                         [child.module] if isinstance(child, ast.ImportFrom) and child.module
+                         else [])
+                if any(n == module or n.startswith(module + ".") for n in names):
+                    key = (path.name, inner)
+                    found[key] = found.get(key, 0) + 1
+                stack.append((child, inner))
+    return found
+
+
+def test_cv2_is_imported_by_the_opencv_reader_and_the_video_writer_alone():
+    assert _importers("cv2") == {
+        ("readers.py", "OpenCVVideoReader.__init__"): 1,
+        ("chip_smoke.py", "write_video"): 1,
+        ("analysis.py", "overlay_text"): 1,
+        ("torch_smoke_train.py", "make_video_dataset"): 1,
+    }
+    assert _imports(ROOT / "avt_tpu_torch" / "data" / "readers.py", "cv2") == ["        "]
 
 
 def test_lmdb_is_imported_by_the_lmdb_reader_alone():
-    src = (ROOT / "avt_tpu_torch" / "data" / "readers.py").read_text()
-    imports = re.findall(r"^( *)import lmdb\b", src, re.MULTILINE)
-    assert imports == ["        "]  # once, inside LMDBFeatsReader.__init__
-    for path in PORT_FILES:
-        if path.name != "readers.py":
-            assert not re.search(r"^\s*(?:import|from)\s+lmdb\b", path.read_text(), re.MULTILINE)
+    """The reader's constructor and the tools' store writer and reader."""
+    assert _importers("lmdb") == {
+        ("readers.py", "LMDBFeatsReader.__init__"): 1,
+        ("torch_extract_features.py", "_open_lmdb_store"): 1,
+        ("torch_compute_centroids.py", "_load_lmdb"): 1,
+    }
+
+
+def test_plotting_libraries_are_imported_by_the_functions_that_draw():
+    assert _importers("matplotlib") == {
+        ("analysis.py", "plot_per_cls_perf"): 2,
+        ("torch_viz_attention.py", "render_heads"): 2,
+        ("torch_viz_attention.py", "render_overlay"): 2,
+    }
+    assert _importers("seaborn") == {("analysis.py", "save_graph"): 1}
+
+
+def test_analysis_and_tools_import_with_pandas_and_the_plotting_libraries_blocked():
+    """The offline analysis and the tools import with pandas, matplotlib,
+    seaborn, OpenCV and lmdb blocked, and JAX and its package too."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'flax', 'avt_tpu', 'h5py', 'orbax', 'yaml', 'pandas', 'cv2',\n"
+        "             'lmdb', 'matplotlib', 'seaborn'):\n"
+        "    sys.modules[name] = None\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import avt_tpu_torch.evaluate.analysis\n"
+        "from avt_tpu_torch.evaluate import read_all_results, get_epoch_from_resdir\n"
+        "from avt_tpu_torch.evaluate import get_logits_from_results\n"
+        "import torch_extract_features, torch_compute_centroids, torch_viz_attention\n"
+        "import torch_smoke_train, torch_export_model\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

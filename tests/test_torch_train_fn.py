@@ -159,3 +159,101 @@ def test_train_draws_with_a_fixed_scale_w():
     for name, span in (("i", 32 - 28), ("j", 44 - 28)):
         x = d[name]
         assert torch.equal(x, x.floor()) and x.min() == 0 and x.max() == span - 1, name
+
+
+# the reference's exported transforms no shipped pipeline wires in:
+# resized_crop_bilinear_torch (a run-time box), random_resized_crop,
+# temporal_center_crop and unfold_clips, against avt_tpu's
+BOXES = [(3, 5, 20, 30, 16, 16), (0, 0, 37, 53, 24, 24), (10, 40, 7, 13, 32, 8),
+         (36, 52, 1, 1, 8, 8)]
+
+
+@pytest.mark.parametrize("box", BOXES, ids=lambda b: "x".join(map(str, b)))
+def test_resized_crop_bilinear_matches_avt_tpu(box):
+    """A traced box in JAX (jit), ints in the port: down, whole, up on one
+    axis and down on the other, a 1x1 box."""
+    x = np.random.default_rng(5).integers(0, 256, size=(2, 37, 53, 3)).astype(np.float32)
+    i, j, h, w, oh, ow = box
+    fn = jax.jit(lambda a, ii, jj, hh, ww: jtf.resized_crop_bilinear_torch(a, ii, jj, hh, ww,
+                                                                           oh, ow))
+    ref = np.asarray(fn(jnp.asarray(x), i, j, h, w))
+    out = ttf.resized_crop_bilinear_torch(torch.from_numpy(x), i, j, h, w, oh, ow)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-4 * 255, rtol=0)
+
+
+@pytest.mark.parametrize("kw", [
+    pytest.param({}, id="defaults"),
+    pytest.param(dict(scale=(1.0, 1.0), ratio=(1.0, 1.0)), id="whole-image"),
+    pytest.param(dict(ratio=(50.0, 60.0)), id="no-fit-fallback"),
+    pytest.param(dict(scale=(0.5, 0.9), ratio=(0.5, 2.0)), id="wide-ratio"),
+])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_random_resized_crop_box_and_crop_match_avt_tpu(kw, seed):
+    """JAX's draws replayed from its key (split(rng, 4): area, log ratio,
+    the two offsets) through the port's `random_resized_crop_box`: the same
+    box exactly, and the crop against JAX's `random_resized_crop`."""
+    x = np.random.default_rng(seed).random((3, 32, 48, 3)).astype(np.float32)
+    scale, ratio = kw.get("scale", (0.08, 1.0)), kw.get("ratio", (3.0 / 4.0, 4.0 / 3.0))
+    key = jax.random.PRNGKey(seed)
+    k1, k2, k3, k4 = jax.random.split(key, 4)
+    area = np.asarray(jax.random.uniform(k1, (10,), minval=scale[0], maxval=scale[1]))
+    log_ratio = np.asarray(jax.random.uniform(k2, (10,), minval=float(np.log(ratio[0])),
+                                              maxval=float(np.log(ratio[1]))))
+    u_i, u_j = float(jax.random.uniform(k3, ())), float(jax.random.uniform(k4, ()))
+    box = ttf.random_resized_crop_box(32, 48, torch.tensor(area), torch.tensor(log_ratio),
+                                      u_i, u_j, ratio)
+    # JAX's box, recomputed from the same draws with its own operations
+    ar = jnp.exp(jnp.asarray(log_ratio))
+    target = jnp.asarray(area) * float(32 * 48)
+    ws = np.asarray(jnp.round(jnp.sqrt(target * ar)).astype(jnp.int32))
+    hs = np.asarray(jnp.round(jnp.sqrt(target / ar)).astype(jnp.int32))
+    valid = (ws > 0) & (ws <= 48) & (hs > 0) & (hs <= 32)
+    if valid.any():
+        p = int(np.argmax(valid))
+        h, w = int(hs[p]), int(ws[p])
+        want = (int(np.clip(np.floor(np.float32(u_i) * (32 - h + 1)), 0, 32 - h)),
+                int(np.clip(np.floor(np.float32(u_j) * (48 - w + 1)), 0, 48 - w)), h, w)
+    elif 48 / 32 < ratio[0]:
+        h = max(1, int(round(48 / ratio[0])))
+        want = ((32 - h) // 2, 0, h, 48)
+    else:
+        w = max(1, int(round(32 * ratio[1]))) if 48 / 32 > ratio[1] else 48
+        want = (0, (48 - w) // 2, 32, w)
+    assert box == want
+    ref = np.asarray(jtf.random_resized_crop(jnp.asarray(x), key, 16, **kw))
+    out = ttf.resized_crop_bilinear_torch(torch.from_numpy(x), *box, 16, 16)
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-4, rtol=0)
+
+
+def test_random_resized_crop_draws_its_own_box():
+    """The port's draws: one box for every frame, the output's shape and
+    range, a seeded generator repeats itself, and a whole-image box equals
+    the plain resize."""
+    x = torch.rand(4, 32, 48, 3)
+    out = ttf.random_resized_crop(x, 16, generator=torch.Generator().manual_seed(3))
+    again = ttf.random_resized_crop(x, 16, generator=torch.Generator().manual_seed(3))
+    assert out.shape == (4, 16, 16, 3) and torch.equal(out, again)
+    assert out.min() >= x.min() - 1e-6 and out.max() <= x.max() + 1e-6
+    sq = x[:, :, :32]
+    whole = ttf.random_resized_crop(sq, 16, scale=(1.0, 1.0), ratio=(1.0, 1.0),
+                                    generator=torch.Generator().manual_seed(0))
+    torch.testing.assert_close(whole, ttf.resize_bilinear_torch(sq, 16, 16), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("T,L", [(10, 4), (11, 4), (10, 3), (9, 5), (4, 4), (3, 8)])
+def test_temporal_center_crop_matches_avt_tpu(T, L):
+    clip = np.random.default_rng(T * 10 + L).random((2, 3, T, 4, 5)).astype(np.float32)
+    ref = np.asarray(jtf.temporal_center_crop(jnp.asarray(clip), L))
+    out = ttf.temporal_center_crop(torch.from_numpy(clip), L).numpy()
+    assert out.shape == ref.shape
+    np.testing.assert_array_equal(out, ref)
+
+
+@pytest.mark.parametrize("T,L,overlap", [(12, 4, 1.0), (13, 4, 0.5), (3, 4, 1.0), (8, 8, 0.25)])
+def test_unfold_clips_matches_avt_tpu(T, L, overlap):
+    clip = np.random.default_rng(T + L).random((3, T, 4, 5)).astype(np.float32)
+    ref = np.asarray(jtf.unfold_clips(jnp.asarray(clip), L, overlap))
+    out = ttf.unfold_clips(torch.from_numpy(clip), L).numpy()  # avt_tpu ignores overlap
+    assert out.shape == ref.shape
+    np.testing.assert_array_equal(out, ref)
