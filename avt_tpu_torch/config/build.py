@@ -21,11 +21,13 @@ from __future__ import annotations
 import functools
 import logging
 import os
+import pickle
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from avt_tpu_torch.config.registry import instantiate, resolve_target
+from avt_tpu_torch.parallel import ddp
 
 LOG = logging.getLogger(__name__)
 DATASET_TRAIN_KEY = "dataset_train"
@@ -92,14 +94,22 @@ def build_preprocess_fns(cfg: Dict, device=None):
 def build_dataset(dataset_cfg: Dict, data_cfg: Dict, transform=None):
     """Dataset from its config group and the data config (num_frames ->
     frames_per_clip, subclips, segment labels), as the reference's
-    datasets/data.py:get_dataset builds it."""
+    datasets/data.py:get_dataset builds it.
+
+    `_precomputed_metadata_file`: cached video-clip metadata, as a pickle
+    (reference datasets/data.py:22-29, 45-55). When the file exists it is
+    loaded and handed to the dataset as `_precomputed_metadata`; a dataset
+    over torchvision-style decoded clips (`video_clips`) then recomputes
+    its clip windows for this config's frame count and rate; when the file
+    does not exist, rank 0 saves the dataset's `metadata` to it (written
+    to a temporary name and renamed, so that a crash or a concurrent reader
+    never sees a truncated pickle), or warns when the dataset has none."""
     cfg = dict(dataset_cfg)
-    if cfg.pop("_precomputed_metadata_file", None):
-        # cached video-clip metadata: only datasets over torchvision-style
-        # decoded clips (`video_clips`) have it, and none is ported yet
-        raise NotImplementedError(
-            "_precomputed_metadata_file (torchvision video-clip metadata) is not ported yet "
-            "(ROADMAP Queue 1.3)")
+    precomp_fpath = cfg.pop("_precomputed_metadata_file", None)
+    precomp_kwargs = {}
+    if precomp_fpath and os.path.exists(precomp_fpath):
+        with open(precomp_fpath, "rb") as f:
+            precomp_kwargs["_precomputed_metadata"] = pickle.load(f)
     reader_cfg = cfg.pop("reader_fn", None)
     reader = (instantiate(reader_cfg) if reader_cfg is not None
               else resolve_target("datasets.reader_fns.DefaultReader")())
@@ -141,9 +151,23 @@ def build_dataset(dataset_cfg: Dict, data_cfg: Dict, transform=None):
             ar["bundle_entry_to_vname_fn"] = resolve_target(bfn)
         kwargs["annot_reader_fn"] = instantiate(ar, _partial_=True)
     kwargs.update({k: v for k, v in cfg.items() if k != "_target_"})
+    kwargs.update(precomp_kwargs)
     target = resolve_target(cfg["_target_"])
-    return target(**{k: v for k, v in kwargs.items() if v is not None or k in (
+    ds = target(**{k: v for k, v in kwargs.items() if v is not None or k in (
         "frame_rate", "transform", "conv_to_anticipate_fn")})
+    if hasattr(ds, "video_clips"):
+        ds.video_clips.compute_clips(num_frames, 1, frame_rate=data_cfg.get("frame_rate"))
+    if precomp_fpath and not os.path.exists(precomp_fpath):
+        metadata = getattr(ds, "metadata", None)
+        if metadata is None:
+            LOG.warning("_precomputed_metadata_file=%s configured but %s has no .metadata "
+                        "attribute; skipping save", precomp_fpath, type(ds).__name__)
+        elif ddp.rank() == 0:
+            tmp = f"{precomp_fpath}.tmp.{os.getpid()}"
+            with open(tmp, "wb") as f:
+                pickle.dump(metadata, f)
+            os.replace(tmp, precomp_fpath)
+    return ds
 
 
 def _build_dense_sampler(dense_cfg: Dict, root) -> Any:
@@ -158,9 +182,8 @@ def _build_dense_sampler(dense_cfg: Dict, root) -> Any:
     results_dir = dense_cfg.pop("featext_results_dir", "./results")
     shard_per_worker = dense_cfg.pop("shard_per_worker", False)
     rank, world = 0, 1
-    if shard_per_worker and torch.distributed.is_available() and \
-            torch.distributed.is_initialized():
-        rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
+    if shard_per_worker:  # by data replica: model peers read the same videos
+        rank, world = ddp.data_rank(), ddp.data_world()
     skip_uids = set()
     if featext_skip_done:
         from avt_tpu_torch.evaluate.results import read_saved_results_uids
@@ -368,8 +391,9 @@ def build_model(cfg: Dict, num_classes: Dict[str, int], class_mappings: Dict, *,
 def build_optimizer_from_cfg(cfg: Dict, model, *, iters_per_epoch: int, world_size: int = 1):
     """(optimizer, {group: schedule}) of cfg['opt'] over `model`'s
     parameters (the port's `build_optimizer`). world_size: the number of
-    data-parallel processes, which scales the learning rate as the
-    reference's does (its per-GPU batch times the GPUs)."""
+    data-parallel replicas (n_data; the JAX package's train_net passes
+    it), which scales the learning rate as the reference's does (its
+    per-GPU batch times the GPUs)."""
     from avt_tpu_torch.train import build_optimizer
 
     opt = cfg["opt"]

@@ -11,7 +11,10 @@ go to `device` (CUDA unless the CPU is asked for).
 Under data parallelism over processes each rank evaluates its shard of the
 loaders: rank 0 clears the results directory behind a barrier, each rank
 appends to `<dir>/<rank>/`, the meters are summed over the ranks, and a
-barrier comes before the merge, which every rank reads whole.
+barrier comes before the merge, which every rank reads whole. Under tensor
+parallelism the rank is the data rank: model peers evaluate the same rows,
+and only model rank 0 of each replica writes them, so that the merge sees
+each row once.
 """
 from __future__ import annotations
 
@@ -81,8 +84,10 @@ def evaluate(
     `device`). pad_multiple: a ragged final batch is padded to a multiple
     of it by repeating leading rows; read_results' mean per idx removes the
     duplicates again, while the online meters see them. rank: this
-    process's (None: the process group's)."""
-    rank = ddp.rank() if rank is None else rank
+    process's data rank, which names its results directory (None: the
+    mesh's)."""
+    rank = ddp.data_rank() if rank is None else rank
+    writes = ddp.model_rank() == 0
     if place_batch is None:
         target_device = resolve_device(device)
 
@@ -94,7 +99,7 @@ def evaluate(
         metric_logger = MetricLogger(logger=logger)
         this_save_dir = os.path.join(save_dir, RESULTS_SAVE_DIR + data_key)
         if store and not only_run_featext:
-            if rank == 0:
+            if rank == 0 and writes:
                 shutil.rmtree(this_save_dir, ignore_errors=True)
             ddp.barrier()  # no rank appends before rank 0 has cleared the directory
         for batch in metric_logger.log_every(loader, print_freq=50, header=f"[{data_key}] Test:",
@@ -107,7 +112,7 @@ def evaluate(
             res = eval_step(place_batch({k: batch[k] for k in _JIT_KEYS if k in batch}))
             res = {k: _to_host(v) for k, v in res.items()}
             batch_size = next(iter(batch["target"].values())).shape[0]
-            if store:
+            if store and writes:
                 # everything the eval step selected (logits or feature
                 # endpoints) and the unreduced losses; scalars (the mean
                 # auxiliary losses) append as (1,) rows

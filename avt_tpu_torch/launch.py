@@ -19,6 +19,10 @@ Usage:
 
 A card takes one NCCL rank; several ranks on one card need
 dist_backend=gloo (an override), which carries CUDA tensors through the host.
+With parallel.model_size=m (an override or a line of the file) the N ranks
+form N/m data replicas of m tensor-parallel ranks each (parallel/mesh.py),
+so m must divide N:
+  python -m avt_tpu_torch.launch -c expts/02.txt --spawn 2 parallel.model_size=2
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ import sys
 import time
 from pathlib import Path
 
-from avt_tpu_torch.config import expand_sweeps, parse_overrides_file
+from avt_tpu_torch.config import expand_sweeps, parse_override, parse_overrides_file
 from avt_tpu_torch.utils.logging import get_logger
 
 OUTPUT_ROOT = "OUTPUTS"
@@ -152,6 +156,25 @@ def _launcher_param(variants, key: str, default):
                          "launch the variants separately with -r")
     val = next((o.value for o in variants[0] if o.key == f"hydra.launcher.{key}"), None)
     return default if val is None else val
+
+
+def check_mesh(variants, extra, world: int, logger) -> None:
+    """Logs what `world` ranks form under each variant's
+    parallel.model_size (the extra overrides win over the file's), and
+    raises when a model size does not divide them."""
+    given = [o for o in map(parse_override, extra) if o.key == "parallel.model_size"]
+    sizes = set()
+    for variant in variants:
+        found = given or [o for o in variant if o.key == "parallel.model_size"]
+        sizes.add(int(found[-1].value) if found else 1)
+    for m in sorted(sizes):
+        if m < 1 or world % m:
+            raise ValueError(f"parallel.model_size={m} does not divide the {world} ranks")
+        if m == 1:
+            logger.info("%d rank(s): %d data-parallel replica(s)", world, world)
+        else:
+            logger.info("%d ranks: %d data-parallel replica(s) of %d tensor-parallel ranks "
+                        "(parallel.model_size=%d)", world, world // m, m, m)
 
 
 def emit_sbatch(args, variants, out_dir: str, cmd_tail) -> str:
@@ -290,8 +313,10 @@ def main(argv=None):
     parser.add_argument("--submit", action="store_true",
                         help="with --slurm: submit the script and record its job id for --kill")
     parser.add_argument("--spawn", type=int, default=None, metavar="N",
-                        help="spawn N local data-parallel ranks on one rendezvous (N=1: a "
-                             "process group of one); per-rank logs land in the run dir")
+                        help="spawn N local ranks on one rendezvous (N=1: a process group of "
+                             "one): N data-parallel replicas, or N/m replicas of m "
+                             "tensor-parallel ranks under parallel.model_size=m, which must "
+                             "divide N; per-rank logs land in the run dir")
     parser.add_argument("--nodes", type=int, default=None,
                         help="host count for --print-cmd and --slurm; defaults to the "
                              "config's hydra.launcher.nodes")
@@ -347,6 +372,7 @@ def main(argv=None):
         # one torchrun a host: it sets the variables setup_distributed reads
         nodes = args.nodes or int(_launcher_param(variants, "nodes", 1))
         gpus = int(_launcher_param(variants, "gpus_per_node", 1))
+        check_mesh(variants, extra, nodes * gpus, logger)
         tail = " ".join(shlex.quote(str(el)) for el in cmd_tail)
         if nodes <= 1 and gpus <= 1:
             print(f"{sys.executable} -m {TRAIN_MODULE} {tail}")
@@ -358,6 +384,7 @@ def main(argv=None):
                   f"--master-port {port} -m {TRAIN_MODULE} {tail}")
         return None
     if args.spawn:
+        check_mesh(variants, extra, args.spawn, logger)
         log_dir = args.run_dir or out_dir
         rcs = []
         for attempt in range(3):

@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from avt_tpu_torch.losses.mse import l2_normalize
-from avt_tpu_torch.parallel.ddp import all_gather_with_grad, rank
+from avt_tpu_torch.parallel.ddp import all_gather_with_grad, data_rank
 
 LARGE_NUM = 1e9
 
@@ -71,9 +71,10 @@ def simclr_infonce(output: torch.Tensor, target: torch.Tensor, *, temperature: f
     output_all = all_gather_with_grad(output)
     target_flat_all = all_gather_with_grad(target_flat)
     B, full = output.shape[0], output_all.shape[0]
-    # one-hot positives: this rank's rows at columns [rank * B, (rank + 1) * B)
+    # one-hot positives: this replica's rows at columns [r * B, (r + 1) * B), r its
+    # data rank (model peers hold the same rows)
     cols = torch.arange(full, device=output.device)[None, :]
-    rows = torch.arange(B, device=output.device)[:, None] + rank() * B
+    rows = torch.arange(B, device=output.device)[:, None] + data_rank() * B
     labels = (cols == rows).to(output.dtype)
     extra_zeros = torch.zeros_like(labels)
     logits_aa = output @ output_all.T / temperature - labels * LARGE_NUM  # no self-similarity

@@ -376,12 +376,21 @@ def params_from_jax(params: Mapping) -> StateDict:
     return {k: torch.from_numpy(v) for k, v in sd.items()}
 
 
+def shard_params_from_jax(params: Mapping, model: nn.Module) -> StateDict:
+    """`params_from_jax`, cut to this rank's parts of a model that
+    `parallel.mesh.shard_model` sharded (the whole state_dict otherwise)."""
+    from avt_tpu_torch.parallel.mesh import shard_state_dict
+
+    return shard_state_dict(params_from_jax(params), model)
+
+
 def load_jax_params(model: nn.Module, params: Mapping) -> nn.Module:
     """Loads a JAX package parameter tree into `model`: strict, but for the
     Transformer aggregator's mask embedding, which a JAX model has only when
     it was initialised in train mode (the model's own draw is kept then),
-    and the BatchNorms' `num_batches_tracked`, which JAX does not count."""
-    sd = params_from_jax(params)
+    and the BatchNorms' `num_batches_tracked`, which JAX does not count. A
+    sharded model takes its rank's parts."""
+    sd = shard_params_from_jax(params, model)
     missing, unexpected = model.load_state_dict(sd, strict=False)
     missing = [k for k in missing
                if not k.endswith(("extra_embeddings.weight", "num_batches_tracked"))]

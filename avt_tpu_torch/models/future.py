@@ -12,7 +12,10 @@ gives every hidden state. rollout_mode='cache' runs one prefill pass, then
 L - 1 single-token decodes against per-layer KV caches (masked plain
 attention over the cache). Under train-time dropout both take
 position-stable masks drawn from one seed a forward, so the two modes give
-the same outputs, gradients included.
+the same outputs, gradients included. Under tensor parallelism
+(parallel/mesh.py) the GPT-2 core runs each rank's local heads
+(models/layers.py): the KV caches hold them, and the attention maps come
+back gathered over every head.
 """
 from __future__ import annotations
 

@@ -6,7 +6,10 @@ Counterpart of avt_tpu/models/layers.py (`gelu_new`,
 `sincos_positional_encoding`, `EncoderBlock`): the causal forward in eval
 and train mode, the KV-cache prefill and single-token decode, the
 attention-map export (`output_attentions`) and the position-stable dropout
-of rollouts longer than one step. GPT-2's parameter names are HF
+of rollouts longer than one step, and the tensor-parallel forms of the
+attentions and the MLP (parallel/mesh.py: local heads, a row layer's f32
+all-reduce, dropout masks sliced from the full-width draw; a module whose
+`tp` is a mesh runs them). GPT-2's parameter names are HF
 transformers' GPT2Model ones (Conv1D weights laid out (in, out)), the
 encoder block's those of torch's nn.TransformerEncoderLayer, so reference
 state_dicts load unchanged.
@@ -19,14 +22,21 @@ the bias is added in it, and LayerNorm statistics are taken in f32.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from avt_tpu_torch.ops import dot_product_attention
-from avt_tpu_torch.parallel.ddp import rank
+from avt_tpu_torch.parallel.ddp import data_rank
+from avt_tpu_torch.parallel.mesh import (
+    copy_to_model,
+    dropout_columns,
+    gather_from_model,
+    local_bias,
+    row_dense,
+)
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
@@ -48,19 +58,26 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: Optional[torch.dtype]) 
 
 
 def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
-            training: bool) -> torch.Tensor:
+            training: bool, columns: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """flax Dropout: in training, keep each element with probability 1 - p
     and divide it by 1 - p, both in x's type (a weakly typed float takes
     the array's type); the mask is drawn from `generator` (torch's default
     when None), which nn.Dropout cannot take. Under data parallelism each
     rank draws its own rows' mask from its own generator
     (`train.step.step_generator`), not rows of the global batch's mask, so
-    these masks differ from a one-process run's."""
+    these masks differ from a one-process run's. columns (first, width): x
+    holds those columns of a wider activation (a tensor-parallel rank's
+    part); the mask is the full-width draw, sliced."""
     if not training or p == 0.0:
         return x
     if p >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    if columns is not None and columns[1] != x.shape[-1]:
+        first, width = columns
+        draw = torch.rand(x.shape[:-1] + (width,), generator=generator, device=x.device)
+        keep = draw[..., first:first + x.shape[-1]] >= p
+    else:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
     keep_prob = torch.tensor(1.0 - p, dtype=x.dtype, device=x.device)
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
@@ -91,7 +108,8 @@ def fold_in(key, data):
 
 
 def position_stable_dropout(x: torch.Tensor, key: torch.Tensor, rate: float,
-                            offset: int = 0) -> torch.Tensor:
+                            offset: int = 0, columns: Optional[Tuple[int, int]] = None
+                            ) -> torch.Tensor:
     """Dropout of a (B, T, C) x whose mask is a pure function of (key,
     absolute position, batch row, channel): position offset + t's mask is
     drawn from fold_in(key, offset + t), so any pass that covers a position
@@ -101,18 +119,22 @@ def position_stable_dropout(x: torch.Tensor, key: torch.Tensor, rate: float,
     loop over positions; keep and scale as `dropout` does. The bits differ
     from JAX's threefry; the property and the sites are the same.
 
-    The row is the global batch's under data parallelism, rank * B + b (the
-    global batch being the ranks' batches in rank order), so that with one
-    key on every rank the ranks draw the one-process masks."""
+    The row is the global batch's under data parallelism, r * B + b with r
+    the data rank (the global batch being the replicas' batches in order),
+    so that with one key on every rank the ranks draw the one-process masks.
+    columns (first, width): x holds those channels of a wider activation (a
+    tensor-parallel rank's part), whose global channel indices the hash
+    takes."""
     if rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     B, T, C = x.shape
+    first_col, width = columns or (0, C)
     pos_keys = fold_in(key, torch.arange(offset, offset + T, device=x.device))
-    first = rank() * B * C
-    elems = _hash32(torch.arange(first, first + B * C, device=x.device).reshape(B, 1, C)
-                    + _GOLDEN)
+    rows = torch.arange(data_rank() * B, (data_rank() + 1) * B, device=x.device)
+    cols = torch.arange(first_col, first_col + C, device=x.device)
+    elems = _hash32((rows[:, None] * width + cols).reshape(B, 1, C) + _GOLDEN)
     keep = _hash32(pos_keys[None, :, None] ^ elems) < int((1.0 - rate) * (1 << 32))
     keep_prob = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
@@ -160,7 +182,10 @@ class SelfAttention(nn.Module):
     output projection (c_proj). As in the JAX package, attention dropout
     acts on the attention output, which keeps the attention fused. q, k and
     v are strided (B, T, H, D) views of the c_attn output, which the flash
-    kernels read in place (no split, pad or transpose copy)."""
+    kernels read in place (no split, pad or transpose copy). With `tp` a
+    mesh (parallel/mesh.py) the module holds its local heads: c_attn their
+    q, k and v columns, c_proj the matching rows; the KV cache holds local
+    heads and exported attention maps are gathered over the heads."""
 
     def __init__(self, dim: int, num_heads: int, causal: bool = False,
                  attn_dropout: float = 0.0, resid_dropout: float = 0.0,
@@ -173,6 +198,7 @@ class SelfAttention(nn.Module):
         self.c_proj = Conv1D(dim, dim, device=device)
         self.attn_dropout = attn_dropout
         self.resid_dropout = resid_dropout
+        self.tp = None
 
     def forward(self, x, generator: Optional[torch.Generator] = None, *,
                 output_attentions: bool = False, dropout_key: Optional[torch.Tensor] = None,
@@ -187,10 +213,13 @@ class SelfAttention(nn.Module):
         output_attentions: also return the probabilities (B, H, T, T).
         dropout_key: position-stable dropout at token positions pos_offset
         on, its sites fold_in(key, 0) (attention output) and 1 (c_proj)."""
-        B, T, C = x.shape
-        qkv = self.c_attn(x, self.dtype)
-        q, k, v = (t.reshape(B, T, self.num_heads, C // self.num_heads)
-                   for t in qkv.split(C, dim=-1))
+        B, T, _ = x.shape
+        tp = self.tp
+        H = self.num_heads // (tp.n_model if tp else 1)
+        qkv = dense(copy_to_model(x, tp), self.c_attn.weight,
+                    local_bias(self.c_attn.bias, tp, qkv=True), self.dtype, in_out=True)
+        C = qkv.shape[-1] // 3  # this rank's width: H local heads
+        q, k, v = (t.reshape(B, T, H, C // H) for t in qkv.split(C, dim=-1))
         probs = None
         if kv_cache is not None:
             if output_attentions or T != 1:
@@ -205,26 +234,39 @@ class SelfAttention(nn.Module):
             out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
         else:
             out = dot_product_attention(q, k, v, causal=self.causal)
+        out = out.reshape(B, T, C)
+        # a rank's heads: its columns of the full-width masks
+        cols = {} if tp is None else {"columns": dropout_columns(C, tp)}
         if dropout_key is not None and self.training:
-            out = position_stable_dropout(out.reshape(B, T, C), fold_in(dropout_key, 0),
-                                          self.attn_dropout, pos_offset)
+            out = position_stable_dropout(out, fold_in(dropout_key, 0), self.attn_dropout,
+                                          pos_offset, **cols)
         else:
-            out = dropout(out, self.attn_dropout, generator, self.training).reshape(B, T, C)
-        out = _dropout(self.c_proj(out, self.dtype), self.resid_dropout, generator,
-                       self.training, None if dropout_key is None else fold_in(dropout_key, 1),
-                       pos_offset)
+            out = dropout(out, self.attn_dropout, generator, self.training, **cols)
+        out = row_dense(out, self.c_proj.weight, self.c_proj.bias, self.dtype, tp, in_out=True)
+        out = _dropout(out, self.resid_dropout, generator, self.training,
+                       None if dropout_key is None else fold_in(dropout_key, 1), pos_offset)
         if kv_cache is not None or return_kv:
             return out, (k, v)
         if output_attentions:
-            return out, probs
+            return out, gather_from_model(probs, tp, dim=1)
         return out
 
 
 class GPT2MLP(nn.Module):
+    """c_fc, GELU, c_proj; with `tp` a mesh, c_fc's local columns and
+    c_proj's matching rows."""
+
     def __init__(self, dim: int, hidden: int, device=None):
         super().__init__()
         self.c_fc = Conv1D(dim, hidden, device=device)
         self.c_proj = Conv1D(hidden, dim, device=device)
+        self.tp = None
+
+    def forward(self, h, dtype: Optional[torch.dtype] = None):
+        tp = self.tp
+        h = gelu_new(dense(copy_to_model(h, tp), self.c_fc.weight, local_bias(self.c_fc.bias, tp),
+                           dtype, in_out=True))
+        return row_dense(h, self.c_proj.weight, self.c_proj.bias, dtype, tp, in_out=True)
 
 
 class GPT2Block(nn.Module):
@@ -259,9 +301,7 @@ class GPT2Block(nn.Module):
         if kv_cache is not None or return_kv or output_attentions:
             attn, extra = attn
         x = x + attn
-        h = layer_norm(x, self.ln_2, self.dtype)
-        h = gelu_new(self.mlp.c_fc(h, self.dtype))
-        h = self.mlp.c_proj(h, self.dtype)
+        h = self.mlp(layer_norm(x, self.ln_2, self.dtype), self.dtype)
         out = x + _dropout(h, self.resid_dropout, generator, self.training,
                            None if dropout_key is None else fold_in(dropout_key, 1), pos_offset)
         return out if extra is None else (out, extra)
@@ -348,7 +388,9 @@ class EncoderSelfAttention(nn.Module):
     whose transpose is the JAX package's qkv kernel with the same contiguous
     per-head split, and out_proj), run as the JAX package's SelfAttention:
     q, k and v are strided (B, T, H, D) views of one projection, which the
-    flash kernels read in place; dropout acts on the attention output."""
+    flash kernels read in place; dropout acts on the attention output. With
+    `tp` a mesh, the local heads: in_proj's rows of their q, k and v,
+    out_proj's matching columns."""
 
     def __init__(self, dim: int, num_heads: int, dropout: float = 0.0, device=None):
         super().__init__()
@@ -357,16 +399,22 @@ class EncoderSelfAttention(nn.Module):
         self.in_proj_weight = nn.Parameter(torch.zeros(3 * dim, dim, device=device))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim, device=device))
         self.out_proj = nn.Linear(dim, dim, device=device)
+        self.tp = None
 
     def forward(self, x, generator: Optional[torch.Generator] = None,
                 mask: Optional[torch.Tensor] = None):
-        B, T, C = x.shape
-        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
-        q, k, v = (t.reshape(B, T, self.num_heads, C // self.num_heads)
-                   for t in qkv.split(C, dim=-1))
-        out = dot_product_attention(q, k, v, causal=False, mask=mask)
-        out = dropout(out, self.dropout, generator, self.training).reshape(B, T, C)
-        return self.out_proj(out)
+        B, T, _ = x.shape
+        tp = self.tp
+        H = self.num_heads // (tp.n_model if tp else 1)
+        qkv = F.linear(copy_to_model(x, tp), self.in_proj_weight,
+                       local_bias(self.in_proj_bias, tp, qkv=True))
+        C = qkv.shape[-1] // 3
+        q, k, v = (t.reshape(B, T, H, C // H) for t in qkv.split(C, dim=-1))
+        out = dot_product_attention(q, k, v, causal=False, mask=mask).reshape(B, T, C)
+        out = dropout(out, self.dropout, generator, self.training, dropout_columns(C, tp))
+        if tp is None:
+            return self.out_proj(out)
+        return row_dense(out, self.out_proj.weight, self.out_proj.bias, None, tp)
 
 
 class EncoderBlock(nn.Module):

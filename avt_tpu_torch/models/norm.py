@@ -18,14 +18,16 @@ its count are all-reduced through the autograd-aware collective, the mean
 and the biased variance are taken over the global count, and running_var
 takes the unbiased variance of the global count, on every rank alike.
 `nn.SyncBatchNorm` would serve on CUDA, but it refuses CPU tensors, on which
-the two-process equality is tested.
+the two-process equality is tested. Under tensor parallelism the sums go over
+the data group only: model peers hold the same rows, which a sum over the
+world would count twice (and so double the gradient).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from avt_tpu_torch.parallel.ddp import all_reduce_with_grad, world_size
+from avt_tpu_torch.parallel.ddp import all_reduce_with_grad, data_world
 
 
 class _GlobalStats:
@@ -33,7 +35,7 @@ class _GlobalStats:
     taken over every rank's batch."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not (self.training and world_size() > 1):
+        if not (self.training and data_world() > 1):
             return super().forward(x)
         self._check_input_dim(x)
         dims = [0] + list(range(2, x.dim()))

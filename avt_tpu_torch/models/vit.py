@@ -11,6 +11,12 @@ f32; `gelu_approx` picks one), and on CUDA the attention reads the packed
 qkv projection in place through the hand-written kernel. `drop_rate` (0 in
 every shipped configuration) drops out the embedded tokens and each block's
 attention and MLP outputs in train mode, as the JAX package's ViT does.
+
+Under tensor parallelism (parallel/mesh.py) an attention whose `tp` is a
+mesh runs its local heads off its local packed qkv projection (the kernels
+unchanged, so the packed kernel's bias gradient is the local columns'), and
+an MLP its local hidden units; the dropouts act on replicated activations,
+where every model peer draws the same full mask.
 """
 from __future__ import annotations
 
@@ -22,9 +28,13 @@ from torch import nn
 
 from avt_tpu_torch.models.layers import dense, dropout, layer_norm
 from avt_tpu_torch.ops.attention import fused_qkv_attention
+from avt_tpu_torch.parallel.mesh import copy_to_model, local_bias, row_dense
 
 
 class ViTAttention(nn.Module):
+    """qkv projection + attention, then proj. `use_kernel` is
+    `fused_qkv_attention`'s (None: the split path)."""
+
     def __init__(self, dim: int, num_heads: int, dtype: Optional[torch.dtype] = None,
                  device=None):
         super().__init__()
@@ -32,20 +42,35 @@ class ViTAttention(nn.Module):
         self.dtype = dtype
         self.qkv = nn.Linear(dim, 3 * dim, device=device)
         self.proj = nn.Linear(dim, dim, device=device)
+        self.use_kernel = None
+        self.tp = None
 
     def forward(self, x):
+        tp = self.tp
+        heads = self.num_heads // (tp.n_model if tp else 1)
         # the projection runs in x's type (cast by the caller's LayerNorm),
         # its bias added in that type before the attention
         kernel = self.qkv.weight.to(x.dtype).t()  # (C, 3C), cast while contiguous
-        out = fused_qkv_attention(x, kernel, self.qkv.bias, self.num_heads)
-        return dense(out, self.proj.weight, self.proj.bias, self.dtype)
+        options = {} if self.use_kernel is None else {"use_kernel": self.use_kernel}
+        out = fused_qkv_attention(copy_to_model(x, tp), kernel,
+                                  local_bias(self.qkv.bias, tp, qkv=True), heads, **options)
+        return row_dense(out, self.proj.weight, self.proj.bias, self.dtype, tp)
 
 
 class Mlp(nn.Module):
+    """fc1, GELU, fc2; with `tp` a mesh, fc1's local rows and fc2's
+    matching columns."""
+
     def __init__(self, dim: int, hidden: int, device=None):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden, device=device)
         self.fc2 = nn.Linear(hidden, dim, device=device)
+        self.tp = None
+
+    def forward(self, h, dtype: Optional[torch.dtype], gelu: str):
+        tp = self.tp
+        h = dense(copy_to_model(h, tp), self.fc1.weight, local_bias(self.fc1.bias, tp), dtype)
+        return row_dense(F.gelu(h, approximate=gelu), self.fc2.weight, self.fc2.bias, dtype, tp)
 
 
 class ViTBlock(nn.Module):
@@ -70,10 +95,7 @@ class ViTBlock(nn.Module):
             return dropout(t, self.drop_rate, generator, self.training)
 
         x = x + drop(self.attn(layer_norm(x, self.norm1, self.dtype)))
-        h = layer_norm(x, self.norm2, self.dtype)
-        h = dense(h, self.mlp.fc1.weight, self.mlp.fc1.bias, self.dtype)
-        h = F.gelu(h, approximate=self.gelu)
-        h = dense(h, self.mlp.fc2.weight, self.mlp.fc2.bias, self.dtype)
+        h = self.mlp(layer_norm(x, self.norm2, self.dtype), self.dtype, self.gelu)
         return x + drop(h)
 
 

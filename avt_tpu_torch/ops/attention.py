@@ -99,9 +99,11 @@ def fused_qkv_attention(
     causal: bool = False,
     use_kernel: Optional[bool] = None,
 ) -> torch.Tensor:
-    """qkv projection + attention: x (N, T, C) @ kernel (C, 3C) + bias, then
-    multi-head attention; returns (N, T, C). The projection is rounded to
-    x's type before the bias add, as flax's Dense does.
+    """qkv projection + attention: x (N, T, C) @ kernel (C, 3C') + bias, then
+    multi-head attention over num_heads heads of C'/num_heads; returns (N,
+    T, C'). C' is C but for a tensor-parallel rank's local heads. The
+    projection is rounded to x's type before the bias add, as flax's Dense
+    does.
 
     use_kernel=True is the counterpart of `use_pallas=True`: the fused
     kernel, with the projection inside it (its plain version on the CPU).
@@ -110,7 +112,7 @@ def fused_qkv_attention(
     JAX) is the split path: on CUDA, for T >= 64 and head-pair geometry, the
     bias add goes into the packed kernel's loads."""
     N, T, C = x.shape
-    head_dim = C // num_heads
+    head_dim = kernel.shape[-1] // 3 // num_heads
     if use_kernel and head_dim == fa.FUSED_HEAD_DIM and num_heads % 2 == 0:
         return fa.fused_qkv_attention(x, kernel, bias, num_heads, causal)
     qkv = torch.matmul(x, kernel.to(x.dtype))

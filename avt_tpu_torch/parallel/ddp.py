@@ -20,8 +20,11 @@ compute what one process computes on the R*b clips:
   * the meters, the eval results, the checkpoints and the save and
     preemption decisions (train/, evaluate/).
 
-The parameters are not sharded: parallel.model_size > 1, the JAX package's
-tensor-parallel seam (`DEFAULT_PARAM_RULES`), raises (ROADMAP Queue 1.9b).
+Under tensor parallelism (parallel.model_size > 1, parallel/mesh.py) the
+ranks form a (data, model) mesh, and every data-parallel collective here
+goes over this rank's data group: the ranks that hold the same shards of
+the model. `data_rank()` and `data_world()` place a rank's batch in the
+global one. With model_size 1 the data group is the world.
 """
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ from typing import Iterable, Optional
 import torch
 import torch.distributed as dist
 
+from avt_tpu_torch.parallel.mesh import current_mesh, reset_mesh
+
 
 def rank() -> int:
     return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
@@ -39,6 +44,27 @@ def rank() -> int:
 
 def world_size() -> int:
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def data_rank() -> int:
+    """This rank's replica on the mesh's data axis (`rank()` without a
+    model axis)."""
+    return current_mesh().data_rank
+
+
+def data_world() -> int:
+    """The number of data-parallel replicas (`world_size()` without a model
+    axis)."""
+    return current_mesh().n_data
+
+
+def model_rank() -> int:
+    """This rank's place on the mesh's model axis (0 without one)."""
+    return current_mesh().model_rank
+
+
+def _data_group():
+    return current_mesh().data_group
 
 
 def local_rank() -> int:
@@ -104,18 +130,10 @@ def setup_distributed(backend: Optional[str] = None, device_type: str = "cuda",
 
 
 def cleanup() -> None:
-    """Leaves the process group, when there is one."""
+    """Leaves the process group, when there is one, and forgets its mesh."""
+    reset_mesh()
     if dist.is_initialized():
         dist.destroy_process_group()
-
-
-def check_model_parallel(cfg) -> None:
-    """Raises for parallel.model_size > 1: tensor parallelism is not ported."""
-    n_model = int((cfg.get("parallel") or {}).get("model_size") or 1)
-    if n_model > 1:
-        raise NotImplementedError(
-            f"parallel.model_size={n_model}: the port shards the batch only; tensor "
-            "parallelism (DEFAULT_PARAM_RULES) waits for ROADMAP Queue 1.9b")
 
 
 def _comm_device() -> torch.device:
@@ -131,25 +149,29 @@ def barrier() -> None:
         dist.barrier()
 
 
-def all_reduce_sum(values) -> torch.Tensor:
-    """The element-wise sum over the ranks of a host array (as f64), on
-    the host: the meters' totals and counts."""
+def all_reduce_sum(values, group="data") -> torch.Tensor:
+    """The element-wise sum over the data replicas of a host array (as
+    f64), on the host: the meters' totals and counts (model peers hold the
+    same ones). group='world': over every rank."""
     t = torch.as_tensor(values, dtype=torch.float64)
-    if world_size() == 1:
+    over_data = group == "data"
+    if (data_world() if over_data else world_size()) == 1:
         return t
     t = t.to(_comm_device())
-    dist.all_reduce(t)
+    dist.all_reduce(t, group=_data_group() if over_data else None)
     return t.cpu()
 
 
 def any_rank(flag: bool) -> bool:
-    """True on every rank when it is true on any (the preemption stop)."""
-    return bool(all_reduce_sum([float(flag)])[0] > 0)
+    """True on every rank when it is true on any (the preemption stop).
+    Over the world: the stop's checkpoint is a collective of every rank,
+    model peers included, so no rank may stop alone."""
+    return bool(all_reduce_sum([float(flag)], group="world")[0] > 0)
 
 
 def from_rank0(flag: bool) -> bool:
     """Rank 0's flag on every rank (the wall-clock save trigger: clocks
-    differ between hosts)."""
+    differ between hosts). Over the world, as `any_rank`."""
     if world_size() == 1:
         return flag
     t = torch.tensor([int(flag)], dtype=torch.int32, device=_comm_device())
@@ -168,10 +190,11 @@ def broadcast_module(module: torch.nn.Module) -> None:
 
 
 def allreduce_gradients(params: Iterable[torch.nn.Parameter]) -> None:
-    """Each parameter's gradient becomes its mean over the ranks: one flat
-    all-reduce per type. Parameters without a gradient (the same on every
-    rank: one model, one path) are left out. A no-op in one process."""
-    world = world_size()
+    """Each parameter's gradient becomes its mean over the data replicas:
+    one flat all-reduce per type over the data group (the ranks that hold
+    the same shard). Parameters without a gradient (the same on every rank:
+    one model, one path) are left out. A no-op with one replica."""
+    world = data_world()
     if world == 1:
         return
     by_type = {}
@@ -180,71 +203,74 @@ def allreduce_gradients(params: Iterable[torch.nn.Parameter]) -> None:
             by_type.setdefault((p.grad.dtype, p.grad.device), []).append(p.grad)
     for grads in by_type.values():
         flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=_data_group())
         flat /= world
         for g, part in zip(grads, flat.split([g.numel() for g in grads])):
             g.copy_(part.view_as(g))
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """The sum over the ranks; its gradient is the sum of the ranks'
-    gradients, since every rank's loss depends on every rank's input."""
+    """The sum over the data replicas; its gradient is the sum of their
+    gradients, since every replica's loss depends on every replica's
+    input."""
 
     @staticmethod
     def forward(ctx, x):
         out = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=_data_group())
         return out
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(grad)
+        dist.all_reduce(grad, group=_data_group())
         return grad
 
 
 class _AllGather(torch.autograd.Function):
-    """The ranks' (b, ...) tensors concatenated in rank order (R*b, ...),
-    as the sum of R buffers that each hold one rank's rows and zeros
-    elsewhere (exact: one term an element is not zero). The gradient of
-    this rank's rows is the sum over the ranks of the gradient of those
-    rows. All-reduce is the collective that every backend takes for CUDA
+    """The data replicas' (b, ...) tensors concatenated in data-rank order
+    (R*b, ...), as the sum of R buffers that each hold one replica's rows
+    and zeros elsewhere (exact: one term an element is not zero). The
+    gradient of this replica's rows is the sum over the replicas of the
+    gradient of those rows. All-reduce is the collective that every backend takes for CUDA
     tensors; `torch.distributed.nn.functional.all_gather`'s backward takes
     all_to_all under gloo, and that module is deprecated in newer torch."""
 
     @staticmethod
     def forward(ctx, x):
-        b = x.shape[0]
-        out = x.new_zeros((world_size() * b,) + tuple(x.shape[1:]))
-        out[rank() * b:(rank() + 1) * b] = x
-        dist.all_reduce(out)
+        b, r = x.shape[0], data_rank()
+        out = x.new_zeros((data_world() * b,) + tuple(x.shape[1:]))
+        out[r * b:(r + 1) * b] = x
+        dist.all_reduce(out, group=_data_group())
         ctx.rows = b
         return out
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(grad)
-        return grad[rank() * ctx.rows:(rank() + 1) * ctx.rows]
+        dist.all_reduce(grad, group=_data_group())
+        r = data_rank()
+        return grad[r * ctx.rows:(r + 1) * ctx.rows]
 
 
 def all_reduce_with_grad(x: torch.Tensor) -> torch.Tensor:
-    """Differentiable sum of x over the ranks; x itself in one process."""
-    return x if world_size() == 1 else _AllReduceSum.apply(x)
+    """Differentiable sum of x over the data replicas; x itself with one."""
+    return x if data_world() == 1 else _AllReduceSum.apply(x)
 
 
 def all_gather_with_grad(x: torch.Tensor) -> torch.Tensor:
-    """Differentiable concatenation of the ranks' x along the first axis, in
-    rank order; x itself in one process."""
-    return x if world_size() == 1 else _AllGather.apply(x)
+    """Differentiable concatenation of the data replicas' x along the first
+    axis, in data-rank order; x itself with one replica."""
+    return x if data_world() == 1 else _AllGather.apply(x)
 
 
 class RankGenerator(torch.Generator):
-    """A rank's generator under data parallelism: its own draws (plain
-    dropout masks, crop draws) differ from every other rank's, and `shared`
-    is the step's generator of one process, the same on every rank, from
-    which the draws that all ranks must agree on are taken (`shared_generator`:
-    the seed of AVT-h's position-stable rollout masks)."""
+    """A data replica's generator under data parallelism: its own draws
+    (plain dropout masks, crop draws) differ from every other replica's
+    (model peers share them), and `shared` is the step's generator of one
+    process, the same on every rank, from which the draws that all ranks
+    must agree on are taken (`shared_generator`: the seed of AVT-h's
+    position-stable rollout masks)."""
 
     shared: torch.Generator
 

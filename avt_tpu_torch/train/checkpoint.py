@@ -13,7 +13,11 @@ leaves the previous checkpoint whole. Restoring loads on the CPU and
 copies into the live tensors, so a checkpoint does not depend on the device
 it was written on. Under data parallelism rank 0 writes and every rank
 waits at a barrier until the file is whole; every rank resumes from the
-same file (the ranks hold the same model and optimizer).
+same file (the ranks hold the same model and optimizer). Under tensor
+parallelism (parallel/mesh.py) every rank joins the gather of the sharded
+model and optimizer state, rank 0 writes the one-process layout, and a
+resume cuts each rank's part out again: a checkpoint reads back whatever
+parallel.model_size wrote or reads it.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from avt_tpu_torch.parallel import ddp
+from avt_tpu_torch.parallel.mesh import gather_state_dict, model_shards, shard_state_dict
 
 CKPT_NAME = "checkpoint"
 BEST_NAME = "checkpoint_best"
@@ -37,16 +42,20 @@ def save_checkpoint(ckpt_dir: str, model, optimizer, epoch: float, *,
 
     host_state: a small dict of host-side values saved beside the tensors
     (e.g. `ReduceLROnPlateau.state_dict()`)."""
+    model_sd, opt_sd = model.state_dict(), optimizer.state_dict()
+    if model_shards(model)[0]:  # a collective: every rank joins
+        model_sd = gather_state_dict(model_sd, model)
+        opt_sd = gather_state_dict(opt_sd, model)
     if (ddp.rank() if rank is None else rank) == 0:
-        _write(ckpt_dir, model, optimizer, epoch, names, host_state)
+        _write(ckpt_dir, model_sd, opt_sd, epoch, names, host_state)
     ddp.barrier()
 
 
-def _write(ckpt_dir, model, optimizer, epoch, names, host_state) -> None:
+def _write(ckpt_dir, model_sd, opt_sd, epoch, names, host_state) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
     payload = {
-        "model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
-        "optimizer": optimizer.state_dict(),
+        "model": {k: v.detach().cpu() for k, v in model_sd.items()},
+        "optimizer": opt_sd,
         "epoch": float(epoch),
     }
     if host_state:
@@ -69,9 +78,9 @@ def restore_checkpoint(ckpt_dir: str, model, optimizer, name: str = CKPT_NAME,
     if not os.path.exists(path):
         return None
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    model.load_state_dict(ckpt["model"])
+    model.load_state_dict(shard_state_dict(ckpt["model"], model))
     if optimizer is not None:
-        optimizer.load_state_dict(ckpt["optimizer"])
+        optimizer.load_state_dict(shard_state_dict(ckpt["optimizer"], model))
     epoch = float(ckpt["epoch"])
     if host_template is None:
         return epoch

@@ -15,7 +15,7 @@ from typing import Dict, Iterable, Optional
 import numpy as np
 import torch
 
-from avt_tpu_torch.parallel.ddp import all_reduce_sum, world_size
+from avt_tpu_torch.parallel.ddp import all_reduce_sum, data_world
 
 
 class SmoothedValue:
@@ -119,10 +119,11 @@ class MetricLogger:
         return self.meters[key]
 
     def synchronize_between_processes(self):
-        """Each meter's (total, count) becomes its sum over the ranks, so
-        that global_avg is the mean over every rank's updates; nothing to do
-        in one process. Every rank must hold the same meter names."""
-        if world_size() == 1:
+        """Each meter's (total, count) becomes its sum over the data
+        replicas, so that global_avg is the mean over every replica's
+        updates (model peers hold the same ones); nothing to do with one
+        replica. Every rank must hold the same meter names."""
+        if data_world() == 1:
             return
         keys = sorted(self.meters)
         summed = all_reduce_sum([[self.meters[k].total, self.meters[k].count] for k in keys])

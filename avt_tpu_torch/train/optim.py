@@ -28,6 +28,14 @@ Counterpart of avt_tpu/train/optim.py:
     warmup from init_lr_ratio 0). Parameters and buffers are updated in place
     (the JAX step donates its state instead), with torch._foreach ops per
     group (Adafactor: per tensor), and no step waits for the device.
+
+Under tensor parallelism (parallel/mesh.py) a sharded parameter's buffers
+hold its local part. The two global reductions follow the mesh: the clip's
+norm sums the squares of the sharded gradients over the model group and
+counts each replicated gradient once, and Adafactor's RMS of the parameter
+and of the update, and its means along a sharded axis (the row and column
+second moments, the row moment's mean) are taken over the model group, so
+that every rank takes its part of the one-process update.
 """
 from __future__ import annotations
 
@@ -38,7 +46,10 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from avt_tpu_torch.parallel.mesh import Mesh, Shard, model_shards
 
 Schedule = Callable[[int], float]
 
@@ -220,10 +231,13 @@ class Optimizer:
     buffers in place and never waits for the device."""
 
     def __init__(self, groups: List[ParamGroup], grad_clip_max_norm: Optional[float] = None,
-                 frozen: Sequence[str] = ()):
+                 frozen: Sequence[str] = (), shards: Optional[Dict[str, Shard]] = None,
+                 mesh: Optional[Mesh] = None):
         self.groups = groups
         self.grad_clip_max_norm = grad_clip_max_norm
         self.frozen = list(frozen)
+        self.shards = dict(shards or {})  # of a tensor-parallel model
+        self.mesh = mesh
         self.count = 0
         self.state: Dict[str, Dict[str, torch.Tensor]] = {}
 
@@ -260,7 +274,16 @@ class Optimizer:
         flat = [t for g in grads for t in g]
         if not flat:
             return grads
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(flat)))
+        norms = torch.stack(torch._foreach_norm(flat))
+        if self.shards:
+            sharded = torch.tensor([n in self.shards for g in self.groups for n in g.names],
+                                   device=norms.device)
+            sq = norms.square()
+            part = torch.where(sharded, sq, torch.zeros_like(sq)).sum().reshape(1)
+            dist.all_reduce(part, group=self.mesh.model_group)
+            norm = (part[0] + torch.where(sharded, torch.zeros_like(sq), sq).sum()).sqrt()
+        else:
+            norm = torch.linalg.vector_norm(norms)
         keep = norm < self.grad_clip_max_norm
         out = []
         for g in grads:
@@ -308,8 +331,9 @@ class SGD(Optimizer):
 
     def __init__(self, groups: List[ParamGroup], *, momentum: float = 0.9,
                  nesterov: bool = False, momentum_dtype: Optional[torch.dtype] = None,
-                 grad_clip_max_norm: Optional[float] = None, frozen: Sequence[str] = ()):
-        super().__init__(groups, grad_clip_max_norm, frozen)
+                 grad_clip_max_norm: Optional[float] = None, frozen: Sequence[str] = (),
+                 shards: Optional[Dict[str, Shard]] = None, mesh: Optional[Mesh] = None):
+        super().__init__(groups, grad_clip_max_norm, frozen, shards, mesh)
         self.momentum = momentum
         self.nesterov = nesterov
         self.momentum_buffers: Dict[str, torch.Tensor] = {
@@ -345,8 +369,9 @@ class Adam(Optimizer):
 
     def __init__(self, groups: List[ParamGroup], *, betas=(0.9, 0.999), eps: float = 1e-8,
                  decoupled: bool = False, momentum_dtype: Optional[torch.dtype] = None,
-                 grad_clip_max_norm: Optional[float] = None, frozen: Sequence[str] = ()):
-        super().__init__(groups, grad_clip_max_norm, frozen)
+                 grad_clip_max_norm: Optional[float] = None, frozen: Sequence[str] = (),
+                 shards: Optional[Dict[str, Shard]] = None, mesh: Optional[Mesh] = None):
+        super().__init__(groups, grad_clip_max_norm, frozen, shards, mesh)
         self.b1, self.b2 = float(betas[0]), float(betas[1])
         self.eps = eps
         self.decoupled = decoupled
@@ -403,8 +428,9 @@ class Adafactor(Optimizer):
     EPS1, EPS2, CLIP, DECAY = 1e-30, 1e-3, 1.0, -0.8
 
     def __init__(self, groups: List[ParamGroup], *, grad_clip_max_norm: Optional[float] = None,
-                 frozen: Sequence[str] = (), conv_weights: Sequence[str] = ()):
-        super().__init__(groups, grad_clip_max_norm, frozen)
+                 frozen: Sequence[str] = (), conv_weights: Sequence[str] = (),
+                 shards: Optional[Dict[str, Shard]] = None, mesh: Optional[Mesh] = None):
+        super().__init__(groups, grad_clip_max_norm, frozen, shards, mesh)
         self.conv_weights = frozenset(conv_weights)
         named = [(name, self._jax_layout(name, p))
                  for g in groups for name, p in zip(g.names, g.params)]
@@ -430,9 +456,25 @@ class Adafactor(Optimizer):
         n = x.dim()
         return x.permute(n - 1, n - 2, *range(n - 2))
 
-    @staticmethod
-    def _rms(x: torch.Tensor) -> torch.Tensor:
-        return x.square().mean().sqrt()
+    def _sum(self, x: torch.Tensor) -> torch.Tensor:
+        """x summed over the model group (x's parts of a sharded tensor)."""
+        x = x.contiguous()
+        dist.all_reduce(x, group=self.mesh.model_group)
+        return x
+
+    def _rms(self, x: torch.Tensor, sharded: bool = False) -> torch.Tensor:
+        if not sharded:
+            return x.square().mean().sqrt()
+        return (self._sum(x.square().sum().reshape(1))[0]
+                / (x.numel() * self.mesh.n_model)).sqrt()
+
+    def _mean(self, x: torch.Tensor, dim: int, sharded: bool, keepdim: bool = False
+              ) -> torch.Tensor:
+        """The mean along dim, over the model group's parts when that axis
+        is sharded."""
+        if not sharded:
+            return x.mean(dim=dim, keepdim=keepdim)
+        return self._sum(x.sum(dim=dim, keepdim=keepdim)) / (x.shape[dim] * self.mesh.n_model)
 
     def _update(self, group: ParamGroup, grads: List[torch.Tensor]) -> None:
         t = np.float32(self.count + 1)
@@ -441,19 +483,22 @@ class Adafactor(Optimizer):
         wd = group.weight_decay
         for name, p, g in zip(group.names, group.params, grads):
             g32, p32 = (self._jax_layout(name, x.float()) for x in (g, p))
-            lr = step * torch.clamp_min(self._rms(p32), self.EPS2)
+            shard = self.shards.get(name)  # a sharded weight is a 2-d linear one
+            lr = step * torch.clamp_min(self._rms(p32, shard is not None), self.EPS2)
             sq = g32.square() + self.EPS1
             if p.dim() >= 2:
+                axis = None if shard is None else shard.axis % p.dim()
+                last, before = axis == p.dim() - 1, axis == p.dim() - 2
                 r, c = self.state["row"][name], self.state["col"][name]
-                r.mul_(beta2t).add_(sq.mean(dim=-1) * (1 - beta2t))
-                c.mul_(beta2t).add_(sq.mean(dim=-2) * (1 - beta2t))
-                rf = torch.rsqrt(r / r.mean(dim=-1, keepdim=True))[..., None]
+                r.mul_(beta2t).add_(self._mean(sq, -1, last) * (1 - beta2t))
+                c.mul_(beta2t).add_(self._mean(sq, -2, before) * (1 - beta2t))
+                rf = torch.rsqrt(r / self._mean(r, -1, before, keepdim=True))[..., None]
                 u = rf * torch.rsqrt(c)[..., None, :] * g32
             else:
                 v = self.state["v"][name]
                 v.mul_(beta2t).add_(sq * (1 - beta2t))
                 u = torch.rsqrt(v) * g32
-            u = u / torch.clamp_min(self._rms(u) / self.CLIP, 1.0)
+            u = u / torch.clamp_min(self._rms(u, shard is not None) / self.CLIP, 1.0)
             u = u * lr
             p.add_(self._torch_layout(name, -(u + wd * lr * p32)).to(p.dtype))
 
@@ -496,7 +541,10 @@ def build_optimizer(
     momentum (0.9) and nesterov (False) for sgd; betas ((0.9, 0.999)) and eps
     (1e-8) for adam/adamw; momentum_dtype (None: the parameter's type;
     'bf16'/'bfloat16') for the sgd momentum and the adam first moment.
-    Adafactor takes none of them (its defaults are transformers')."""
+    Adafactor takes none of them (its defaults are transformers').
+    world_size: the number of data-parallel replicas (n_data under tensor
+    parallelism). A model sharded by `parallel.mesh.shard_model` gives the
+    optimizer its shards."""
     optimizer_kwargs = dict(optimizer_kwargs or {})
     scheduler_kwargs = scheduler_kwargs or {}
     groups_cfg = [((mods,) if isinstance(mods, str) else tuple(mods), float(lr), float(wd))
@@ -550,7 +598,8 @@ def build_optimizer(
     unknown = set(optimizer_kwargs) - {"momentum", "nesterov", "betas", "eps"}
     if unknown:
         raise TypeError(f"unknown {optimizer_name} options {sorted(unknown)}")
-    common = dict(grad_clip_max_norm=grad_clip_max_norm, frozen=frozen)
+    shards, mesh = model_shards(model)
+    common = dict(grad_clip_max_norm=grad_clip_max_norm, frozen=frozen, shards=shards, mesh=mesh)
     if optimizer_name == "sgd":
         opt = SGD(groups, momentum=optimizer_kwargs.get("momentum", 0.9),
                   nesterov=optimizer_kwargs.get("nesterov", False), momentum_dtype=mdt, **common)

@@ -15,7 +15,10 @@ between the backward and the optimizer (`allreduce_gradients`), so that
 every rank takes the update of the global batch's mean loss. (A loss mean
 that leaves ignored targets out, or weighs classes, is each rank's mean
 averaged, as the reference's DDP takes it; it is the global batch's when
-every rank keeps the same weight.) In one process nothing changes.
+every rank keeps the same weight.) In one process nothing changes. Under
+tensor parallelism (parallel/mesh.py) "the ranks" are the data replicas:
+the gradients are averaged over the data group, and model peers, which
+step on the same batch, draw the same masks and crops.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from avt_tpu_torch.parallel.ddp import RankGenerator, allreduce_gradients, rank, world_size
+from avt_tpu_torch.parallel.ddp import RankGenerator, allreduce_gradients, data_rank, data_world
 from avt_tpu_torch.train.ops import basic_loss_accuracy
 
 
@@ -195,17 +198,20 @@ def step_generator(seed: int, step_id: int, device) -> torch.Generator:
     through or was resumed. This takes the place of JAX's
     `fold_in(rng, step_id)`; the masks themselves differ from JAX's.
 
-    Under data parallelism the rank is folded in (as the seed sequence's
-    spawn key: a trailing 0 in its entropy would be no fold at all), so
-    that no two ranks draw the same dropout mask or crop for their different
-    clips; `shared` keeps the one-process generator. The port goes this way
+    Under data parallelism the data rank is folded in (as the seed
+    sequence's spawn key: a trailing 0 in its entropy would be no fold at
+    all), so that no two replicas draw the same dropout mask or crop for
+    their different clips, while the model peers of a replica, which run
+    one batch, draw the same ones (the replicated residual stream would
+    otherwise part between them); `shared` keeps the one-process
+    generator. The port goes this way
     rather than drawing each mask for the global batch and keeping this
     rank's rows: plain dropout's masks and the crops then differ from the
     one-process run's, while the position-stable masks (keyed by the shared
     generator and the global row, models/layers.py) equal them."""
-    if world_size() == 1:
+    if data_world() == 1:
         return _seeded(torch.Generator, seed, step_id, device)
-    gen = _seeded(RankGenerator, seed, step_id, device, spawn_key=(rank(),))
+    gen = _seeded(RankGenerator, seed, step_id, device, spawn_key=(data_rank(),))
     gen.shared = _seeded(torch.Generator, seed, step_id, device)
     return gen
 

@@ -18,10 +18,15 @@ It runs on the GPU. The CPU is taken only when asked for: AVT_PLATFORM=cpu
 GPU it raises.
 
 Under a launcher (`avt_tpu_torch.launch --spawn N`, torchrun, SLURM) each
-process is one data-parallel rank (parallel/ddp.py): it joins the process
-group the environment describes (backend from `dist_backend`), takes
-cuda:LOCAL_RANK, feeds the config's per-replica batch size from its shard
-of the loaders, and steps in lockstep with the others.
+process is one rank (parallel/ddp.py): it joins the process group the
+environment describes (backend from `dist_backend`), takes
+cuda:LOCAL_RANK, and steps in lockstep with the others. The ranks form a
+(n_data, n_model) mesh, n_model = parallel.model_size (parallel/mesh.py):
+with 1, every rank is a data-parallel replica; above 1, each n_model
+consecutive ranks hold one replica's model sharded over them (tensor
+parallelism: attention heads, MLPs and classifiers) and read the same
+batch. A replica feeds the config's per-replica batch size from its data
+rank's shard of the loaders.
 """
 from __future__ import annotations
 
@@ -60,6 +65,7 @@ from avt_tpu_torch.train import (
 )
 from avt_tpu_torch.train.ops import balance_weights_from_counts
 from avt_tpu_torch.parallel import ddp
+from avt_tpu_torch.parallel.mesh import make_mesh, shard_model
 from avt_tpu_torch.utils.device import resolve_device
 from avt_tpu_torch.utils.logging import get_logger
 
@@ -106,10 +112,23 @@ def main(cfg: Dict, work_dir: str = ".", device=None) -> float:
     there is no eval dataset)."""
     device = platform_device(device)
     logger = get_logger("avt_tpu_torch.train")
-    # the process group first: the dense sampler's shard reads it
+    # the process group and its mesh first: the dense sampler's shard reads it
     ddp.setup_distributed(cfg.get("dist_backend"), device.type, logger)
-    ddp.check_model_parallel(cfg)
-    rank, world = ddp.rank(), ddp.world_size()
+    n_model = int((cfg.get("parallel") or {}).get("model_size") or 1)
+    only_featext = bool(cfg["eval"]["eval_fn"].get("only_run_featext"))
+    # independent per-process feature extraction (the reference's featext:
+    # dense_clip_sampler's shard_per_worker shards the videos per rank, and
+    # data_eval.use_dist_sampler=false turns the distributed sampler off):
+    # every rank then runs its own dataset, so the eval loaders stay unsharded
+    dense_eval_cfg = (cfg.get("dataset_eval") or {}).get("sample_clips_densely_fn") or {}
+    independent_eval = ddp.world_size() > 1 and only_featext and (
+        bool(dense_eval_cfg.get("shard_per_worker"))
+        or not cfg["data_eval"].get("use_dist_sampler", True))
+    if independent_eval and n_model > 1:
+        raise ValueError("independent featext needs fully replicated params; "
+                         "parallel.model_size must be 1")
+    mesh = make_mesh(n_model)
+    rank, data_rank, n_data = ddp.rank(), mesh.data_rank, mesh.n_data
     seed = cfg.get("seed", 42)
     np.random.seed(seed)
     torch.manual_seed(seed)
@@ -120,8 +139,8 @@ def main(cfg: Dict, work_dir: str = ".", device=None) -> float:
     num_classes = {k: len(v) for k, v in train_dataset.classes.items()}
     class_mappings = train_dataset.class_mappings
 
-    # the config's batch size is per replica (per process); a null eval
-    # batch size falls back to 4x the train one (no backward)
+    # the config's batch size is per data replica; a null eval batch size
+    # falls back to 4x the train one (no backward)
     batch_size = cfg["train"]["batch_size"]
     eval_bs = cfg["eval"].get("batch_size") or batch_size * 4
     # SSL future clips: one key per future_<i>_start column of the tables
@@ -135,7 +154,7 @@ def main(cfg: Dict, work_dir: str = ".", device=None) -> float:
         train_dataset, eval_datasets,
         train_bs_multiplier=cfg["data_train"].get("train_bs_multiplier", 5),
         val_clips_per_video=cfg["data_eval"].get("val_clips_per_video", 1),
-        rank=rank, world_size=world,
+        rank=data_rank, world_size=n_data,
         shuffle_data=cfg["train"].get("shuffle_data", True),
     )
     train_loader = DataLoader(
@@ -144,26 +163,17 @@ def main(cfg: Dict, work_dir: str = ".", device=None) -> float:
         drop_last=True,
         num_workers=cfg["data_train"].get("workers", 8),
         seed=seed,
-        rank=rank,
-        world_size=world,
+        rank=data_rank,
+        world_size=n_data,
         keys=keys,
         sampler=train_sampler,
     )
-    only_featext = bool(cfg["eval"]["eval_fn"].get("only_run_featext"))
-    # independent per-process feature extraction (the reference's featext:
-    # dense_clip_sampler's shard_per_worker shards the videos per rank, and
-    # data_eval.use_dist_sampler=false turns the distributed sampler off):
-    # every rank then runs its own dataset, so the eval loaders stay unsharded
-    dense_eval_cfg = (cfg.get("dataset_eval") or {}).get("sample_clips_densely_fn") or {}
-    independent_eval = world > 1 and only_featext and (
-        bool(dense_eval_cfg.get("shard_per_worker"))
-        or not cfg["data_eval"].get("use_dist_sampler", True))
     eval_loaders = {
         suffix: DataLoader(
             ds, eval_bs, shuffle=False, drop_last=False,
             num_workers=cfg["data_eval"].get("workers", 8), keys=keys,
-            rank=0 if independent_eval else rank,
-            world_size=1 if independent_eval else world,
+            rank=0 if independent_eval else data_rank,
+            world_size=1 if independent_eval else n_data,
             sampler=eval_samplers[suffix],
             # failed reads repeat an in-batch row (same idx, averaged away
             # on merge) rather than bring a foreign sample into the metrics
@@ -180,6 +190,7 @@ def main(cfg: Dict, work_dir: str = ".", device=None) -> float:
         # (run_training restores it)
         init_from_model(model, cfg["train"]["init_from_model"])
     ddp.broadcast_module(model)  # every rank starts from rank 0's weights, as DDP does
+    shard_model(model, mesh)  # then each takes its part, before the optimizer sees them
     # raw-video batches (B, T, H, W, 3 uint8) are preprocessed on the device
     # inside the steps: resize, crop, augment and the subclip fold
     batch0 = next(iter(train_loader))
@@ -190,7 +201,7 @@ def main(cfg: Dict, work_dir: str = ".", device=None) -> float:
 
     iters_per_epoch = max(len(train_loader), 1)
     optimizer, _ = build_optimizer_from_cfg(cfg, model, iters_per_epoch=iters_per_epoch,
-                                            world_size=world)
+                                            world_size=n_data)
     op_cfg = cfg.get("train_eval_op") or {}
     cls_cfg = op_cfg.get("cls_loss_acc_fn") or {}
     class_weights = None
@@ -231,7 +242,7 @@ def main(cfg: Dict, work_dir: str = ".", device=None) -> float:
         metric = evaluate(
             eval_step, eval_loaders, save_dir=work_dir, epoch=epoch,
             store=cfg["eval"]["eval_fn"].get("store", True),
-            only_run_featext=only_featext, logger=logger, rank=rank, device=device)
+            only_run_featext=only_featext, logger=logger, rank=data_rank, device=device)
         last_eval["metric"] = metric
         return metric
 

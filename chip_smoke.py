@@ -218,6 +218,24 @@
    equal to the process bit for bit (else the gap printed); 2 ranks' mean
    losses, a parameter of the checkpoint rank 0 wrote and the merged eval
    results within 1e-4 of the process; each way's step ms.
+18b. tp: tensor parallelism (parallel.model_size=2) as 2 gloo ranks
+   sharing the card, which prove the slice right with the hand kernels on
+   local heads and say nothing of its speed across cards (gloo through the
+   host sets the times). expts/02 as phase 18 runs it, through
+   `avt_tpu_torch.launch --spawn 2 parallel.model_size=2`: 6 + 6 flash
+   launches a step on each rank at 2 heads of 512, 6 an eval batch; the
+   losses, every tensor of the checkpoint rank 0 wrote (the one-process
+   layout) and the merged eval results (model rank 0 writes them) within
+   2e-5 of phase 18's one-process run; that checkpoint resumed in one
+   process through `train_net.cli` and evaluated, within 2e-5. Then the
+   flagship's bf16 train step at 8 clips in this process and as 2 model
+   ranks (`python -m chip_smoke --tp-flagship-rank`): 12 packed forward +
+   12 backward (db) launches a step on each rank at 6 heads of 64; the
+   losses within 2e-2 and the updates of a parameter of each kind within
+   5e-2 of one process's (TP_LOSS_TOL, TP_UPDATE_TOL). Before it, phase 2
+   holds the packed kernels at N=160, T=197, H=6 and 3 (ViT-B/16's heads
+   over 2 and 4 ranks), bf16 and f32, and the flash kernels at (64, 256, 2,
+   512) f32 causal against their plain versions. Prints each step's ms.
 19. featext: the tools' workflow in a scratch working directory
    (`featext_phase`): a synthetic EK100 tree of 4 fps mp4v videos with 256
    s before every action and a seeded timm ViT-B/16 file;
@@ -245,6 +263,7 @@
 Only phase 4b launches the fused kernel. Prints one JSON line of kernel results, then {"ok": true, "device": ...}.
 Exits non-zero on any failure, and without a CUDA device.
 """
+import contextlib
 import csv
 import functools
 from concurrent.futures import ThreadPoolExecutor
@@ -1069,6 +1088,21 @@ def main():
     # one, and viz_attention's one clip of 10 frames x 6 views
     featext_errs = {f"N{N}": check_attention(N, 197, 12, 64, torch.float32, False, seed=22)
                     for N in FX_ATTENTION_N}
+    # tensor parallelism's local shapes: ViT-B/16's 12 heads over 2 ranks
+    # (6 a rank: the paired kernels with db) and over 4 (3: the unpaired
+    # forms, no db, as `fused_qkv_attention` takes odd head counts), and
+    # AVT-h's 4 heads of 512 over 2 ranks at expts/02's batch
+    tp_errs = {}
+    for H in (6, 3):
+        for dtype in (torch.bfloat16, torch.float32):
+            dt = str(dtype)[6:]
+            tp_errs[f"packed_fwd_N160_H{H}_{dt}"] = check_attention(160, 197, H, 64, dtype, False,
+                                                                     seed=38)
+            tp_errs[f"packed_bwd_N160_H{H}_{dt}"] = check_attention_bwd(
+                160, 197, H, 64, dtype, False, H % 2 == 0, seed=39)
+    tp_flash = (FEAT_BATCH, LONG_T, AVTH_HEADS // TP_MODEL, AVTH_DIM // AVTH_HEADS)
+    tp_errs["flash_fwd_B64_T256_H2_float32"], tp_errs["flash_bwd_B64_T256_H2_float32"] = (
+        check_flash(*tp_flash, torch.float32, True, seed=40))
     f32_fwd = {N: time_attention(N, 197, 12, 64, torch.float32)
                for N in (TNR_BATCH * TNR_FRAMES, TNR_BATCH * TNR_FRAMES * 6)}
     f32_bwd = time_attention_bwd(TNR_BATCH * TNR_FRAMES, 197, 12, 64, torch.float32)
@@ -1139,8 +1173,12 @@ def main():
     # 17. the serving export: saved, loaded in a fresh process, run
     export_launches, export_summary = export_phase(card)
 
-    # 18. data-parallel training: expts/02 as 1 NCCL rank and 2 gloo ranks
-    ddp_launches, ddp_summary = ddp_phase(card)
+    # 18. data-parallel training: expts/02 as 1 NCCL rank and 2 gloo ranks;
+    # 18b. tensor parallelism: expts/02 and the flagship step as 2 model ranks
+    with tempfile.TemporaryDirectory() as tmp:
+        ddp_launches, ddp_summary, yard = ddp_phase(card, tmp)
+        tp_launches, tp_summary = tp_phase(card, yard)
+    tp_summary["kernel_checks"] = tp_errs
 
     # 19. the tools: raw video -> a packed store -> expts/02 on it -> analysis
     featext_launches, featext_summary = featext_phase(card)
@@ -1151,7 +1189,7 @@ def main():
              "ek55_adam": ek55_launches, **tn_launches, **tnr_launches, **rulstm_launches,
              **zoo_launches, **rollout_launches, **quant_launches, **conv_launches,
              **bni_launches, **ssl_launches, "export": export_launches, **ddp_launches,
-             **featext_launches}
+             **tp_launches, **featext_launches}
     for path, counts in paths.items():
         if path != "train_fused":
             check(counts["fused_qkv_attention_fwd"] == 0, f"a fused launch on {path}: {counts}")
@@ -1177,7 +1215,8 @@ def main():
                                       for label, res in f32_turns.items()},
              export=export_summary,
              featext={**{k: v for k, v in featext_summary["featext"].items() if k != "groups"},
-                      "kernel_checks": featext_errs}),
+                      "kernel_checks": featext_errs},
+             tp={k: v for k, v in tp_errs.items() if k.startswith("packed_fwd")}),
         dict(name="short_attention_bwd", route=bwd_spec["route"], source=bwd_spec["source"],
              replaces=bwd_spec["replaces"], launches=train_launches["short_attention_bwd"],
              launches_by_path=by_path("short_attention_bwd"),
@@ -1192,7 +1231,9 @@ def main():
              f32_registers={t: registers.get(t) for t in F32_TEMPLATES[1:]},
              f32_turns=f32_turns and {label: {k: v for k, v in res.items() if k.startswith("bwd")}
                                       for label, res in f32_turns.items()},
-             expt01_train_step=expt01_profile),
+             expt01_train_step=expt01_profile,
+             tp={**{k: v for k, v in tp_errs.items() if k.startswith("packed_bwd")},
+                 "flagship_step": tp_summary["flagship"]}),
     ]
     for name, side, err, err_d1024, err_zoo in (
             ("flash_attention_fwd", "fwd", flash_err[0], d1024_err[0], zoo_err[0]),
@@ -1217,7 +1258,11 @@ def main():
             ssl_checks={k: v[side] for k, v in ssl_errs.items()},
             rollout=rollout_summary,
             ssl_train_step={k: v for k, v in ssl_summary.items() if k != "groups"},
-            ddp=ddp_summary, featext_train=featext_summary["featext_train"]))
+            ddp=ddp_summary, featext_train=featext_summary["featext_train"],
+            tp={"shape": list(tp_flash), "dtype": "float32", "causal": True,
+                "max_abs_err": tp_errs[f"flash_{side}_B64_T256_H2_float32"],
+                **{k: v for k, v in tp_summary.items() if k not in ("flagship",
+                                                                     "kernel_checks")}}))
     spec = _build.KERNELS["fused_qkv_attention_fwd"]
     kernels.append(dict(
         name="fused_qkv_attention_fwd", route=spec["route"], source=spec["source"],
@@ -3758,7 +3803,7 @@ def ddp_rank_main(argv):
         json.dump(out, f)
 
 
-def ddp_phase(card):
+def ddp_phase(card, tmp=None):
     """expts/02 at 256 observed features, 2 steps of 64 clips and 1 eval
     batch, three ways: in this process through `train_net.cli`; as one rank
     of a process group over NCCL; as 2 ranks over gloo on this one card, 32
@@ -3772,10 +3817,15 @@ def ddp_phase(card):
     the 2 gloo ranks' mean losses, DDP_PARAM in the checkpoint rank 0 wrote,
     and the merged eval results within DDP_TOL of the one-process run's
     (the measured errors printed). Prints the step ms each way. Returns the
-    launch counts of each rank."""
+    launch counts of each rank, a summary, and the yardstick the tp phase
+    holds its ranks against: the tree's overrides, the one-process run's
+    directory (under `tmp`, which outlives the call when given), losses and
+    first step's ms."""
     from avt_tpu_torch import launch, train_net
 
-    with tempfile.TemporaryDirectory() as tmp:
+    with contextlib.ExitStack() as stack:
+        if tmp is None:
+            tmp = stack.enter_context(tempfile.TemporaryDirectory())
         t0 = time.time()
         tree = write_ek100_tree(os.path.join(tmp, "tree"), train_videos=DDP_TRAIN_VIDEOS,
                                 eval_videos=DDP_EVAL_VIDEOS, actions_per_video=DDP_ACTIONS,
@@ -3867,7 +3917,236 @@ def ddp_phase(card):
     return counts, dict(one_step_ms=one_step_ms, w1_step_ms=w1["ranks"][0]["step_ms"][-1],
                         w2_step_ms=[r["step_ms"][-1] for r in w2["ranks"]], w1_loss_gap=loss_gap,
                         w1_param_gap=param_gap, w2_loss_rel_err=loss_err,
-                        w2_param_rel_err=param_err, w2_eval_err=eval_err)
+                        w2_param_rel_err=param_err, w2_eval_err=eval_err), dict(
+        common=common, one_dir=one_dir, one_losses=one_losses, one_step_ms=one_step_ms)
+
+
+# --------------------------------------------------------------------- tp
+# tensor parallelism (parallel.model_size=2) as 2 gloo ranks sharing the
+# card: expts/02 at 256 features on the ddp phase's tree against its
+# one-process run, and the flagship's bf16 train step against one process
+TP_MODEL = 2
+TP_TOL = 2e-5  # expts/02, f32: 2 model ranks vs 1 process, of each tensor's max |value|
+TP_CLIPS = 8  # the flagship step's clips (80 ViT frames) on each rank
+# bf16 flagship, 2 model ranks vs 1 process. A row layer's partial
+# products are summed in f32 and rounded once to bf16, as one process's
+# GEMM rounds its f32 sum once; the sums' orders differ, so an activation
+# can land one bf16 step (2^-8 of it) apart, and such steps travel through
+# 12 blocks: the tolerances of phase 2's bf16 checks (2e-2 on the loss,
+# relative) and of its kernel-vs-plain gradients (GRAD_TOL, 5e-2 of each
+# update's max |value|)
+TP_LOSS_TOL, TP_UPDATE_TOL = 2e-2, GRAD_TOL
+TP_NAMES = ["backbone.model.blocks.0.attn.qkv.weight", "backbone.model.blocks.0.attn.qkv.bias",
+            "backbone.model.blocks.11.attn.proj.weight", "backbone.model.blocks.5.mlp.fc1.weight",
+            "backbone.model.blocks.5.mlp.fc2.weight", "backbone.model.blocks.0.norm1.bias",
+            "backbone.model.patch_embed.proj.weight",
+            "future_predictor.gpt_model.h.0.attn.c_attn.weight",
+            "future_predictor.gpt_model.h.5.mlp.c_proj.weight", "classifiers.action.weight"]
+TP_PACKED = {"short_attention_fwd": VIT_BLOCKS, "short_attention_bwd": VIT_BLOCKS, **NO_OTHER}
+
+
+def tp_flagship_run(mesh=None):
+    """The flagship's bf16 train step (phase 4's, at TP_CLIPS clips, the LR
+    schedule without warmup so that both steps move the weights) for 2
+    steps, on one process or, with a mesh, as this rank's shard (rank 0's
+    weights broadcast first, as train_net does). Returns the losses, each
+    step's launches and ms, and the updates of TP_NAMES (gathered)."""
+    from avt_tpu_torch.parallel import ddp
+    from avt_tpu_torch.parallel.mesh import gather_state_dict, shard_model
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = build_avt(num_actions=NUM_ACTIONS, vit_dtype=torch.bfloat16, generator=gen)
+    if mesh is not None:
+        ddp.broadcast_module(model)
+        shard_model(model, mesh)
+    _, step, _, batch = train_pipeline(model, TP_CLIPS, iters_per_epoch=1, num_epochs=3,
+                                       warmup_epochs=0)
+    params = dict(model.named_parameters())
+
+    def picked():
+        return {n: v.float().cpu() for n, v in gather_state_dict(
+            {n: params[n].detach().clone() for n in TP_NAMES}, model).items()}
+
+    before = picked()
+    step_gen = torch.Generator(device="cuda").manual_seed(1)
+    losses, launches, step_ms = [], [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.time()
+        metrics = step(batch, step_gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.time() - t0) * 1e3)
+        launches.append(dict(_build.launch_counts))
+        losses.append({k: v.item() for k, v in metrics.items() if k.startswith("loss")})
+    after = picked()
+    del model, step
+    torch.cuda.empty_cache()
+    return dict(losses=losses, launches=launches, step_ms=step_ms,
+                updates={n: after[n] - before[n] for n in TP_NAMES})
+
+
+def tp_flagship_rank_main(out_dir):
+    """One rank of the tp phase's flagship step, started by `tp_phase` as
+    `python -m chip_smoke --tp-flagship-rank <out_dir>` with the rendezvous
+    variables set: joins a gloo group on the card, builds the (1, TP_MODEL)
+    mesh and runs `tp_flagship_run`; rank 0 writes the result to
+    <out_dir>/tp_flagship.pt, every rank its launches and ms to
+    <out_dir>/tp_flagship_rank<r>.json."""
+    from avt_tpu_torch.parallel import ddp
+    from avt_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ddp.setup_distributed("gloo", "cuda")
+    res = tp_flagship_run(make_mesh(TP_MODEL))
+    rank = ddp.rank()
+    if rank == 0:
+        torch.save(res, os.path.join(out_dir, "tp_flagship.pt"))
+    with open(os.path.join(out_dir, f"tp_flagship_rank{rank}.json"), "w") as f:
+        json.dump({k: res[k] for k in ("losses", "launches", "step_ms")}, f)
+    ddp.cleanup()
+
+
+def tp_expt02(card, yard):
+    """expts/02 at 256 features, 2 steps of 64 clips and 1 eval batch, as
+    TP_MODEL ranks of parallel.model_size=TP_MODEL over gloo on this card
+    (`launch.main(... --spawn 2 parallel.model_size=2)`, the ranks running
+    `ddp_rank_main`), against the ddp phase's one-process run on the same
+    tree: each rank's flash launches (6 + 6 a step, 6 an eval batch, at 2
+    heads of 512), both ranks' losses, every tensor of the checkpoint rank
+    0 wrote (the one-process layout) and the merged eval results (written
+    by model rank 0 alone) within TP_TOL; then the checkpoint in one
+    process, `train_net.cli` resuming it (nothing left to train) and
+    evaluating, within TP_TOL of the one-process results."""
+    from avt_tpu_torch import launch, train_net
+
+    run_dir = os.path.join(os.path.dirname(yard["one_dir"]), "tp")
+    common = yard["common"] + [f"train.batch_size={TN_BATCH}", f"eval.batch_size={TN_BATCH}"]
+    t0 = time.time()
+    with mock.patch.object(launch, "TRAIN_MODULE", "chip_smoke"):
+        rcs = launch.main(["-c", EXPT_02, "--spawn", str(TP_MODEL), "--run-dir", run_dir]
+                          + common + [f"parallel.model_size={TP_MODEL}", "dist_backend=gloo"])
+    wall_s = time.time() - t0
+    check(rcs == [0] * TP_MODEL, f"tp expts/02: ranks exited {rcs}")
+    ranks = []
+    for r in range(TP_MODEL):
+        with open(os.path.join(run_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    want = flash_launches(AVTH_LAYERS * (DDP_STEPS + 1), AVTH_LAYERS * DDP_STEPS)
+    counts = {}
+    for rank in ranks:
+        counts[f"tp_expt02_rank{rank['rank']}"] = rank["launches"]
+        check(rank["launches"] == want and rank["loss_count"] == DDP_STEPS,
+              f"tp expts/02 rank {rank['rank']}: launches {rank['launches']} over "
+              f"{rank['loss_count']} steps, want {want}")
+    one = yard["one_losses"]
+    loss_err = max(abs(rank["losses"][k] - v) / max(abs(v), 1e-12)
+                   for rank in ranks for k, v in one.items())
+
+    def ckpt(d):
+        return torch.load(os.path.join(d, CKPT_NAME), map_location="cpu", weights_only=True)
+
+    got, ref = ckpt(run_dir), ckpt(yard["one_dir"])
+    check(set(got["model"]) == set(ref["model"]) and all(
+        got["model"][k].shape == v.shape for k, v in ref["model"].items()),
+        "tp expts/02: the checkpoint is not in the one-process layout")
+    param_err = max(scaled_err(got["model"][k].float(), v.float())
+                    for k, v in ref["model"].items() if v.is_floating_point())
+    one_res = read_results(os.path.join(yard["one_dir"], RESULTS_SAVE_DIR))
+    res = read_results(os.path.join(run_dir, RESULTS_SAVE_DIR))
+    check(sorted(os.listdir(os.path.join(run_dir, RESULTS_SAVE_DIR))) == ["0"],
+          "tp expts/02: a model rank other than 0 wrote eval results")
+    check(np.array_equal(res["idx"], one_res["idx"]), "tp expts/02: merged eval idx differ")
+    eval_err = max(scaled_err(torch.from_numpy(res[k]), torch.from_numpy(one_res[k]))
+                   for k in ("logits/action", "loss/cls_action"))
+    # the checkpoint in one process: a resume with nothing left to train, an eval
+    (_,), rec = run_train_net(["--config-file", EXPT_02, "--run-dir", run_dir] + common)
+    check(rec["launches"] == flash_launches(AVTH_LAYERS, 0),
+          f"tp expts/02 resumed in one process: launches {rec['launches']}")
+    res1 = read_results(os.path.join(run_dir, RESULTS_SAVE_DIR))
+    resumed_err = scaled_err(torch.from_numpy(res1["logits/action"]),
+                             torch.from_numpy(one_res["logits/action"]))
+    log(f"tp ({card}): expts/02 at {LONG_T} features as {TP_MODEL} ranks of "
+        f"parallel.model_size={TP_MODEL} (gloo, one card; {AVTH_HEADS // TP_MODEL} heads of "
+        f"{AVTH_DIM // AVTH_HEADS} a rank), {DDP_STEPS} steps of {TN_BATCH} clips and 1 eval "
+        f"batch: " + ", ".join(f"rank {r['rank']} {r['step_ms'][-1]:.2f} ({r['step_ms'][0]:.2f}) "
+                               f"ms a step" for r in ranks)
+        + f" (one process: {yard['one_step_ms']:.2f} ms; gloo through the host sets these "
+        f"times, not tensor parallelism); against one process: losses {loss_err:.3g} "
+        f"relative, checkpoint {param_err:.3g}, merged eval {eval_err:.3g}, the checkpoint "
+        f"resumed in one process and evaluated {resumed_err:.3g} (each of its max |value|; "
+        f"limit {TP_TOL}); launches a rank {ranks[0]['launches']}; launch to exit "
+        f"{wall_s:.1f} s")
+    check(max(loss_err, param_err, eval_err, resumed_err) <= TP_TOL,
+          f"tp expts/02: losses {loss_err:.3g}, checkpoint {param_err:.3g}, eval "
+          f"{eval_err:.3g}, resumed {resumed_err:.3g} (limit {TP_TOL})")
+    return counts, dict(step_ms=[r["step_ms"][-1] for r in ranks], loss_rel_err=loss_err,
+                        ckpt_err=param_err, eval_err=eval_err, resumed_eval_err=resumed_err)
+
+
+def tp_flagship(card, tmp):
+    """The flagship's bf16 train step in this process, then as TP_MODEL ranks
+    of a (1, TP_MODEL) mesh sharing the card (`tp_flagship_rank_main`):
+    each rank launches the packed forward and backward (db) kernels 12
+    times a step on 6 heads of 64; the losses within TP_LOSS_TOL and the
+    updates of TP_NAMES within TP_UPDATE_TOL of one process's."""
+    from avt_tpu_torch import launch
+
+    one = tp_flagship_run()
+    port = launch._free_port()
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "chip_smoke", "--tp-flagship-rank", tmp],
+        env=dict(os.environ, **launch.rank_env(r, TP_MODEL, r, "localhost", port)))
+        for r in range(TP_MODEL)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.time() - t0
+    check(rcs == [0] * TP_MODEL, f"tp flagship: ranks exited {rcs}")
+    tp = torch.load(os.path.join(tmp, "tp_flagship.pt"), weights_only=False)
+    counts = {}
+    for r in range(TP_MODEL):
+        with open(os.path.join(tmp, f"tp_flagship_rank{r}.json")) as f:
+            rank = json.load(f)
+        counts[f"tp_flagship_rank{r}"] = {k: sum(c[k] for c in rank["launches"])
+                                          for k in rank["launches"][0]}
+        check(all(c == TP_PACKED for c in rank["launches"]),
+              f"tp flagship rank {r}: launches {rank['launches']}, want {TP_PACKED} a step")
+    loss_err = max(abs(t[k] - o[k]) / max(abs(o[k]), 1e-12)
+                   for t, o in zip(tp["losses"], one["losses"]) for k in o)
+    update_err = {n: scaled_err(tp["updates"][n], one["updates"][n]) for n in TP_NAMES}
+    check(all(one["updates"][n].abs().max() > 0 for n in TP_NAMES),
+          "tp flagship: a compared parameter did not move")
+    log(f"tp ({card}): flagship bf16 train step, {TP_CLIPS} clips x {CLIP[0]} frames, 2 steps: "
+        f"one process {one['step_ms'][1]:.2f} ({one['step_ms'][0]:.2f}) ms a step; "
+        f"{TP_MODEL} ranks of parallel.model_size={TP_MODEL} (gloo, one card; ViT-B/16 at "
+        f"{12 // TP_MODEL} heads of 64 a rank) {tp['step_ms'][1]:.2f} ({tp['step_ms'][0]:.2f}) "
+        f"ms a step on rank 0 (gloo through the host sets these times, not tensor "
+        f"parallelism); losses {loss_err:.3g} relative (limit {TP_LOSS_TOL}), updates "
+        + ", ".join(f"{n.split('.', 2)[-1]} {e:.3g}" for n, e in update_err.items())
+        + f" of each one-process update's max |value| (limit {TP_UPDATE_TOL}); launches a "
+        f"step {TP_PACKED}; ranks' launch to exit {wall_s:.1f} s")
+    check(loss_err <= TP_LOSS_TOL and max(update_err.values()) <= TP_UPDATE_TOL,
+          f"tp flagship: losses {loss_err:.3g}, updates {update_err}")
+    return counts, dict(one_step_ms=one["step_ms"][1], tp_step_ms=tp["step_ms"][1],
+                        loss_rel_err=loss_err, update_err=update_err)
+
+
+def tp_phase(card, yard):
+    """Tensor parallelism on the card: `tp_expt02` against the ddp phase's
+    one-process run (`yard`), then `tp_flagship`. Returns the launch counts
+    of each rank and a summary."""
+    counts, summary = tp_expt02(card, yard)
+    with tempfile.TemporaryDirectory() as tmp:
+        f_counts, summary["flagship"] = tp_flagship(card, tmp)
+    counts.update(f_counts)
+    return counts, summary
 
 
 # ------------------------------------------------------------------ featext
@@ -4190,7 +4469,9 @@ def featext_phase(card):
 
 
 if __name__ == "__main__":
-    if len(sys.argv) > 1:  # a rank of the ddp phase (avt_tpu_torch.launch's child)
+    if sys.argv[1:2] == ["--tp-flagship-rank"]:  # a rank of the tp phase's flagship step
+        tp_flagship_rank_main(sys.argv[2])
+    elif len(sys.argv) > 1:  # a rank of the ddp or tp phase (avt_tpu_torch.launch's child)
         ddp_rank_main(sys.argv[1:])
     else:
         main()

@@ -44,6 +44,7 @@ from avt_tpu_torch import launch, train_net
 from avt_tpu_torch.evaluate import RESULTS_SAVE_DIR, read_results
 from avt_tpu_torch.models.convert import load_jax_params, params_from_jax
 from avt_tpu_torch.parallel import ddp
+from avt_tpu_torch.parallel.mesh import Mesh, current_mesh, make_mesh
 from avt_tpu_torch.train import CKPT_NAME, build_optimizer, make_train_step
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -288,9 +289,10 @@ def test_helpers_in_one_process_and_their_refusals(monkeypatch):
         ddp.resolve_backend("nccl", "cpu")
     with pytest.raises(ValueError, match="mpi"):
         ddp.resolve_backend("mpi", "cpu")
-    with pytest.raises(NotImplementedError, match="1.9b"):
-        ddp.check_model_parallel({"parallel": {"model_size": 4}})
-    ddp.check_model_parallel({"parallel": {"model_size": 1}})
+    with pytest.raises(ValueError, match="model_size=4 does not divide the 1 processes"):
+        make_mesh(4)
+    assert make_mesh(1) == current_mesh() == Mesh(1, 1, 0, 0)
+    assert (ddp.data_rank(), ddp.data_world(), ddp.model_rank()) == (0, 1, 0)
     x = torch.arange(6.0).reshape(3, 2)
     assert ddp.all_gather_with_grad(x) is x and ddp.all_reduce_with_grad(x) is x
     assert ddp.from_rank0(True) and ddp.any_rank(True) and not ddp.any_rank(False)

@@ -21,6 +21,7 @@ when preempted, and refuses what is not ported and the CPU unasked.
 """
 import functools
 import os
+import pickle
 import sys
 from pathlib import Path
 from unittest import mock
@@ -424,13 +425,20 @@ SSL_EXPT02 = ["train_eval_op/reg_criterion=simclr_infonce", "model.project_dim_f
 ])
 def test_unported_options_raise_naming_their_roadmap_item(tree, tmp_path, monkeypatch, request,
                                                           overrides, item):
-    """What is still to port (item 1.3) raises naming its ROADMAP item.
-    What was ported since trains an epoch and evaluates through the driver
-    to a finite metric: AVT-h's rollout options (item 1.5: a rollout of 2
-    steps in training, with the file's dropout); the conv backbones (item
-    1.6) through `cli` with no experiment file, conf/config.yaml's
-    r2plus1d_34 (or BN-Inception, built with N=0) on raw video; the SSL op
-    (item 1.8) on expts/02 with future clips and the InfoNCE."""
+    """The options that once raised naming their ROADMAP item, each ported
+    since. These train an epoch and evaluate through the driver to a
+    finite metric: AVT-h's rollout options (item 1.5: a rollout of 2 steps
+    in training, with the file's dropout); the conv backbones (item 1.6)
+    through `cli` with no experiment file, conf/config.yaml's r2plus1d_34
+    (or BN-Inception, built with N=0) on raw video; the SSL op (item 1.8)
+    on expts/02 with future clips and the InfoNCE. `_precomputed_metadata_
+    file` (item 1.3) is cached video-clip metadata, which no shipped
+    dataset has: `build_dataset` saves and loads it, as the JAX package's
+    does, on a test dataset with `metadata` and `video_clips` and one
+    without (`_check_precomputed_metadata`)."""
+    if item == "1.3":
+        _check_precomputed_metadata(tmp_path, overrides[0].split("=", 1)[0][1:])
+        return
     if item == "1.5":
         cfg, _ = _compose(tree + SMALL + overrides + ["model.future_predictor.output_len=2",
                                                       "train.num_epochs=1"])
@@ -449,9 +457,62 @@ def test_unported_options_raise_naming_their_roadmap_item(tree, tmp_path, monkey
         cfg, _ = _compose(tree + SMALL + overrides + SSL_EXPT02)
         assert np.isfinite(train_net.main(cfg, str(tmp_path), device="cpu"))
         return
-    cfg, _ = _compose(tree + SMALL + overrides)
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue {item}"):
-        train_net.main(cfg, str(tmp_path), device="cpu")
+    raise AssertionError(f"no case for item {item}")
+
+
+class _ClipsDataset:
+    """A dataset over torchvision-style decoded clips: its `metadata`, a
+    `video_clips` whose compute_clips is recorded, and the cached metadata
+    it was given."""
+    METADATA = {"video_paths": ["a.mp4", "b.mp4"], "video_pts": [[0, 1, 2], [0, 1]],
+                "video_fps": [30.0, 30.0]}
+
+    def __init__(self, _precomputed_metadata=None, **kwargs):
+        self.given = _precomputed_metadata
+        self.kwargs = kwargs
+        self.metadata = dict(self.METADATA)
+        self.video_clips = mock.MagicMock()
+
+
+class _PlainDataset:
+    def __init__(self, **kwargs):
+        self.kwargs = kwargs
+
+
+def _check_precomputed_metadata(tmp_path, key):
+    """`key` (dataset_train._precomputed_metadata_file) through
+    `build_dataset`: with no file, the clips are computed for the config's
+    frame count and rate and the dataset's metadata is saved; with the file,
+    it is loaded and handed to the dataset; a dataset with no metadata
+    saves nothing and warns, as the JAX package's build_dataset does."""
+    from avt_tpu_torch.config import build as cbuild
+    from avt_tpu_torch.config import registry
+
+    assert key == "dataset_train._precomputed_metadata_file"
+    path = tmp_path / "meta.pkl"
+    data_cfg = {"num_frames": 8, "frame_rate": 2}
+    targets = {"test.ClipsDataset": _ClipsDataset, "test.PlainDataset": _PlainDataset,
+               "test.Reader": lambda: "reader"}
+    with mock.patch.dict(registry._REGISTRY, targets):
+        def build(target):
+            return cbuild.build_dataset({"_target_": target,
+                                         "reader_fn": {"_target_": "test.Reader"},
+                                         "_precomputed_metadata_file": str(path)}, data_cfg)
+
+        ds = build("test.ClipsDataset")
+        assert ds.given is None and "_precomputed_metadata_file" not in ds.kwargs
+        ds.video_clips.compute_clips.assert_called_once_with(8, 1, frame_rate=2)
+        with open(path, "rb") as f:
+            assert pickle.load(f) == _ClipsDataset.METADATA
+        assert not list(tmp_path.glob("meta.pkl.tmp*"))
+        ds = build("test.ClipsDataset")
+        assert ds.given == _ClipsDataset.METADATA
+        ds.video_clips.compute_clips.assert_called_once_with(8, 1, frame_rate=2)
+        path.unlink()
+        with mock.patch.object(cbuild.LOG, "warning") as warn:
+            ds = build("test.PlainDataset")
+        assert isinstance(ds, _PlainDataset) and not path.exists()
+        assert "no .metadata" in warn.call_args[0][0]
 
 
 def _compose_lines(overrides):
@@ -519,12 +580,21 @@ def test_expt05_cli_evaluates_a_rulstm_file_on_the_cpu(tmp_path, monkeypatch):
 
 
 def test_main_refuses_a_process_group(tree, tmp_path, monkeypatch):
-    """A process group that asks for tensor parallelism (parallel.model_size
-    > 1) is refused before any data is read: the port shards the batch
-    only (data parallelism over processes is tests/test_torch_ddp.py's)."""
-    cfg, _ = _compose(tree + SMALL + ["parallel.model_size=2"])
-    with pytest.raises(NotImplementedError, match="Queue 1.9b"):
-        train_net.main(cfg, str(tmp_path), device="cpu")
+    """A process group that asks for independent per-process feature
+    extraction (only_run_featext without the distributed sampler) under
+    tensor parallelism (parallel.model_size > 1) is refused before any data
+    is read, as the JAX package's train_net refuses it: each rank would run
+    its own dataset, which sharded parameters cannot serve. (Tensor
+    parallelism itself is tests/test_torch_tensor_parallel.py's.)"""
+    cfg, jcfg = _compose(tree + SMALL + [
+        "parallel.model_size=2", "eval.eval_fn.only_run_featext=true",
+        "data_eval.use_dist_sampler=false"])
+    assert jcfg["parallel"]["model_size"] == 2
+    monkeypatch.setattr(train_net.ddp, "world_size", lambda: 2)
+    with mock.patch.object(train_net, "build_all_datasets") as build:
+        with pytest.raises(ValueError, match="independent featext needs fully replicated"):
+            train_net.main(cfg, str(tmp_path), device="cpu")
+    build.assert_not_called()
 
 
 def test_module_runs_as_a_script_and_refuses_the_cpu_unasked(tmp_path):
