@@ -8,7 +8,7 @@ registry that maps the reference's and the JAX package's target strings
 onto the port's classes. YAML is read by the port's own reader, so the
 package needs no PyYAML.
 """
-from avt_tpu_torch.config.compose import Composer, load_yaml, resolve_interpolations
+from avt_tpu_torch.config.compose import Composer, compose, load_yaml, resolve_interpolations
 from avt_tpu_torch.config.overrides import (
     expand_sweeps,
     parse_override,
@@ -19,7 +19,7 @@ from avt_tpu_torch.config.overrides import (
 from avt_tpu_torch.config.registry import instantiate, register_target, resolve_target
 
 __all__ = [
-    "Composer", "expand_sweeps", "instantiate", "load_yaml", "parse_override",
+    "Composer", "compose", "expand_sweeps", "instantiate", "load_yaml", "parse_override",
     "parse_overrides_file", "parse_value", "register_target", "resolve_interpolations",
     "resolve_target", "yaml_load",
 ]

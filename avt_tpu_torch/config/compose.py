@@ -187,6 +187,16 @@ class Composer:
 _INTERP_RE = re.compile(r"\$\{([^{}]+)\}")
 
 
+def compose(
+    conf_dir: Union[str, Path],
+    config_name: str = "config",
+    overrides: Sequence[Union[str, Override]] = (),
+    resolve: bool = True,
+) -> Dict:
+    """`config_name` of `conf_dir` with `overrides` applied: Composer(conf_dir).compose."""
+    return Composer(conf_dir).compose(config_name, overrides, resolve)
+
+
 def _is_literal(a: str) -> bool:
     """Whether a resolver argument reads as a YAML int, float or bool."""
     try:

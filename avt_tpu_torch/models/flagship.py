@@ -140,7 +140,9 @@ def build_avt(
     for). `generator` (on that device) or `seed` makes the weights
     reproducible."""
     if backbone not in ("avt_b", "identity"):
-        raise NotImplementedError(f"backbone {backbone!r} is not ported yet")
+        raise NotImplementedError(
+            f"build_avt builds backbone='avt_b' or 'identity', not {backbone!r}: a conv "
+            "backbone is built from a config by avt_tpu_torch.config.build.build_model")
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device)

@@ -122,3 +122,42 @@ def fused_qkv_attention(
     if packed:
         return fa.packed_qkv_bias_attention(qkv, bias, num_heads, causal)
     return packed_attention(qkv + bias.to(x.dtype), num_heads, causal=causal)
+
+
+def multi_head_attention(
+    x_q: torch.Tensor,
+    x_kv: torch.Tensor,
+    wq: torch.Tensor,
+    wk: torch.Tensor,
+    wv: torch.Tensor,
+    wo: torch.Tensor,
+    num_heads: int,
+    *,
+    bq: Optional[torch.Tensor] = None,
+    bk: Optional[torch.Tensor] = None,
+    bv: Optional[torch.Tensor] = None,
+    bo: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Functional MHA: projections + attention + output projection.
+
+    x_q (B, Tq, C) attends over x_kv (B, Tk, C); Tq and Tk may differ (a
+    causal mask keeps key j for query i when j <= i, as the JAX package's).
+    Weights wq/wk/wv (C, C'), wo (C', C), applied as x @ w; returns (B, Tq,
+    C). The attention goes through `dot_product_attention`, so on CUDA, for
+    128 or more query tokens and no mask, through the flash kernels (and
+    their backward under autograd)."""
+    B, T, _ = x_q.shape
+    head_dim = wq.shape[1] // num_heads
+
+    def linear(x, w, b):
+        y = x @ w
+        return y if b is None else y + b
+
+    def heads(x, w, b):
+        return linear(x, w, b).reshape(x.shape[0], x.shape[1], num_heads, head_dim)
+
+    out = dot_product_attention(heads(x_q, wq, bq), heads(x_kv, wk, bk), heads(x_kv, wv, bv),
+                                causal=causal, mask=mask)
+    return linear(out.reshape(B, T, num_heads * head_dim), wo, bo)

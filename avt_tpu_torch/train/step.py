@@ -2,7 +2,7 @@
 
 Counterpart of avt_tpu/train/step.py (`weighted_loss_sum`,
 `make_train_step`, `make_ssl_train_step`, `make_multi_step`,
-`make_eval_step`): per-loss mean reduction, the
+`make_eval_step`, `make_forward_fn`): per-loss mean reduction, the
 loss_wts-weighted sum with zero-weight losses left out of the graph, the
 gradient, the update. The JAX
 step is one jitted program over a donated TrainState; here the model's
@@ -268,3 +268,17 @@ def make_eval_step(
         return res
 
     return step
+
+
+def make_forward_fn(model) -> Callable[[torch.Tensor], Dict[str, torch.Tensor]]:
+    """fwd(video) -> the model's whole outputs dict, in eval mode with
+    autograd off: the counterpart of the JAX package's plain jitted forward
+    (the parameters are the model's own, so fwd takes only the video)."""
+
+    @torch.no_grad()
+    def fwd(video: torch.Tensor) -> Dict[str, torch.Tensor]:
+        model.eval()
+        outputs, _ = model(video)
+        return outputs
+
+    return fwd

@@ -260,10 +260,46 @@
    Prints the extraction's clips/s and decode wait, the packed kernel's
    share of a batch, pack s and the store's MB, the loop's ms a step and
    data wait, the analysis s, beside the card's name and power limit.
+20. adafactor_plateau: expts/02's lines at 256 observed features with
+   `opt/optimizer=adafactor` and `opt/scheduler=reduce_lr_on_plateau`
+   (patience 0, an absolute threshold no eval beats: PLATEAU_OVERRIDES)
+   through `train_net.cli` on 4 train and 2 eval videos, 2 epochs of 2
+   steps of 64, an eval batch after each: 6 + 6 flash launches a step, 6
+   an eval batch; finite losses; the plateau stepped once an eval, equal
+   to a replay in this process, and no multiplier (Adafactor's relative
+   step ignores the LR); one Adafactor update on the trained state, card
+   against CPU from the same parameters, gradients and state: parameters,
+   row, col and v within 1e-5 of each tensor's max |value|. Then expts/02
+   from its file (SGD) at 10 features with the same plateau, no launches:
+   the multipliers after each eval equal the replay's exactly and fall by
+   the factor at the second.
+21. rulstm_train: expts/05 from its file with test_only=false, 1 epoch of 4
+   steps of 128 from the seeded RULSTM file (its two-entry
+   `train.init_from_model`) and an eval batch; no launches; finite losses
+   and metric; one train step's losses and gradients card against CPU with
+   the same dropout masks (`cpu_draws`) within 1e-4 of their scale.
+22. zoo_cloze: phase 11's run with the Transformer aggregator's cloze on
+   (ratio 0.15, tx_mlm weight 1.0): the cloze key mask sends training's
+   attention to the plain path, so only eval launches the flash forward, 6
+   a batch; tx_mlm among the finite losses; one train step card against
+   CPU with the same cloze draw within 1e-4 of scale.
+23. mha: `multi_head_attention`, the public function, at AVT-h's width
+   (f32, 4 heads of 512, biases): x_q (64, 256, 2048) over x_kv (64, 383,
+   2048), causal and not, and a self-attention at (64, 256): 1 flash
+   forward + 1 backward launch each; the output and every input, weight
+   and bias gradient within 2e-4 of the same calls with the flash kernels'
+   plain versions (`PlainFlash`). Before it, phase 2 holds the flash
+   kernels at (64, 256 vs 383, 4, 512), f32 causal and not and bf16 causal,
+   against their plain versions and times the f32 ones beside SDPA and the
+   bound; it also times the flash kernels at (8, 383, 4, 512), the fused
+   kernel's bf16 multi-tile form (N=160, T=257, checked against its plain
+   version) and the packed f32 backward with db at head dim 128 (N=30, H=6,
+   checked likewise).
 Only phase 4b launches the fused kernel. Prints one JSON line of kernel results, then {"ok": true, "device": ...}.
 Exits non-zero on any failure, and without a CUDA device.
 """
 import contextlib
+import copy
 import csv
 import functools
 from concurrent.futures import ThreadPoolExecutor
@@ -274,6 +310,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from unittest import mock
 
 import numpy as np
@@ -307,7 +344,7 @@ from avt_tpu_torch.models import (
 )
 from avt_tpu_torch.models import vit as vit_module
 from avt_tpu_torch.models.flagship import init_weights
-from avt_tpu_torch.ops import _build, attention
+from avt_tpu_torch.ops import _build, attention, multi_head_attention
 from avt_tpu_torch.ops import flash_attention as fa
 from avt_tpu_torch.train import (
     BEST_NAME,
@@ -317,6 +354,7 @@ from avt_tpu_torch.train import (
     weighted_loss_sum,
 )
 from avt_tpu_torch.train import loop as loop_module
+from avt_tpu_torch.train.optim import Adafactor, ParamGroup, Plateau, ReduceLROnPlateau
 from avt_tpu_torch.train.step import _forward
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound is the larger of
@@ -756,18 +794,20 @@ def time_fused(N, T, H, dtype, csrc=_build.CSRC, yardsticks=True):
     return res
 
 
-def flash_inputs(B, T, H, D, dtype, seed):
-    """q, k, v, dout (B, T, H, D) in the storage type."""
+def flash_inputs(B, T, H, D, dtype, seed, Tk=None):
+    """q, dout (B, T, H, D) and k, v (B, Tk, H, D) (Tk = T by default) in the
+    storage type."""
     rng = np.random.default_rng(seed)
-    return [torch.from_numpy(rng.standard_normal((B, T, H, D), np.float32)).to("cuda", dtype)
-            for _ in range(4)]
+    return [torch.from_numpy(rng.standard_normal((B, n, H, D), np.float32)).to("cuda", dtype)
+            for n in (T, Tk or T, Tk or T, T)]
 
 
-def check_flash(B, T, H, D, dtype, causal, seed):
+def check_flash(B, T, H, D, dtype, causal, seed, Tk=None):
     """The flash forward (out, lse) and backward (dq, dk, dv) kernels against
-    their plain versions, and the bits of both on a repeat; returns the
-    forward's and the backward's max |err|."""
-    q, k, v, do = flash_inputs(B, T, H, D, dtype, seed)
+    their plain versions, T queries over Tk keys (T by default), and the
+    bits of both on a repeat; returns the forward's and the backward's max
+    |err|."""
+    q, k, v, do = flash_inputs(B, T, H, D, dtype, seed, Tk)
     out, lse = fa._launch_flash(q, k, v, causal, want_lse=True)
     delta = fa._delta(do, out)
     grads = fa._launch_flash_bwd(q, k, v, do, lse, delta, causal)
@@ -779,7 +819,8 @@ def check_flash(B, T, H, D, dtype, causal, seed):
     errs = [rel_err(g, r) for g, r in zip(grads, refs)]
     fwd_err = (out.float() - ref.float()).abs().max().item()
     bwd_err = max((g.float() - r.float()).abs().max().item() for g, r in zip(grads, refs))
-    msg = (f"flash_attention B={B} T={T} H={H} D={D} {str(dtype)[6:]} causal={causal}: out "
+    msg = (f"flash_attention B={B} T={T}{'' if Tk is None else f' Tk={Tk}'} H={H} D={D} "
+           f"{str(dtype)[6:]} causal={causal}: out "
            f"max_abs_err={fwd_err:.3g}, lse {(lse - ref_lse).abs().max().item():.3g}; dq, dk, dv "
            + ", ".join(f"{e:.3g} of max|ref| {r.float().abs().max().item():.3g}"
                        for e, r in zip(errs, refs)) + f" (tolerance {TOL[dtype]})")
@@ -794,31 +835,41 @@ def check_flash(B, T, H, D, dtype, causal, seed):
     return fwd_err, bwd_err
 
 
-def causal_pairs(T, causal):
-    return T * (T + 1) // 2 if causal else T * T
+def causal_pairs(T, causal, Tk=None):
+    """The (query, key) pairs a mask keeps, T queries over Tk keys (T by
+    default); causal keeps key j for query i when j <= i."""
+    Tk = Tk or T
+    if not causal:
+        return T * Tk
+    n = min(T, Tk)
+    return n * (n + 1) // 2 + (T - n) * Tk
 
 
-def flash_bound_ms(B, T, H, D, dtype, causal, backward):
+def flash_bound_ms(B, T, H, D, dtype, causal, backward, Tk=None):
     """Forward: q, k, v in, out and lse out, 4*B*H*pairs*D; backward: q, k,
     v, dout, lse, delta in, dq, dk, dv out, 10*B*H*pairs*D (s, dp, dq, dk,
-    dv); pairs counts only the unmasked (query, key) pairs."""
+    dv); pairs counts only the unmasked (query, key) pairs; T queries over
+    Tk keys (T by default)."""
     s = torch.finfo(dtype).bits // 8
-    rows = B * T * H * D
-    if backward:
-        nbytes, flops = 7 * rows * s + 2 * B * H * T * 4, 10 * B * H * causal_pairs(T, causal) * D
-    else:
-        nbytes, flops = 4 * rows * s + B * H * T * 4, 4 * B * H * causal_pairs(T, causal) * D
+    q_rows, k_rows = B * T * H * D, B * (Tk or T) * H * D
+    pairs = B * H * causal_pairs(T, causal, Tk) * D
+    if backward:  # q, dout, dq; k, v, dk, dv; lse, delta
+        nbytes, flops = (3 * q_rows + 4 * k_rows) * s + 2 * B * H * T * 4, 10 * pairs
+    else:  # q, out; k, v; lse
+        nbytes, flops = (2 * q_rows + 2 * k_rows) * s + B * H * T * 4, 4 * pairs
     return roofline_ms(nbytes, flops, PEAK_FLOPS[dtype])
 
 
-def flash_side_bound_ms(B, T, H, D, dtype, causal, side):
+def flash_side_bound_ms(B, T, H, D, dtype, causal, side, Tk=None):
     """One side of the backward: dq reads q, k, v, dout, lse, delta and
     writes dq, 3 products (s, dp, dq); dk/dv reads the same and writes dk
     and dv, 4 products (s, dp, dk, dv)."""
     s = torch.finfo(dtype).bits // 8
-    rows, pairs = B * T * H * D, B * H * causal_pairs(T, causal) * D
-    outs, products = (1, 3) if side == "dq" else (2, 4)
-    nbytes, flops = (4 + outs) * rows * s + 2 * B * H * T * 4, 2 * products * pairs
+    q_rows, k_rows = B * T * H * D, B * (Tk or T) * H * D
+    pairs = B * H * causal_pairs(T, causal, Tk) * D
+    rows = 3 * q_rows + 2 * k_rows if side == "dq" else 2 * q_rows + 4 * k_rows
+    products = 3 if side == "dq" else 4
+    nbytes, flops = rows * s + 2 * B * H * T * 4, 2 * products * pairs
     return roofline_ms(nbytes, flops, PEAK_FLOPS[dtype])
 
 
@@ -854,11 +905,12 @@ def sdpa_backend(q, k, v, causal):
         return f"unknown ({type(e).__name__})"
 
 
-def time_flash(B, T, H, D, dtype, causal):
+def time_flash(B, T, H, D, dtype, causal, Tk=None):
     """Forward (with lse, as the train step calls it) and backward kernels,
     their plain versions, and SDPA on the same (B, H, T, D) views (backward:
-    (forward + backward) - forward)."""
-    q, k, v, do = flash_inputs(B, T, H, D, dtype, seed=21)
+    (forward + backward) - forward); T queries over Tk keys (T by default;
+    SDPA's is_causal keeps the same top-left pairs)."""
+    q, k, v, do = flash_inputs(B, T, H, D, dtype, seed=21, Tk=Tk)
     out, lse = fa._launch_flash(q, k, v, causal, want_lse=True)
     delta = fa._delta(do, out)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -869,10 +921,10 @@ def time_flash(B, T, H, D, dtype, causal):
 
     fwd_ms = cuda_ms(sdpa)
     fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa(), x, do.transpose(1, 2)))
-    fwd_bound, fwd_by = flash_bound_ms(B, T, H, D, dtype, causal, backward=False)
-    bwd_bound, bwd_by = flash_bound_ms(B, T, H, D, dtype, causal, backward=True)
+    fwd_bound, fwd_by = flash_bound_ms(B, T, H, D, dtype, causal, backward=False, Tk=Tk)
+    bwd_bound, bwd_by = flash_bound_ms(B, T, H, D, dtype, causal, backward=True, Tk=Tk)
     sides = flash_side_ms(lambda: fa._launch_flash_bwd(q, k, v, do, lse, delta, causal))
-    side_bounds = {side: flash_side_bound_ms(B, T, H, D, dtype, causal, side)[0]
+    side_bounds = {side: flash_side_bound_ms(B, T, H, D, dtype, causal, side, Tk)[0]
                    for side in sides}
     res = {
         "fwd": dict(kernel_ms=cuda_ms(lambda: fa._launch_flash(q, k, v, causal, True)),
@@ -889,7 +941,8 @@ def time_flash(B, T, H, D, dtype, causal):
                     dkv_ms=sides["dkv"], dkv_bound_ms=side_bounds["dkv"]),
         "sdpa_backend": sdpa_backend(*x, causal),
     }
-    log(f"flash_attention timing B={B} T={T} H={H} D={D} {str(dtype)[6:]} causal={causal}, "
+    log(f"flash_attention timing B={B} T={T}{'' if Tk is None else f' Tk={Tk}'} H={H} D={D} "
+        f"{str(dtype)[6:]} causal={causal}, "
         f"SDPA backend {res['sdpa_backend']}: forward " + fmt(res["fwd"]) + "; backward "
         + fmt(res["bwd"]))
     return res
@@ -989,6 +1042,9 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this check runs on the GPU only")
     t_start = time.time()
+
+    def mark(phase):
+        log(f"-- {phase} done at {time.time() - t_start:.1f} s")
 
     # 1. card and build -------------------------------------------------------
     smi = subprocess.run(
@@ -1103,6 +1159,18 @@ def main():
     tp_flash = (FEAT_BATCH, LONG_T, AVTH_HEADS // TP_MODEL, AVTH_DIM // AVTH_HEADS)
     tp_errs["flash_fwd_B64_T256_H2_float32"], tp_errs["flash_bwd_B64_T256_H2_float32"] = (
         check_flash(*tp_flash, torch.float32, True, seed=40))
+    # multi_head_attention's cross-attention at AVT-h's heads: 256 queries
+    # over 383 keys, f32 causal and not, bf16 causal
+    mha_errs = {}
+    for dtype, causal in ((torch.float32, True), (torch.float32, False), (torch.bfloat16, True)):
+        fwd_e, bwd_e = check_flash(*MHA_FLASH, dtype, causal, seed=46, Tk=MHA_TK)
+        mha_errs[f"{str(dtype)[6:]}_causal_{causal}"] = {"fwd": fwd_e, "bwd": bwd_e}
+    # the fused kernel's bf16 multi-tile form (T=257: two 256-row tiles) and
+    # the packed f32 backward with db at head dim 128 (`bwd_key_tf32<128>`),
+    # both timed below
+    fused_err_257 = check_fused(160, 257, 12, torch.bfloat16, False, seed=47)
+    f32_d128_err = check_attention_bwd(TNR_BATCH * TNR_FRAMES, 197, 6, 128, torch.float32, False,
+                                       True, seed=48)
     f32_fwd = {N: time_attention(N, 197, 12, 64, torch.float32)
                for N in (TNR_BATCH * TNR_FRAMES, TNR_BATCH * TNR_FRAMES * 6)}
     f32_bwd = time_attention_bwd(TNR_BATCH * TNR_FRAMES, 197, 12, 64, torch.float32)
@@ -1112,48 +1180,70 @@ def main():
     flash_timing_bf16 = time_flash(*FLASH_SHAPE, torch.bfloat16, True)
     flash_timing_d1024 = time_flash(*FLASH_SHAPE_D1024, torch.float32, True)
     flash_timing_zoo = time_flash(*ZOO_SHAPE, torch.float32, False)
+    flash_timing_mha = {causal: time_flash(*MHA_FLASH, torch.float32, causal, Tk=MHA_TK)
+                        for causal in (True, False)}
+    flash_timing_383 = time_flash(RO_LONG_B, RO_LONG_T, AVTH_HEADS, AVTH_DIM // AVTH_HEADS,
+                                  torch.float32, True)
+    fused_timing_257 = time_fused(160, 257, 12, torch.bfloat16)
+    f32_bwd_d128 = time_attention_bwd(TNR_BATCH * TNR_FRAMES, 197, 6, 128, torch.float32)
+
+    mark("phase 2")
 
     # 3. serving: the full-width flagship through its entry points ----------
     serve_launches = serve_phase()
+    mark("serve_phase")
 
     # 4. training: the full-width flagship, bench.py's train step -------------
     train_launches, split_train = train_phase()
+    mark("train_phase")
 
     # 4b. the same train step through the fused projection + attention kernel
     fused_launches, fused_train = train_fused_phase(split_train)
+    mark("train_fused_phase")
 
     # 4c. the trainer: run_training, checkpoints, eval, crash + resume ------
     trainer_launches = trainer_phase(split_train)
+    mark("trainer_phase")
 
     # 5. the no-db form on a train step: 24 heads of 32 ----------------------
     d32_launches = small_train_phase()
+    mark("small_train_phase")
 
     # 6. the feature path of expts/02 at 256 observed features ---------------
     feat_launches = feature_phase()
+    mark("feature_phase")
 
     # 6b. expts/04's AVT-h (head dim 1024) at 128 observed features -------
     d1024_launches = feature_d1024_phase()
+    mark("feature_d1024_phase")
 
     # 7. expts/08 with Adam at full width -----------------------------------
     ek55_launches = ek55_adam_phase()
+    mark("ek55_adam_phase")
 
     # 8. expts/02 from its file through train_net, on a synthetic EK100 tree
     tn_launches = train_net_phase(card)
+    mark("train_net_phase")
 
     # 9. expts/01 from its file through train_net, on raw video (f32 ViT)
     tnr_launches, expt01_profile = train_net_raw_phase(card, parent)
+    mark("train_net_raw_phase")
 
     # 10. expts/05 (the RULSTM aggregator) from its file, test only
     rulstm_launches = rulstm_expt05_phase(card)
+    mark("rulstm_expt05_phase")
 
     # 11. the Transformer aggregator over 256 features through train_net
     zoo_launches, zoo_profile = zoo_transformer_phase(card)
+    mark("zoo_transformer_phase")
 
     # 12. AVT-h rollouts through train_net (recompute and KV cache), long rollouts
     rollout_launches, rollout_summary = rollout_phase(card)
+    mark("rollout_phase")
 
     # 13. quantized AVT-h: k-means on the card, then expts/02 on the centroids
     quant_launches, quant_summary = quantized_phase(card)
+    mark("quantized_phase")
 
     # 14-15. conf/config.yaml's r2plus1d_34 and BN-Inception through train_net on raw video
     with tempfile.TemporaryDirectory() as tmp:
@@ -1165,23 +1255,46 @@ def main():
             f"videos of {TNR_VIDEO[0]}x{TNR_VIDEO[1]} at {TNR_VIDEO[2]} fps, "
             f"{CV_FIRST_S + CV_ACTIONS + 2} s) written in {time.time() - t0:.1f} s")
         conv_launches, conv_summary = conv_default_phase(card, cv_tree)
+        mark("conv_default_phase")
         bni_launches = bn_inception_phase(card, cv_tree)
+        mark("bn_inception_phase")
 
     # 16. the SSL op (pred_future_feat) on expts/02 at 256 features
     ssl_launches, ssl_summary = ssl_phase(card)
+    mark("ssl_phase")
 
     # 17. the serving export: saved, loaded in a fresh process, run
     export_launches, export_summary = export_phase(card)
+    mark("export_phase")
 
     # 18. data-parallel training: expts/02 as 1 NCCL rank and 2 gloo ranks;
     # 18b. tensor parallelism: expts/02 and the flagship step as 2 model ranks
     with tempfile.TemporaryDirectory() as tmp:
         ddp_launches, ddp_summary, yard = ddp_phase(card, tmp)
+        mark("ddp_phase")
         tp_launches, tp_summary = tp_phase(card, yard)
+        mark("tp_phase")
     tp_summary["kernel_checks"] = tp_errs
 
     # 19. the tools: raw video -> a packed store -> expts/02 on it -> analysis
     featext_launches, featext_summary = featext_phase(card)
+    mark("featext_phase")
+
+    # 20. Adafactor and ReduceLROnPlateau through train_net
+    ap_launches, ap_summary = adafactor_plateau_phase(card)
+    mark("adafactor_plateau_phase")
+
+    # 21. expts/05 trained
+    rt_launches, rt_summary = rulstm_train_phase(card)
+    mark("rulstm_train_phase")
+
+    # 22. the Transformer aggregator's cloze (MLM) training
+    cloze_launches, cloze_summary = zoo_cloze_phase(card)
+    mark("zoo_cloze_phase")
+
+    # 23. multi_head_attention, the public function, at AVT-h's width
+    mha_launches, mha_summary = mha_phase(card)
+    mark("mha_phase")
 
     paths = {"serve": serve_launches, "train": train_launches, "trainer": trainer_launches,
              "train_d32": d32_launches,
@@ -1189,7 +1302,8 @@ def main():
              "ek55_adam": ek55_launches, **tn_launches, **tnr_launches, **rulstm_launches,
              **zoo_launches, **rollout_launches, **quant_launches, **conv_launches,
              **bni_launches, **ssl_launches, "export": export_launches, **ddp_launches,
-             **tp_launches, **featext_launches}
+             **tp_launches, **featext_launches, **ap_launches, **rt_launches, **cloze_launches,
+             **mha_launches}
     for path, counts in paths.items():
         if path != "train_fused":
             check(counts["fused_qkv_attention_fwd"] == 0, f"a fused launch on {path}: {counts}")
@@ -1232,6 +1346,9 @@ def main():
              f32_turns=f32_turns and {label: {k: v for k, v in res.items() if k.startswith("bwd")}
                                       for label, res in f32_turns.items()},
              expt01_train_step=expt01_profile,
+             f32_d128={"shape": [TNR_BATCH * TNR_FRAMES, 197, 6, 128], "max_abs_err": f32_d128_err,
+                       **f32_bwd_d128, "registers": {t: registers.get(t) for t in (
+                           "bwd_query_tf32<128>", "bwd_key_tf32<128>")}},
              tp={**{k: v for k, v in tp_errs.items() if k.startswith("packed_bwd")},
                  "flagship_step": tp_summary["flagship"]}),
     ]
@@ -1255,6 +1372,20 @@ def main():
                              "train_step": {k: v for k, v in zoo_profile.items()
                                             if k != "groups"}},
             rollout_checks={k: v[side] for k, v in rollout_errs.items()},
+            mha={"shape": [*MHA_FLASH[:2], MHA_TK, *MHA_FLASH[2:]], "dtype": "float32",
+                 "causal": True, "max_abs_err": mha_errs["float32_causal_True"][side],
+                 "sdpa_backend": flash_timing_mha[True]["sdpa_backend"],
+                 **flash_timing_mha[True][side],
+                 "non_causal": {"max_abs_err": mha_errs["float32_causal_False"][side],
+                                "sdpa_backend": flash_timing_mha[False]["sdpa_backend"],
+                                **flash_timing_mha[False][side]},
+                 "bf16_causal_max_abs_err": mha_errs["bfloat16_causal_True"][side],
+                 "multi_head_attention": mha_summary},
+            t383={"shape": [RO_LONG_B, RO_LONG_T, AVTH_HEADS, AVTH_DIM // AVTH_HEADS],
+                  "dtype": "float32", "causal": True,
+                  "max_abs_err": rollout_errs[f"B{RO_LONG_B}_T{RO_LONG_T}_float32"][side],
+                  "sdpa_backend": flash_timing_383["sdpa_backend"], **flash_timing_383[side]},
+            adafactor_plateau=ap_summary["adafactor"], zoo_cloze=cloze_summary,
             ssl_checks={k: v[side] for k, v in ssl_errs.items()},
             rollout=rollout_summary,
             ssl_train_step={k: v for k, v in ssl_summary.items() if k != "groups"},
@@ -1272,10 +1403,14 @@ def main():
         **fused_timing[160], library="matmul + bias, then SDPA on the split views",
         serve_batch_shape={"shape": [240, 197, 12, 64], **fused_timing[240]},
         f32={"shape": [240, 197, 12, 64], **fused_timing_f32},
+        multi_tile_t257={"shape": [160, 257, 12, 64], "dtype": "bfloat16",
+                         "max_abs_err": fused_err_257, **fused_timing_257},
         residency={k.split(" ")[1]: v for k, v in residency.items() if k.startswith("fused")},
         train_step_ms={"fused": fused_train["step_ms"], "split": split_train["step_ms"]}))
     log(f"quantized: {quant_summary}")
     log(f"conv_default: {conv_summary}")
+    log(f"rulstm_train: {rt_summary}")
+    log(f"plateau (sgd): {ap_summary['plateau_sgd']}")
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2793,17 +2928,19 @@ ZOO_MODEL = ["model/temporal_aggregator=transformer", "model/future_predictor=ml
              "model/classifier=mlp", "model.classifier_on_past=false"]
 
 
+def expt_lines(path, dropped=()):
+    """The override lines of an experiment file, but those that start with
+    one of `dropped`."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), path)) as f:
+        lines = [line.split("#")[0].strip() for line in f]
+    return [line for line in lines if line and not line.startswith(tuple(dropped))]
+
+
 def expt02_kept_overrides():
     """expts/02's lines but those of EXPT02_DROPPED: its data, dataset,
     reader, batch, optimizer and backbone lines."""
-    kept = []
-    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), EXPT_02)) as f:
-        for line in f:
-            line = line.split("#")[0].strip()
-            if line and (line.startswith(EXPT02_KEPT_MODEL)
-                         or not line.startswith(EXPT02_DROPPED)):
-                kept.append(line)
-    return kept
+    return [line for line in expt_lines(EXPT_02) if line.startswith(EXPT02_KEPT_MODEL)
+            or not line.startswith(EXPT02_DROPPED)]
 
 
 def zoo_transformer_overrides(tree, T=LONG_T):
@@ -2823,13 +2960,16 @@ def zoo_flops_per_clip(T, dim=ZOO_DIM, layers=ZOO_LAYERS, ffn=2048, feat=FEAT_DI
     return T * per_token + 2 * (2 * dim * dim) + 2 * (dim * dim + dim * actions)
 
 
-def recording_make_train_step(train_net, captured, name="make_train_step"):
+def recording_make_train_step(train_net, captured, name="make_train_step", optimizers=None):
     """A make_train_step (or `name`'s step maker) for `train_net` whose step
     records (model, loss weights, classes, first batch, the step) in
-    `captured` at its first call."""
+    `captured` at its first call; the optimizer it is made with goes into
+    the list `optimizers` when one is given."""
     real = getattr(train_net, name)
 
     def make(model, optimizer, loss_wts, num_classes, **kwargs):
+        if optimizers is not None:
+            optimizers.append(optimizer)
         step = real(model, optimizer, loss_wts, num_classes, **kwargs)
 
         def recording(batch, generator=None):
@@ -4466,6 +4606,536 @@ def featext_phase(card):
         finally:
             os.chdir(cwd)
     return counts, summary
+
+
+# ---------------------------------------------------------------------- mha
+# multi_head_attention at AVT-h's width (4 heads of 512, f32) on expts/02's
+# batch of 64: 256 queries over 383 keys (the length of the long rollout's
+# last pass), causal and not, and a self-attention over the 256
+MHA_TK = RO_LONG_T
+MHA_FLASH = (FEAT_BATCH, LONG_T, AVTH_HEADS, AVTH_DIM // AVTH_HEADS)  # (B, Tq, H, D)
+MHA_CASES = {"cross_causal": (True, False), "cross": (False, False),
+             "self_causal": (True, True)}  # label: (causal, self-attention)
+MHA_WEIGHTS, MHA_BIASES = ("wq", "wk", "wv", "wo"), ("bq", "bk", "bv", "bo")
+
+
+class PlainFlash(torch.autograd.Function):
+    """The flash kernels' plain versions under autograd: the forward
+    `flash_attention_reference`, the backward `flash_attention_bwd_reference`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = fa.flash_attention_reference(q, k, v, causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*fa.flash_attention_bwd_reference(q, k, v, dout.contiguous(), out, lse,
+                                                  ctx.causal), None)
+
+
+def plain_flash_attention(q, k, v, causal=False):
+    return PlainFlash.apply(q, k, v, causal)
+
+
+def mha_inputs(seed):
+    """x_q (64, 256, 2048), x_kv (64, 383, 2048), the four (2048, 2048)
+    weights at 1/sqrt(2048), the four biases at 0.1 and dout, f32 on the
+    card."""
+    rng = np.random.default_rng(seed)
+    B, Tq, _, _ = MHA_FLASH
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy(scale * rng.standard_normal(shape, np.float32)).cuda()
+
+    arrays = {"x_q": t((B, Tq, AVTH_DIM)), "x_kv": t((B, MHA_TK, AVTH_DIM))}
+    arrays.update({w: t((AVTH_DIM, AVTH_DIM), AVTH_DIM ** -0.5) for w in MHA_WEIGHTS})
+    arrays.update({b: t((AVTH_DIM,), 0.1) for b in MHA_BIASES})
+    return arrays, t((B, Tq, AVTH_DIM))
+
+
+def mha_run(arrays, dout, causal, self_attention):
+    """multi_head_attention forward and backward: (out, {input: gradient},
+    launches, ms), with the counts set to 0 just before."""
+    names = [n for n in arrays if not (self_attention and n == "x_kv")]
+    leaves = {n: arrays[n].detach().requires_grad_(True) for n in names}
+    kv = leaves["x_q"] if self_attention else leaves["x_kv"]
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.time()
+    out = multi_head_attention(leaves["x_q"], kv, *(leaves[w] for w in MHA_WEIGHTS), AVTH_HEADS,
+                               causal=causal, **{b: leaves[b] for b in MHA_BIASES})
+    grads = torch.autograd.grad(out, list(leaves.values()), dout)
+    torch.cuda.synchronize()
+    return (out.detach(), dict(zip(leaves, grads)), dict(_build.launch_counts),
+            (time.time() - t0) * 1e3)
+
+
+def mha_phase(card):
+    """`multi_head_attention` (avt_tpu_torch.ops), the public function, at
+    AVT-h's width: for each of MHA_CASES one forward and one backward to
+    every input, weight and bias, 1 flash forward + 1 backward launch each,
+    against the same calls with the flash kernels' plain versions in their
+    place (`PlainFlash`): the output and every gradient within TOL[f32] of
+    its max |value| (the key bias's gradient, 0 but for rounding since a
+    shift common to all keys leaves the softmax as it is, of the query
+    bias's). Returns (the launch counts of each case, {case: errors})."""
+    arrays, dout = mha_inputs(45)
+    counts, summary = {}, {}
+    tol = TOL[torch.float32]
+    for label, (causal, self_attention) in MHA_CASES.items():
+        out, grads, launches, ms = mha_run(arrays, dout, causal, self_attention)
+        check(launches == flash_launches(1, 1), f"mha {label}: launches {launches}, want one "
+              "flash forward and one backward")
+        with mock.patch.object(fa, "flash_attention", plain_flash_attention):
+            ref, ref_grads, plain_launches, plain_ms = mha_run(arrays, dout, causal,
+                                                               self_attention)
+        check(plain_launches == flash_launches(0), f"mha {label}: the plain run launched "
+              f"{plain_launches}")
+        errs = {"out": scaled_err(out, ref)}
+        for name, g in grads.items():
+            scale = ref_grads["bq" if name == "bk" else name].float().abs().max().clamp_min(1e-12)
+            errs[f"d{name}"] = ((g.float() - ref_grads[name].float()).abs().max() / scale).item()
+        finite = bool(torch.isfinite(out).all()) and all(bool(torch.isfinite(g).all())
+                                                        for g in grads.values())
+        check(finite and max(errs.values()) <= tol, f"mha {label}: errors {errs} (tolerance "
+              f"{tol}), finite {finite}")
+        Tk = LONG_T if self_attention else MHA_TK
+        counts[f"mha_{label}"] = launches
+        summary[label] = dict(shape=[FEAT_BATCH, LONG_T, Tk, AVTH_HEADS, AVTH_DIM // AVTH_HEADS],
+                              causal=causal, max_err=max(errs.values()), errors=errs, ms=ms,
+                              plain_ms=plain_ms)
+        log(f"mha {label} ({card}): multi_head_attention f32, x_q ({FEAT_BATCH}, {LONG_T}, "
+            f"{AVTH_DIM}) over x_kv ({FEAT_BATCH}, {Tk}, {AVTH_DIM}), {AVTH_HEADS} heads, "
+            f"causal={causal}, biases: forward + backward {ms:.2f} ms (plain flash versions "
+            f"{plain_ms:.2f}, first calls); against the plain versions: " + ", ".join(
+                f"{k} {v:.3g}" for k, v in errs.items()) + f" of max |ref| (tolerance {tol}); "
+            f"launches {launches}")
+    del arrays, dout
+    torch.cuda.empty_cache()
+    return counts, summary
+
+
+# ------------------------------------------------ train steps, card vs CPU
+CPU_TOL = 1e-4  # one train step's losses and gradients, card vs CPU, of each's max |value|
+
+
+@contextlib.contextmanager
+def cpu_draws(seed):
+    """Every torch.rand inside drawn on the CPU from one generator seeded
+    `seed`, then moved to the device asked for: the dropout masks and the
+    cloze draw (`models/temporal_agg.py:_uniform`) are then the same on the
+    card and on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    rand = torch.rand
+
+    def draw(*size, generator=None, device=None, **kwargs):
+        x = rand(*size, generator=gen, **kwargs)
+        return x if device is None else x.to(device)
+
+    with mock.patch.object(torch, "rand", draw):
+        yield
+
+
+def to_device(x, device):
+    if isinstance(x, dict):
+        return {k: to_device(v, device) for k, v in x.items()}
+    return x.to(device) if isinstance(x, torch.Tensor) else x
+
+
+def softplus(x, inplace=False):
+    """In F.relu's place (nn.ReLU calls it too): a ReLU input within
+    rounding of 0 flips between two f32 programs and moves the gradient of
+    the weights before it, where the smooth softplus moves it by rounding."""
+    return F.softplus(x)
+
+
+def train_grads(model, batch, loss_wts, num_classes, seed, relu=F.relu):
+    """One train step's forward and backward without the update, as
+    make_train_step runs them, every torch.rand from `cpu_draws(seed)`,
+    `relu` in F.relu's place: ({loss: value}, {parameter: gradient})."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    with cpu_draws(seed), mock.patch.object(F, "relu", relu):
+        _, losses, aux, _ = _forward(model, batch["video"], batch, num_classes, None)
+    losses.update(aux)
+    total, mean_losses = weighted_loss_sum(losses, loss_wts)
+    total.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return {k: v.item() for k, v in mean_losses.items()}, grads
+
+
+def train_grads_vs_cpu(model, batch, loss_wts, num_classes, seed, relu=F.relu):
+    """`train_grads` on the card and on a CPU copy of the model and the
+    batch, the port's CPU path (which the CPU tests hold against avt_tpu),
+    with the same draws and `relu`. Returns dict(losses= the card's, loss_err= the
+    largest relative difference, grad_err= the largest max |diff| of a
+    gradient over its max |value|, worst_grad= its name, launches= the
+    card's, cpu_s)."""
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    losses, grads = train_grads(model, batch, loss_wts, num_classes, seed, relu)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    t0 = time.time()
+    cpu_losses, cpu_grads = train_grads(copy.deepcopy(model).to("cpu"), to_device(batch, "cpu"),
+                                        loss_wts, num_classes, seed, relu)
+    check(set(grads) == set(cpu_grads) and set(losses) == set(cpu_losses),
+          f"card vs CPU: gradients {sorted(set(grads) ^ set(cpu_grads))}, losses "
+          f"{sorted(losses)} vs {sorted(cpu_losses)}")
+    grad_errs = {n: scaled_err(g.cpu(), cpu_grads[n]) for n, g in grads.items()}
+    worst = max(grad_errs, key=grad_errs.get)
+    return dict(
+        losses=losses, launches=launches, cpu_s=time.time() - t0,
+        loss_err=max(abs(losses[k] - v) / max(abs(v), 1e-12) for k, v in cpu_losses.items()),
+        grad_err=grad_errs[worst], worst_grad=worst)
+
+
+def recording_plateau(records):
+    """A ReduceLROnPlateau for `train_net` that records its keyword
+    arguments and, at each step, the metric, each group's multiplier before
+    and after (None for a group without one) and its state after."""
+
+    class Recorded(ReduceLROnPlateau):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            records.append({"kwargs": kwargs, "steps": []})
+
+        def step(self, optimizer, metric):
+            mults = [None if g.plateau is None else g.plateau.mult for g in optimizer.groups]
+            floors = [None if g.plateau is None else g.plateau.floor for g in optimizer.groups]
+            super().step(optimizer, metric)
+            records[-1]["steps"].append(dict(
+                metric=float(metric), before=mults, floors=floors, state=self.state_dict(),
+                after=[None if g.plateau is None else g.plateau.mult for g in optimizer.groups]))
+
+    return Recorded
+
+
+def replay_plateau(record):
+    """The recorded steps replayed by a ReduceLROnPlateau in this process on
+    the same metrics, from the first step's multipliers: [(multipliers,
+    state) after each step]."""
+    plateau = ReduceLROnPlateau(**record["kwargs"])
+    first = record["steps"][0]
+    groups = [types.SimpleNamespace(plateau=None if m is None else Plateau(m, f))
+              for m, f in zip(first["before"], first["floors"])]
+    out = []
+    for s in record["steps"]:
+        plateau.step(types.SimpleNamespace(groups=groups), s["metric"])
+        out.append(([None if g.plateau is None else g.plateau.mult for g in groups],
+                    plateau.state_dict()))
+    return out
+
+
+def adafactor_vs_cpu(model, optimizer, batch, loss_wts, num_classes):
+    """One Adafactor update on the card, and the same update by an Adafactor
+    in this process over CPU copies of the parameters, the gradients (the
+    card's, of one forward and backward on `batch`) and the state (count,
+    row, col, v): {what: the largest max |card - CPU| of a tensor over its
+    max |value|} for the parameters, their updates and each moment, and the
+    CPU step's seconds."""
+    _, grads = train_grads(model, batch, loss_wts, num_classes, seed=49)
+    params = dict(model.named_parameters())
+    names = [n for g in optimizer.groups for n in g.names]
+    before = {n: params[n].detach().to("cpu", copy=True) for n in names}
+    cpu_params = {n: torch.nn.Parameter(before[n].clone()) for n in names}
+    for n in names:
+        params[n].grad = grads.get(n)
+        cpu_params[n].grad = None if n not in grads else grads[n].to("cpu", copy=True)
+    groups = [ParamGroup(list(g.names), [cpu_params[n] for n in g.names], g.weight_decay,
+                         g.schedule, g.label, copy.copy(g.plateau)) for g in optimizer.groups]
+    cpu_opt = Adafactor(groups, grad_clip_max_norm=optimizer.grad_clip_max_norm,
+                        frozen=optimizer.frozen, conv_weights=optimizer.conv_weights)
+    cpu_opt.count = optimizer.count
+    cpu_opt.state = {kind: {n: t.to("cpu", copy=True) for n, t in d.items()}
+                     for kind, d in optimizer.state.items()}
+    t0 = time.time()
+    cpu_opt.step()
+    cpu_s = time.time() - t0
+    optimizer.step()
+    torch.cuda.synchronize()
+    model.zero_grad(set_to_none=True)
+    after = {n: params[n].detach().cpu() for n in names}
+    errs = {"params": max(scaled_err(after[n], cpu_params[n].detach()) for n in names),
+            "updates": max(scaled_err(after[n] - before[n], cpu_params[n].detach() - before[n])
+                           for n in names)}
+    for kind, state in optimizer.state.items():
+        errs[kind] = max(scaled_err(t.cpu(), cpu_opt.state[kind][n]) for n, t in state.items())
+    return errs, cpu_s
+
+
+def loop_losses(rec, label, steps, epochs=1):
+    """The loss meters of the run's first epoch, checked: `steps` steps in
+    each of `epochs` epochs, every loss finite."""
+    counts = [logger.meters["loss"].count for logger in rec["loggers"]]
+    meters = rec["loggers"][0].meters
+    losses = {k: m.global_avg for k, m in meters.items() if k.startswith("loss")}
+    check(counts == [steps] * epochs and all(np.isfinite(list(losses.values()))),
+          f"{label}: losses {losses}, steps an epoch {counts}, want {steps} in {epochs}")
+    return losses
+
+
+# ------------------------------------------------------- adafactor_plateau
+# expts/02 at 256 observed features with opt/optimizer=adafactor and
+# opt/scheduler=reduce_lr_on_plateau on 4 train videos and 2 eval videos of
+# the train_net tree's kind: 2 epochs of 2 steps of 64, an eval batch after
+# each. Patience 0 and an absolute threshold that no eval can beat make
+# every eval after the first a bad one, so the plateau reduces at the
+# second. Adafactor's relative step ignores the LR, so its groups carry no
+# multiplier (as in the reference and avt_tpu); the multiplier is read in a
+# second run with expts/02's own SGD at 10 features.
+AP_EPOCHS, AP_TRAIN_VIDEOS, AP_EVAL_VIDEOS = 2, 4, 2
+AP_STEPS = AP_TRAIN_VIDEOS * TN_ACTIONS // TN_BATCH
+AP_EVAL_BATCHES = -(-AP_EVAL_VIDEOS * TN_ACTIONS // TN_BATCH)
+PLATEAU_OVERRIDES = ["opt/scheduler=reduce_lr_on_plateau", "opt.scheduler.patience=0",
+                     "+opt.scheduler.threshold_mode=abs", "+opt.scheduler.threshold=1e9",
+                     f"train.num_epochs={AP_EPOCHS}"]
+ADAFACTOR_TOL = 1e-5  # one update, card vs CPU, of each tensor's max |value|
+
+
+def check_plateau(record, label, want_fall):
+    """The recorded plateau steps (one an eval) against `replay_plateau`,
+    exactly; with `want_fall`, a multiplier that falls by the factor at one
+    step at least. Returns the multipliers after each step."""
+    replay = replay_plateau(record)
+    got = [(s["after"], s["state"]) for s in record["steps"]]
+    check(len(got) == AP_EPOCHS and got == replay, f"{label}: the plateau's steps {got}, "
+          f"replayed in this process {replay}")
+    factor = np.float32(record["kwargs"]["factor"])
+    falls = [i for i, s in enumerate(record["steps"])
+             if any(b is not None and a == float(np.float32(b) * factor) and a < b
+                    for b, a in zip(s["before"], s["after"]))]
+    check(bool(falls) == want_fall, f"{label}: multipliers {[s['after'] for s in record['steps']]}"
+          f", falls at steps {falls}")
+    return [s["after"] for s in record["steps"]]
+
+
+def adafactor_plateau_phase(card):
+    """(a) expts/02's lines (but its nesterov option, which Adafactor does
+    not take) at 256 observed features with Adafactor and the plateau
+    scheduler (PLATEAU_OVERRIDES) through `train_net.cli` on a synthetic
+    tree: 2 epochs of 2 steps of 64, each followed by an eval batch; 6 + 6
+    flash launches a step, 6 an eval batch; finite losses; the
+    plateau stepped once an eval, its state equal to a replay in this
+    process, and no group with a multiplier; then one Adafactor update on
+    the trained state, card against CPU (`adafactor_vs_cpu`): parameters,
+    row, col and v within ADAFACTOR_TOL. (b) expts/02 from its file (SGD) at
+    10 features with the same plateau: no launches; the multipliers after
+    each eval equal to the replay's exactly, and they fall by the factor at
+    the second. Returns (the launch counts of each run, a summary)."""
+    from avt_tpu_torch import train_net
+
+    counts, summary = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tree = write_ek100_tree(os.path.join(tmp, "tree"), train_videos=AP_TRAIN_VIDEOS,
+                                eval_videos=AP_EVAL_VIDEOS, actions_per_video=TN_ACTIONS,
+                                first_action_s=TN_FIRST_S, seed=47)
+        common = tree + [f"data_train.workers={TN_WORKERS}", f"data_eval.workers={TN_WORKERS}"]
+        captured, optimizers, records = [], [], []
+        argv = (["--run-dir", os.path.join(tmp, "adafactor")]
+                + expt_lines(EXPT_02, ("opt.optimizer.nesterov",)) + common + long_context(LONG_T)
+                + ["opt/optimizer=adafactor"] + PLATEAU_OVERRIDES)
+        with mock.patch.object(train_net, "make_train_step", recording_make_train_step(
+                train_net, captured, optimizers=optimizers)), \
+                mock.patch.object(train_net, "ReduceLROnPlateau", recording_plateau(records)):
+            (metric,), rec = run_train_net(argv)
+        steps = AP_EPOCHS * AP_STEPS
+        want = flash_launches(AVTH_LAYERS * (steps + AP_EPOCHS * AP_EVAL_BATCHES),
+                              AVTH_LAYERS * steps)
+        check(rec["launches"] == want, f"adafactor_plateau: launches {rec['launches']}, want "
+              f"{want}")
+        check(rec["epochs"] == list(range(AP_EPOCHS)) and len(rec["eval_s"]) == AP_EPOCHS
+              and np.isfinite(metric), f"adafactor_plateau: epochs {rec['epochs']}, evals "
+              f"{len(rec['eval_s'])}, metric {metric}")
+        losses = loop_losses(rec, "adafactor_plateau", AP_STEPS, AP_EPOCHS)
+        optimizer = optimizers[0]
+        check(type(optimizer) is Adafactor and optimizer.count == steps
+              and all(g.plateau is None for g in optimizer.groups) and len(records) == 1,
+              f"adafactor_plateau: optimizer {type(optimizer).__name__} at count "
+              f"{optimizer.count}, multipliers {[g.plateau for g in optimizer.groups]}, "
+              f"{len(records)} plateaus")
+        plateau_steps = check_plateau(records[0], "adafactor_plateau", want_fall=False)
+        counts["adafactor_plateau"] = rec["launches"]
+        model, loss_wts, num_classes, batch, _ = captured[0]
+        del captured[:]
+        errs, cpu_s = adafactor_vs_cpu(model, optimizer, batch, loss_wts, num_classes)
+        checked = {k: v for k, v in errs.items() if k != "updates"}
+        check(max(checked.values()) <= ADAFACTOR_TOL, f"adafactor_plateau: one update, card vs "
+              f"CPU: {errs} (tolerance {ADAFACTOR_TOL} but for the updates)")
+        n_params = sum(p.numel() for g in optimizer.groups for p in g.params)
+        clips_s = rec["loggers"][0].meters["clips/s"]
+        summary["adafactor"] = dict(loop_ms=TN_BATCH / clips_s.median * 1e3, losses=losses,
+                                    metric=metric, card_vs_cpu=errs, cpu_step_s=cpu_s,
+                                    parameters=n_params, plateau_multipliers=plateau_steps)
+        log(f"adafactor_plateau ({card}): expts/02 at {LONG_T} features with Adafactor and "
+            f"ReduceLROnPlateau (patience 0), {AP_EPOCHS} epochs of {AP_STEPS} steps of "
+            f"{TN_BATCH}, an eval after each; the loop {summary['adafactor']['loop_ms']:.2f} ms "
+            f"a step; losses " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(losses.items()))
+            + f"; final_acc/action/AR5 {metric:.4f}; the plateau's steps equal to the replay, no "
+            f"multiplier (Adafactor); one update of {n_params} parameters card vs CPU: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f" of max |value| (tolerance {ADAFACTOR_TOL}, the updates unchecked: one rounding "
+            f"of p + update apart); CPU step {cpu_s:.2f} s; launches {rec['launches']}")
+        del model, optimizer, optimizers[:], batch
+        torch.cuda.empty_cache()
+
+        records = []
+        argv = (["--config-file", EXPT_02, "--run-dir", os.path.join(tmp, "sgd")] + common
+                + PLATEAU_OVERRIDES)
+        with mock.patch.object(train_net, "ReduceLROnPlateau", recording_plateau(records)):
+            (metric,), rec = run_train_net(argv)
+    check(rec["launches"] == flash_launches(0), f"plateau sgd: launches {rec['launches']}")
+    check(rec["epochs"] == list(range(AP_EPOCHS)) and len(records) == 1 and np.isfinite(metric),
+          f"plateau sgd: epochs {rec['epochs']}, {len(records)} plateaus, metric {metric}")
+    losses = loop_losses(rec, "plateau sgd", AP_STEPS, AP_EPOCHS)
+    mults = check_plateau(records[0], "plateau sgd", want_fall=True)
+    counts["plateau_sgd"] = rec["launches"]
+    summary["plateau_sgd"] = dict(multipliers=mults, metrics=[s["metric"] for s in
+                                                              records[0]["steps"]])
+    log(f"adafactor_plateau sgd ({card}): expts/02 as shipped (nesterov SGD) at {SHORT_T} "
+        f"features with ReduceLROnPlateau (patience 0, factor {records[0]['kwargs']['factor']}), "
+        f"{AP_EPOCHS} epochs: multipliers after each eval {mults} (metrics "
+        f"{summary['plateau_sgd']['metrics']}), equal to the replay in this process; losses "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(losses.items()))
+        + f"; launches {rec['launches']}")
+    return counts, summary
+
+
+# ------------------------------------------------------------- rulstm_train
+# expts/05 trained: 16 train videos and 4 eval videos of 32 actions a second
+# from 5 s on (11 features at 30 fps over tau_o 2.5 s fit before each), so
+# 512 train rows (4 steps of the file's batch of 128) and 128 eval rows
+RT_TRAIN_VIDEOS, RT_EVAL_VIDEOS, RT_ACTIONS, RT_FIRST_S = 16, 4, 32, 5
+RT_STEPS = RT_TRAIN_VIDEOS * RT_ACTIONS // RULSTM_BATCH
+
+
+def rulstm_train_phase(card):
+    """expts/05 from its experiment file through `train_net.cli` with
+    test_only=false and 1 epoch: the seeded RULSTM file (`write_rulstm`)
+    loaded through its two-entry `train.init_from_model` spec, 4 train steps
+    of 128 and an eval of 1 batch on a synthetic tree read the RULSTM way;
+    no launches; finite losses and metric. Then one train step's losses and
+    gradients (the aggregator's and the action classifier's) on the trained
+    weights and the first batch, card against CPU (`train_grads_vs_cpu`,
+    the same dropout masks) within CPU_TOL. Returns (the launch counts,
+    a summary)."""
+    from avt_tpu_torch import train_net
+
+    captured = []
+    expt = os.path.join(os.path.dirname(os.path.abspath(__file__)), EXPT_05)
+    with tempfile.TemporaryDirectory() as tmp:
+        tree = write_ek100_tree(os.path.join(tmp, "tree"), train_videos=RT_TRAIN_VIDEOS,
+                                eval_videos=RT_EVAL_VIDEOS, actions_per_video=RT_ACTIONS,
+                                first_action_s=RT_FIRST_S, seed=50, read_type="exact_rulstm")
+        ckpt = os.path.join(tmp, "RULSTM-anticipation_0.25_6_8_rgb_mt5r_best.pth.tar")
+        write_rulstm(ckpt, seed=51)
+        argv = ["--config-file", expt, "--run-dir", os.path.join(tmp, "run")] + tree + [
+            f"train.init_from_model=[[temporal_aggregator,{ckpt}],"
+            f"[classifiers.action,classifier.1.,{ckpt}]]",
+            f"data_train.workers={TN_WORKERS}", f"data_eval.workers={TN_WORKERS}",
+            "test_only=false", "train.num_epochs=1"]
+        with mock.patch.object(train_net, "make_train_step",
+                               recording_make_train_step(train_net, captured)):
+            (metric,), rec = run_train_net(argv)
+    check(rec["launches"] == flash_launches(0), f"rulstm_train: launches {rec['launches']}")
+    check(rec["epochs"] == [0] and len(rec["finals"]) == 1 and np.isfinite(metric),
+          f"rulstm_train: epochs {rec['epochs']}, finals {rec['finals']}, metric {metric}")
+    losses = loop_losses(rec, "rulstm_train", RT_STEPS)
+    model, loss_wts, num_classes, batch, _ = captured.pop()
+    check(tuple(batch["video"].shape) == (RULSTM_BATCH, 1, FEAT_DIM, 11, 1, 1),
+          f"rulstm_train: batch {tuple(batch['video'].shape)}")
+    cmp = train_grads_vs_cpu(model, batch, loss_wts, num_classes, seed=52)
+    check(cmp["launches"] == flash_launches(0) and max(cmp["loss_err"], cmp["grad_err"]) <= CPU_TOL
+          and all(np.isfinite(list(cmp["losses"].values()))),
+          f"rulstm_train: card vs CPU {cmp} (tolerance {CPU_TOL})")
+    clips_s = rec["loggers"][0].meters["clips/s"]
+    summary = dict(loop_ms=RULSTM_BATCH / clips_s.median * 1e3, losses=losses, metric=metric,
+                   **{k: cmp[k] for k in ("loss_err", "grad_err", "cpu_s")})
+    log(f"rulstm_train ({card}): expts/05 trained (test_only=false, 1 epoch of {RT_STEPS} steps "
+        f"of {RULSTM_BATCH}, RULSTM 1024 wide from the seeded file, dropout 0.8), rows train "
+        f"{rec['rows']['train']} / eval {rec['rows']['eval']}; the loop "
+        f"{summary['loop_ms']:.2f} ms a step; losses "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(losses.items()))
+        + f"; final_acc/action/AR5 {metric:.4f}; one step card vs CPU: losses "
+        f"{cmp['loss_err']:.3g}, gradients {cmp['grad_err']:.3g} ({cmp['worst_grad']}) of max "
+        f"|value| (tolerance "
+        f"{CPU_TOL}); cli {rec['wall_s']:.1f} s; launches {rec['launches']}")
+    del model, batch
+    torch.cuda.empty_cache()
+    return {"rulstm_train": rec["launches"]}, summary
+
+
+# ---------------------------------------------------------------- zoo_cloze
+# zoo_transformer's run with the Transformer aggregator's cloze (MLM)
+# training on: a key position is masked with probability 0.15 and the aux
+# loss tx_mlm weighted 1.0 (conf/config.yaml's loss weight 1.0)
+ZOO_CLOZE = ["+model.temporal_aggregator.cloze_loss_ratio=0.15",
+             "+model.temporal_aggregator.cloze_loss_wt=1.0"]
+
+
+def zoo_cloze_phase(card):
+    """`zoo_transformer_overrides` plus ZOO_CLOZE through `train_net.cli`,
+    1 epoch of 4 steps of 64 and 2 eval batches: in training the cloze key
+    mask sends the attention to the plain path (as avt_tpu sends it to XLA),
+    so the flash forward runs only at eval, 6 launches a batch; tx_mlm
+    among the loop's losses, finite. Then one train step's losses and
+    gradients on the trained weights and the first batch, card against CPU
+    with the same cloze draw and dropout masks (`train_grads_vs_cpu`),
+    within CPU_TOL, tx_mlm among them, with every ReLU (the encoder's FFN,
+    the MLP future predictor and classifier) a softplus on both sides, as
+    the CPU tests of the conv backbones hold them: with the ReLUs the
+    gradients sat up to 5.8e-4 of their scale apart (a ReLU input within
+    rounding of 0 flips between two f32 programs). Returns (the launch
+    counts, a summary)."""
+    from avt_tpu_torch import train_net
+
+    captured = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tree = write_ek100_tree(os.path.join(tmp, "tree"), train_videos=TN_TRAIN_VIDEOS,
+                                eval_videos=TN_EVAL_VIDEOS, actions_per_video=TN_ACTIONS,
+                                first_action_s=TN_FIRST_S, seed=53)
+        argv = ["--run-dir", os.path.join(tmp, "run")] + zoo_transformer_overrides(tree) + (
+            ZOO_CLOZE + [f"data_train.workers={TN_WORKERS}", f"data_eval.workers={TN_WORKERS}",
+                         "train.num_epochs=1"])
+        with mock.patch.object(train_net, "make_train_step",
+                               recording_make_train_step(train_net, captured)):
+            (metric,), rec = run_train_net(argv)
+    want = flash_launches(ZOO_LAYERS * TN_EVAL_BATCHES)
+    check(rec["launches"] == want, f"zoo_cloze: launches {rec['launches']}, want {want}")
+    check(rec["epochs"] == [0] and np.isfinite(metric),
+          f"zoo_cloze: epochs {rec['epochs']}, metric {metric}")
+    losses = loop_losses(rec, "zoo_cloze", TN_STEPS)
+    check("loss/tx_mlm" in losses, f"zoo_cloze: no tx_mlm among the losses {sorted(losses)}")
+    model, loss_wts, num_classes, batch, _ = captured.pop()
+    agg = model.temporal_aggregator
+    check(agg.cloze_loss_ratio == 0.15 and agg.cloze_loss_wt == 1.0,
+          f"zoo_cloze: the aggregator's cloze {agg.cloze_loss_ratio}, {agg.cloze_loss_wt}")
+    cmp = train_grads_vs_cpu(model, batch, loss_wts, num_classes, seed=54, relu=softplus)
+    check(cmp["launches"] == flash_launches(0) and "tx_mlm" in cmp["losses"]
+          and max(cmp["loss_err"], cmp["grad_err"]) <= CPU_TOL
+          and all(np.isfinite(list(cmp["losses"].values()))),
+          f"zoo_cloze: card vs CPU {cmp} (tolerance {CPU_TOL})")
+    clips_s = rec["loggers"][0].meters["clips/s"]
+    summary = dict(loop_ms=TN_BATCH / clips_s.median * 1e3, losses=losses, metric=metric,
+                   **{k: cmp[k] for k in ("loss_err", "grad_err", "cpu_s")})
+    log(f"zoo_cloze ({card}): the Transformer aggregator over {LONG_T} features with cloze "
+        f"0.15 / tx_mlm 1.0, {TN_STEPS} steps of {TN_BATCH}, {TN_EVAL_BATCHES} eval batches; the "
+        f"loop {summary['loop_ms']:.2f} ms a step; losses "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(losses.items()))
+        + f"; final_acc/action/AR5 {metric:.4f}; one step card vs CPU (the same cloze draw, "
+        f"ReLU as softplus): losses {cmp['loss_err']:.3g}, gradients {cmp['grad_err']:.3g} "
+        f"({cmp['worst_grad']}) of max |value| "
+        f"(tolerance {CPU_TOL}), tx_mlm {cmp['losses']['tx_mlm']:.4f}; cli {rec['wall_s']:.1f} s; "
+        f"launches {rec['launches']}")
+    del model, batch
+    torch.cuda.empty_cache()
+    return {"zoo_cloze": rec["launches"]}, summary
 
 
 if __name__ == "__main__":

@@ -50,16 +50,34 @@ from avt_tpu_torch.utils.logging import get_logger  # noqa: E402
 
 INDEX_NAME = "featext_index.csv"
 RESULTS_DIR = "results"
+FORMATS = ("npy", "lmdb")  # the stores `pack` writes
+
+
+def _yaml_quoted(text: str) -> str:
+    """`text` as a single-quoted YAML scalar ('' stands for '), which a flow
+    mapping reads whole, commas, colons and braces included."""
+    return "'" + text.replace("'", "''") + "'"
+
+
+def parse_formats(text: str) -> Tuple[str, ...]:
+    """The --formats list: comma-separated, blanks around each name
+    stripped; a name outside FORMATS raises SystemExit naming it."""
+    formats = tuple(f.strip() for f in text.split(","))
+    bad = [f for f in formats if f not in FORMATS]
+    if bad:
+        raise SystemExit(f"--formats {text!r}: {bad} not among {list(FORMATS)}")
+    return formats
 
 
 def _featext_overrides(args, *, shard: bool = True, resume: Optional[bool] = None) -> List[str]:
     """Overrides that put any config into feature-extraction mode."""
     resume = bool(args.resume) if resume is None else resume
+    results_dir = _yaml_quoted(os.path.join(args.run_dir, RESULTS_DIR))
     dense = (
         "{_target_: datasets.base_video_dataset.dense_clip_sampler, "
         f"clip_len: {args.clip_len}, stride: {args.stride}, keep_orig_clips: false, "
         f"featext_skip_done: {str(resume).lower()}, "
-        f"featext_results_dir: {os.path.join(args.run_dir, RESULTS_DIR)}, "
+        f"featext_results_dir: {results_dir}, "
         f"shard_per_worker: {str(shard).lower()}}}"
     )
     return [
@@ -225,7 +243,7 @@ def _open_lmdb_store(lmdb_dir: str, nbytes: int, logger):
 
 
 def pack(results_dir: str, index: Dict[str, Tuple[str, float]], out_dir: str, *,
-         endpoint: str = "temp_agg", formats: Tuple[str, ...] = ("npy", "lmdb"),
+         endpoint: str = "temp_agg", formats: Tuple[str, ...] = FORMATS,
          store_fps: float = RULSTM_TSN_FPS, logger=None) -> Dict[str, int]:
     """Pack the featext result files into reader-consumable stores.
 
@@ -361,7 +379,8 @@ def main(argv=None, device=None):
     parser.add_argument("--stride", type=float, default=0.1, help="dense sampling stride seconds")
     parser.add_argument("--store-fps", type=float, default=RULSTM_TSN_FPS,
                         help="fps of the frame keying (RULSTM stores use 30)")
-    parser.add_argument("--formats", default="npy,lmdb")
+    parser.add_argument("--formats", default="npy,lmdb",
+                        help=f"comma-separated stores to write, of {list(FORMATS)}")
     parser.add_argument("--resume", action="store_true",
                         help="skip uids already in the run dir's results")
     parser.add_argument("--pack-only", action="store_true",
@@ -369,6 +388,7 @@ def main(argv=None, device=None):
     parser.add_argument("--no-verify", action="store_true")
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_args(argv)
+    formats = parse_formats(args.formats)  # before any extraction
     logger = get_logger("torch_extract_features")
 
     if args.run_dir is None:
@@ -405,7 +425,7 @@ def main(argv=None, device=None):
                          "the extracting run dir)")
     index = read_index(index_path)
     stats = pack(results_dir, index, args.out, endpoint=args.endpoint,
-                 formats=tuple(args.formats.split(",")), store_fps=args.store_fps, logger=logger)
+                 formats=formats, store_fps=args.store_fps, logger=logger)
     logger.info("packed %(rows)d features / %(videos)d videos (%(skipped)d rows not in index)",
                 stats)
     if not args.no_verify:
