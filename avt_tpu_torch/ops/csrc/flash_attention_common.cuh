@@ -1,6 +1,8 @@
 // Shared pieces of the blocked flash-attention kernels for Hopper (sm_90a):
 // flash_attention_fwd.cu (the forward) and flash_attention_bwd.cu (the
-// recompute backward).
+// recompute backward). The arithmetic and the work split below are the
+// forward's; the backward takes the layout, the staging and the rounding
+// from here and runs its products on the tensor cores (its own note).
 //
 // Layout. q, k, v and dO are (B, T, H, D) views whose last two axes are
 // contiguous (head stride D, element stride 1); the batch and sequence strides
@@ -15,8 +17,8 @@
 // casts them (round_to below).
 //
 // Work split. A block is 8 warps. It keeps BM rows of one operand (the
-// query rows of the forward and the dq side, the key rows of the dk/dv side)
-// in shared memory and steps over BN-row tiles of the others (Tiling below).
+// query rows) in shared memory and steps over BN-row tiles of the others
+// (Tiling below).
 // Every product is tiled in registers, so that each shared-memory load feeds
 // several FMAs: an SM issues 4 warp-FMAs a clock and reads one 128-byte
 // wavefront a clock, so a loop that loads more than one wavefront per 4
@@ -258,17 +260,6 @@ __device__ __forceinline__ float partial_sum(const float* part, int at) {
 #pragma unroll
   for (int sl = 1; sl < L::NSL; ++sl) t += part[sl * L::BN * L::PS + at];
   return t;
-}
-
-// The scores of this thread's entries e = threadIdx.x + m * kThreads of the
-// BN x BM tile (step row e / BM, kept row e % BM); 0 past the tile.
-template <class L>
-__device__ __forceinline__ void sum_partials(float (&x)[L::EPT], const float* part) {
-#pragma unroll
-  for (int m = 0; m < L::EPT; ++m) {
-    const int e = threadIdx.x + m * kThreads;
-    x[m] = e < L::BM * L::BN ? partial_sum<L>(part, (e / L::BM) * L::PS + e % L::BM) : 0.f;
-  }
 }
 
 // V consecutive floats from shared memory (16- or 8-byte aligned).

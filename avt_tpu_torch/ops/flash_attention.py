@@ -613,8 +613,9 @@ def _flash_kernel():
 
 
 @functools.lru_cache(maxsize=None)
-def _flash_bwd_kernel():
-    fn = _build.load(FLASH_BWD_KERNEL).flash_attention_bwd
+def _flash_bwd_kernel(csrc: Path = _build.CSRC):
+    """The backward's C entry point, built from the sources in csrc at first use."""
+    fn = _build.load(FLASH_BWD_KERNEL, csrc).flash_attention_bwd
     # (q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tk, D, is_bf16, causal,
     #  q_sb, q_st, k_sb, k_st, v_sb, v_st, do_sb, do_st, q_scale, dq_scale, stream)
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 8
@@ -645,8 +646,9 @@ def _launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: boo
     return out, lse
 
 
-def _launch_flash_bwd(q, k, v, dout, lse, delta, causal: bool):
-    """(dq, dk, dv) from the backward kernels (dq side, then dk/dv side)."""
+def _launch_flash_bwd(q, k, v, dout, lse, delta, causal: bool, csrc: Path = _build.CSRC):
+    """(dq, dk, dv) from the backward kernels (dq side, then dk/dv side), built
+    from the sources in csrc."""
     q, k, v = _check_flash(FLASH_BWD_KERNEL, q, k, v)
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
@@ -662,12 +664,12 @@ def _launch_flash_bwd(q, k, v, dout, lse, delta, causal: bool):
     if B * H * Tq * Tk == 0:
         return dq, dk.zero_(), dv.zero_()
     with torch.cuda.device(q.device):
-        err = _flash_bwd_kernel()(
+        err = _flash_bwd_kernel(csrc)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Tq, Tk, D,
             _DTYPES[q.dtype], int(causal), *_strides(q, k, v, dout), _flash_scale(D, q.dtype),
             1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
-    _build.check(_build.load(FLASH_BWD_KERNEL), err, FLASH_BWD_KERNEL)
+    _build.check(_build.load(FLASH_BWD_KERNEL, csrc), err, FLASH_BWD_KERNEL)
     _build.launch_counts[FLASH_BWD_KERNEL] += 1
     return dq, dk, dv
 

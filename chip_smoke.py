@@ -4,19 +4,23 @@
     python3 chip_smoke.py        # from the repo root, on a machine with a GPU
 
 1. Card and build: prints the card's name and power limit, turns TF32 off
-   (for cuBLAS and cuDNN; the packed kernels' own f32 products run as
-   three TF32 products each, which keeps f32's accuracy), builds every
-   kernel from the sources in the checkout (nvcc, sm_90a, one process per
-   source, all at once), logs each template's registers and spills (and
-   fails if a packed kernel's f32 template at D=64 spills) and, for the
+   (for cuBLAS and cuDNN; the packed kernels' and the flash backward's own
+   f32 products run as three TF32 products each, which keeps f32's
+   accuracy), builds every kernel from the sources in the checkout (nvcc,
+   sm_90a, one process per source, all at once, with FLASH_PARENT_COMMIT's
+   flash backward beside them where git history has it), logs each
+   template's registers and spills (and fails if a packed kernel's f32
+   template at D=64 spills, or a flash backward f32 template at D=64, 512
+   or 1024) and, for the
    packed kernels' bf16 and f32 templates and the fused kernel's bf16 and
    f32 forms, warps a block, shared memory and blocks resident on an SM at
    T=197.
 2. Kernels: holds each kernel against its plain PyTorch version at the
    serving and training paths' shapes (tolerances below) and times both,
    the library call that computes the same function, and the card's bound
-   for the work (for the packed kernels' f32 forms also the floor of three
-   TF32 products a product, `tf32_floor_ms`): the attention forward and
+   for the work (for the packed kernels' and the flash backward's f32 forms
+   also the floor of three TF32 products a product, `tf32_floor_ms`): the
+   attention forward and
    backward (dqkv and the qkv-bias gradient db; the no-db form at head dims
    32, 64 and 128; the query side, key side and db sum also timed apart from
    a profile), each with its bits on a repeat; the f32 forms also beside
@@ -74,7 +78,10 @@
    (bf16 and f32, causal and not, head dims 64, 256, 512 and 1024, T=200
    and 256) and timed beside the plain versions and SDPA, the backward
    also side by side (the dq and dk/dv kernels, from a profile, each
-   beside its own bound), at (64, 256, 4x512) and (64, 128, 2x1024); then `make_eval_step` and
+   beside its own bound), at (64, 256, 4x512) and (64, 128, 2x1024); the
+   f32 backward at those and at zoo_transformer's (64, 256, 8x64)
+   non-causal also in turns with FLASH_PARENT_COMMIT's (the FMA register
+   tiles it replaced), where git history has them; then `make_eval_step` and
    5 timed `make_train_step` steps (nesterov SGD under warmup + cosine) run,
    with 6 forward launches per eval forward and 6 + 6 per train step; step 0
    (LR 0) leaves the parameters as they were; every AVT-h attention
@@ -427,11 +434,17 @@ def cuda_ms(fn, iters=10, reps=5):
     return float(np.median(times))
 
 
+def card_normal(seed, *shapes):
+    """Standard normal f32 tensors of `shapes`, drawn on the card from `seed`
+    (numpy took 1-3 s a call on the host for the kernel checks' inputs, most
+    of phase 2's time)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+
+
 def attention_inputs(N, T, H, D, dtype, seed):
-    rng = np.random.default_rng(seed)
-    qkv = torch.from_numpy(rng.standard_normal((N, T, 3 * H * D), np.float32))
-    bias = torch.from_numpy(rng.standard_normal(3 * H * D, np.float32))
-    return qkv.to("cuda", dtype), bias.to("cuda")
+    qkv, bias = card_normal(seed, (N, T, 3 * H * D), (3 * H * D,))
+    return qkv.to(dtype), bias
 
 
 def roofline_ms(nbytes, flops, flops_per_s):
@@ -521,10 +534,8 @@ def time_unpaired_fwd(N, T, H, D, dtype):
 
 def bwd_inputs(N, T, H, D, dtype, seed):
     """qkv (N, T, 3C), dout (N, T, C), bias (3C), in the storage type."""
-    rng = np.random.default_rng(seed)
-    shapes = ((N, T, 3 * H * D), (N, T, H * D), (3 * H * D,))
-    return [torch.from_numpy(rng.standard_normal(s, np.float32)).to("cuda", dtype)
-            for s in shapes]
+    return [x.to(dtype) for x in card_normal(seed, (N, T, 3 * H * D), (N, T, H * D),
+                                             (3 * H * D,))]
 
 
 def rel_err(out, ref):
@@ -727,12 +738,9 @@ def time_f32_turns(parent):
 def fused_inputs(N, T, H, dtype, seed):
     """x (N, T, C), W as the ViT passes it (the transposed view of a (3C, C)
     weight) and b (3C), in the storage type; qkv comes out of order 1."""
-    rng = np.random.default_rng(seed)
     C = 64 * H
-    x = torch.from_numpy(rng.standard_normal((N, T, C), np.float32))
-    w = torch.from_numpy(rng.standard_normal((3 * C, C), np.float32) / np.sqrt(C))
-    b = torch.from_numpy(rng.standard_normal(3 * C, np.float32) * 0.1)
-    return x.to("cuda", dtype), w.to("cuda", dtype).t(), b.to("cuda", dtype)
+    x, w, b = card_normal(seed, (N, T, C), (3 * C, C), (3 * C,))
+    return x.to(dtype), (w / np.sqrt(C)).to(dtype).t(), (b * 0.1).to(dtype)
 
 
 def check_fused(N, T, H, dtype, causal, seed, csrc=_build.CSRC):
@@ -797,9 +805,8 @@ def time_fused(N, T, H, dtype, csrc=_build.CSRC, yardsticks=True):
 def flash_inputs(B, T, H, D, dtype, seed, Tk=None):
     """q, dout (B, T, H, D) and k, v (B, Tk, H, D) (Tk = T by default) in the
     storage type."""
-    rng = np.random.default_rng(seed)
-    return [torch.from_numpy(rng.standard_normal((B, n, H, D), np.float32)).to("cuda", dtype)
-            for n in (T, Tk or T, Tk or T, T)]
+    return [x.to(dtype) for x in card_normal(seed, *((B, n, H, D) for n in (T, Tk or T,
+                                                                           Tk or T, T)))]
 
 
 def check_flash(B, T, H, D, dtype, causal, seed, Tk=None):
@@ -845,19 +852,21 @@ def causal_pairs(T, causal, Tk=None):
     return n * (n + 1) // 2 + (T - n) * Tk
 
 
-def flash_bound_ms(B, T, H, D, dtype, causal, backward, Tk=None):
-    """Forward: q, k, v in, out and lse out, 4*B*H*pairs*D; backward: q, k,
-    v, dout, lse, delta in, dq, dk, dv out, 10*B*H*pairs*D (s, dp, dq, dk,
-    dv); pairs counts only the unmasked (query, key) pairs; T queries over
-    Tk keys (T by default)."""
+def flash_work(B, T, H, D, dtype, causal, backward, Tk=None):
+    """(bytes, operations). Forward: q, k, v in, out and lse out,
+    4*B*H*pairs*D; backward: q, k, v, dout, lse, delta in, dq, dk, dv out,
+    10*B*H*pairs*D (s, dp, dq, dk, dv); pairs counts only the unmasked
+    (query, key) pairs; T queries over Tk keys (T by default)."""
     s = torch.finfo(dtype).bits // 8
     q_rows, k_rows = B * T * H * D, B * (Tk or T) * H * D
     pairs = B * H * causal_pairs(T, causal, Tk) * D
     if backward:  # q, dout, dq; k, v, dk, dv; lse, delta
-        nbytes, flops = (3 * q_rows + 4 * k_rows) * s + 2 * B * H * T * 4, 10 * pairs
-    else:  # q, out; k, v; lse
-        nbytes, flops = (2 * q_rows + 2 * k_rows) * s + B * H * T * 4, 4 * pairs
-    return roofline_ms(nbytes, flops, PEAK_FLOPS[dtype])
+        return (3 * q_rows + 4 * k_rows) * s + 2 * B * H * T * 4, 10 * pairs
+    return (2 * q_rows + 2 * k_rows) * s + B * H * T * 4, 4 * pairs  # q, out; k, v; lse
+
+
+def flash_bound_ms(B, T, H, D, dtype, causal, backward, Tk=None):
+    return roofline_ms(*flash_work(B, T, H, D, dtype, causal, backward, Tk), PEAK_FLOPS[dtype])
 
 
 def flash_side_bound_ms(B, T, H, D, dtype, causal, side, Tk=None):
@@ -941,11 +950,48 @@ def time_flash(B, T, H, D, dtype, causal, Tk=None):
                     dkv_ms=sides["dkv"], dkv_bound_ms=side_bounds["dkv"]),
         "sdpa_backend": sdpa_backend(*x, causal),
     }
+    if dtype == torch.float32:  # the backward's products run as three TF32 products
+        res["bwd"].update(tf32_floor(*flash_work(B, T, H, D, dtype, causal, True, Tk)))
     log(f"flash_attention timing B={B} T={T}{'' if Tk is None else f' Tk={Tk}'} H={H} D={D} "
         f"{str(dtype)[6:]} causal={causal}, "
         f"SDPA backend {res['sdpa_backend']}: forward " + fmt(res["fwd"]) + "; backward "
         + fmt(res["bwd"]))
     return res
+
+
+# The commit whose flash backward ran on FMA register tiles: timed in turns
+# beside this checkout's tensor-core form (PARENT_COMMIT stays the packed
+# kernels' yardstick)
+FLASH_PARENT_COMMIT = "6a6eaa490d6ef5706997611dc2cb104ca2d85f8a"
+
+
+def time_flash_bwd_turns(parent):
+    """The flash backward in f32 at the path shapes (the feature path's,
+    feature_d1024's and zoo_transformer's), built from this checkout's
+    sources ("change") and from `parent`, timed in turns on one card (parent,
+    change, change, parent), the dq and dk/dv sides from a profile. Returns
+    {label: {shape: {"ms": [2 turns], "dq_ms": ..., "dkv_ms": ...}}}."""
+    sources = {"parent": parent, "change": _build.CSRC}
+    turns = ["parent", "change", "change", "parent"]
+    out = {label: {} for label in sources}
+    for shape, causal in ((FLASH_SHAPE, True), (FLASH_SHAPE_D1024, True), (ZOO_SHAPE, False)):
+        q, k, v, do = flash_inputs(*shape, torch.float32, seed=29)
+        o, lse = fa._launch_flash(q, k, v, causal, want_lse=True)
+        delta = fa._delta(do, o)
+        key = "x".join(map(str, shape)) + (" causal" if causal else " non-causal")
+        for label in turns:
+            def run(csrc=sources[label]):
+                return fa._launch_flash_bwd(q, k, v, do, lse, delta, causal, csrc)
+
+            res = out[label].setdefault(key, {"ms": []})
+            res["ms"].append(cuda_ms(run))
+            if "dq_ms" not in res:
+                res.update({f"{side}_ms": ms for side, ms in flash_side_ms(run).items()})
+    for key in out["change"]:
+        log(f"flash backward f32 in turns, {key}: " + "; ".join(
+            f"{label} " + fmt(dict(out[label][key], ms="/".join(
+                f"{x:.4f}" for x in out[label][key]["ms"]))) for label in sources))
+    return out
 
 
 def kernel_group(name):
@@ -1036,6 +1082,9 @@ def log_registers(name, text):
 
 # the packed kernels' f32 templates at the ViT's head dim, which must not spill
 F32_TEMPLATES = ("short_attn_fwd_tf32<64>", "bwd_query_tf32<64>", "bwd_key_tf32<64>")
+# nor the flash backward's f32 templates at the paths' head dims
+FLASH_BWD_F32_TEMPLATES = tuple(f"flash_bwd_{side}<f32, {D}>" for D in (64, 512, 1024)
+                                for side in ("dq", "dkv"))
 
 
 def main():
@@ -1057,12 +1106,18 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.time()
+    # FLASH_PARENT_COMMIT's flash backward (timed in turns in phase 2) builds
+    # beside these
+    flash_parent = parent_csrc(FLASH_PARENT_COMMIT)
+    parent_build = (_build._start_build(fa.FLASH_BWD_KERNEL, flash_parent)
+                    if flash_parent is not None else None)
     build_logs = _build.build()
+    _build._finish_build(fa.FLASH_BWD_KERNEL, parent_build)
     log(f"built {sorted(_build.KERNELS)} in {time.time() - t0:.1f} s")
     registers = {}
     for name, text in build_logs.items():
         registers.update(log_registers(name, text))
-    for template in F32_TEMPLATES:
+    for template in F32_TEMPLATES + FLASH_BWD_F32_TEMPLATES:
         info = registers.get(template)
         check(info is not None and info.get("spill_bytes") == 0,
               f"{template}: ptxas reported {info} (want no spill)")
@@ -1184,6 +1239,7 @@ def main():
                         for causal in (True, False)}
     flash_timing_383 = time_flash(RO_LONG_B, RO_LONG_T, AVTH_HEADS, AVTH_DIM // AVTH_HEADS,
                                   torch.float32, True)
+    flash_turns = time_flash_bwd_turns(flash_parent) if flash_parent is not None else None
     fused_timing_257 = time_fused(160, 257, 12, torch.bfloat16)
     f32_bwd_d128 = time_attention_bwd(TNR_BATCH * TNR_FRAMES, 197, 6, 128, torch.float32)
 
@@ -1385,6 +1441,9 @@ def main():
                   "dtype": "float32", "causal": True,
                   "max_abs_err": rollout_errs[f"B{RO_LONG_B}_T{RO_LONG_T}_float32"][side],
                   "sdpa_backend": flash_timing_383["sdpa_backend"], **flash_timing_383[side]},
+            **({"f32_turns": flash_turns,
+                "f32_registers": {t: registers.get(t) for t in FLASH_BWD_F32_TEMPLATES}}
+               if side == "bwd" else {}),
             adafactor_plateau=ap_summary["adafactor"], zoo_cloze=cloze_summary,
             ssl_checks={k: v[side] for k, v in ssl_errs.items()},
             rollout=rollout_summary,

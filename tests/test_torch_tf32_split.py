@@ -1,16 +1,20 @@
-"""The numerics of the packed attention kernels' f32 forms, emulated on the CPU.
+"""The numerics of the f32 forms of the packed attention kernels and of the
+flash backward, emulated on the CPU.
 
 On the card the f32 products run on the tensor cores as three TF32 products:
 each f32 operand x is split into hi = tf32(x) and lo = tf32(x - hi), and
-a . b = lo_a . hi_b + hi_a . lo_b + hi_a . hi_b (csrc/short_attention_common.cuh).
+a . b = lo_a . hi_b + hi_a . lo_b + hi_a . hi_b (csrc/tensor_core.cuh).
 Here TF32 rounding is done with integer bit operations on float32 (10
 mantissa bits kept; to nearest with ties away from zero, as cvt.rna.tf32.f32
-rounds, or by truncation, as CUTLASS takes hi), the products of TF32 values
-are exact, and the packed forward and backward are computed in the kernels'
-order at the ViT's T=197, D=64 with the qkv bias and q's scaling, then held
-against the plain versions: three terms stay ten times inside the card's f32
-tolerance of 2e-4 (of max |ref|), one term alone does not meet it on the
-backward. Imports torch and the port only.
+rounds, or by truncation, as CUTLASS takes hi and the flash backward takes
+hi and lo: the tensor cores ignore an operand's 13 low bits), the products of
+TF32 values are exact, and the kernels are computed in
+their order, then held against the plain versions: the packed forward and
+backward at the ViT's T=197, D=64 with the qkv bias and q's scaling; the
+flash backward's dq side and dk/dv side at D=64, 512 and 1024 and at Tq !=
+Tk, also against avt_tpu's `_flash_attention_bwd` in interpret mode. Three
+terms stay ten times inside the card's f32 tolerance of 2e-4 (of max |ref|),
+one term alone does not meet it on either backward.
 """
 import math
 
@@ -18,6 +22,9 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
+from avt_tpu.ops import flash_attention as jfa
 from avt_tpu_torch.ops import flash_attention as tfa
 
 N, T, H, D = 2, 197, 2, 64
@@ -35,14 +42,15 @@ def tf32(x: torch.Tensor, rounding: str = "rna") -> torch.Tensor:
     return (bits & -0x2000).view(torch.float32)
 
 
-def split_product(hi_rounding="rna", terms=3):
+def split_product(hi_rounding="rna", terms=3, lo_rounding="rna"):
     """a @ b as the kernels form it: three TF32 terms (lo.hi + hi.lo +
-    hi.hi), or with terms=1 one TF32 product; lo is always rounded by rna."""
+    hi.hi), or with terms=1 one TF32 product; lo rounded by `lo_rounding`
+    (the packed kernels: rna; the flash backward: truncate, as for hi)."""
     def mm(a, b):
         a_hi, b_hi = tf32(a, hi_rounding), tf32(b, hi_rounding)
         out = a_hi.double() @ b_hi.double()
         if terms == 3:
-            a_lo, b_lo = tf32(a - a_hi), tf32(b - b_hi)
+            a_lo, b_lo = tf32(a - a_hi, lo_rounding), tf32(b - b_hi, lo_rounding)
             out = a_lo.double() @ b_hi.double() + a_hi.double() @ b_lo.double() + out
         return out.float()
     return mm
@@ -144,3 +152,86 @@ def test_one_term_backward_misses_the_card_tolerance():
     ref, _ = tfa.packed_short_attention_bwd_reference(qkv + bias, dout, H)
     out = emulated_backward(qkv, bias, dout, split_product(terms=1))
     assert _rel_err(out, ref) > CARD_TOL
+
+
+# (Tq, Tk, H, D, causal): the Transformer aggregator's non-causal D=64,
+# AVT-h's causal D=512 and D=1024, and fewer queries than keys
+FLASH_CASES = [
+    pytest.param(40, 40, 2, 64, False, id="D64"),
+    pytest.param(40, 40, 2, 512, True, id="D512-causal"),
+    pytest.param(40, 40, 2, 1024, True, id="D1024-causal"),
+    pytest.param(24, 40, 2, 512, True, id="Tq24-Tk40-D512-causal"),
+]
+
+
+def _flash_inputs(Tq, Tk, H, D, seed):
+    rng = np.random.default_rng(seed)
+    q, do = (rng.standard_normal((2, Tq, H, D), np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((2, Tk, H, D), np.float32) for _ in range(2))
+    return q, k, v, do
+
+
+def emulated_flash_backward(q, k, v, dout, lse, delta, causal, mm):
+    """(dq, dk, dv) in the order of csrc/flash_attention_bwd.cu, f32 (B, T,
+    H, D) in and out, the products from `mm`. q' = q * sm_scale; the dq side
+    keeps the queries: s = q' . K^T, p = exp(s - lse) (0 where masked), ds =
+    p * (dO . V^T - delta), dq = (ds . K) * sm_scale. The dk/dv side keeps the
+    keys and forms its own scores, K . q'^T and V . dO^T: dk = ds^T . q', dv
+    = p^T . dO."""
+    D = q.shape[-1]
+    qs, kh, vh, doh = (x.transpose(1, 2) for x in (q * tfa._flash_scale(D, q.dtype), k, v, dout))
+    Tq, Tk = q.shape[1], k.shape[1]
+    keep = (tfa._causal_keep(Tq, 0, Tk, q.device) if causal
+            else torch.ones(Tq, Tk, dtype=torch.bool))
+    sm_scale = torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32)
+
+    def probs(s, dp, lse_, delta_, keep_):
+        p = torch.where(keep_, torch.exp(s - lse_), torch.zeros(()))
+        return p, p * (dp - delta_)
+
+    _, ds = probs(mm(qs, kh.transpose(-1, -2)), mm(doh, vh.transpose(-1, -2)),
+                  lse[..., None], delta[..., None], keep)
+    dq = mm(ds, kh) * sm_scale
+    p_t, ds_t = probs(mm(kh, qs.transpose(-1, -2)), mm(vh, doh.transpose(-1, -2)),
+                      lse[..., None, :], delta[..., None, :], keep.transpose(-1, -2))
+    dk, dv = mm(ds_t, qs), mm(p_t, doh)
+    return tuple(x.transpose(1, 2) for x in (dq, dk, dv))
+
+
+def _flash_case(Tq, Tk, H, D, causal, mm, with_tpu_kernels=True):
+    """The emulated backward, the plain version's and (with_tpu_kernels)
+    avt_tpu's `_flash_attention_bwd` in interpret mode, all three from the
+    plain forward's lse and delta (padded to the TPU kernel's 128-row block:
+    its padded query rows have dO = 0 and contribute nothing)."""
+    q, k, v, do = _flash_inputs(Tq, Tk, H, D, seed=Tq + D)
+    tx = [torch.from_numpy(x) for x in (q, k, v, do)]
+    out, lse = tfa.flash_attention_reference(*tx[:3], causal)
+    delta = tfa._delta(tx[3], out)
+    got = emulated_flash_backward(*tx, lse, delta, causal, mm)
+    ref = tfa.flash_attention_bwd_reference(*tx, out, lse, causal)
+    if not with_tpu_kernels:
+        return got, ref, None
+    pad = ((0, 0), (0, 0), (0, 128 - Tq))
+    jlse, jdelta = (jnp.pad(jnp.asarray(x.numpy()), pad) for x in (lse, delta))
+    jref = jfa._flash_attention_bwd(*(jnp.asarray(x) for x in (q, k, v, do)), jlse, jdelta,
+                                    causal=causal, block_q=128, block_k=128, interpret=True)
+    return got, ref, [torch.from_numpy(np.array(x)) for x in jref]
+
+
+@pytest.mark.parametrize("Tq,Tk,H,D,causal", FLASH_CASES)
+def test_three_term_flash_backward_matches_plain_version_and_tpu_kernels(Tq, Tk, H, D, causal):
+    """dq (dq side), dk and dv (dk/dv side) with three TF32 terms a product,
+    hi and lo truncated, as the kernel splits (split_tf32_rz)."""
+    mm = split_product("truncate", lo_rounding="truncate")
+    got, ref, jref = _flash_case(Tq, Tk, H, D, causal, mm)
+    for name, g, r, j in zip("qkv", got, ref, jref):
+        assert _rel_err(g, r) <= SPLIT_TOL, f"d{name} vs the plain version"
+        assert _rel_err(g, j) <= SPLIT_TOL, f"d{name} vs _flash_attention_bwd"
+
+
+def test_one_term_flash_backward_misses_the_card_tolerance():
+    """Why the flash backward takes three terms: at D=512 one TF32 product a
+    term leaves dq or dk outside the f32 tolerance."""
+    got, ref, _ = _flash_case(40, 40, 2, 512, True, split_product(terms=1),
+                              with_tpu_kernels=False)
+    assert max(_rel_err(got[0], ref[0]), _rel_err(got[1], ref[1])) > CARD_TOL
