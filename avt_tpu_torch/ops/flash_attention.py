@@ -602,8 +602,9 @@ def _strides(*xs: torch.Tensor):
 
 
 @functools.lru_cache(maxsize=None)
-def _flash_kernel():
-    fn = _build.load(FLASH_KERNEL).flash_attention_fwd
+def _flash_kernel(csrc: Path = _build.CSRC):
+    """The forward's C entry point, built from the sources in csrc at first use."""
+    fn = _build.load(FLASH_KERNEL, csrc).flash_attention_fwd
     # (q, k, v, out, lse, B, H, Tq, Tk, D, is_bf16, causal, q_sb, q_st, k_sb,
     #  k_st, v_sb, v_st, q_scale, stream)
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6
@@ -625,8 +626,10 @@ def _flash_bwd_kernel(csrc: Path = _build.CSRC):
 
 
 def _launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-                  want_lse: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(out, lse (B, H, Tq) f32 or None) from the forward kernel."""
+                  want_lse: bool, csrc: Path = _build.CSRC
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(out, lse (B, H, Tq) f32 or None) from the forward kernel, built from
+    the sources in csrc."""
     q, k, v = _check_flash(FLASH_KERNEL, q, k, v)
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
@@ -637,11 +640,11 @@ def _launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: boo
     if Tk == 0:
         raise ValueError(f"{FLASH_KERNEL}: no keys to attend to")
     with torch.cuda.device(q.device):
-        err = _flash_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                              _ptr(lse), B, H, Tq, Tk, D, _DTYPES[q.dtype], int(causal),
-                              *_strides(q, k, v), _flash_scale(D, q.dtype),
-                              torch.cuda.current_stream().cuda_stream)
-    _build.check(_build.load(FLASH_KERNEL), err, FLASH_KERNEL)
+        err = _flash_kernel(csrc)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse), B, H, Tq, Tk,
+            D, _DTYPES[q.dtype], int(causal), *_strides(q, k, v), _flash_scale(D, q.dtype),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(_build.load(FLASH_KERNEL, csrc), err, FLASH_KERNEL)
     _build.launch_counts[FLASH_KERNEL] += 1
     return out, lse
 

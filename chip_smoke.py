@@ -4,22 +4,22 @@
     python3 chip_smoke.py        # from the repo root, on a machine with a GPU
 
 1. Card and build: prints the card's name and power limit, turns TF32 off
-   (for cuBLAS and cuDNN; the packed kernels' and the flash backward's own
-   f32 products run as three TF32 products each, which keeps f32's
-   accuracy), builds every kernel from the sources in the checkout (nvcc,
-   sm_90a, one process per source, all at once, with FLASH_PARENT_COMMIT's
-   flash backward beside them where git history has it), logs each
-   template's registers and spills (and fails if a packed kernel's f32
-   template at D=64 spills, or a flash backward f32 template at D=64, 512
-   or 1024) and, for the
+   (for cuBLAS and cuDNN; the packed and flash kernels' own f32 products
+   run as three TF32 products each, which keeps f32's accuracy), builds
+   every kernel from the sources in the checkout (nvcc, sm_90a, one process
+   per source, all at once, with FLASH_PARENT_COMMIT's flash forward and
+   backward beside them where git history has them), logs each template's
+   registers and spills (and fails if a packed kernel's f32 template at
+   D=64 spills, or a flash forward or backward f32 template at D=64, 512 or
+   1024) and, for the
    packed kernels' bf16 and f32 templates and the fused kernel's bf16 and
    f32 forms, warps a block, shared memory and blocks resident on an SM at
    T=197.
 2. Kernels: holds each kernel against its plain PyTorch version at the
    serving and training paths' shapes (tolerances below) and times both,
    the library call that computes the same function, and the card's bound
-   for the work (for the packed kernels' and the flash backward's f32 forms
-   also the floor of three TF32 products a product, `tf32_floor_ms`): the
+   for the work (for the packed and flash kernels' f32 forms also the floor
+   of three TF32 products a product, `tf32_floor_ms`): the
    attention forward and
    backward (dqkv and the qkv-bias gradient db; the no-db form at head dims
    32, 64 and 128; the query side, key side and db sum also timed apart from
@@ -79,9 +79,11 @@
    and 256) and timed beside the plain versions and SDPA, the backward
    also side by side (the dq and dk/dv kernels, from a profile, each
    beside its own bound), at (64, 256, 4x512) and (64, 128, 2x1024); the
-   f32 backward at those and at zoo_transformer's (64, 256, 8x64)
-   non-causal also in turns with FLASH_PARENT_COMMIT's (the FMA register
-   tiles it replaced), where git history has them; then `make_eval_step` and
+   forward in f32 at those and at zoo_transformer's (64, 256, 8x64)
+   non-causal, and in bf16 at (64, 256, 4x512), also in turns with
+   FLASH_PARENT_COMMIT's (the FMA register tiles it replaced), and the f32
+   backward at the three f32 shapes must give the bits of
+   FLASH_PARENT_COMMIT's, where git history has them; then `make_eval_step` and
    5 timed `make_train_step` steps (nesterov SGD under warmup + cosine) run,
    with 6 forward launches per eval forward and 6 + 6 per train step; step 0
    (LR 0) leaves the parameters as they were; every AVT-h attention
@@ -950,8 +952,10 @@ def time_flash(B, T, H, D, dtype, causal, Tk=None):
                     dkv_ms=sides["dkv"], dkv_bound_ms=side_bounds["dkv"]),
         "sdpa_backend": sdpa_backend(*x, causal),
     }
-    if dtype == torch.float32:  # the backward's products run as three TF32 products
-        res["bwd"].update(tf32_floor(*flash_work(B, T, H, D, dtype, causal, True, Tk)))
+    if dtype == torch.float32:  # both kernels' products run as three TF32 products
+        for side in ("fwd", "bwd"):
+            res[side].update(tf32_floor(*flash_work(B, T, H, D, dtype, causal, side == "bwd",
+                                                    Tk)))
     log(f"flash_attention timing B={B} T={T}{'' if Tk is None else f' Tk={Tk}'} H={H} D={D} "
         f"{str(dtype)[6:]} causal={causal}, "
         f"SDPA backend {res['sdpa_backend']}: forward " + fmt(res["fwd"]) + "; backward "
@@ -959,38 +963,64 @@ def time_flash(B, T, H, D, dtype, causal, Tk=None):
     return res
 
 
-# The commit whose flash backward ran on FMA register tiles: timed in turns
-# beside this checkout's tensor-core form (PARENT_COMMIT stays the packed
-# kernels' yardstick)
-FLASH_PARENT_COMMIT = "6a6eaa490d6ef5706997611dc2cb104ca2d85f8a"
+# The commit whose flash forward ran on FMA register tiles: timed in turns
+# beside this checkout's tensor-core form, and its flash backward (moved to
+# the shared tiling here, its arithmetic unchanged) must give the same bits
+# (PARENT_COMMIT stays the packed kernels' yardstick)
+FLASH_PARENT_COMMIT = "5f9805529251cc293d92452e60f29d618c3e066b"
 
 
-def time_flash_bwd_turns(parent):
-    """The flash backward in f32 at the path shapes (the feature path's,
-    feature_d1024's and zoo_transformer's), built from this checkout's
-    sources ("change") and from `parent`, timed in turns on one card (parent,
-    change, change, parent), the dq and dk/dv sides from a profile. Returns
-    {label: {shape: {"ms": [2 turns], "dq_ms": ..., "dkv_ms": ...}}}."""
+def time_flash_fwd_turns(parent):
+    """The flash forward (with lse, as the train step calls it) at the
+    feature path's, feature_d1024's and zoo_transformer's shapes in f32 and
+    the feature path's in bf16, built from this checkout's sources
+    ("change") and from `parent`, each first checked against the plain
+    version, then timed in turns on one card (parent, change, change,
+    parent). Returns {label: {shape: {"ms": [2 turns], "max_abs_err": ...}}}."""
     sources = {"parent": parent, "change": _build.CSRC}
     turns = ["parent", "change", "change", "parent"]
     out = {label: {} for label in sources}
-    for shape, causal in ((FLASH_SHAPE, True), (FLASH_SHAPE_D1024, True), (ZOO_SHAPE, False)):
-        q, k, v, do = flash_inputs(*shape, torch.float32, seed=29)
-        o, lse = fa._launch_flash(q, k, v, causal, want_lse=True)
-        delta = fa._delta(do, o)
-        key = "x".join(map(str, shape)) + (" causal" if causal else " non-causal")
+    for shape, dtype, causal in ((FLASH_SHAPE, torch.float32, True),
+                                 (FLASH_SHAPE_D1024, torch.float32, True),
+                                 (ZOO_SHAPE, torch.float32, False),
+                                 (FLASH_SHAPE, torch.bfloat16, True)):
+        q, k, v = flash_inputs(*shape, dtype, seed=29)[:3]
+        ref, ref_lse = fa.flash_attention_reference(q, k, v, causal)
+        key = ("x".join(map(str, shape)) + f" {str(dtype)[6:]}"
+               + (" causal" if causal else " non-causal"))
+        for label, csrc in sources.items():
+            o, lse = fa._launch_flash(q, k, v, causal, True, csrc)
+            torch.testing.assert_close(o, ref, atol=TOL[dtype], rtol=TOL[dtype])
+            torch.testing.assert_close(lse, ref_lse, atol=TOL[dtype], rtol=TOL[dtype])
+            err = (o.float() - ref.float()).abs().max().item()
+            out[label][key] = {"ms": [], "max_abs_err": err}
         for label in turns:
-            def run(csrc=sources[label]):
-                return fa._launch_flash_bwd(q, k, v, do, lse, delta, causal, csrc)
-
-            res = out[label].setdefault(key, {"ms": []})
-            res["ms"].append(cuda_ms(run))
-            if "dq_ms" not in res:
-                res.update({f"{side}_ms": ms for side, ms in flash_side_ms(run).items()})
+            out[label][key]["ms"].append(
+                cuda_ms(lambda csrc=sources[label]: fa._launch_flash(q, k, v, causal, True, csrc)))
     for key in out["change"]:
-        log(f"flash backward f32 in turns, {key}: " + "; ".join(
+        log(f"flash forward in turns, {key}: " + "; ".join(
             f"{label} " + fmt(dict(out[label][key], ms="/".join(
                 f"{x:.4f}" for x in out[label][key]["ms"]))) for label in sources))
+    return out
+
+
+def check_flash_bwd_bits(parent):
+    """The flash backward's (dq, dk, dv) in f32 at the path shapes (the
+    feature path's, feature_d1024's and zoo_transformer's), built from this
+    checkout's sources and from `parent`: the same bits. Returns {shape:
+    True}."""
+    out = {}
+    for shape, causal in ((FLASH_SHAPE, True), (FLASH_SHAPE_D1024, True), (ZOO_SHAPE, False)):
+        q, k, v, do = flash_inputs(*shape, torch.float32, seed=30)
+        o, lse = fa._launch_flash(q, k, v, causal, want_lse=True)
+        delta = fa._delta(do, o)
+        got = fa._launch_flash_bwd(q, k, v, do, lse, delta, causal)
+        want = fa._launch_flash_bwd(q, k, v, do, lse, delta, causal, parent)
+        key = "x".join(map(str, shape)) + (" causal" if causal else " non-causal")
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        check(same, f"flash backward {key}: bits differ from {FLASH_PARENT_COMMIT[:8]}'s")
+        log(f"flash backward f32 {key}: dq, dk, dv bits equal to {FLASH_PARENT_COMMIT[:8]}'s")
+        out[key] = same
     return out
 
 
@@ -1082,9 +1112,9 @@ def log_registers(name, text):
 
 # the packed kernels' f32 templates at the ViT's head dim, which must not spill
 F32_TEMPLATES = ("short_attn_fwd_tf32<64>", "bwd_query_tf32<64>", "bwd_key_tf32<64>")
-# nor the flash backward's f32 templates at the paths' head dims
-FLASH_BWD_F32_TEMPLATES = tuple(f"flash_bwd_{side}<f32, {D}>" for D in (64, 512, 1024)
-                                for side in ("dq", "dkv"))
+# nor the flash kernels' f32 templates at the paths' head dims
+FLASH_F32_TEMPLATES = tuple(f"{kernel}<f32, {D}>" for D in (64, 512, 1024)
+                            for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
 
 
 def main():
@@ -1106,18 +1136,20 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.time()
-    # FLASH_PARENT_COMMIT's flash backward (timed in turns in phase 2) builds
-    # beside these
+    # FLASH_PARENT_COMMIT's flash forward (timed in turns in phase 2) and
+    # backward (its bits) build beside these
     flash_parent = parent_csrc(FLASH_PARENT_COMMIT)
-    parent_build = (_build._start_build(fa.FLASH_BWD_KERNEL, flash_parent)
-                    if flash_parent is not None else None)
+    parent_builds = ([(name, _build._start_build(name, flash_parent))
+                      for name in (fa.FLASH_KERNEL, fa.FLASH_BWD_KERNEL)]
+                     if flash_parent is not None else [])
     build_logs = _build.build()
-    _build._finish_build(fa.FLASH_BWD_KERNEL, parent_build)
+    for name, started in parent_builds:
+        _build._finish_build(name, started)
     log(f"built {sorted(_build.KERNELS)} in {time.time() - t0:.1f} s")
     registers = {}
     for name, text in build_logs.items():
         registers.update(log_registers(name, text))
-    for template in F32_TEMPLATES + FLASH_BWD_F32_TEMPLATES:
+    for template in F32_TEMPLATES + FLASH_F32_TEMPLATES:
         info = registers.get(template)
         check(info is not None and info.get("spill_bytes") == 0,
               f"{template}: ptxas reported {info} (want no spill)")
@@ -1239,7 +1271,8 @@ def main():
                         for causal in (True, False)}
     flash_timing_383 = time_flash(RO_LONG_B, RO_LONG_T, AVTH_HEADS, AVTH_DIM // AVTH_HEADS,
                                   torch.float32, True)
-    flash_turns = time_flash_bwd_turns(flash_parent) if flash_parent is not None else None
+    flash_turns = time_flash_fwd_turns(flash_parent) if flash_parent is not None else None
+    flash_bwd_bits = check_flash_bwd_bits(flash_parent) if flash_parent is not None else None
     fused_timing_257 = time_fused(160, 257, 12, torch.bfloat16)
     f32_bwd_d128 = time_attention_bwd(TNR_BATCH * TNR_FRAMES, 197, 6, 128, torch.float32)
 
@@ -1441,9 +1474,9 @@ def main():
                   "dtype": "float32", "causal": True,
                   "max_abs_err": rollout_errs[f"B{RO_LONG_B}_T{RO_LONG_T}_float32"][side],
                   "sdpa_backend": flash_timing_383["sdpa_backend"], **flash_timing_383[side]},
-            **({"f32_turns": flash_turns,
-                "f32_registers": {t: registers.get(t) for t in FLASH_BWD_F32_TEMPLATES}}
-               if side == "bwd" else {}),
+            **({"turns": flash_turns} if side == "fwd" else {"bits_vs_parent": flash_bwd_bits}),
+            f32_registers={t: registers.get(t) for t in FLASH_F32_TEMPLATES
+                           if t.startswith(f"flash_{side}")},
             adafactor_plateau=ap_summary["adafactor"], zoo_cloze=cloze_summary,
             ssl_checks={k: v[side] for k, v in ssl_errs.items()},
             rollout=rollout_summary,
