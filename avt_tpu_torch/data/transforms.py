@@ -17,6 +17,9 @@ resizes to (scale_h, scale_w) instead, each side by its own factor. JAX's
 train path refuses that size (it resizes the smaller side only), so that
 form is the port's own, with the same resampling.
 `fold_subclips` cuts the preprocessed clip into subclips on the device.
+Under a profiler `train_fn` and `eval_fn` are the spans
+`avt.preprocess.train` and `avt.preprocess.eval`, and the frames' copy from
+the host `avt.preprocess.upload` inside them (utils/trace.py).
 The reference's transform library also exports a RandomResizedCrop, a
 temporal center crop and UnfoldClips, which no shipped pipeline wires in:
 `random_resized_crop` (over `resized_crop_bilinear_torch`, a crop box given
@@ -32,7 +35,8 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from avt_tpu_torch.utils.device import resolve_device
+from avt_tpu_torch.utils import trace
+from avt_tpu_torch.utils.device import resolve_device, upload
 
 
 @functools.lru_cache(maxsize=None)
@@ -346,11 +350,12 @@ class VideoPreprocessor:
             x = color_jitter(x, **jitter)
         return self._finalize(x).permute(0, 4, 1, 2, 3)
 
+    @trace.spanned("avt.preprocess.train")
     def train_fn(self, frames, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, T, H, W, 3) uint8 -> (B, 3, T, crop, crop): random scale,
         crop, flip (and color jitter) per clip, drawn from `generator` (on
         this preprocessor's device; torch's default when None)."""
-        frames = torch.as_tensor(frames).to(self.device)
+        frames = upload(frames, self.device)
         return self.train_crop(frames, **self.train_draws(frames.shape, generator))
 
     # --------------------------------------------------------------- eval
@@ -361,9 +366,10 @@ class VideoPreprocessor:
             return max(int(H * f), target), max(int(W * f), target)
         return _parse_size(self.scale_h)[0], _parse_size(self.scale_w)[0]
 
+    @trace.spanned("avt.preprocess.eval")
     def eval_fn(self, frames) -> torch.Tensor:
         """(B, T, H, W, 3) uint8 (tensor or numpy) -> (B, #crops, 3, T, crop, crop)."""
-        frames = torch.as_tensor(frames).to(self.device)
+        frames = upload(frames, self.device)
         B, T, H, W, _ = frames.shape
         cs = self.crop_size
         nh, nw = self._eval_resize_shape(H, W)

@@ -14,6 +14,11 @@ config) loads and runs it.
 Build artifacts with `tools/torch_export_model.py` (config + checkpoint ->
 .pt2); load them with `load_exported(path)` and call `serving_fn(program)`
 or `batch_predict(program, frames)`.
+
+Under a profiler a `batch_predict` call is the span `avt.serve.request`,
+with each batch's `avt.serve.download` of the outputs inside it, and the
+eval forward's `model(video)` the span `avt.serve.forward`
+(utils/trace.py).
 """
 from __future__ import annotations
 
@@ -23,6 +28,9 @@ import numpy as np
 import torch
 from torch import nn
 from torch.utils import _pytree as pytree
+
+from avt_tpu_torch.utils import trace
+from avt_tpu_torch.utils.device import upload
 
 DEFAULT_OUTPUTS = ("logits/action",)
 
@@ -35,8 +43,9 @@ def _eval_fn(model, preprocessor, outputs: Sequence[str]):
         if preprocessor is not None:
             video = preprocessor.eval_fn(frames)[:, None]
         else:
-            video = torch.as_tensor(frames).to(device)
-        outs, _ = model(video)
+            video = upload(frames, device)
+        with trace.span("avt.serve.forward"):
+            outs, _ = model(video)
         return {k: outs[k] for k in outputs}
 
     return fwd
@@ -189,6 +198,7 @@ def serving_fn(program: torch.export.ExportedProgram) -> Callable:
     return call
 
 
+@trace.spanned("avt.serve.request")
 def batch_predict(
     fwd: Union[Callable, torch.export.ExportedProgram],
     frames: np.ndarray,
@@ -233,5 +243,6 @@ def batch_predict(
         if pad:
             chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, axis=0)])
         res = fwd(chunk)
-        outs.append({k: v[: batch_size - pad].float().cpu().numpy() for k, v in res.items()})
+        with trace.span("avt.serve.download"):
+            outs.append({k: v[: batch_size - pad].float().cpu().numpy() for k, v in res.items()})
     return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}

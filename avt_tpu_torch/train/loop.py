@@ -21,10 +21,16 @@ rank 0 behind a barrier, and the two decisions that a rank's own clock or
 signal would make alone are taken together, every PREEMPT_SYNC_EVERY chunks,
 so that no rank is left waiting in a collective: the wall-clock save is rank
 0's, the preemption stop any rank's. TensorBoard is written on rank 0.
+
+Under a profiler the wait for the next chunk from the loader is the span
+`avt.loop.data_wait` and the fetch of a chunk's metrics, the loop's one
+sync, `avt.loop.drain`; each step carries its own `avt.train.step`
+(utils/trace.py).
 """
 from __future__ import annotations
 
 import datetime
+import itertools
 import math
 import signal as _signal
 import time
@@ -37,6 +43,7 @@ from avt_tpu_torch.train.checkpoint import BEST_NAME, CKPT_NAME, restore_checkpo
 from avt_tpu_torch.train.meters import MetricLogger, make_tb_writer
 from avt_tpu_torch.train.step import step_generator
 from avt_tpu_torch.parallel import ddp
+from avt_tpu_torch.utils import trace
 from avt_tpu_torch.utils.device import batch_to_device
 
 _JIT_KEYS = ("video", "target", "target_subclips")
@@ -166,13 +173,11 @@ def train_one_epoch(
     K = max(1, unroll_steps) if multi_step is not None else 1
 
     def chunked():
-        buf = []
-        for batch in it:
-            buf.append(batch)
-            if len(buf) == K:
-                yield buf
-                buf = []
-        if buf:
+        while True:
+            with trace.span("avt.loop.data_wait"):
+                buf = list(itertools.islice(it, K))
+            if not buf:
+                return
             yield buf
 
     n_chunks = -(-(batches_per_epoch - partial_iters) // K)
@@ -196,9 +201,10 @@ def train_one_epoch(
     def drain(entry):
         nonlocal last_dispatch
         (keys, host, ready), n_steps, batch_size, sid0 = entry
-        if ready is not None:
-            ready.synchronize()  # the sync
-        values = host.tolist()
+        with trace.span("avt.loop.drain"):
+            if ready is not None:
+                ready.synchronize()  # the sync
+            values = host.tolist()
         dt = time.time() - last_dispatch
         last_dispatch = time.time()
         per_step = [{k: values[i][j] for i, k in enumerate(keys)} for j in range(n_steps)]
@@ -255,14 +261,13 @@ def train_one_epoch(
         if print_large_freq and step_id % print_large_freq < K:
             _store_video_logs(chunk[0], step_id, print_large_freq, metric_logger)
         placed = [place_batch(_jit_batch(b)) for b in chunk]
-        with torch.profiler.record_function(f"train_step_{step_id}"):
-            if len(chunk) == K and K > 1:
-                metrics = multi_step(placed, step_id, seed)
-            else:  # tail (or K == 1): one batch at a time
-                per_step = [
-                    train_step(b, step_generator(seed, step_id + j, b["video"].device))
-                    for j, b in enumerate(placed)]
-                metrics = {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+        if len(chunk) == K and K > 1:
+            metrics = multi_step(placed, step_id, seed)
+        else:  # tail (or K == 1): one batch at a time
+            per_step = [
+                train_step(b, step_generator(seed, step_id + j, b["video"].device))
+                for j, b in enumerate(placed)]
+            metrics = {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
         batch_size = next(iter(chunk[0]["target"].values())).shape[0]
         entry = (_start_fetch(metrics), len(chunk), batch_size, step_id)
         if pending is not None:

@@ -19,6 +19,11 @@ every rank keeps the same weight.) In one process nothing changes. Under
 tensor parallelism (parallel/mesh.py) "the ranks" are the data replicas:
 the gradients are averaged over the data group, and model peers, which
 step on the same batch, draw the same masks and crops.
+
+Under a profiler a train step is the span `avt.train.step`, its phases
+`avt.train.forward` (the model and the losses), `avt.train.backward`,
+`avt.train.allreduce` (with more than one data replica) and
+`avt.train.optimizer` (utils/trace.py).
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import torch
 
 from avt_tpu_torch.parallel.ddp import RankGenerator, allreduce_gradients, data_rank, data_world
 from avt_tpu_torch.train.ops import basic_loss_accuracy
+from avt_tpu_torch.utils import trace
 
 
 def weighted_loss_sum(losses: Dict[str, torch.Tensor], loss_wts: Mapping[str, float]
@@ -80,25 +86,39 @@ def make_train_step(
     draws the dropout masks and is handed to preprocess_fn. Metrics: 'loss',
     'loss/<key>' per loss, 'acc1/<task>', 'acc5/<task>', detached."""
 
+    @trace.spanned("avt.train.step")
     def step(batch, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         model.train()
         video = batch["video"]
         if preprocess_fn is not None:
             video = preprocess_fn(video, generator)
-        _, losses, aux_losses, accuracies = _forward(model, video, batch, num_classes,
-                                                     class_weights, generator)
-        losses.update(aux_losses)
-        total, mean_losses = weighted_loss_sum(losses, loss_wts)
-        optimizer.zero_grad()
-        total.backward()
-        allreduce_gradients(model.parameters())
-        optimizer.step()
-        metrics = {"loss": total.detach()}
-        metrics.update({f"loss/{k}": v.detach() for k, v in mean_losses.items()})
-        metrics.update(accuracies)
-        return metrics
+        with trace.span("avt.train.forward"):
+            _, losses, aux_losses, accuracies = _forward(model, video, batch, num_classes,
+                                                         class_weights, generator)
+            losses.update(aux_losses)
+            total, mean_losses = weighted_loss_sum(losses, loss_wts)
+        return _update(model, optimizer, total, mean_losses, accuracies)
 
     return step
+
+
+def _update(model, optimizer, total: torch.Tensor, mean_losses: Dict[str, torch.Tensor],
+            accuracies: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A train step's tail: the backward of `total`, the gradients' mean
+    over the data replicas, the optimizer's update, each phase under its
+    span; returns the step's metrics, detached."""
+    with trace.span("avt.train.backward"):
+        optimizer.zero_grad()
+        total.backward()
+    if data_world() > 1:
+        with trace.span("avt.train.allreduce"):
+            allreduce_gradients(model.parameters())
+    with trace.span("avt.train.optimizer"):
+        optimizer.step()
+    metrics = {"loss": total.detach()}
+    metrics.update({f"loss/{k}": v.detach() for k, v in mean_losses.items()})
+    metrics.update(accuracies)
+    return metrics
 
 
 _COMBINE = {"min": torch.min, "max": torch.max, "mean": torch.mean, "sum": torch.sum}
@@ -138,8 +158,7 @@ def make_ssl_train_step(
     if incur_loss_style not in ("separately", "together"):
         raise NotImplementedError(incur_loss_style)
 
-    def step(batch, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        model.train()
+    def forward(batch, generator):
         target = batch["target"]
         B = next(iter(target.values())).shape[0]
         video = torch.cat([batch["video"]] + [batch[f"future_{i}_video"]
@@ -171,14 +190,14 @@ def make_ssl_train_step(
             fut = fut.reshape((nfutures, B) + tuple(fut.shape[1:])).transpose(0, 1)
             losses["reg"] = reg_criterion(anchor, fut)
         total, mean_losses = weighted_loss_sum(losses, loss_wts)
-        optimizer.zero_grad()
-        total.backward()
-        allreduce_gradients(model.parameters())
-        optimizer.step()
-        metrics = {"loss": total.detach()}
-        metrics.update({f"loss/{k}": v.detach() for k, v in mean_losses.items()})
-        metrics.update(accuracies)
-        return metrics
+        return total, mean_losses, accuracies
+
+    @trace.spanned("avt.train.step")
+    def step(batch, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        model.train()
+        with trace.span("avt.train.forward"):
+            total, mean_losses, accuracies = forward(batch, generator)
+        return _update(model, optimizer, total, mean_losses, accuracies)
 
     return step
 

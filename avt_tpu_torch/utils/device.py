@@ -5,6 +5,8 @@ import os
 
 import torch
 
+from avt_tpu_torch.utils import trace
+
 
 def resolve_device(device=None) -> torch.device:
     """`device` as a torch.device; None means the GPU, and raises when
@@ -34,3 +36,14 @@ def batch_to_device(node, device):
     if torch.device(device).type == "cuda" and x.device.type == "cpu":
         x = x.pin_memory()
     return x.to(device, non_blocking=True)
+
+
+def upload(frames, device) -> torch.Tensor:
+    """`frames` (numpy or a tensor) as a tensor on `device`: a copy from the
+    host to a device runs under the span `avt.preprocess.upload`."""
+    x = torch.as_tensor(frames)
+    device = torch.device(device)
+    if x.device.type != "cpu" or device.type == "cpu":
+        return x.to(device)
+    with trace.span("avt.preprocess.upload"):
+        return x.to(device)
