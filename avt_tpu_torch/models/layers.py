@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from avt_tpu_torch.ops import dot_product_attention
+from avt_tpu_torch.ops.dense import dense_f32
 from avt_tpu_torch.parallel.ddp import data_rank
 from avt_tpu_torch.parallel.mesh import (
     copy_to_model,
@@ -42,10 +43,15 @@ from avt_tpu_torch.parallel.mesh import (
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
           dtype: Optional[torch.dtype], *, in_out: bool = False) -> torch.Tensor:
     """flax Dense: x @ W (+ b). weight is torch's (out, in), or (in, out)
-    with in_out=True (GPT-2's Conv1D)."""
+    with in_out=True (GPT-2's Conv1D). f32 on CUDA runs on the tensor cores
+    as three TF32 products (ops/dense.py), the bias added in the kernel;
+    every other type and the CPU take torch.matmul (cuBLAS's tensor-core
+    kernels in bf16)."""
     if dtype is not None:  # cast before transposing: a contiguous cast
         x, weight = x.to(dtype), weight.to(dtype)
         bias = None if bias is None else bias.to(dtype)
+    if x.is_cuda and x.dtype == weight.dtype == torch.float32:
+        return dense_f32(x, weight, bias, in_out)
     y = torch.matmul(x, weight if in_out else weight.t())
     return y if bias is None else y + bias
 

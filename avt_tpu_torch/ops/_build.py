@@ -65,6 +65,12 @@ KERNELS: Dict[str, Dict[str, str]] = {
         "replaces": "avt_tpu/ops/flash_attention.py:696 (_fused_qkv_attn_fwd_kernel, "
                     "via _fused_qkv_attn_fwd_call :754)",
     },
+    "dense_f32": {
+        "route": "cuda",
+        "source": "avt_tpu_torch/ops/csrc/dense_f32.cu",
+        "replaces": "none: avt_tpu leaves x @ W to XLA (models/layers.py dense); cuBLAS "
+                    "runs an f32 product on the FMA units, this kernel on the tensor cores",
+    },
 }
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
 

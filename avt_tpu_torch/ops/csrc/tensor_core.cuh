@@ -1,6 +1,7 @@
-// Tensor-core primitives shared by both kernel families for Hopper (sm_90a):
-// the packed kernels (short_attention_common.cuh and the files that include
-// it) and the flash backward (flash_attention_bwd.cu).
+// Tensor-core primitives shared by the kernels for Hopper (sm_90a): the
+// packed kernels (short_attention_common.cuh and the files that include it),
+// the flash kernels (flash_attention_common.cuh) and the f32 dense layers
+// (dense_f32.cu).
 //
 // bf16: mma.sync m16n8k16 with f32 accumulation, and ldmatrix to load its
 // fragments from shared memory. Fragment layouts are those of mma.m16n8k16:
@@ -58,6 +59,10 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_b
 // (lo . lo and lo's own rounding) is ~2^-22 of |a||b|, as large as an f32
 // FMA chain's error; one TF32 product alone would leave ~2^-11. lo is formed
 // from the f32 value where it is used, not kept beside it in registers.
+// An mma truncates the sum it accumulates, losing up to an ulp of it each
+// time: over a K of thousands an accumulator fed by every product drifts
+// toward zero, so dense_f32.cu adds each 32-wide stage's products into the
+// f32 sum by FADD (rounded to nearest).
 //
 // Fragments of mma.m16n8k8 .tf32, lane = 4g + t:
 //   A (16 x 8, row-major): a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)

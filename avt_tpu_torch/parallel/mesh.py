@@ -417,15 +417,16 @@ def row_dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor
     summed over the model group in f32, rounded to the compute type, then
     the bias added in that type: `layers.dense`'s rounding order (product
     rounded, bias added in the compute type). Without a mesh, `dense`."""
+    if tp is None:
+        from avt_tpu_torch.models.layers import dense  # layers imports this module
+
+        return dense(x, weight, bias, dtype, in_out=in_out)
     if dtype is not None:
         x, weight = x.to(dtype), weight.to(dtype)
         bias = None if bias is None else bias.to(dtype)
     w = weight if in_out else weight.t()
-    if tp is None:
-        y = torch.matmul(x, w)
-    else:
-        # bf16 products are exact in f32: the partials accumulate in f32
-        y = reduce_from_model(torch.matmul(x.float(), w.float()), tp).to(x.dtype)
+    # bf16 products are exact in f32: the partials accumulate in f32
+    y = reduce_from_model(torch.matmul(x.float(), w.float()), tp).to(x.dtype)
     return y if bias is None else y + bias
 
 

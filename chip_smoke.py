@@ -4,8 +4,8 @@
     python3 chip_smoke.py        # from the repo root, on a machine with a GPU
 
 1. Card and build: prints the card's name and power limit, turns TF32 off
-   (for cuBLAS and cuDNN; the packed and flash kernels' own f32 products
-   run as three TF32 products each, which keeps f32's accuracy), builds
+   (for cuBLAS and cuDNN; the packed, flash and dense kernels' own f32
+   products run as three TF32 products each, which keeps f32's accuracy), builds
    every kernel from the sources in the checkout (nvcc, sm_90a, one process
    per source, all at once, with FLASH_PARENT_COMMIT's flash forward and
    backward beside them where git history has them), logs each template's
@@ -28,7 +28,15 @@
    them,
    and the fused qkv projection + attention (out and qkv, bits on a repeat;
    bf16 and f32, causal and not; timed beside the split path, a matmul +
-   the packed kernel).
+   the packed kernel). The f32 dense layers' kernel (`dense_f32`, three
+   TF32 products) at AVT-h's four linears, t256 and t10 rows, forward, dX
+   and dW: bits on a repeat, its rms error against float64 at most twice
+   cuBLAS's f32 SIMT product's, within DENSE_PLAIN_TOL of its plain
+   version; each product timed beside its bound, the plain version and
+   torch.matmul in f32 (`library_ms`); no dense template may spill. The
+   phases hold the attention kernels' launches to their paths and count
+   `dense_f32`'s where they say so (72 a t256 or t10 train step of AVT-h, 24
+   an eval batch: the feature phase).
 3. Serving: the full-width flagship (ViT-B/16 + AVT-h, 3806 actions, bf16)
    answers requests of uint8 clips through `batch_predict` at batch 4, 3
    crops + flips each; the logits must be finite, (n, 3806), the same for a
@@ -354,6 +362,7 @@ from avt_tpu_torch.models import (
 from avt_tpu_torch.models import vit as vit_module
 from avt_tpu_torch.models.flagship import init_weights
 from avt_tpu_torch.ops import _build, attention, multi_head_attention
+from avt_tpu_torch.ops import dense as tdense
 from avt_tpu_torch.ops import flash_attention as fa
 from avt_tpu_torch.train import (
     BEST_NAME,
@@ -394,6 +403,19 @@ FLASH_SHAPE = (FEAT_BATCH, LONG_T, AVTH_HEADS, AVTH_DIM // AVTH_HEADS)  # (B, T,
 # kernels (the shortest such context)
 D1024_FEAT, D1024_LAYERS, D1024_HEADS, D1024_T, D1024_TIMED_STEPS = 2048, 8, 2, 128, 2
 FLASH_SHAPE_D1024 = (FEAT_BATCH, D1024_T, D1024_HEADS, AVTH_DIM // D1024_HEADS)
+# the f32 dense layers' kernel (ops/dense.py); every other kernel is an
+# attention kernel, which the phases hold to their paths
+DENSE_KERNEL = tdense.KERNEL
+ATTENTION_KERNELS = tuple(n for n in _build.KERNELS if n != DENSE_KERNEL)
+# AVT-h's linears a layer as (K, N) of x . W: c_attn, attn c_proj, c_fc, mlp
+# c_proj; an f32 train step launches each forward, dX and dW, an eval forward
+# each once
+DENSE_LINEARS = ((AVTH_DIM, 3 * AVTH_DIM), (AVTH_DIM, AVTH_DIM), (AVTH_DIM, 4 * AVTH_DIM),
+                 (4 * AVTH_DIM, AVTH_DIM))
+DENSE_ROWS = {"t256": FEAT_BATCH * LONG_T, "t10": FEAT_BATCH * SHORT_T}
+DENSE_STEP_LAUNCHES = 3 * len(DENSE_LINEARS) * AVTH_LAYERS
+DENSE_EVAL_LAUNCHES = len(DENSE_LINEARS) * AVTH_LAYERS
+DENSE_PLAIN_TOL = 2e-6  # rms of kernel - plain version over the plain version's: f32 sums
 NO_FLASH = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
 NO_OTHER = {**NO_FLASH, "fused_qkv_attention_fwd": 0}  # kernels off the ViT's default path
 # expts/08 (EK55, RULSTM TSN-RGB features): AVT-h of 12 layers, 8 heads, 2048
@@ -1024,6 +1046,87 @@ def check_flash_bwd_bits(parent):
     return out
 
 
+def dense_products(M, K, N, seed):
+    """(label, a, b, bias) of one linear's products at M rows, as its
+    autograd passes them to the kernel: the forward x . W (Conv1D's (in, out)
+    weight, with its bias), dX = dY . W^T and dW = X^T . dY."""
+    x, w, dy, b = card_normal(seed, (M, K), (K, N), (M, N), (N,))
+    return [("fwd", x, w, b), ("dX", dy, w.t(), None), ("dW", x.t(), dy, None)]
+
+
+def dense_errors(c, a, b, bias):
+    """(rms of C - C64 over C64's rms, the largest |C - C64| over the
+    largest (|A| . |B|)), C64 the float64 product."""
+    ref = a.double() @ b.double()
+    if bias is not None:
+        ref = ref + bias.double()
+    d = c.double() - ref
+    scale = (a.double().abs() @ b.double().abs()).max()
+    return ((d.square().mean().sqrt() / ref.square().mean().sqrt()).item(),
+            (d.abs().max() / scale).item())
+
+
+def check_dense():
+    """The f32 dense kernel at AVT-h's linears (t256 and t10 rows; forward, dX
+    and dW) against float64: its rms error at most twice cuBLAS's f32 SIMT
+    product's (torch.matmul, TF32 off), within DENSE_PLAIN_TOL of the plain
+    version, the same bits on a repeat. Returns {product: errors}."""
+    out = {}
+    for rows, M in DENSE_ROWS.items():
+        for K, N in DENSE_LINEARS:
+            for what, a, b, bias in dense_products(M, K, N, seed=50):
+                key = f"{rows} {K}x{N} {what}"
+                c = tdense.gemm(a, b, bias)
+                check(torch.equal(c, tdense.gemm(a, b, bias)), f"dense {key}: bits differ on a repeat")
+                lib = torch.matmul(a, b) if bias is None else torch.addmm(bias, a, b)
+                plain = tdense.gemm_reference(a, b, bias).double()
+                (k_rms, k_max), (l_rms, l_max) = dense_errors(c, a, b, bias), dense_errors(lib, a, b, bias)
+                p_rms = ((c.double() - plain).square().mean().sqrt()
+                         / plain.square().mean().sqrt()).item()
+                out[key] = {"rms": k_rms, "max": k_max, "library_rms": l_rms, "library_max": l_max,
+                            "vs_plain_rms": p_rms}
+                log(f"dense {key}: rms {k_rms:.3g} (cuBLAS SIMT {l_rms:.3g}), max {k_max:.3g} "
+                    f"({l_max:.3g}) of |A||B|, vs plain {p_rms:.3g}")
+                check(k_rms <= 2 * l_rms, f"dense {key}: rms error {k_rms} > 2x SIMT's {l_rms}")
+                check(p_rms <= DENSE_PLAIN_TOL, f"dense {key}: {p_rms} from the plain version")
+                del c, lib, plain
+    return out
+
+
+def time_dense():
+    """Each product of check_dense timed (CUDA events): the kernel; its
+    bound, three TF32 products at 495 TFLOP/s or the bytes (operands read
+    and C written once) at 3.35 TB/s; the plain version; torch.matmul in f32
+    (cuBLAS SIMT, with the bias as addmm) as `library_ms`, a yardstick the port
+    never calls. Returns ({product: times}, {rows: a step's six layers'
+    totals})."""
+    out, totals = {}, {}
+    for rows, M in DENSE_ROWS.items():
+        total = {"kernel_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+        for K, N in DENSE_LINEARS:
+            for what, a, b, bias in dense_products(M, K, N, seed=51):
+                Mp, Kp, Np = a.shape[0], a.shape[1], b.shape[1]
+                flops = 2 * Mp * Kp * Np
+                nbytes = 4 * (Mp * Kp + Kp * Np + Mp * Np + (0 if bias is None else Np))
+                bound, by = roofline_ms(nbytes, 3 * flops, TF32_FLOPS)
+                res = {"shape": [Mp, Kp, Np], "splits": tdense.splits_for(
+                           Mp, Np, Kp, torch.cuda.get_device_properties(0).multi_processor_count)[0],
+                       "kernel_ms": cuda_ms(lambda: tdense.gemm(a, b, bias)),
+                       "bound_ms": bound, "bound_by": by,
+                       "plain_ms": cuda_ms(lambda: tdense.gemm_reference(a, b, bias), iters=2,
+                                           reps=3),
+                       "library_ms": cuda_ms(lambda: torch.matmul(a, b) if bias is None
+                                             else torch.addmm(bias, a, b))}
+                res["tflops"] = flops / res["kernel_ms"] / 1e9
+                for k in total:
+                    total[k] += AVTH_LAYERS * res[k]
+                out[f"{rows} {K}x{N} {what}"] = res
+                log(f"dense {rows} {K}x{N} {what}: " + fmt(res))
+        totals[rows] = total
+        log(f"dense {rows}, a step's {DENSE_STEP_LAUNCHES} products: " + fmt(total))
+    return out, totals
+
+
 def kernel_group(name):
     low = name.lower()
     for key, group in (("implicit_gemm", "conv"), ("wgrad", "conv"), ("dgrad", "conv"),
@@ -1080,6 +1183,10 @@ def kernel_entry(mangled):
         return mangled[:60]
     start = m.end()
     name, rest = mangled[start:start + int(m.group(1))], mangled[start + int(m.group(1)):]
+    flags = re.match(r"ILb([01])ELb([01])ELi(\d+)EE", rest)  # gemm_tf32x3<bool, bool, int>
+    if flags is not None:
+        a_k, b_k, vec = flags.groups()
+        return f"{name}<{('false', 'true')[int(a_k)]}, {('false', 'true')[int(b_k)]}, {vec}>"
     flag = re.match(r"ILb([01])E", rest)
     if flag is not None:
         return f"{name}<{'true' if flag.group(1) == '1' else 'false'}>"
@@ -1153,6 +1260,10 @@ def main():
         info = registers.get(template)
         check(info is not None and info.get("spill_bytes") == 0,
               f"{template}: ptxas reported {info} (want no spill)")
+    dense_spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                              build_logs[DENSE_KERNEL])
+    check(dense_spills and not any(int(x) for pair in dense_spills for x in pair),
+          f"{DENSE_KERNEL}: ptxas reported spills {dense_spills}")
     residency = log_residency()
 
     # 2. every kernel against its plain version -----------------------------
@@ -1275,6 +1386,9 @@ def main():
     flash_bwd_bits = check_flash_bwd_bits(flash_parent) if flash_parent is not None else None
     fused_timing_257 = time_fused(160, 257, 12, torch.bfloat16)
     f32_bwd_d128 = time_attention_bwd(TNR_BATCH * TNR_FRAMES, 197, 6, 128, torch.float32)
+    # the f32 dense layers' kernel at AVT-h's linears, t256 and t10 rows
+    dense_errs = check_dense()
+    dense_timing, dense_totals = time_dense()
 
     mark("phase 2")
 
@@ -1499,6 +1613,14 @@ def main():
                          "max_abs_err": fused_err_257, **fused_timing_257},
         residency={k.split(" ")[1]: v for k, v in residency.items() if k.startswith("fused")},
         train_step_ms={"fused": fused_train["step_ms"], "split": split_train["step_ms"]}))
+    spec = _build.KERNELS[DENSE_KERNEL]
+    kernels.append(dict(
+        name=DENSE_KERNEL, route=spec["route"], source=spec["source"], replaces=spec["replaces"],
+        launches=DENSE_STEP_LAUNCHES, eval_launches=DENSE_EVAL_LAUNCHES, dtype="float32",
+        shape="(M, K, N) of AVT-h's linears at t256 and t10 rows", products=dense_timing,
+        step_totals=dense_totals, max_abs_err={k: v["max"] for k, v in dense_errs.items()},
+        checks=dense_errs, library="torch.matmul / addmm in f32 (cuBLAS SIMT)",
+        registers={k: v for k, v in registers.items() if k.startswith("gemm_")}))
     log(f"quantized: {quant_summary}")
     log(f"conv_default: {conv_summary}")
     log(f"rulstm_train: {rt_summary}")
@@ -1537,7 +1659,7 @@ def serve_phase():
         results.append(batch_predict(counted, clips[lo:hi], BATCH)["logits/action"])
         latencies.append(time.time() - t_req)
     served_s = time.time() - t0
-    launches = dict(_build.launch_counts)
+    launches = attention_launches()
     n_served = sum(hi - lo for lo, hi in requests)
     for (lo, hi), logits in zip(requests, results):
         check(logits.shape == (hi - lo, NUM_ACTIONS), f"logits shape {logits.shape}")
@@ -1644,7 +1766,7 @@ def train_phase():
         torch.cuda.synchronize()
         steps += 1
         first_ms = (time.time() - t0) * 1e3
-        launches = dict(_build.launch_counts)
+        launches = attention_launches()
         want = VIT_BLOCKS * steps
         check(launches == {"short_attention_fwd": want, "short_attention_bwd": want, **NO_OTHER},
               f"step {k}: launches {launches}, want {want} of each")
@@ -1675,7 +1797,7 @@ def train_phase():
     torch.cuda.synchronize()
     step_s = (time.time() - t0) / TIMED_STEPS
     steps += TIMED_STEPS
-    launches = dict(_build.launch_counts)
+    launches = attention_launches()
     want = VIT_BLOCKS * steps
     check(launches == {"short_attention_fwd": want, "short_attention_bwd": want, **NO_OTHER},
           f"launches {launches} after {steps} steps, want {want} of each")
@@ -1853,10 +1975,10 @@ def trainer_phase(split):
                          save_freq_min=None, eval_freq=1, store_best=True, seed=5)
         torch.cuda.synchronize()
         run_s = time.time() - t0
-        launches = dict(_build.launch_counts)
+        launches = attention_launches()
         n_steps = TRAINER_EPOCHS * TRAINER_BATCHES
         n_eval = TRAINER_EPOCHS * len(eval_loader)
-        want = {**{n: 0 for n in _build.KERNELS},
+        want = {**{n: 0 for n in ATTENTION_KERNELS},
                 "short_attention_fwd": VIT_BLOCKS * (n_steps + n_eval),
                 "short_attention_bwd": VIT_BLOCKS * n_steps}
         check(launches == want, f"trainer run A: launches {launches}, want {want}")
@@ -1966,7 +2088,7 @@ def small_train_phase():
         _build.reset_launch_counts()
         metrics = step(batch, torch.Generator(device="cuda").manual_seed(4))
         torch.cuda.synchronize()
-        launches = dict(_build.launch_counts)
+        launches = attention_launches()
     finally:
         for patch in wrapped.values():
             patch.stop()
@@ -2009,8 +2131,8 @@ def train_fused_phase(split):
         for k in range(2):  # step 0 runs at LR 0, step 1 at the first warmup LR
             metrics = step(batch, step_gen)
             torch.cuda.synchronize()
-            launches = dict(_build.launch_counts)
-            want = {**{n: 0 for n in _build.KERNELS},
+            launches = attention_launches()
+            want = {**{n: 0 for n in ATTENTION_KERNELS},
                     "fused_qkv_attention_fwd": VIT_BLOCKS * (k + 1),
                     "short_attention_bwd": VIT_BLOCKS * (k + 1)}
             check(launches == want, f"fused train step {k}: launches {launches}, want {want}")
@@ -2034,7 +2156,7 @@ def train_fused_phase(split):
             metrics = step(batch, step_gen)
         torch.cuda.synchronize()
         step_s = (time.time() - t0) / TIMED_STEPS
-        launches = dict(_build.launch_counts)
+        launches = attention_launches()
         steps = 2 + TIMED_STEPS
         check(launches["fused_qkv_attention_fwd"] == VIT_BLOCKS * steps
               and launches["short_attention_bwd"] == VIT_BLOCKS * steps
@@ -2118,7 +2240,7 @@ def ek55_adam_phase():
         metrics = step(batch, step_gen)
     torch.cuda.synchronize()
     step_s = (time.time() - t0) / EK55_TIMED_STEPS
-    launches = dict(_build.launch_counts)
+    launches = attention_launches()
     check(not any(launches.values()), f"ek55 adam steps launched {launches}")
     check(np.isfinite(metrics["loss"].item()), "non-finite loss in the timed ek55 adam steps")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2180,14 +2302,15 @@ def feature_phase():
     eval_step = make_eval_step(model, num_classes)
     long_batch, short_batch = feature_batch(FEAT_BATCH, LONG_T, 1), feature_batch(FEAT_BATCH,
                                                                                  SHORT_T, 2)
-    counts = {}
+    counts, dense = {}, {}
 
     def counted(label, fn):
         torch.cuda.synchronize()
         _build.reset_launch_counts()
         out = fn()
         torch.cuda.synchronize()
-        counts[label] = dict(_build.launch_counts)
+        counts[label] = attention_launches()
+        dense[label] = _build.launch_counts[DENSE_KERNEL]
         return out
 
     eval_step(long_batch)  # first-call costs, outside the counted run
@@ -2199,13 +2322,16 @@ def feature_phase():
     check(logits.shape == (FEAT_BATCH, NUM_ACTIONS) and bool(torch.isfinite(logits).all()),
           f"feature eval logits {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
     check(all(bool(torch.isfinite(v).all()) for v in res.values()), "non-finite eval result")
-    want = {**{n: 0 for n in _build.KERNELS}, "flash_attention_fwd": AVTH_LAYERS}
+    want = {**{n: 0 for n in ATTENTION_KERNELS}, "flash_attention_fwd": AVTH_LAYERS}
     check(counts["feature_eval"] == want, f"feature eval launches {counts['feature_eval']}, "
           f"want {want}")
     short = counted("feature_eval_t10", lambda: eval_step(short_batch))
     check(all(bool(torch.isfinite(v).all()) for v in short.values()), "non-finite T=10 result")
     check(not any(counts["feature_eval_t10"].values()),
           f"T={SHORT_T} eval launched {counts['feature_eval_t10']}")
+    for label in ("feature_eval", "feature_eval_t10"):
+        check(dense[label] == DENSE_EVAL_LAUNCHES,
+              f"{label}: {dense[label]} {DENSE_KERNEL} launches, want {DENSE_EVAL_LAUNCHES}")
     with mock.patch.object(fa, "flash_attention", plain_flash):
         plain = eval_step(long_batch)["logits/action"]
     scale, diff = plain.abs().max().item(), (logits - plain).abs().max().item()
@@ -2227,7 +2353,7 @@ def feature_phase():
     branch = [n for n in params if avth_attention_param(n)]
     check(len(branch) == 6 * AVTH_LAYERS, f"AVT-h attention params {len(branch)}")
     before = {n: p.detach().clone() for n, p in params.items()}
-    want = {**{n: 0 for n in _build.KERNELS}, "flash_attention_fwd": AVTH_LAYERS,
+    want = {**{n: 0 for n in ATTENTION_KERNELS}, "flash_attention_fwd": AVTH_LAYERS,
             "flash_attention_bwd": AVTH_LAYERS}
     torch.cuda.reset_peak_memory_stats()
     for k in range(2):  # step 0 runs at LR 0, step 1 at the first warmup LR
@@ -2236,6 +2362,9 @@ def feature_phase():
         first_ms = (time.time() - t0) * 1e3
         check(counts["feature_train"] == want,
               f"feature train step {k}: launches {counts['feature_train']}, want {want}")
+        check(dense["feature_train"] == DENSE_STEP_LAUNCHES,
+              f"feature train step {k}: {dense['feature_train']} {DENSE_KERNEL} launches, "
+              f"want {DENSE_STEP_LAUNCHES}")
         values = {key: v.item() for key, v in metrics.items()}
         for key in ("loss", "loss/cls_action", "loss/past_cls_action", "loss/feat"):
             check(np.isfinite(values[key]), f"feature train step {k}: {key} = {values[key]}")
@@ -2255,6 +2384,8 @@ def feature_phase():
     counted("feature_train_t10", lambda: step(short_batch, step_gen))
     check(not any(counts["feature_train_t10"].values()),
           f"T={SHORT_T} train step launched {counts['feature_train_t10']}")
+    check(dense["feature_train_t10"] == DENSE_STEP_LAUNCHES,
+          f"T={SHORT_T} train step: {dense['feature_train_t10']} {DENSE_KERNEL} launches")
 
     torch.cuda.synchronize()
     _build.reset_launch_counts()
@@ -2263,10 +2394,11 @@ def feature_phase():
         metrics = step(long_batch, step_gen)
     torch.cuda.synchronize()
     step_s = (time.time() - t0) / FEAT_TIMED_STEPS
-    launches = dict(_build.launch_counts)
+    launches = attention_launches()
     check(launches["flash_attention_fwd"] == AVTH_LAYERS * FEAT_TIMED_STEPS
-          and launches["flash_attention_bwd"] == AVTH_LAYERS * FEAT_TIMED_STEPS,
-          f"timed feature steps launched {launches}")
+          and launches["flash_attention_bwd"] == AVTH_LAYERS * FEAT_TIMED_STEPS
+          and _build.launch_counts[DENSE_KERNEL] == DENSE_STEP_LAUNCHES * FEAT_TIMED_STEPS,
+          f"timed feature steps launched {dict(_build.launch_counts)}")
     check(np.isfinite(metrics["loss"].item()), "non-finite loss in the timed feature steps")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     flops = 3 * FEAT_BATCH * feature_flops_per_clip(LONG_T)
@@ -2326,7 +2458,7 @@ def feature_d1024_phase():
     check(len(branch) == 6 * D1024_LAYERS, f"AVT-h attention params {len(branch)}")
     before = {n: p.detach().clone() for n, p in params.items()}
     step_gen = torch.Generator(device="cuda").manual_seed(1)
-    fwd_only = {**{n: 0 for n in _build.KERNELS}, "flash_attention_fwd": D1024_LAYERS}
+    fwd_only = {**{n: 0 for n in ATTENTION_KERNELS}, "flash_attention_fwd": D1024_LAYERS}
     eval_step(batch)  # first-call costs, outside the counted run
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2335,7 +2467,7 @@ def feature_d1024_phase():
     res = eval_step(batch)
     torch.cuda.synchronize()
     eval_ms = (time.time() - t0) * 1e3
-    eval_counts = dict(_build.launch_counts)
+    eval_counts = attention_launches()
     logits = res["logits/action"]
     check(logits.shape == (FEAT_BATCH, NUM_ACTIONS)
           and all(bool(torch.isfinite(x).all()) for x in res.values()),
@@ -2343,7 +2475,7 @@ def feature_d1024_phase():
     check(eval_counts == fwd_only, f"d1024 eval launches {eval_counts}, want {fwd_only}")
     metrics = step(batch, step_gen)  # step 0, LR 0
     torch.cuda.synchronize()
-    counts = dict(_build.launch_counts)
+    counts = attention_launches()
     want = {**fwd_only, "flash_attention_fwd": 2 * D1024_LAYERS,
             "flash_attention_bwd": D1024_LAYERS}
     check(counts == want, f"d1024 train step 0 launches {counts}, want {want}")
@@ -2359,7 +2491,7 @@ def feature_d1024_phase():
         metrics = step(batch, step_gen)
     torch.cuda.synchronize()
     step_s = (time.time() - t0) / D1024_TIMED_STEPS
-    counts = dict(_build.launch_counts)
+    counts = attention_launches()
     steps = 1 + D1024_TIMED_STEPS
     want = {**fwd_only, "flash_attention_fwd": (1 + steps) * D1024_LAYERS,
             "flash_attention_bwd": steps * D1024_LAYERS}
@@ -2605,7 +2737,7 @@ def record_train_net(call, crash_epoch=None):
         metrics = call()
     torch.cuda.synchronize()
     rec["wall_s"] = time.time() - t0
-    rec["launches"] = dict(_build.launch_counts)
+    rec["launches"] = attention_launches()
     return metrics, rec
 
 
@@ -2642,7 +2774,7 @@ def train_net_phase(card):
             (metric,), rec = run_train_net(argv)
             counts[label] = rec["launches"]
             layers = AVTH_LAYERS if T >= 128 else 0
-            want = {**{n: 0 for n in _build.KERNELS},
+            want = {**{n: 0 for n in ATTENTION_KERNELS},
                     "flash_attention_fwd": layers * (TN_STEPS + TN_EVAL_BATCHES),
                     "flash_attention_bwd": layers * TN_STEPS}
             check(rec["launches"] == want, f"{label}: launches {rec['launches']}, want {want}")
@@ -2681,7 +2813,7 @@ def train_net_phase(card):
             if T == LONG_T:
                 (again,), rec2 = run_train_net(argv)
                 counts["train_net_resume"] = rec2["launches"]
-                want = {**{n: 0 for n in _build.KERNELS},
+                want = {**{n: 0 for n in ATTENTION_KERNELS},
                         "flash_attention_fwd": AVTH_LAYERS * TN_EVAL_BATCHES}
                 check(rec2["launches"] == want and not rec2["epochs"]
                       and not rec2["waits"]["train"][1:] and len(rec2["finals"]) == 1,
@@ -2840,7 +2972,7 @@ def train_net_raw_phase(card, parent=None):
         f"train_net_raw: loaded {len(first['loaded'])} of {len(first['want'])}, skipped "
         f"{first['skipped']}")
     L = VIT_BLOCKS
-    want = {**{n: 0 for n in _build.KERNELS},
+    want = {**{n: 0 for n in ATTENTION_KERNELS},
             "short_attention_fwd": L * (TNR_STEPS + TNR_EVAL_BATCHES),
             "short_attention_bwd": L * TNR_STEPS}
     check(rec["launches"] == want, f"train_net_raw: launches {rec['launches']}, want {want}")
@@ -2856,7 +2988,7 @@ def train_net_raw_phase(card, parent=None):
           and metric == finals[0]["final_acc/action/AR5"],
           f"train_net_raw: final metrics {finals}, returned {metric}")
     check(ckpt_epoch == 1.0, f"train_net_raw: checkpoint at epoch {ckpt_epoch}")
-    want2 = {**{n: 0 for n in _build.KERNELS},
+    want2 = {**{n: 0 for n in ATTENTION_KERNELS},
              "short_attention_fwd": L * TNR_EVAL_BATCHES}
     check(rec2["launches"] == want2 and not rec2["epochs"] and not rec2["waits"]["train"][1:]
           and len(rec2["finals"]) == 1 and np.isfinite(again),
@@ -2982,7 +3114,7 @@ def rulstm_expt05_phase(card):
     check(len(inits) == 1 and inits[0]["equal"] and inits[0]["loaded"] == inits[0]["want"],
           f"rulstm_expt05: the model differs from the RULSTM file after init: "
           f"{inits and {k: v for k, v in inits[0].items() if k != 'loaded'}}")
-    want = {n: 0 for n in _build.KERNELS}
+    want = {n: 0 for n in ATTENTION_KERNELS}
     check(rec["launches"] == want, f"rulstm_expt05: launches {rec['launches']}, want none")
     eval_wait = rec["waits"]["eval"]
     n_eval = -(-TN_EVAL_VIDEOS * TN_ACTIONS // RULSTM_BATCH)
@@ -3097,7 +3229,7 @@ def zoo_transformer_phase(card):
         with mock.patch.object(train_net, "make_train_step",
                                recording_make_train_step(train_net, steps)):
             (metric,), rec = run_train_net(argv)
-        want = {**{n: 0 for n in _build.KERNELS},
+        want = {**{n: 0 for n in ATTENTION_KERNELS},
                 "flash_attention_fwd": ZOO_LAYERS * (TN_STEPS + TN_EVAL_BATCHES),
                 "flash_attention_bwd": ZOO_LAYERS * TN_STEPS}
         check(rec["launches"] == want, f"zoo_transformer: launches {rec['launches']}, "
@@ -3119,10 +3251,10 @@ def zoo_transformer_phase(card):
         busy, groups, wall = profile_run(lambda: step(batch, gen),
                                          "zoo_transformer train step, 64 clips x 256 features")
         torch.cuda.synchronize()
-        per_step = {**{n: 0 for n in _build.KERNELS}, "flash_attention_fwd": 2 * ZOO_LAYERS,
+        per_step = {**{n: 0 for n in ATTENTION_KERNELS}, "flash_attention_fwd": 2 * ZOO_LAYERS,
                     "flash_attention_bwd": 2 * ZOO_LAYERS}  # profile_run takes 2 steps
-        check(_build.launch_counts == per_step,
-              f"zoo_transformer: 2 steps launched {_build.launch_counts}, want {per_step}")
+        check(attention_launches() == per_step,
+              f"zoo_transformer: 2 steps launched {attention_launches()}, want {per_step}")
         flash = (groups.get("flash attention kernel", 0.0)
                  + groups.get("flash attention bwd kernel", 0.0))
         del steps[:]
@@ -3185,7 +3317,7 @@ def rollout_train_grads(model, batch, loss_wts, num_classes, seed):
     total.backward()
     torch.cuda.synchronize()
     ms = (time.time() - t0) * 1e3
-    launches = dict(_build.launch_counts)
+    launches = attention_launches()
     grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
              if p.grad is not None}
     model.zero_grad(set_to_none=True)
@@ -3204,7 +3336,7 @@ def rollout_eval(model, video, tshape, reps):
     with torch.no_grad():
         out, _ = model(video, tshape)
         torch.cuda.synchronize()
-        launches = dict(_build.launch_counts)
+        launches = attention_launches()
         t0 = time.time()
         for _ in range(reps):
             model(video, tshape)
@@ -3213,8 +3345,15 @@ def rollout_eval(model, video, tshape, reps):
     return out, ms, torch.cuda.max_memory_allocated() / 1e9, launches
 
 
+def attention_launches():
+    """The attention kernels' launches counted so far: what every phase
+    holds to its path (the f32 dense layers' launches, `DENSE_KERNEL`, are
+    held where a phase counts them)."""
+    return {n: _build.launch_counts[n] for n in ATTENTION_KERNELS}
+
+
 def flash_launches(fwd, bwd=0):
-    return {**{n: 0 for n in _build.KERNELS}, "flash_attention_fwd": fwd,
+    return {**{n: 0 for n in ATTENTION_KERNELS}, "flash_attention_fwd": fwd,
             "flash_attention_bwd": bwd}
 
 
@@ -3813,8 +3952,8 @@ def ssl_phase(card):
     busy, groups, wall = profile_run(lambda: step(batch, gen), f"ssl train step, {TN_BATCH} + "
                                      f"{TN_BATCH} clips x {LONG_T} features")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check(_build.launch_counts == flash_launches(2 * AVTH_LAYERS, 2 * AVTH_LAYERS),
-          f"ssl: 2 profiled steps launched {_build.launch_counts}")
+    check(attention_launches() == flash_launches(2 * AVTH_LAYERS, 2 * AVTH_LAYERS),
+          f"ssl: 2 profiled steps launched {attention_launches()}")
     flash = groups.get("flash attention kernel", 0.0) + groups.get("flash attention bwd kernel",
                                                                    0.0)
     log(f"ssl train step ({card}): wall {wall:.2f} ms, device busy {busy:.2f} ms (idle "
@@ -3937,11 +4076,11 @@ def export_phase(card):
         logits = np.load(out_path)
     check(not loaded["foreign_modules"], f"export: the loading process imported "
           f"{loaded['foreign_modules']}")
-    want = {**{n: 0 for n in _build.KERNELS}, "short_attention_fwd": VIT_BLOCKS}
+    want = {**{n: 0 for n in ATTENTION_KERNELS}, "short_attention_fwd": VIT_BLOCKS}
     for bs in (BATCH, 32):
-        got = loaded[str(bs)]["launches"]
-        check(got == want, f"export: one forward of the loaded batch-{bs} program launched "
-              f"{got}, want {want}")
+        got = loaded[str(bs)]["launches"]  # every kernel's: no dense_f32 in the bf16 model
+        check(got == {**want, DENSE_KERNEL: 0}, f"export: one forward of the loaded batch-{bs} "
+              f"program launched {got}, want {want}")
     diff, same = compare(logits, "loaded program")
 
     t0 = time.time()
@@ -3953,7 +4092,7 @@ def export_phase(card):
     _build.reset_launch_counts()
     u_logits = call(model_params(model), clips[:BATCH])["logits/action"].float().cpu().numpy()
     torch.cuda.synchronize()
-    u_launches = dict(_build.launch_counts)
+    u_launches = attention_launches()
     check(u_launches == want, f"export: one unbaked forward launched {u_launches}, want {want}")
     u_diff, u_same = compare(u_logits, "unbaked program")
     log(f"export ({card}): the bf16 flagship with 3-crop + flip preprocessing, exported in "
@@ -4209,7 +4348,7 @@ def tp_flagship_run(mesh=None):
         metrics = step(batch, step_gen)
         torch.cuda.synchronize()
         step_ms.append((time.time() - t0) * 1e3)
-        launches.append(dict(_build.launch_counts))
+        launches.append(attention_launches())
         losses.append({k: v.item() for k, v in metrics.items() if k.startswith("loss")})
     after = picked()
     del model, step
@@ -4506,7 +4645,7 @@ def featext_phase(card):
                 stats, rec = record_train_net(lambda: txf.main(argv))
             counts["featext"] = rec["launches"]
             n_batches = len(rec["waits"]["eval"])
-            want = {**{n: 0 for n in _build.KERNELS},
+            want = {**{n: 0 for n in ATTENTION_KERNELS},
                     "short_attention_fwd": VIT_BLOCKS * n_batches}
             check(rec["launches"] == want and n_batches == -(-rec["rows"]["eval"]
                                                              // FX_EVAL_BATCH),
@@ -4638,9 +4777,9 @@ def featext_phase(card):
             torch.cuda.synchronize()
             cent_s = time.time() - t1
             cents = load_centroids(os.path.join(tmp, "centroids.npy"))
-            check(dict(_build.launch_counts) == {n: 0 for n in _build.KERNELS}
+            check(attention_launches() == {n: 0 for n in ATTENTION_KERNELS}
                   and cents.shape == (FX_K, VIT_DIM) and np.isfinite(cents).all(),
-                  f"featext centroids: {cents.shape}, launches {dict(_build.launch_counts)}")
+                  f"featext centroids: {cents.shape}, launches {attention_launches()}")
             summary["centroids_s"] = cent_s
             log(f"featext centroids ({card}): k={FX_K} over the store's {len(index)} features "
                 f"in {cent_s:.2f} s (50 iterations)")
@@ -4658,9 +4797,9 @@ def featext_phase(card):
             t1 = time.time()
             maps = torch_viz_attention.attention_maps(vcfg, frames, model=model, device="cuda")
             viz_ms = 1e3 * (time.time() - t1)
-            counts["viz_attention"] = dict(_build.launch_counts)
+            counts["viz_attention"] = attention_launches()
             T = TNR_FRAMES
-            want = {**{n: 0 for n in _build.KERNELS}, "short_attention_fwd": VIT_BLOCKS}
+            want = {**{n: 0 for n in ATTENTION_KERNELS}, "short_attention_fwd": VIT_BLOCKS}
             att0, att1 = maps.get("gpt2_att_0"), maps.get("gpt2_att_1")
             check(counts["viz_attention"] == want and sorted(maps) == ["gpt2_att_0", "gpt2_att_1"]
                   and att0.shape == (AVTH_LAYERS, AVTH_HEADS, T, T)
@@ -4762,7 +4901,7 @@ def mha_run(arrays, dout, causal, self_attention):
                                causal=causal, **{b: leaves[b] for b in MHA_BIASES})
     grads = torch.autograd.grad(out, list(leaves.values()), dout)
     torch.cuda.synchronize()
-    return (out.detach(), dict(zip(leaves, grads)), dict(_build.launch_counts),
+    return (out.detach(), dict(zip(leaves, grads)), attention_launches(),
             (time.time() - t0) * 1e3)
 
 
@@ -4873,7 +5012,7 @@ def train_grads_vs_cpu(model, batch, loss_wts, num_classes, seed, relu=F.relu):
     _build.reset_launch_counts()
     losses, grads = train_grads(model, batch, loss_wts, num_classes, seed, relu)
     torch.cuda.synchronize()
-    launches = dict(_build.launch_counts)
+    launches = attention_launches()
     t0 = time.time()
     cpu_losses, cpu_grads = train_grads(copy.deepcopy(model).to("cpu"), to_device(batch, "cpu"),
                                         loss_wts, num_classes, seed, relu)

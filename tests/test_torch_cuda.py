@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from avt_tpu_torch.ops import _build
+from avt_tpu_torch.ops import dense as tdense
 from avt_tpu_torch.ops import flash_attention as tfa
 
 # bf16: p and the output are rounded to bf16 (2^-8 relative), and the kernel
@@ -460,13 +461,16 @@ def test_cuda_train_net_runs_expts02_through_the_flash_kernels(cuda_device, tmp_
              str(tmp_path / "run"), "train.num_epochs=1", "data_train.workers=4",
              "data_eval.workers=4"] + tree + chip_smoke.long_context(256))
     layers = 6
-    want = {**{n: 0 for n in _build.KERNELS}, tfa.FLASH_KERNEL: 2 * layers,
+    want = {**{n: 0 for n in chip_smoke.ATTENTION_KERNELS}, tfa.FLASH_KERNEL: 2 * layers,
             tfa.FLASH_BWD_KERNEL: layers}
     (metric,), rec = chip_smoke.run_train_net(argv)
     assert rec["launches"] == want and rec["epochs"] == [0] and np.isfinite(metric)
+    # AVT-h's f32 linears: forward, dX and dW a step, the forward an eval batch
+    assert _build.launch_counts[tdense.KERNEL] == 3 * 4 * layers + 4 * layers
     assert "final_acc/action/AR5" in rec["finals"][0]
     (again,), rec = chip_smoke.run_train_net(argv)
     assert rec["launches"] == {**want, tfa.FLASH_KERNEL: layers, tfa.FLASH_BWD_KERNEL: 0}
+    assert _build.launch_counts[tdense.KERNEL] == 4 * layers
     assert rec["epochs"] == [] and np.isfinite(again)
 
 
@@ -494,7 +498,8 @@ def test_cuda_train_net_runs_expts01_on_raw_video(cuda_device, tmp_path, monkeyp
              str(tmp_path / "run"), "train.num_epochs=1", "data_train.workers=4",
              "data_eval.workers=4", "+model.backbone.depth=2"] + tree)
     layers = 2
-    want = {**{n: 0 for n in _build.KERNELS}, tfa.KERNEL: 2 * layers, tfa.BWD_KERNEL: layers}
+    want = {**{n: 0 for n in chip_smoke.ATTENTION_KERNELS}, tfa.KERNEL: 2 * layers,
+            tfa.BWD_KERNEL: layers}
     (metric,), rec = chip_smoke.run_train_net(argv)
     assert rec["launches"] == want and rec["epochs"] == [0] and np.isfinite(metric)
     assert np.isfinite(rec["loggers"][0].meters["loss"].global_avg)
@@ -640,3 +645,165 @@ def test_cuda_exported_program_launches_the_packed_kernel(cuda_device, tmp_path)
     assert _build.launch_counts[tfa.KERNEL] == 2
     want = make_eval_forward(model)(video)["logits/action"].float().cpu().numpy()
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+# The f32 dense layers' kernel (ops/dense.py, csrc/dense_f32.cu). (M, K, N) of
+# a product: AVT-h's four linears at t256's rows (64 clips x 256 features) and
+# t10's (x 10), forward and the dW products' shapes; then ragged shapes.
+DENSE_MODEL_SHAPES = [
+    (16384, 2048, 6144), (16384, 2048, 2048), (16384, 2048, 8192), (16384, 8192, 2048),
+    (2048, 16384, 6144), (8192, 16384, 2048),
+    (640, 2048, 6144), (640, 2048, 2048), (640, 8192, 2048), (640, 2048, 8192),
+    (2048, 640, 2048), (8192, 640, 2048),
+]
+DENSE_RAGGED_SHAPES = [(1, 8, 1), (30, 24, 257), (257, 1000, 30), (131, 257, 67), (5, 3, 9)]
+SPLIT_ERR = 3 * 2.0 ** -20  # of |a||b| a product: tests/test_torch_dense_f32.py's model
+DENSE_PLAIN_TOL = 2e-6  # rms of kernel - plain version over the plain version's
+
+
+def _dense_operand(rows, cols, k_major, k_axis, seed, device, offset=0):
+    """A (rows, cols) f32 matrix with its unit stride along K (k_major) or
+    along the other axis; offset > 0 starts it that many floats into its
+    buffer (a base the 16-byte copies cannot take)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    along_cols = k_major == (k_axis == 1)
+    shape = (rows, cols) if along_cols else (cols, rows)
+    x = torch.randn(shape[0] * shape[1] + offset, generator=g, device=device)[offset:]
+    x = x.view(shape)
+    return x if along_cols else x.t()
+
+
+def _dense_case(M, K, N, a_kmajor, b_kmajor, bias, device, offset=0):
+    a = _dense_operand(M, K, a_kmajor, 1, 60, device, offset)
+    b = _dense_operand(K, N, b_kmajor, 0, 61, device, offset)
+    bb = torch.randn(N, generator=torch.Generator(device=device).manual_seed(62),
+                     device=device) if bias else None
+    return a, b, bb
+
+
+def _dense_errors(c, a, b, bias):
+    """(|C - C64| elementwise, |A| . |B|, C64, the rms of C - C64 over C64's)."""
+    ref = a.double() @ b.double()
+    if bias is not None:
+        ref = ref + bias.double()
+    d = (c.double() - ref).abs()
+    return d, a.double().abs() @ b.double().abs(), ref, (
+        d.square().mean().sqrt() / ref.square().mean().sqrt()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("a_kmajor,b_kmajor", [(True, True), (True, False), (False, True),
+                                               (False, False)])
+@pytest.mark.parametrize("M,K,N", DENSE_MODEL_SHAPES + DENSE_RAGGED_SHAPES)
+def test_cuda_dense_f32_matches_plain_version_and_float64(cuda_device, M, K, N, a_kmajor,
+                                                          b_kmajor, bias):
+    """The kernel in every operand layout, with and without the bias: the same
+    bits on a repeat; within DENSE_PLAIN_TOL of the plain version; against a
+    float64 product inside the three products' bound plus f32 accumulation
+    (a rounding a 32-wide stage of K, and its mma chain's 12 truncations)
+    and, at the model shapes, an rms error at most twice cuBLAS's f32 SIMT
+    product's (at a K of a few dozen SIMT's error is a few roundings, under
+    the split's 2^-21 of |a||b|: there only the bound holds)."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    a, b, bb = _dense_case(M, K, N, a_kmajor, b_kmajor, bias, cuda_device)
+    _build.reset_launch_counts()
+    c = tdense.gemm(a, b, bb)
+    again = tdense.gemm(a, b, bb)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[tdense.KERNEL] == 2
+    assert c.shape == (M, N) and c.dtype == torch.float32 and torch.equal(c, again)
+    plain = tdense.gemm_reference(a, b, bb).double()
+    assert ((c.double() - plain).square().mean().sqrt()
+            / plain.square().mean().sqrt()).item() <= DENSE_PLAIN_TOL
+    d, scale, ref, rms = _dense_errors(c, a, b, bb)
+    stages = -(-K // tdense.BK)
+    bound = (SPLIT_ERR + (stages + 12) * 2.0 ** -23) * scale + 2.0 ** -23 * ref.abs()
+    assert bool((d <= bound).all())
+    if (M, K, N) in DENSE_MODEL_SHAPES:
+        lib = torch.matmul(a, b) if bb is None else torch.addmm(bb, a, b)
+        assert rms <= 2 * _dense_errors(lib, a, b, bb)[3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(131, 257, 67), (640, 2048, 2048)])
+def test_cuda_dense_f32_takes_unaligned_operands(cuda_device, M, K, N):
+    """Bases a float off 16 bytes (and K = 257's odd rows) take the 4-byte
+    copies: the same product as aligned copies of the operands."""
+    for a_kmajor, b_kmajor in ((True, False), (False, True)):
+        a, b, bb = _dense_case(M, K, N, a_kmajor, b_kmajor, True, cuda_device, offset=1)
+        assert a.data_ptr() % 16 and b.data_ptr() % 16
+        aligned = tdense.gemm(a.clone(), b.clone(), bb)
+        assert torch.equal(tdense.gemm(a, b, bb), aligned)
+
+
+@pytest.mark.cuda
+def test_cuda_dense_f32_splits_k_where_tiles_are_few(cuda_device):
+    """t10's 640-row products take three splits of K and the reduce pass; one
+    split at t256's rows."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert tdense.splits_for(640, 2048, 2048, sms)[0] > 1
+    assert tdense.splits_for(16384, 2048, 2048, sms)[0] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_dense_f32_launches_72_a_t256_train_step(cuda_device):
+    """expts/02's AVT-h at 64 clips x 256 features, f32: a train step launches
+    the kernel 72 times (6 layers x 4 linears x forward, dX, dW), an eval
+    forward 24; its layers' f32 products reach no library GEMM."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke as cs
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    model = cs.build_avt(num_actions=cs.NUM_ACTIONS, backbone="identity",
+                         backbone_dim=cs.FEAT_DIM, inter_dim=cs.AVTH_DIM, n_layer=cs.AVTH_LAYERS,
+                         n_head=cs.AVTH_HEADS, generator=gen)
+    opt, _ = cs.build_optimizer(
+        model, lr_wd=[["__all__", 1e-3, 1e-6]], optimizer_name="sgd", scheduler_name="cosine",
+        iters_per_epoch=1000, num_epochs=50, warmup_epochs=20, bias_bn_wd_scale=1.0,
+        optimizer_kwargs={"nesterov": True})
+    num_classes = {"action": cs.NUM_ACTIONS}
+    step = cs.make_train_step(model, opt, cs.LOSS_WTS, num_classes)
+    batch = cs.feature_batch(cs.FEAT_BATCH, cs.LONG_T, 1)
+    step_gen = torch.Generator(device=cuda_device).manual_seed(1)
+    step(batch, step_gen)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    step(batch, step_gen)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[tdense.KERNEL] == 72
+    _build.reset_launch_counts()
+    cs.make_eval_step(model, num_classes)(batch)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[tdense.KERNEL] == 24
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_out", [True, False])
+def test_cuda_dense_f32_routes_agree(cuda_device, in_out):
+    """Eager CUDA tensors take `_DenseF32`; a traced program (torch.export)
+    records the custom op, whose CUDA route launches the same kernel: the
+    same bits in the forward and the gradients, three launches each (the
+    forward, dX, dW)."""
+    g = torch.Generator(device=cuda_device).manual_seed(63)
+    x = torch.randn(4, 30, 64, generator=g, device=cuda_device)
+    w = torch.randn(64, 96, generator=g, device=cuda_device)
+    w = w if in_out else w.t().contiguous()
+    b = torch.randn(96, generator=g, device=cuda_device)
+    dy = torch.randn(4, 30, 96, generator=g, device=cuda_device)
+    results = []
+    for route in ("function", "op"):
+        xs, ws, bs = (t.clone().requires_grad_(True) for t in (x, w, b))
+        _build.reset_launch_counts()
+        if route == "function":
+            y = tdense.dense_f32(xs, ws, bs, in_out)
+        else:
+            y = tdense._dense_op(xs.reshape(-1, 64), ws, bs, in_out).reshape(4, 30, 96)
+        y.backward(dy)
+        torch.cuda.synchronize()
+        assert _build.launch_counts[tdense.KERNEL] == 3
+        results.append((y.detach(), xs.grad, ws.grad, bs.grad))
+    assert all(torch.equal(p, q) for p, q in zip(*results))
