@@ -12,9 +12,10 @@ config dict, onto the port's modules.
 BN-Inception backbones, the last two with `model.bn.{eps,mom}`; the
 identity, mean, RULSTM and Transformer aggregators; AVT-h with every option
 (rollouts, the KV-cache mode, attention maps, cluster-id inputs and
-centroids), the MLP and identity future predictors; the linear and MLP
-classifiers (on the first task only under `use_cls_mappings`); and
-AVTModel's options.
+centroids) and with the Moonlight-16B-A3B decoder as its core (`core:`,
+conf/model/future_predictor/avth_mla_moe.yaml), the MLP and identity future
+predictors; the linear and MLP classifiers (on the first task only under
+`use_cls_mappings`); and AVTModel's options.
 """
 from __future__ import annotations
 
@@ -342,6 +343,15 @@ def build_model(cfg: Dict, num_classes: Dict[str, int], class_mappings: Dict, *,
         floss = instantiate(loss_cfg, reduction="none") if loss_cfg else None
         if "dtype" in fcfg:
             fcfg["dtype"] = None if fcfg["dtype"] is None else _torch_dtype(fcfg["dtype"])
+        core_cfg = fcfg.pop("core", None)
+        if core_cfg is not None:
+            core_cfg = dict(core_cfg)
+            name = core_cfg.pop("name")
+            if name != "mla_moe":
+                raise _not_in_zoo(f"AVT-h core {name}")
+            fcfg["core"] = models.MLAMoECore(hidden_size=fcfg.get("inter_dim", 768),
+                                             dtype=fcfg.get("dtype"), device=device,
+                                             **core_cfg)
         future_predictor = models.AVTh(in_features=agg_dim_out, future_pred_loss=floss,
                                        centroids=cent, device=device, **fcfg)
     elif ftarget == "avt_tpu.models.IdentityFuture":

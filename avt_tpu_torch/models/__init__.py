@@ -2,8 +2,8 @@
 backbone + AVT-h, with its rollouts, KV cache, attention maps and
 cluster-id inputs), the conv backbones (the video ResNets and
 BN-Inception), the Mean, RULSTM and Transformer aggregators, the MLP
-and identity future predictors, the MLP classifier and the k-means
-centroids."""
+and identity future predictors, the Moonlight-16B-A3B decoder as an AVT-h
+core, the MLP classifier and the k-means centroids."""
 from avt_tpu_torch.models.backbones import IdentityBackbone
 from avt_tpu_torch.models.base import AVTModel
 from avt_tpu_torch.models.bninception import BNInceptionVideo
@@ -20,6 +20,7 @@ from avt_tpu_torch.models.layers import (
     position_stable_dropout,
     sincos_positional_encoding,
 )
+from avt_tpu_torch.models.mla_moe import MLAMoECore
 from avt_tpu_torch.models.norm import batch_norm
 from avt_tpu_torch.models.temporal_agg import IdentityAgg, MeanAgg, RULSTMAgg, TransformerAgg
 from avt_tpu_torch.models.video_resnet import (
@@ -45,7 +46,8 @@ __all__ = [
     "AVTModel", "AVTh", "BNInceptionVideo", "BasicBlock3D", "Bottleneck3D", "Conv2Plus1D",
     "Conv3DDepthwise", "Conv3DSimple", "EncoderBlock", "GPT2Block", "GPT2Core",
     "IPConv3DDepthwise", "IdentityAgg", "IdentityBackbone", "IdentityFuture", "KmeansAssigner",
-    "LinearClassifier", "MLPClassifier", "MLPFuture", "MeanAgg", "RULSTMAgg", "SelfAttention",
+    "LinearClassifier", "MLAMoECore", "MLPClassifier", "MLPFuture", "MeanAgg", "RULSTMAgg",
+    "SelfAttention",
     "TransformerAgg", "VIDEO_RESNETS", "VideoResNet", "ViT", "ViTAttention", "ViTBlock",
     "batch_norm", "build_avt", "gelu_new", "ip_csn_152", "ip_csn_50", "ir_csn_152",
     "kmeans_fit", "load_centroids", "position_stable_dropout", "r2plus1d_152", "r2plus1d_18",

@@ -7,7 +7,8 @@ AVT-h encoder/decoder and classifier linears, and for every other Linear of
 the reference (the MLP heads, the Transformer aggregator's, AVTModel's
 optional heads); trunc-normal(0.02) for cls_token and pos_embed, flax's
 lecun-normal for the patch embedding, N(0, 0.02) for the GPT-2 weights and
-wpe and the cloze mask embedding, xavier-uniform for the Transformer
+wpe, the MLA-MoE core's weights (RMSNorms at 1, the router's choice bias
+at 0) and the cloze mask embedding, xavier-uniform for the Transformer
 aggregator's in_proj_weight; flax's LSTM cell defaults for the RULSTM:
 lecun-normal input kernels, orthogonal recurrent ones (each gate's block);
 biases 0, LayerNorms at weight 1, bias 0. The conv backbones: the video
@@ -31,10 +32,12 @@ from avt_tpu_torch.models.classifiers import LinearClassifier
 from avt_tpu_torch.models.future import AVTh
 from avt_tpu_torch.models.layers import (
     EncoderSelfAttention,
+    GPT2Core,
     init_normal_,
     lecun_normal_,
     trunc_normal_,
 )
+from avt_tpu_torch.models.mla_moe import init_mla_moe_
 from avt_tpu_torch.models.temporal_agg import IdentityAgg, LSTMLayer, TransformerAgg
 from avt_tpu_torch.models.video_resnet import VideoResNet
 from avt_tpu_torch.models.vit import ViT
@@ -99,7 +102,11 @@ def init_weights(model: AVTModel, generator: torch.Generator) -> None:
             init_conv_backbone(vit, generator)
         fp = model.future_predictor
         if isinstance(fp, AVTh):
-            init_normal_(fp.gpt_model, 0.02, generator)
+            core = fp.core()
+            if isinstance(core, GPT2Core):
+                init_normal_(core, 0.02, generator)
+            else:
+                init_mla_moe_(core, 0.02, generator)
             if fp.quantized_input:  # flax's Embed init; the decoder is tied to it
                 nn.init.normal_(fp.encoder.weight, std=fp.inter_dim ** -0.5,
                                 generator=generator)

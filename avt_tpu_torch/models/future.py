@@ -16,6 +16,10 @@ the same outputs, gradients included. Under tensor parallelism
 (parallel/mesh.py) the GPT-2 core runs each rank's local heads
 (models/layers.py): the KV caches hold them, and the attention maps come
 back gathered over every head.
+
+The core is GPT-2's by default; `core=` takes another decoder called as
+GPT2Core is, such as the Moonlight-16B-A3B decoder (models/mla_moe.py
+`MLAMoECore`, kept at `model.`), which runs recompute rollouts only.
 """
 from __future__ import annotations
 
@@ -73,7 +77,10 @@ class AVTh(nn.Module):
     ids only). output_attentions: endpoints gpt2_att_<k>, each step's maps
     (B, n_layer, n_head, Tq, Tk) sliced from the final pass (cache mode
     takes the recompute path then). rollout_mode: 'recompute' or
-    'cache'."""
+    'cache'. core: the decoder, GPT2Core by default (at `gpt_model.`, built
+    from n_layer, n_head, n_positions and the three dropout rates, which
+    configure it alone); another core (at `model.`, called as GPT2Core is)
+    takes neither the cache mode nor attention maps."""
 
     def __init__(self, in_features: int, output_len: int = -1, output_len_eval: int = -1,
                  avg_last_n: int = -1, inter_dim: int = 768, n_layer: int = 12,
@@ -83,7 +90,8 @@ class AVTh(nn.Module):
                  drop_last_n: int = 0, quantize_before_rollout: bool = False,
                  num_cluster_centers: int = 50000, centroids=None,
                  output_attentions: bool = False, rollout_mode: str = "recompute",
-                 dtype: Optional[torch.dtype] = None, device=None):
+                 core: Optional[nn.Module] = None, dtype: Optional[torch.dtype] = None,
+                 device=None):
         super().__init__()
         if rollout_mode not in ("recompute", "cache"):
             raise ValueError(f"rollout_mode must be 'recompute' or 'cache', got "
@@ -110,13 +118,24 @@ class AVTh(nn.Module):
             self.decoder = nn.Linear(inter_dim, in_features, bias=False, device=device)
         self.assigner = None if centroids is None else KmeansAssigner(
             centroids, device=self.encoder.weight.device)
-        self.gpt_model = GPT2Core(inter_dim, n_layer=n_layer, n_head=n_head,
-                                  n_positions=n_positions, embd_dropout=embd_pdrop,
-                                  attn_dropout=attn_pdrop, resid_dropout=resid_pdrop,
-                                  dtype=dtype, device=device)
+        if core is None:
+            self.gpt_model = GPT2Core(inter_dim, n_layer=n_layer, n_head=n_head,
+                                      n_positions=n_positions, embd_dropout=embd_pdrop,
+                                      attn_dropout=attn_pdrop, resid_dropout=resid_pdrop,
+                                      dtype=dtype, device=device)
+        elif rollout_mode == "cache" or output_attentions:
+            raise ValueError(f"a {type(core).__name__} core runs recompute rollouts without "
+                             "attention maps: rollout_mode='cache' and output_attentions are "
+                             "GPT2Core's")
+        else:
+            self.model = core
 
     output_dim = property(lambda self: self.inter_dim if self.in_features == 1
                           else self.in_features)
+
+    def core(self) -> nn.Module:
+        gpt = self._modules.get("gpt_model")
+        return gpt if gpt is not None else self._modules["model"]
 
     def _requantize(self, hidden):
         """The argmax cluster ids of hidden states, re-encoded."""
@@ -129,15 +148,15 @@ class AVTh(nn.Module):
         layer's KV cache (grown to T0 + L - 1 positions): (B, T0 + L - 1,
         inter_dim) hidden states."""
         B, T0, _ = encoded.shape
-        h0, kvs = self.gpt_model(encoded, generator=generator, dropout_key=dkey,
-                                 return_kv=True)
+        h0, kvs = self.core()(encoded, generator=generator, dropout_key=dkey,
+                              return_kv=True)
         kvs = [tuple(torch.cat([a, a.new_zeros((B, L - 1) + tuple(a.shape[2:]))], dim=1)
                      for a in kv) for kv in kvs]
         hiddens, last = [h0], h0[:, -1:]
         for k in range(1, L):
             inp = self._requantize(last) if self.quantize_before_rollout else last
-            last, kvs = self.gpt_model(inp, T0 + k - 1, generator, dropout_key=dkey,
-                                       kv_caches=kvs)
+            last, kvs = self.core()(inp, T0 + k - 1, generator, dropout_key=dkey,
+                                    kv_caches=kvs)
             hiddens.append(last)
         return torch.cat(hiddens, dim=1)
 
@@ -186,12 +205,12 @@ class AVTh(nn.Module):
         else:
             buf = encoded
             for _ in range(1, L):
-                last = self.gpt_model(buf, generator=generator, dropout_key=dkey)[:, -1:]
+                last = self.core()(buf, generator=generator, dropout_key=dkey)[:, -1:]
                 if self.quantize_before_rollout:
                     last = self._requantize(last)
                 buf = torch.cat([buf, last], dim=1)
-            hidden = self.gpt_model(buf, generator=generator, dropout_key=dkey,
-                                    output_attentions=self.output_attentions)
+            hidden = self.core()(buf, generator=generator, dropout_key=dkey,
+                                 output_attentions=self.output_attentions)
         if self.output_attentions:
             # step 0 is the (T0, T0) causal block, step k the one new query
             # over its T0 + k visible keys (reference future_prediction.py:184-188)

@@ -6,8 +6,10 @@
 // it is the backward of AVT-h's attention (GPT-2, causal) over 128 or more
 // observed features: (B, T, H, D) = (64, 256, 4, 512) in f32 for expts/02 at
 // 256 s of context, (64, 128, 2, 1024) for expts/04, and (64, 256, 8, 64)
-// non-causal for the Transformer aggregator. One entry point launches both
-// kernels on the stream.
+// non-causal for the Transformer aggregator; at two widths (q, k and dq, dk
+// DQ wide; v, dO and dv DV wide) the backward of the Moonlight-16B-A3B
+// head's latent attention, (64, 256, 16, 192 / 128) in bf16. One entry point
+// launches both kernels on the stream.
 //
 // Function, in the TPU kernels' order. From the forward's inputs, its
 // logsumexp lse and delta = rowsum(dO . O) in f32 (computed by the caller, as
@@ -93,15 +95,15 @@ namespace {
 
 using namespace flash;
 
-template <typename T, int D>
-using BwdTiling = Tiling<T, D, false>;  // the tiles of both sides
+template <typename T, int DQ, int DV>
+using BwdTiling = Tiling<T, DQ, DV, false>;  // the tiles of both sides
 
 // Byte offsets of a side's shared memory: X1, X2 (BM rows each), NBUF x (Y1,
 // Y2) (BN rows each), the CW x (S, dP) partial score tiles, W (dq side: ds;
 // dk/dv side: ds, p; f32 as hi and lo planes), then lse and delta.
-template <typename T, int D, bool kDkv>
+template <typename T, int DQ, int DV, bool kDkv>
 struct BwdSmem {
-  using L = BwdTiling<T, D>;
+  using L = BwdTiling<T, DQ, DV>;
   static constexpr int NW = kDkv ? 2 : 1;
   static constexpr size_t x = 0;
   static constexpr size_t y = x + sizeof(T) * 2 * L::BM * L::LD;
@@ -119,18 +121,19 @@ struct BwdSmem {
 // One side (the note at the top). kDkv = false: the dq side, kept rows are
 // queries (X1 = q', X2 = dO), steps over keys (Y1 = K, Y2 = V), out0 = dq
 // scaled by out_scale. kDkv = true: kept rows are keys (K, V), steps over
-// queries (q', dO), out0 = dk, out1 = dv.
-template <typename T, int D, bool kDkv>
+// queries (q', dO), out0 = dk, out1 = dv. X1, Y1 and out0 are DQ wide, X2,
+// Y2 and out1 DV wide.
+template <typename T, int DQ, int DV, bool kDkv>
 __device__ __forceinline__ void side(const T* __restrict__ q, const T* __restrict__ k,
                                      const T* __restrict__ v, const T* __restrict__ dout,
                                      const float* __restrict__ lse,
                                      const float* __restrict__ delta, T* __restrict__ out0,
                                      T* __restrict__ out1, View qv, View kv, View vv, View dov,
                                      Geometry g, int tiles, float q_scale, float out_scale) {
-  using L = BwdTiling<T, D>;
-  using S = BwdSmem<T, D, kDkv>;
-  constexpr int BM = L::BM, BN = L::BN, LD = L::LD, LDP = L::LDP, MT = L::MT, DW = L::DW;
-  constexpr int NACC = kDkv ? 2 : 1;
+  using L = BwdTiling<T, DQ, DV>;
+  using S = BwdSmem<T, DQ, DV, kDkv>;
+  constexpr int BM = L::BM, BN = L::BN, LD = L::LD, LDP = L::LDP, MT = L::MT;
+  constexpr int DWQ = L::DWQ, DWV = L::DWV;
   // f32 q' on the dk/dv side: scaled as its fragments load; bf16: in place
   constexpr bool kFold = kDkv && L::kF32;
   extern __shared__ float4 smem4[];
@@ -143,13 +146,14 @@ __device__ __forceinline__ void side(const T* __restrict__ q, const T* __restric
   float* delta_s = lse_s + (kDkv ? BN : BM);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g8 = lane / 4, t4 = lane % 4;
-  const int rw = warp / L::CW, cw = warp % L::CW, wrow = rw * MT * 16, d0 = cw * DW;
+  const int rw = warp / L::CW, cw = warp % L::CW, wrow = rw * MT * 16;
+  const int d0 = cw * DWQ, d0v = cw * DWV;  // the warp's slices of the two widths
   const int bh = blockIdx.x / tiles, r0 = (blockIdx.x % tiles) * BM;
   const int b = bh / g.H, h = bh % g.H;
-  const T* qb = q + b * qv.sb + h * D;
-  const T* kb = k + b * kv.sb + h * D;
-  const T* vb = v + b * vv.sb + h * D;
-  const T* dob = dout + b * dov.sb + h * D;
+  const T* qb = q + b * qv.sb + h * DQ;
+  const T* kb = k + b * kv.sb + h * DQ;
+  const T* vb = v + b * vv.sb + h * DV;
+  const T* dob = dout + b * dov.sb + h * DV;
   const T* x1 = kDkv ? kb : qb;
   const T* x2 = kDkv ? vb : dob;
   const T* y1 = kDkv ? qb : kb;
@@ -162,10 +166,10 @@ __device__ __forceinline__ void side(const T* __restrict__ q, const T* __restric
   const int s_begin = kDkv && g.causal ? (r0 / BN) * BN : 0;
   const int s_end = !kDkv && g.causal ? min(n_step, r0 + BM) : n_step;
 
-  stage_rows<T, D, BM, LD>(x_s, x1, x1st, r0, n_kept);
-  stage_rows<T, D, BM, LD>(x_s + BM * LD, x2, x2st, r0, n_kept);
-  stage_rows<T, D, BN, LD>(y_s, y1, y1st, s_begin, n_step);
-  stage_rows<T, D, BN, LD>(y_s + BN * LD, y2, y2st, s_begin, n_step);
+  stage_rows<T, DQ, BM, LD>(x_s, x1, x1st, r0, n_kept);
+  stage_rows<T, DV, BM, LD>(x_s + BM * LD, x2, x2st, r0, n_kept);
+  stage_rows<T, DQ, BN, LD>(y_s, y1, y1st, s_begin, n_step);
+  stage_rows<T, DV, BN, LD>(y_s + BN * LD, y2, y2st, s_begin, n_step);
   commit_copies();
   if (!kDkv && tid < BM) {
     const int qpos = r0 + tid;
@@ -176,19 +180,22 @@ __device__ __forceinline__ void side(const T* __restrict__ q, const T* __restric
   if constexpr (!kDkv) {
     wait_copies();
     __syncthreads();
-    scale_rows<T, D, BM, LD>(x_s, q_scale);  // q'
+    scale_rows<T, DQ, BM, LD>(x_s, q_scale);  // q'
   }
 
-  float acc[NACC][MT][DW / 8][4];
+  // dq or dk (DQ wide), and dv (DV wide) on the dk/dv side
+  float acc0[MT][DWQ / 8][4], acc1[MT][DWV / 8][4];
 #pragma unroll
-  for (int a = 0; a < NACC; ++a) {
+  for (int m = 0; m < MT; ++m) {
 #pragma unroll
-    for (int m = 0; m < MT; ++m) {
+    for (int n = 0; n < DWQ / 8; ++n) {
 #pragma unroll
-      for (int n = 0; n < DW / 8; ++n) {
+      for (int e = 0; e < 4; ++e) acc0[m][n][e] = 0.f;
+    }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[a][m][n][e] = 0.f;
-      }
+    for (int n = 0; n < DWV / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc1[m][n][e] = 0.f;
     }
   }
 
@@ -202,8 +209,8 @@ __device__ __forceinline__ void side(const T* __restrict__ q, const T* __restric
     if constexpr (L::NBUF == 2) {
       if (more) {  // the next tile arrives while this one computes
         T* next = y_s + (buf ^ 1) * 2 * BN * LD;
-        stage_rows<T, D, BN, LD>(next, y1, y1st, s0 + BN, n_step);
-        stage_rows<T, D, BN, LD>(next + BN * LD, y2, y2st, s0 + BN, n_step);
+        stage_rows<T, DQ, BN, LD>(next, y1, y1st, s0 + BN, n_step);
+        stage_rows<T, DV, BN, LD>(next + BN * LD, y2, y2st, s0 + BN, n_step);
         commit_copies();
       }
     }
@@ -214,13 +221,13 @@ __device__ __forceinline__ void side(const T* __restrict__ q, const T* __restric
         lse_s[tid] = real ? lse[(long long)bh * g.Tq + qpos] : 0.f;
         delta_s[tid] = real ? delta[(long long)bh * g.Tq + qpos] : 0.f;
       }
-      if constexpr (!kFold) scale_rows<T, D, BN, LD>(y1_s, q_scale);  // q'
+      if constexpr (!kFold) scale_rows<T, DQ, BN, LD>(y1_s, q_scale);  // q'
       if constexpr (!kFold || L::kRegs) __syncthreads();  // q', lse and delta are in
     }
 
     // 1. the warp's partial scores S = X1 . Y1^T and dP = X2 . Y2^T
     float c[2][MT][BN / 8][4];
-    scores<L, kFold, false>(c, x_s + wrow * LD + d0, y1_s + d0, q_scale, lane);
+    scores<L, kFold, false>(c, x_s + wrow * LD + d0, y1_s + d0, d0v - d0, q_scale, lane);
     if constexpr (L::kRegs) {
       // 2. p and ds in the warp's registers, in place of S and dP
 #pragma unroll
@@ -241,10 +248,10 @@ __device__ __forceinline__ void side(const T* __restrict__ q, const T* __restric
       }
       // 3. dq += ds . K; dv += p . dO and dk += ds . q'
       if constexpr (kDkv) {
-        accumulate<L, false>(acc[1], RegisterA<L>{c[0]}, y2_s + d0, 1.f, lane);
-        accumulate<L, kFold>(acc[0], RegisterA<L>{c[1]}, y1_s + d0, q_scale, lane);
+        accumulate<L, false, DWV>(acc1, RegisterA<L>{c[0]}, y2_s + d0v, 1.f, lane);
+        accumulate<L, kFold, DWQ>(acc0, RegisterA<L>{c[1]}, y1_s + d0, q_scale, lane);
       } else {
-        accumulate<L, false>(acc[0], RegisterA<L>{c[1]}, y1_s + d0, 1.f, lane);
+        accumulate<L, false, DWQ>(acc0, RegisterA<L>{c[1]}, y1_s + d0, 1.f, lane);
       }
     } else {
       store_partials<L>(part + (2 * cw) * BM * LDP, c[0], wrow, g8, t4);
@@ -252,7 +259,7 @@ __device__ __forceinline__ void side(const T* __restrict__ q, const T* __restric
       __syncthreads();  // the partials are in; Y2 is read on the dq side
       if constexpr (L::NBUF == 1) {
         if (!kDkv && more) {  // the next V comes in while ds and dq are formed
-          stage_rows<T, D, BN, LD>(y2_s, y2, y2st, s0 + BN, n_step);
+          stage_rows<T, DV, BN, LD>(y2_s, y2, y2st, s0 + BN, n_step);
           commit_copies();
         }
       }
@@ -282,25 +289,25 @@ __device__ __forceinline__ void side(const T* __restrict__ q, const T* __restric
 
       // 3. dq += ds . K; dv += p . dO and dk += ds . q'
       if constexpr (kDkv) {
-        accumulate<L, false>(acc[1], SharedA<L>{w_s + S::w_p, wrow, lane}, y2_s + d0, 1.f,
-                                lane);
+        accumulate<L, false, DWV>(acc1, SharedA<L>{w_s + S::w_p, wrow, lane}, y2_s + d0v, 1.f,
+                                  lane);
         if constexpr (L::NBUF == 1) {
           if (more) {  // dO is done with: the next comes in while dk is formed
             __syncthreads();
-            stage_rows<T, D, BN, LD>(y2_s, y2, y2st, s0 + BN, n_step);
+            stage_rows<T, DV, BN, LD>(y2_s, y2, y2st, s0 + BN, n_step);
             commit_copies();
           }
         }
-        accumulate<L, kFold>(acc[0], SharedA<L>{w_s, wrow, lane}, y1_s + d0, q_scale,
-                                lane);
+        accumulate<L, kFold, DWQ>(acc0, SharedA<L>{w_s, wrow, lane}, y1_s + d0, q_scale,
+                                  lane);
       } else {
-        accumulate<L, false>(acc[0], SharedA<L>{w_s, wrow, lane}, y1_s + d0, 1.f, lane);
+        accumulate<L, false, DWQ>(acc0, SharedA<L>{w_s, wrow, lane}, y1_s + d0, 1.f, lane);
       }
     }
     if constexpr (L::NBUF == 1) {
       if (more) {  // Y1's buffer is free once every warp is done with it
         __syncthreads();
-        stage_rows<T, D, BN, LD>(y1_s, y1, y1st, s0 + BN, n_step);
+        stage_rows<T, DQ, BN, LD>(y1_s, y1, y1st, s0 + BN, n_step);
         commit_copies();
       }
     } else {
@@ -308,46 +315,51 @@ __device__ __forceinline__ void side(const T* __restrict__ q, const T* __restric
     }
   }
 
-  // results: rows r0 + wrow + 16m + g (+8), columns d0 + 8n + 2t (+1)
+  // results: rows r0 + wrow + 16m + g (+8), columns d0 + 8n + 2t (+1) of
+  // out0, d0v + 8n + 2t (+1) of out1
   const int n_rows = kDkv ? g.Tk : g.Tq;
+  const float scale = kDkv ? 1.f : out_scale;
 #pragma unroll
-  for (int a = 0; a < NACC; ++a) {
-    T* out = a == 0 ? out0 : out1;
-    const float scale = kDkv ? 1.f : out_scale;
+  for (int m = 0; m < MT; ++m) {
 #pragma unroll
-    for (int m = 0; m < MT; ++m) {
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + wrow + m * 16 + g8 + 8 * half;
+      if (row >= n_rows) continue;
+      const long long at = (long long)(b * n_rows + row) * g.H + h;
+      T* p = out0 + at * DQ + d0 + 2 * t4;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = r0 + wrow + m * 16 + g8 + 8 * half;
-        if (row >= n_rows) continue;
-        T* p = out + ((long long)(b * n_rows + row) * g.H + h) * D + d0 + 2 * t4;
+      for (int n = 0; n < DWQ / 8; ++n)
+        store2(p + n * 8, acc0[m][n][2 * half] * scale, acc0[m][n][2 * half + 1] * scale);
+      if constexpr (kDkv) {
+        p = out1 + at * DV + d0v + 2 * t4;
 #pragma unroll
-        for (int n = 0; n < DW / 8; ++n)
-          store2(p + n * 8, acc[a][m][n][2 * half] * scale, acc[a][m][n][2 * half + 1] * scale);
+        for (int n = 0; n < DWV / 8; ++n)
+          store2(p + n * 8, acc1[m][n][2 * half], acc1[m][n][2 * half + 1]);
       }
     }
   }
 }
 
 // dq for BM query rows; steps over BN-row key tiles (the note at the top).
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, BwdTiling<T, D>::MIN_BLOCKS)
+template <typename T, int DQ, int DV>
+__global__ void __launch_bounds__(kThreads, BwdTiling<T, DQ, DV>::MIN_BLOCKS)
 flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              const T* __restrict__ dout, const float* __restrict__ lse,
              const float* __restrict__ delta, T* __restrict__ dq, View qv, View kv, View vv,
              View dov, Geometry g, int q_tiles, float q_scale, float dq_scale) {
-  side<T, D, false>(q, k, v, dout, lse, delta, dq, nullptr, qv, kv, vv, dov, g, q_tiles, q_scale,
-                    dq_scale);
+  side<T, DQ, DV, false>(q, k, v, dout, lse, delta, dq, nullptr, qv, kv, vv, dov, g, q_tiles,
+                         q_scale, dq_scale);
 }
 
 // dk and dv for BM key rows; steps over BN-row query tiles (the note at the top).
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, BwdTiling<T, D>::MIN_BLOCKS)
+template <typename T, int DQ, int DV>
+__global__ void __launch_bounds__(kThreads, BwdTiling<T, DQ, DV>::MIN_BLOCKS)
 flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const T* __restrict__ dout, const float* __restrict__ lse,
               const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
               View qv, View kv, View vv, View dov, Geometry g, int k_tiles, float q_scale) {
-  side<T, D, true>(q, k, v, dout, lse, delta, dk, dv, qv, kv, vv, dov, g, k_tiles, q_scale, 1.f);
+  side<T, DQ, DV, true>(q, k, v, dout, lse, delta, dk, dv, qv, kv, vv, dov, g, k_tiles, q_scale,
+                        1.f);
 }
 
 struct Args {
@@ -359,35 +371,39 @@ struct Args {
   float q_scale, dq_scale;
 };
 
-template <typename T, int D>
+template <typename T, int DQ, int DV>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr int BM = BwdTiling<T, D>::BM;  // query rows of the dq side, key rows of the dk/dv side
+  // query rows of the dq side, key rows of the dk/dv side
+  constexpr int BM = BwdTiling<T, DQ, DV>::BM;
   const int q_tiles = (a.g.Tq + BM - 1) / BM, k_tiles = (a.g.Tk + BM - 1) / BM;
   const unsigned heads = unsigned(a.g.B) * a.g.H;
   const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k);
   const T *v = static_cast<const T*>(a.v), *dout = static_cast<const T*>(a.dout);
-  constexpr size_t dq_smem = BwdSmem<T, D, false>::bytes, dkv_smem = BwdSmem<T, D, true>::bytes;
-  cudaError_t err = set_smem(flash_bwd_dq<T, D>, dq_smem);
+  constexpr size_t dq_smem = BwdSmem<T, DQ, DV, false>::bytes;
+  constexpr size_t dkv_smem = BwdSmem<T, DQ, DV, true>::bytes;
+  cudaError_t err = set_smem(flash_bwd_dq<T, DQ, DV>, dq_smem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq<T, D><<<dim3(q_tiles * heads), kThreads, dq_smem, stream>>>(
+  flash_bwd_dq<T, DQ, DV><<<dim3(q_tiles * heads), kThreads, dq_smem, stream>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dq), a.qv, a.kv, a.vv, a.dov, a.g,
       q_tiles, a.q_scale, a.dq_scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = set_smem(flash_bwd_dkv<T, D>, dkv_smem)) != cudaSuccess) return err;
-  flash_bwd_dkv<T, D><<<dim3(k_tiles * heads), kThreads, dkv_smem, stream>>>(
+  if ((err = set_smem(flash_bwd_dkv<T, DQ, DV>, dkv_smem)) != cudaSuccess) return err;
+  flash_bwd_dkv<T, DQ, DV><<<dim3(k_tiles * heads), kThreads, dkv_smem, stream>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.qv, a.kv,
       a.vv, a.dov, a.g, k_tiles, a.q_scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(int D, const Args& a, cudaStream_t stream) {
-  switch (D) {
-    case 64: return launch<T, 64>(a, stream);
-    case 128: return launch<T, 128>(a, stream);
-    case 256: return launch<T, 256>(a, stream);
-    case 512: return launch<T, 512>(a, stream);
-    case 1024: return launch<T, 1024>(a, stream);
+cudaError_t dispatch(int DQ, int DV, const Args& a, cudaStream_t stream) {
+  if (DQ == 192 && DV == 128) return launch<T, 192, 128>(a, stream);
+  if (DQ != DV) return cudaErrorInvalidValue;
+  switch (DQ) {
+    case 64: return launch<T, 64, 64>(a, stream);
+    case 128: return launch<T, 128, 128>(a, stream);
+    case 256: return launch<T, 256, 256>(a, stream);
+    case 512: return launch<T, 512, 512>(a, stream);
+    case 1024: return launch<T, 1024, 1024>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -396,26 +412,27 @@ cudaError_t dispatch(int D, const Args& a, cudaStream_t stream) {
 
 extern "C" {
 
-// q, dout (B, Tq, H, D) and k, v (B, Tk, H, D): last two axes contiguous,
-// batch and sequence strides in elements, rows 16-byte aligned. lse and delta
-// (B, H, Tq) f32 contiguous. dq (B, Tq, H, D), dk and dv (B, Tk, H, D)
-// contiguous in the storage type. is_bf16 selects bf16 (1) or f32 (0); D is
-// 64, 128, 256, 512 or 1024; q_scale is 1/sqrt(D) rounded to the storage type,
-// dq_scale the same in f32. Returns a cudaError_t.
-int flash_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
-                        const void* lse, const void* delta, void* dq, void* dk, void* dv,
-                        int B, int H, int Tq, int Tk, int D, int is_bf16, int causal,
-                        long long q_sb, long long q_st, long long k_sb, long long k_st,
-                        long long v_sb, long long v_st, long long do_sb, long long do_st,
-                        float q_scale, float dq_scale, void* stream) {
+// q (B, Tq, H, DQ), k (B, Tk, H, DQ), v (B, Tk, H, DV) and dout (B, Tq, H,
+// DV): last two axes contiguous, batch and sequence strides in elements, rows
+// 16-byte aligned. lse and delta (B, H, Tq) f32 contiguous. dq (B, Tq, H,
+// DQ), dk (B, Tk, H, DQ) and dv (B, Tk, H, DV) contiguous in the storage
+// type. is_bf16 selects bf16 (1) or f32 (0); DQ = DV is 64, 128, 256, 512 or
+// 1024, or (DQ, DV) is (192, 128); q_scale is 1/sqrt(DQ) rounded to the
+// storage type, dq_scale the same in f32. Returns a cudaError_t.
+int flash_attention_bwd_widths(const void* q, const void* k, const void* v, const void* dout,
+                               const void* lse, const void* delta, void* dq, void* dk, void* dv,
+                               int B, int H, int Tq, int Tk, int DQ, int DV, int is_bf16,
+                               int causal, long long q_sb, long long q_st, long long k_sb,
+                               long long k_st, long long v_sb, long long v_st, long long do_sb,
+                               long long do_st, float q_scale, float dq_scale, void* stream) {
   const Args a{q, k, v, dout,
                static_cast<const float*>(lse), static_cast<const float*>(delta),
                dq, dk, dv,
                View{q_sb, q_st}, View{k_sb, k_st}, View{v_sb, v_st}, View{do_sb, do_st},
                Geometry{B, H, Tq, Tk, causal}, q_scale, dq_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return int(dispatch<__nv_bfloat16>(D, a, s));
-  return int(dispatch<float>(D, a, s));
+  if (is_bf16) return int(dispatch<__nv_bfloat16>(DQ, DV, a, s));
+  return int(dispatch<float>(DQ, DV, a, s));
 }
 
 const char* avt_cuda_error_string(int err) {

@@ -7,7 +7,9 @@
 // contiguous (head stride D, element stride 1); the batch and sequence strides
 // are passed in, so the views of a fused qkv projection (B, T, 3*H*D) are read
 // in place. Every output is a contiguous (B, T, H, D) tensor; lse and delta
-// are contiguous (B, H, T) f32.
+// are contiguous (B, H, T) f32. Two widths: q and k are DQ wide, v, out and
+// dO DV wide (DQ = DV but for MLA's (192, 128): 128 + 64 rotary columns of
+// q and k, 128 of v). A staged row holds DQ elements, the wider.
 //
 // Arithmetic. Every product runs on mma.sync (tensor_core.cuh). bf16: one
 // m16n8k16 with f32 accumulation, exact products, as the TPU's bf16 matrix
@@ -21,11 +23,13 @@
 // Work split. A block is 8 warps. It keeps BM rows of one or two operands
 // (the kept rows) in shared memory and steps over BN-row tiles of the others
 // (the step rows). The warps form RW row groups x CW column groups: a warp
-// owns MT m-tiles (16 rows) of the kept rows and a DW = D/CW wide slice of D.
+// owns MT m-tiles (16 rows) of the kept rows and a 1/CW slice of each width
+// (DWQ = DQ/CW of q and k, DWV = DV/CW of v and dO).
 //   Step 1 (scores): the warp's BM/RW x BN partial scores, X . Y^T over its
-//   slice of D (NP products in one loop: the forward's S; the backward's S
-//   and dP). With few m- and n-tiles a warp sums its k-steps into KS
-//   interleaved accumulators: independent mma chains hide the mma latency.
+//   slice of D (NP products in one loop: the forward's S over DQ; the
+//   backward's S over DQ and dP over DV, the columns past DV in S alone).
+//   With few m- and n-tiles a warp sums its k-steps into KS interleaved
+//   accumulators: independent mma chains hide the mma latency.
 //   Where one warp spans D (CW = 1) the scores stay in its registers and
 //   become step 3's A fragments there (RegisterA: f32 as C's {c0, c2, c1,
 //   c3}, tensor_core.cuh). Otherwise the warps store their partials
@@ -34,7 +38,8 @@
 //   goes to shared memory as step 3's A operand (store_w), in f32 already
 //   split into hi and lo planes, so that the 8 warps reading it do not split
 //   it again (SharedA).
-//   Step 3 (accumulate): acc += W . Y, the warp's rows x its slice of D.
+//   Step 3 (accumulate): acc += W . Y, the warp's rows x its slice of Y's
+//   width.
 // Staging: every tile is copied by cp.async straight into padded shared rows
 // (16 bytes of padding a row: conflict-free fragment loads). No T x T
 // matrix reaches device memory.
@@ -58,14 +63,18 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr size_t kMaxSmem = 232448;  // the most shared memory a block can have
 
 // The tiles of one flash kernel (the note at the top), by storage type and
-// head dim: kFwd for the forward (keeps q', steps over K and V), else for
-// either side of the backward (keeps two operands, steps over two).
-template <typename T, int D, bool kFwd>
+// the two widths: kFwd for the forward (keeps q', steps over K and V), else
+// for either side of the backward (keeps two operands, steps over two).
+// (DQ, DV) = (192, 128) takes D=128's split of the warps (CW = 2) and, in
+// f32, 16 step rows, so that its staged rows and score tiles fit.
+template <typename T, int DQ, int DV, bool kFwd>
 struct Tiling {
   using Elem = T;
   static constexpr bool kF32 = sizeof(T) == sizeof(float);
+  static constexpr bool kTwoWidths = DQ != DV;
+  static constexpr int D = DQ;
   static constexpr int NP = kFwd ? 1 : 2;  // step-1 products: S; or S and dP
-  static constexpr int CW = D == 64 ? 1 : D == 128 ? 2 : D == 256 ? 4 : 8;  // column groups
+  static constexpr int CW = kTwoWidths || D == 128 ? 2 : D == 64 ? 1 : D == 256 ? 4 : 8;
   static constexpr int RW = kWarps / CW;                                    // row groups
   static constexpr int MT = D == 512 ? 2 : 1;  // m-tiles of 16 kept rows a warp
   static constexpr int BM = 16 * MT * RW;      // kept rows: 128, 64, 32, 32, 16
@@ -76,14 +85,15 @@ struct Tiling {
   // step rows: as many as the shared memory holds beside the kept rows; at
   // D=64, 16 in the backward, so that two f32 blocks (128 registers a
   // thread) fit an SM, 32 in the forward (one operand kept)
-  static constexpr int BN = D == 64 ? (kFwd ? 32 : 16)
+  static constexpr int BN = kTwoWidths ? (kF32 ? 16 : 32)
+                            : D == 64 ? (kFwd ? 32 : 16)
                             : kOwnSlice ? (!kF32 ? 32 : D == 512 ? 16 : 8)
                             : kF32 ? (D == 128 ? 32 : D == 256 ? 16 : 8)
                                    : (D <= 256 ? 32 : 16);
   static constexpr int MIN_BLOCKS = D == 64 && kF32 ? 2 : 1;  // blocks an SM
   static constexpr int NBUF = kOwnSlice || (kF32 && D == 1024) ? 1 : 2;  // step buffers
-  static constexpr int DW = D / CW;                       // a warp's slice of D
-  static constexpr int LD = D + 16 / int(sizeof(T));      // elements a staged row
+  static constexpr int DWQ = DQ / CW, DWV = DV / CW;     // a warp's slices of the widths
+  static constexpr int LD = DQ + 16 / int(sizeof(T));    // elements a staged row
   // floats a row of a score tile and of an f32 W plane (a stride of 8 or 24
   // words mod 32: a half-warp's float2 accesses hit distinct banks), bf16 a
   // row of a bf16 W tile (12 or 20 words: ldmatrix's 8 rows hit distinct
@@ -102,8 +112,9 @@ struct Tiling {
   static constexpr int KS = !kF32 || kRegs || CHAINS >= 8 ? 1
                             : kFwd && CHAINS == 1 ? 4 : 8 / CHAINS;
 
-  static_assert(RW * CW == kWarps && DW % 32 == 0 && BN % (kF32 ? 8 : 16) == 0, "tiles");
-  static_assert((DW / 8) % KS == 0, "k-split");
+  static_assert(DQ >= DV && RW * CW == kWarps && DWQ % 32 == 0 && DWV % 32 == 0 &&
+                BN % (kF32 ? 8 : 16) == 0, "tiles");
+  static_assert((DWQ / 8) % KS == 0 && (DWV / 8) % KS == 0, "k-split");
 };
 
 struct View {  // a (B, T, H, D) operand: batch and sequence strides, in elements
@@ -232,20 +243,99 @@ __device__ __forceinline__ FragA load_a_planes(const float* rows, int lo_at, int
   return f;
 }
 
+// k-steps [K0, K1) of step 1 (f32: 8 columns a k-step, bf16: 32) for the
+// first P products into the warp's KS accumulators a product (`scores`).
+template <class L, bool kScaleY0, bool kSplitX, int P, int K0, int K1>
+__device__ __forceinline__ void score_steps(float (&cs)[L::KS][L::NP][L::MT][L::BN / 8][4],
+                                            const typename L::Elem* x,
+                                            const typename L::Elem* y, int dcol,
+                                            float y0_scale, int lane) {
+  constexpr int MT = L::MT, NT = L::BN / 8, LD = L::LD, KS = L::KS;
+  constexpr int XO = L::BM * LD, YO = L::BN * LD;  // X_1 and Y_1 from X_0 and Y_0
+  if constexpr (L::kF32) {
+#pragma unroll 2
+    for (int k0 = K0; k0 < K1; k0 += KS) {
+#pragma unroll
+      for (int s = 0; s < KS; ++s) {
+        const int kk = k0 + s;
+        Tf32Pair b[P][NT][2];  // the B fragments of the k-step, split once
+#pragma unroll
+        for (int o = 0; o < P; ++o) {
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            float b0, b1;
+            load_b_nk<LD>(b0, b1, y + o * (YO + dcol) + n * 8 * LD, kk, lane);
+            if (kScaleY0 && o == 0) b0 *= y0_scale, b1 *= y0_scale;
+            b[o][n][0] = split_tf32_rz(b0);
+            b[o][n][1] = split_tf32_rz(b1);
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+#pragma unroll
+          for (int o = 0; o < P; ++o) {
+            FragA a;
+            if constexpr (kSplitX) a = load_a_planes<LD>(x + m * 16 * LD, XO, kk, lane);
+            else a = load_a_split<LD>(x + o * (XO + dcol) + m * 16 * LD, kk, lane);
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+              float(&acc)[4] = cs[s][o][m][n];
+              mma_1688(acc, a.lo, b[o][n][0].hi, b[o][n][1].hi);
+              mma_1688(acc, a.hi, b[o][n][0].lo, b[o][n][1].lo);
+              mma_1688(acc, a.hi, b[o][n][0].hi, b[o][n][1].hi);
+            }
+          }
+        }
+      }
+    }
+  } else {
+#pragma unroll 2
+    for (int kk = K0; kk < K1; ++kk) {
+      uint32_t b[P][NT][4];  // two k-steps of 16 a load
+#pragma unroll
+      for (int o = 0; o < P; ++o) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          ldmatrix_x4(b[o][n], y + o * (YO + dcol) + (n * 8 + (lane & 7)) * LD + kk * 32 +
+                                   (lane >> 3) * 8);
+      }
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+          for (int o = 0; o < P; ++o) {
+            uint32_t a[4];
+            ldmatrix_x4(a, x + o * (XO + dcol) + (m * 16 + (lane & 15)) * LD + kk * 32 +
+                               hh * 16 + (lane >> 4) * 8);
+#pragma unroll
+            for (int n = 0; n < NT; ++n)
+              mma_16816(cs[0][o][m][n], a, b[o][n][2 * hh], b[o][n][2 * hh + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
 // Step 1 for one warp: c[o][mt][nt] = its partial X_o . Y_o^T for the NP
-// products, summed over its slice of D. `x` is the warp's first kept row of
-// X_0 at the slice (X_1's BM rows on), `y` the first step row of Y_0 at the
-// slice (Y_1's BN rows on); Y_0's values are multiplied by `y0_scale` where
-// kScaleY0 (q' = q * sm_scale, exact in f32). kSplitX (f32, NP = 1): X_0 is
-// kept split, its hi plane at `x` and its lo plane BM rows on. The products
-// run in one loop, the k-steps in KS interleaved accumulators a product:
-// independent mma chains to hide the mma's latency.
+// products, summed over its slices of the widths. `x` is the warp's first
+// kept row of X_0 at its slice (X_1's BM rows and `dcol` columns on: DWV -
+// DWQ slices apart), `y` the first step row of Y_0 at its slice (Y_1's BN
+// rows and `dcol` columns on); Y_0's values are multiplied by `y0_scale`
+// where kScaleY0 (q' = q * sm_scale, exact in f32). kSplitX (f32, NP = 1):
+// X_0 is kept split, its hi plane at `x` and its lo plane BM rows on. The
+// products run in one loop over the k-steps of the narrower width, the
+// k-steps in KS interleaved accumulators a product (independent mma chains
+// to hide the mma's latency); at two widths S alone then runs the rest of
+// DWQ.
 template <class L, bool kScaleY0, bool kSplitX>
 __device__ __forceinline__ void scores(float (&c)[L::NP][L::MT][L::BN / 8][4],
                                        const typename L::Elem* x, const typename L::Elem* y,
-                                       float y0_scale, int lane) {
-  constexpr int NP = L::NP, MT = L::MT, NT = L::BN / 8, LD = L::LD, KS = L::KS;
-  constexpr int XO = L::BM * LD, YO = L::BN * LD;  // X_1 and Y_1 from X_0 and Y_0
+                                       int dcol, float y0_scale, int lane) {
+  constexpr int NP = L::NP, MT = L::MT, NT = L::BN / 8, KS = L::KS;
+  constexpr int U = L::kF32 ? 8 : 32;  // columns a k-step
+  constexpr int KQ = L::DWQ / U, KA = (NP == 2 ? L::DWV : L::DWQ) / U;
   static_assert(!kSplitX || (L::kF32 && NP == 1), "split kept rows: f32, one product");
   float cs[KS][NP][MT][NT][4];
 #pragma unroll
@@ -262,69 +352,9 @@ __device__ __forceinline__ void scores(float (&c)[L::NP][L::MT][L::BN / 8][4],
       }
     }
   }
-  if constexpr (L::kF32) {
-#pragma unroll 2
-    for (int k0 = 0; k0 < L::DW / 8; k0 += KS) {
-#pragma unroll
-      for (int s = 0; s < KS; ++s) {
-        const int kk = k0 + s;
-        Tf32Pair b[NP][NT][2];  // the B fragments of the k-step, split once
-#pragma unroll
-        for (int o = 0; o < NP; ++o) {
-#pragma unroll
-          for (int n = 0; n < NT; ++n) {
-            float b0, b1;
-            load_b_nk<LD>(b0, b1, y + o * YO + n * 8 * LD, kk, lane);
-            if (kScaleY0 && o == 0) b0 *= y0_scale, b1 *= y0_scale;
-            b[o][n][0] = split_tf32_rz(b0);
-            b[o][n][1] = split_tf32_rz(b1);
-          }
-        }
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-#pragma unroll
-          for (int o = 0; o < NP; ++o) {
-            FragA a;
-            if constexpr (kSplitX) a = load_a_planes<LD>(x + m * 16 * LD, XO, kk, lane);
-            else a = load_a_split<LD>(x + o * XO + m * 16 * LD, kk, lane);
-#pragma unroll
-            for (int n = 0; n < NT; ++n) {
-              float(&acc)[4] = cs[s][o][m][n];
-              mma_1688(acc, a.lo, b[o][n][0].hi, b[o][n][1].hi);
-              mma_1688(acc, a.hi, b[o][n][0].lo, b[o][n][1].lo);
-              mma_1688(acc, a.hi, b[o][n][0].hi, b[o][n][1].hi);
-            }
-          }
-        }
-      }
-    }
-  } else {
-#pragma unroll 2
-    for (int kk = 0; kk < L::DW / 32; ++kk) {
-      uint32_t b[NP][NT][4];  // two k-steps of 16 a load
-#pragma unroll
-      for (int o = 0; o < NP; ++o) {
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-          ldmatrix_x4(b[o][n], y + o * YO + (n * 8 + (lane & 7)) * LD + kk * 32 + (lane >> 3) * 8);
-      }
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-#pragma unroll
-          for (int o = 0; o < NP; ++o) {
-            uint32_t a[4];
-            ldmatrix_x4(a, x + o * XO + (m * 16 + (lane & 15)) * LD + kk * 32 + hh * 16 +
-                               (lane >> 4) * 8);
-#pragma unroll
-            for (int n = 0; n < NT; ++n)
-              mma_16816(cs[0][o][m][n], a, b[o][n][2 * hh], b[o][n][2 * hh + 1]);
-          }
-        }
-      }
-    }
-  }
+  score_steps<L, kScaleY0, kSplitX, NP, 0, KA>(cs, x, y, dcol, y0_scale, lane);
+  if constexpr (KA < KQ) score_steps<L, kScaleY0, kSplitX, 1, KA, KQ>(cs, x, y, dcol, y0_scale,
+                                                                      lane);
 #pragma unroll
   for (int o = 0; o < NP; ++o) {
 #pragma unroll
@@ -388,15 +418,15 @@ __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
 }
 
 // Step 3 for one warp: acc[mt][nt] += W (the warp's rows x BN) . Y (BN x its
-// slice of D), `yc` the step rows at the slice, their values multiplied by
-// `y_scale` where kScaleY (f32). get_a(kk, m, a) gives the A fragment of
+// slice of Y's width, DW columns), `yc` the step rows at the slice, their
+// values multiplied by `y_scale` where kScaleY (f32). get_a(kk, m, a) gives the A fragment of
 // m-tile m over k-step kk: in f32 split, its k index t read as column 2t and
 // t + 4 as 2t + 1 (the row order of load_b_kn); in bf16 the m16n8k16
 // fragment in a.hi.
-template <class L, bool kScaleY, class GetA>
-__device__ __forceinline__ void accumulate(float (&acc)[L::MT][L::DW / 8][4], GetA get_a,
+template <class L, bool kScaleY, int DW, class GetA>
+__device__ __forceinline__ void accumulate(float (&acc)[L::MT][DW / 8][4], GetA get_a,
                                            const typename L::Elem* yc, float y_scale, int lane) {
-  constexpr int MT = L::MT, NT = L::DW / 8, LD = L::LD;
+  constexpr int MT = L::MT, NT = DW / 8, LD = L::LD;
   const int g = lane >> 2, t = lane & 3;
   if constexpr (L::kF32) {
 #pragma unroll

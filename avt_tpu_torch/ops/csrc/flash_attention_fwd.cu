@@ -5,13 +5,16 @@
 // attention of AVT-h (GPT-2, causal) over 128 or more observed features:
 // (B, T, H, D) = (64, 256, 4, 512) in f32 for expts/02 at 256 s of context,
 // (64, 128, 2, 1024) for expts/04, and (64, 256, 8, 64) non-causal for the
-// Transformer aggregator.
+// Transformer aggregator. At two widths, q and k DQ wide and v and out DV
+// wide, it is the latent attention (MLA) of the Moonlight-16B-A3B head
+// (models/mla_moe.py): (64, 256, 16, 192 / 128) in bf16, causal; no TPU
+// kernel has two widths.
 //
 // Function, in the TPU kernel's order:
 //   q' = q * sm_scale                 rounded to the storage type (the scale
 //                                     is passed rounded to it too: a Python
 //                                     float takes q's dtype in JAX)
-//   s  = q' . k^T                     f32; keys >= Tk and, if causal, keys
+//   s  = q' . k^T                     f32 over DQ; keys >= Tk and, if causal, keys
 //                                     after the query get -1e30 (top-left
 //                                     at Tq != Tk)
 //   online softmax over key tiles:    m' = max(m, rowmax s), p = exp(s - m'),
@@ -94,15 +97,15 @@ namespace {
 
 using namespace flash;
 
-template <typename T, int D>
-using FwdTiling = Tiling<T, D, true>;
+template <typename T, int DQ, int DV>
+using FwdTiling = Tiling<T, DQ, DV, true>;
 
 // Byte offsets of the shared memory: q' (BM rows; f32 as the hi plane, then
 // the lo plane), NBUF x (K, V) (BN rows each), the CW partial score tiles,
 // P (f32 as hi and lo planes), then alpha and l of each kept row.
-template <typename T, int D>
+template <typename T, int DQ, int DV>
 struct FwdSmem {
-  using L = FwdTiling<T, D>;
+  using L = FwdTiling<T, DQ, DV>;
   static constexpr size_t x = 0;
   static constexpr size_t y = x + sizeof(T) * (L::kF32 ? 2 : 1) * L::BM * L::LD;
   static constexpr size_t part = y + sizeof(T) * L::NBUF * 2 * L::BN * L::LD;
@@ -118,9 +121,10 @@ struct FwdSmem {
 // q' = q * sm_scale in place on the BM staged rows (the product scale_rows
 // forms); in f32 then split once by split_tf32_rz: the hi plane in place,
 // the lo plane BM rows on.
-template <typename T, int D>
+template <typename T, int DQ, int DV>
 __device__ __forceinline__ void prepare_q(T* rows, float scale) {
-  using L = FwdTiling<T, D>;
+  using L = FwdTiling<T, DQ, DV>;
+  constexpr int D = DQ;
   if constexpr (L::kF32) {
     constexpr int VPR = D / 4;
     for (int i = threadIdx.x; i < L::BM * VPR; i += kThreads) {
@@ -138,14 +142,15 @@ __device__ __forceinline__ void prepare_q(T* rows, float scale) {
   }
 }
 
-// One warp's slice of D (columns [d0, d0 + DW)) of step rows [row0, row0 +
-// BN) into their shared rows by cp.async, rows at or past `valid`
-// zero-filled (kOwnSlice: the warp alone reads them). The caller commits.
-template <typename T, int D>
-__device__ __forceinline__ void stage_slice(T* dst, const T* __restrict__ src, long long stride,
-                                            int row0, int valid, int d0, int lane) {
-  using L = FwdTiling<T, D>;
-  constexpr int V = 16 / sizeof(T), VPR = L::DW / V;
+// One warp's slice (columns [d0, d0 + DW)) of step rows [row0, row0 + BN)
+// into their shared rows by cp.async, rows at or past `valid` zero-filled
+// (kOwnSlice: the warp alone reads them). The caller commits.
+template <class L, int DW>
+__device__ __forceinline__ void stage_slice(typename L::Elem* dst,
+                                            const typename L::Elem* __restrict__ src,
+                                            long long stride, int row0, int valid, int d0,
+                                            int lane) {
+  constexpr int V = 16 / sizeof(typename L::Elem), VPR = DW / V;
   static_assert(L::BN * VPR % 32 == 0, "whole copies a lane");
 #pragma unroll
   for (int i = lane; i < L::BN * VPR; i += 32) {
@@ -158,14 +163,15 @@ __device__ __forceinline__ void stage_slice(T* dst, const T* __restrict__ src, l
 
 // out and lse for BM query rows; steps over BN-row key tiles (the note at
 // the top).
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, FwdTiling<T, D>::MIN_BLOCKS)
+template <typename T, int DQ, int DV>
+__global__ void __launch_bounds__(kThreads, FwdTiling<T, DQ, DV>::MIN_BLOCKS)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           T* __restrict__ out, float* __restrict__ lse, View qv, View kv, View vv, Geometry g,
           int q_tiles, float q_scale) {
-  using L = FwdTiling<T, D>;
-  using S = FwdSmem<T, D>;
-  constexpr int BM = L::BM, BN = L::BN, LD = L::LD, LDP = L::LDP, MT = L::MT, DW = L::DW;
+  using L = FwdTiling<T, DQ, DV>;
+  using S = FwdSmem<T, DQ, DV>;
+  constexpr int BM = L::BM, BN = L::BN, LD = L::LD, LDP = L::LDP, MT = L::MT;
+  constexpr int DWQ = L::DWQ, DWV = L::DWV;
   constexpr int NT = BN / 8;
   // step 2 where the warps split D: TPR threads a row, KPT scores each
   constexpr int TPR = kThreads / BM, KPT = (BN + TPR - 1) / TPR;
@@ -179,28 +185,29 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   float* l_s = alpha_s + BM;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g8 = lane / 4, t4 = lane % 4;
-  const int rw = warp / L::CW, cw = warp % L::CW, wrow = rw * MT * 16, d0 = cw * DW;
+  const int rw = warp / L::CW, cw = warp % L::CW, wrow = rw * MT * 16;
+  const int d0 = cw * DWQ, d0v = cw * DWV;  // the warp's slices of q and k, of v and out
   const int row = tid / TPR, sub = tid % TPR;  // step 2's row where the warps split D
   const int bh = blockIdx.x / q_tiles, q0 = (blockIdx.x % q_tiles) * BM;
   const int b = bh / g.H, h = bh % g.H;
-  const T* kb = k + b * kv.sb + h * D;
-  const T* vb = v + b * vv.sb + h * D;
+  const T* kb = k + b * kv.sb + h * DQ;
+  const T* vb = v + b * vv.sb + h * DV;
   const int kv_end = g.causal ? min(g.Tk, q0 + BM) : g.Tk;  // causal: up to the last query
 
-  stage_rows<T, D, BM, LD>(x_s, q + b * qv.sb + h * D, qv.st, q0, g.Tq);
-  stage_rows<T, D, BN, LD>(y_s, kb, kv.st, 0, g.Tk);
-  stage_rows<T, D, BN, LD>(y_s + BN * LD, vb, vv.st, 0, g.Tk);
+  stage_rows<T, DQ, BM, LD>(x_s, q + b * qv.sb + h * DQ, qv.st, q0, g.Tq);
+  stage_rows<T, DQ, BN, LD>(y_s, kb, kv.st, 0, g.Tk);
+  stage_rows<T, DV, BN, LD>(y_s + BN * LD, vb, vv.st, 0, g.Tk);
   commit_copies();
   wait_copies();
   __syncthreads();
-  prepare_q<T, D>(x_s, q_scale);
+  prepare_q<T, DQ, DV>(x_s, q_scale);
   __syncthreads();  // q' is in place
 
-  float acc[MT][DW / 8][4];
+  float acc[MT][DWV / 8][4];
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
 #pragma unroll
-    for (int n = 0; n < DW / 8; ++n) {
+    for (int n = 0; n < DWV / 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
     }
@@ -228,18 +235,18 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       __syncthreads();  // this tile is in; every warp is done with the last tile
       if (more) {  // the next tile arrives while this one computes
         T* next = y_s + (buf ^ 1) * 2 * BN * LD;
-        stage_rows<T, D, BN, LD>(next, kb, kv.st, k0 + BN, g.Tk);
-        stage_rows<T, D, BN, LD>(next + BN * LD, vb, vv.st, k0 + BN, g.Tk);
+        stage_rows<T, DQ, BN, LD>(next, kb, kv.st, k0 + BN, g.Tk);
+        stage_rows<T, DV, BN, LD>(next + BN * LD, vb, vv.st, k0 + BN, g.Tk);
         commit_copies();
       }
     }
 
     // 1. the warp's partial scores S = q' . K^T
     float c[1][MT][NT][4];
-    scores<L, false, L::kF32>(c, x_s + wrow * LD + d0, k_s + d0, 1.f, lane);
+    scores<L, false, L::kF32>(c, x_s + wrow * LD + d0, k_s + d0, 0, 1.f, lane);
     if constexpr (L::kOwnSlice) {  // the next K's slice comes in from here on
       __syncwarp();
-      if (more) stage_slice<T, D>(k_s, kb, kv.st, k0 + BN, g.Tk, d0, lane);
+      if (more) stage_slice<L, DWQ>(k_s, kb, kv.st, k0 + BN, g.Tk, d0, lane);
       commit_copies();  // every step commits, so that the waits count alike
     }
     if constexpr (L::kRegs) {
@@ -276,14 +283,14 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
           l_run[m][hh] = l_run[m][hh] * alpha + group_sum<4>(sum);
           m_run[m][hh] = m_new;
 #pragma unroll
-          for (int n = 0; n < DW / 8; ++n) {
+          for (int n = 0; n < DWV / 8; ++n) {
             acc[m][n][2 * hh] *= alpha;
             acc[m][n][2 * hh + 1] *= alpha;
           }
         }
       }
       // 3. acc += P . V
-      accumulate<L, false>(acc, RegisterA<L>{c[0]}, v_s + d0, 1.f, lane);
+      accumulate<L, false, DWV>(acc, RegisterA<L>{c[0]}, v_s + d0v, 1.f, lane);
     } else {
       store_partials<L>(part + cw * BM * LDP, c[0], wrow, g8, t4);
       __syncthreads();  // the partials are in
@@ -329,16 +336,16 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
         for (int hh = 0; hh < 2; ++hh) {
           const float al = alpha_s[wrow + m * 16 + g8 + 8 * hh];
 #pragma unroll
-          for (int n = 0; n < DW / 8; ++n) {
+          for (int n = 0; n < DWV / 8; ++n) {
             acc[m][n][2 * hh] *= al;
             acc[m][n][2 * hh + 1] *= al;
           }
         }
       }
-      accumulate<L, false>(acc, SharedA<L>{w_s, wrow, lane}, v_s + d0, 1.f, lane);
+      accumulate<L, false, DWV>(acc, SharedA<L>{w_s, wrow, lane}, v_s + d0v, 1.f, lane);
       if constexpr (L::kOwnSlice) {  // the next V's slice comes in from here on
         __syncwarp();
-        if (more) stage_slice<T, D>(v_s, vb, vv.st, k0 + BN, g.Tk, d0, lane);
+        if (more) stage_slice<L, DWV>(v_s, vb, vv.st, k0 + BN, g.Tk, d0v, lane);
         commit_copies();
       }
     }
@@ -369,37 +376,41 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
         lc = l_s[i];
       }
       if (qpos >= g.Tq) continue;
-      T* p = out + ((long long)(b * g.Tq + qpos) * g.H + h) * D + d0 + 2 * t4;
+      T* p = out + ((long long)(b * g.Tq + qpos) * g.H + h) * DV + d0v + 2 * t4;
 #pragma unroll
-      for (int n = 0; n < DW / 8; ++n)
+      for (int n = 0; n < DWV / 8; ++n)
         store2(p + n * 8, acc[m][n][2 * hh] / lc, acc[m][n][2 * hh + 1] / lc);
     }
   }
 }
 
-template <typename T, int D>
+template <typename T, int DQ, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, void* lse,
                    View qv, View kv, View vv, Geometry g, float q_scale, cudaStream_t stream) {
-  constexpr int BM = FwdTiling<T, D>::BM;
-  constexpr size_t smem = FwdSmem<T, D>::bytes;
+  constexpr int BM = FwdTiling<T, DQ, DV>::BM;
+  constexpr size_t smem = FwdSmem<T, DQ, DV>::bytes;
   const int q_tiles = (g.Tq + BM - 1) / BM;
-  cudaError_t err = set_smem(flash_fwd<T, D>, smem);
+  cudaError_t err = set_smem(flash_fwd<T, DQ, DV>, smem);
   if (err != cudaSuccess) return err;
-  flash_fwd<T, D><<<dim3(unsigned(q_tiles) * g.B * g.H), kThreads, smem, stream>>>(
+  flash_fwd<T, DQ, DV><<<dim3(unsigned(q_tiles) * g.B * g.H), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), static_cast<float*>(lse), qv, kv, vv, g, q_tiles, q_scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* out, void* lse,
-                     View qv, View kv, View vv, Geometry g, float q_scale, cudaStream_t stream) {
-  switch (D) {
-    case 64: return launch<T, 64>(q, k, v, out, lse, qv, kv, vv, g, q_scale, stream);
-    case 128: return launch<T, 128>(q, k, v, out, lse, qv, kv, vv, g, q_scale, stream);
-    case 256: return launch<T, 256>(q, k, v, out, lse, qv, kv, vv, g, q_scale, stream);
-    case 512: return launch<T, 512>(q, k, v, out, lse, qv, kv, vv, g, q_scale, stream);
-    case 1024: return launch<T, 1024>(q, k, v, out, lse, qv, kv, vv, g, q_scale, stream);
+cudaError_t dispatch(int DQ, int DV, const void* q, const void* k, const void* v, void* out,
+                     void* lse, View qv, View kv, View vv, Geometry g, float q_scale,
+                     cudaStream_t stream) {
+  if (DQ == 192 && DV == 128)
+    return launch<T, 192, 128>(q, k, v, out, lse, qv, kv, vv, g, q_scale, stream);
+  if (DQ != DV) return cudaErrorInvalidValue;
+  switch (DQ) {
+    case 64: return launch<T, 64, 64>(q, k, v, out, lse, qv, kv, vv, g, q_scale, stream);
+    case 128: return launch<T, 128, 128>(q, k, v, out, lse, qv, kv, vv, g, q_scale, stream);
+    case 256: return launch<T, 256, 256>(q, k, v, out, lse, qv, kv, vv, g, q_scale, stream);
+    case 512: return launch<T, 512, 512>(q, k, v, out, lse, qv, kv, vv, g, q_scale, stream);
+    case 1024: return launch<T, 1024, 1024>(q, k, v, out, lse, qv, kv, vv, g, q_scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -408,20 +419,23 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v, void* o
 
 extern "C" {
 
-// q (B, Tq, H, D), k and v (B, Tk, H, D): last two axes contiguous, batch and
-// sequence strides in elements, rows 16-byte aligned. out (B, Tq, H, D)
-// contiguous in the storage type; lse (B, H, Tq) f32 or NULL. is_bf16 selects
-// bf16 (1) or f32 (0) storage; D is 64, 128, 256, 512 or 1024; q_scale is
-// 1/sqrt(D) rounded to the storage type. Returns a cudaError_t.
-int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
-                        int B, int H, int Tq, int Tk, int D, int is_bf16, int causal,
-                        long long q_sb, long long q_st, long long k_sb, long long k_st,
-                        long long v_sb, long long v_st, float q_scale, void* stream) {
+// q (B, Tq, H, DQ), k (B, Tk, H, DQ) and v (B, Tk, H, DV): last two axes
+// contiguous, batch and sequence strides in elements, rows 16-byte aligned.
+// out (B, Tq, H, DV) contiguous in the storage type; lse (B, H, Tq) f32 or
+// NULL. is_bf16 selects bf16 (1) or f32 (0) storage; DQ = DV is 64, 128,
+// 256, 512 or 1024, or (DQ, DV) is (192, 128); q_scale is 1/sqrt(DQ)
+// rounded to the storage type. Returns a cudaError_t.
+int flash_attention_fwd_widths(const void* q, const void* k, const void* v, void* out,
+                               void* lse, int B, int H, int Tq, int Tk, int DQ, int DV,
+                               int is_bf16, int causal, long long q_sb, long long q_st,
+                               long long k_sb, long long k_st, long long v_sb, long long v_st,
+                               float q_scale, void* stream) {
   const Geometry g{B, H, Tq, Tk, causal};
   const View qv{q_sb, q_st}, kv{k_sb, k_st}, vv{v_sb, v_st};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return int(dispatch<__nv_bfloat16>(D, q, k, v, out, lse, qv, kv, vv, g, q_scale, s));
-  return int(dispatch<float>(D, q, k, v, out, lse, qv, kv, vv, g, q_scale, s));
+  if (is_bf16)
+    return int(dispatch<__nv_bfloat16>(DQ, DV, q, k, v, out, lse, qv, kv, vv, g, q_scale, s));
+  return int(dispatch<float>(DQ, DV, q, k, v, out, lse, qv, kv, vv, g, q_scale, s));
 }
 
 const char* avt_cuda_error_string(int err) {

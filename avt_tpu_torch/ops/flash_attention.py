@@ -20,7 +20,10 @@ The blocked flash attention over (B, T, H, D) (`_flash_kernel` via
 `_flash_attention_fwd`; `_dq_kernel` and `_dkv_kernel` via
 `_flash_attention_bwd`; `flash_attention_vjp`): what `dot_product_attention`
 runs for 128 tokens or more without a mask, AVT-h's causal attention over a
-long observed context on the main path. The kernels read strided (B, T, H,
+long observed context on the main path. q and k may be wider than v: the
+latent attention of the Moonlight-16B-A3B head (models/mla_moe.py) has keys
+of 192 (128 + 64 rotary) and values of 128; the output and its gradient are
+v's width, the scale 1/sqrt(q's width). The kernels read strided (B, T, H,
 D) views in place, so the q, k and v views of a fused qkv projection need
 no copy (the JAX path pads and transposes them to (B*H, T_pad, D)).
 
@@ -35,8 +38,9 @@ a CUDA tensor an op launches the hand-written Hopper kernels
 `csrc/short_attention_{fwd,bwd}.cu` (bf16 or f32 storage, head dim 32, 64
 or 128), `csrc/fused_qkv_attention_fwd.cu` (bf16 or f32, head dim 64, an
 even head count) and `csrc/flash_attention_{fwd,bwd}.cu` (bf16 or f32, head
-dim 64, 128, 256, 512 or 1024) or raises; on a CPU tensor it runs the plain
-PyTorch versions (`packed_short_attention_reference`,
+dim 64, 128, 256, 512 or 1024, or 192 for q and k with 128 for v) or
+raises; on a CPU tensor it runs the plain PyTorch versions
+(`packed_short_attention_reference`,
 `packed_short_attention_bwd_reference`, `fused_qkv_attention_reference`,
 `flash_attention_reference`, `flash_attention_bwd_reference`), which follow
 the TPU kernels' arithmetic order. There is no fallback from one to the other.
@@ -61,6 +65,7 @@ HEAD_DIMS = (32, 64, 128)
 FLASH_KERNEL = "flash_attention_fwd"
 FLASH_BWD_KERNEL = "flash_attention_bwd"
 FLASH_HEAD_DIMS = (64, 128, 256, 512, 1024)  # 512: expts/02; 1024: expts/04
+FLASH_TWO_WIDTHS = ((192, 128),)  # (q and k, v): MLA, models/mla_moe.py
 FLASH_BLOCK_K = 128  # the TPU kernel's key block, which the plain version repeats
 FUSED_KERNEL = "fused_qkv_attention_fwd"
 FUSED_HEAD_DIM = 64  # the fused kernel exists in head-pair form only
@@ -509,19 +514,19 @@ def _delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
 def flash_attention_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the forward kernel: (out (B, Tq, H, D) in the storage
+    """Plain version of the forward kernel: (out (B, Tq, H, Dv) in the storage
     type, lse (B, H, Tq) f32), in `_flash_kernel`'s order over 128-key blocks:
     q scaled in the storage type, f32 scores with -1e30 on masked keys, an
     online softmax with exp, p rounded to v's type for an f32-accumulated PV,
     out = acc / max(l, 1e-30) rounded once, lse = m + log(max(l, 1e-30))."""
-    B, Tq, H, D = q.shape
+    B, Tq, H, _ = q.shape
     Tk, dt = k.shape[1], q.dtype
     qs = _scaled_q(q)
     kf, vf = (x.float().transpose(1, 2) for x in (k, v))
     f32 = dict(dtype=torch.float32, device=q.device)
     m = torch.full((B, H, Tq, 1), NEG_INF, **f32)
     l = torch.zeros((B, H, Tq, 1), **f32)
-    acc = torch.zeros((B, H, Tq, D), **f32)
+    acc = torch.zeros((B, H, Tq, v.shape[-1]), **f32)
     for k0 in range(0, Tk, FLASH_BLOCK_K):
         kb, vb = kf[:, :, k0:k0 + FLASH_BLOCK_K], vf[:, :, k0:k0 + FLASH_BLOCK_K]
         s = torch.matmul(qs, kb.transpose(-1, -2))
@@ -543,7 +548,7 @@ def flash_attention_bwd_reference(
     out: torch.Tensor, lse: torch.Tensor, causal: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the backward kernels: (dq, dk, dv) in the storage
-    type, in `_dq_kernel` / `_dkv_kernel`'s order: p = exp(s - lse)
+    type, dq and dk q's width, dv v's, in `_dq_kernel` / `_dkv_kernel`'s order: p = exp(s - lse)
     recomputed from the scaled q, ds = p * (dO.v^T - delta) with delta =
     rowsum(dO * O) in f32, dq = (ds rounded to k's type . K) * sm_scale,
     dk = ds^T rounded . q', dv = p^T rounded . dO, f32 accumulation."""
@@ -578,51 +583,66 @@ def _flash_view(name: str, what: str, x: torch.Tensor, shape, like: torch.Tensor
 
 
 def _check_flash(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """Validates q, k, v for a flash kernel (q's rank, type and head dim, then
-    its device); returns them in its layout."""
-    if q.dim() != 4:
-        raise ValueError(f"{name}: q must be (B, T, H, D), got {tuple(q.shape)}")
+    """Validates q, k, v for a flash kernel (q's rank, type and the head
+    widths of q and v, then its device); returns them in its layout."""
+    if q.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"{name}: q and v must be (B, T, H, D), got {tuple(q.shape)} and "
+                         f"{tuple(v.shape)}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"{name}: storage type must be bfloat16 or float32, got {q.dtype}")
     B, _, H, D = q.shape
-    if D not in FLASH_HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {D} is not one the kernel is built for "
-                         f"{FLASH_HEAD_DIMS}")
+    Dv = v.shape[-1]
+    if not (D == Dv and D in FLASH_HEAD_DIMS or (D, Dv) in FLASH_TWO_WIDTHS):
+        raise ValueError(f"{name}: head dim {D} (q and k) with {Dv} (v) is not one the kernel "
+                         f"is built for: {FLASH_HEAD_DIMS} for all three, or {FLASH_TWO_WIDTHS}")
     if q.device.type != "cuda":
         raise RuntimeError(
             f"{name} runs on CUDA tensors (or, through its plain version, on CPU "
             f"tensors); got a tensor on {q.device}")
-    kv_shape = (B, k.shape[1], H, D)
-    return (_flash_view(name, "q", q, q.shape, q), _flash_view(name, "k", k, kv_shape, q),
-            _flash_view(name, "v", v, kv_shape, q))
+    Tk = k.shape[1]
+    return (_flash_view(name, "q", q, q.shape, q), _flash_view(name, "k", k, (B, Tk, H, D), q),
+            _flash_view(name, "v", v, (B, Tk, H, Dv), q))
 
 
 def _strides(*xs: torch.Tensor):
     return [st for x in xs for st in x.stride()[:2]]
 
 
+def _widths_entry(lib: ctypes.CDLL, name: str, pointers: int, strides: int, floats: int):
+    """A flash entry point as a call with the two widths (DQ, DV) after the
+    geometry: `<name>_widths`, or, in sources older than the two-width
+    kernels (a parent commit's copy of csrc/), `<name>`, which takes one
+    width and is called only with DQ = DV."""
+    tail = [ctypes.c_longlong] * strides + [ctypes.c_float] * floats + [ctypes.c_void_p]
+    head = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 4  # (B, H, Tq, Tk)
+    two = hasattr(lib, f"{name}_widths")
+    fn = getattr(lib, f"{name}_widths" if two else name)
+    fn.argtypes = head + [ctypes.c_int] * (4 if two else 3) + tail  # widths, is_bf16, causal
+    fn.restype = ctypes.c_int
+
+    def call(*args):
+        *ptrs, B, H, Tq, Tk, DQ, DV = args[:pointers + 6]
+        if not two and DQ != DV:
+            raise ValueError(f"{name}: these sources take one head width, not ({DQ}, {DV})")
+        return fn(*ptrs, B, H, Tq, Tk, DQ, *((DV,) if two else ()), *args[pointers + 6:])
+    return call
+
+
 @functools.lru_cache(maxsize=None)
 def _flash_kernel(csrc: Path = _build.CSRC):
-    """The forward's C entry point, built from the sources in csrc at first use."""
-    fn = _build.load(FLASH_KERNEL, csrc).flash_attention_fwd
-    # (q, k, v, out, lse, B, H, Tq, Tk, D, is_bf16, causal, q_sb, q_st, k_sb,
-    #  k_st, v_sb, v_st, q_scale, stream)
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    """The forward's C entry point, built from the sources in csrc at first use:
+    (q, k, v, out, lse, B, H, Tq, Tk, DQ, DV, is_bf16, causal, q_sb, q_st,
+    k_sb, k_st, v_sb, v_st, q_scale, stream)."""
+    return _widths_entry(_build.load(FLASH_KERNEL, csrc), "flash_attention_fwd", 5, 6, 1)
 
 
 @functools.lru_cache(maxsize=None)
 def _flash_bwd_kernel(csrc: Path = _build.CSRC):
-    """The backward's C entry point, built from the sources in csrc at first use."""
-    fn = _build.load(FLASH_BWD_KERNEL, csrc).flash_attention_bwd
-    # (q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tk, D, is_bf16, causal,
-    #  q_sb, q_st, k_sb, k_st, v_sb, v_st, do_sb, do_st, q_scale, dq_scale, stream)
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 8
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    """The backward's C entry point, built from the sources in csrc at first
+    use: (q, k, v, dout, lse, delta, dq, dk, dv, B, H, Tq, Tk, DQ, DV, is_bf16,
+    causal, q_sb, q_st, k_sb, k_st, v_sb, v_st, do_sb, do_st, q_scale,
+    dq_scale, stream)."""
+    return _widths_entry(_build.load(FLASH_BWD_KERNEL, csrc), "flash_attention_bwd", 9, 8, 2)
 
 
 def _launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
@@ -632,8 +652,8 @@ def _launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: boo
     the sources in csrc."""
     q, k, v = _check_flash(FLASH_KERNEL, q, k, v)
     B, Tq, H, D = q.shape
-    Tk = k.shape[1]
-    out = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
+    Tk, Dv = k.shape[1], v.shape[-1]
+    out = torch.empty((B, Tq, H, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device) if want_lse else None
     if B * H * Tq == 0:
         return out, lse
@@ -642,7 +662,7 @@ def _launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: boo
     with torch.cuda.device(q.device):
         err = _flash_kernel(csrc)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse), B, H, Tq, Tk,
-            D, _DTYPES[q.dtype], int(causal), *_strides(q, k, v), _flash_scale(D, q.dtype),
+            D, Dv, _DTYPES[q.dtype], int(causal), *_strides(q, k, v), _flash_scale(D, q.dtype),
             torch.cuda.current_stream().cuda_stream)
     _build.check(_build.load(FLASH_KERNEL, csrc), err, FLASH_KERNEL)
     _build.launch_counts[FLASH_KERNEL] += 1
@@ -654,8 +674,8 @@ def _launch_flash_bwd(q, k, v, dout, lse, delta, causal: bool, csrc: Path = _bui
     from the sources in csrc."""
     q, k, v = _check_flash(FLASH_BWD_KERNEL, q, k, v)
     B, Tq, H, D = q.shape
-    Tk = k.shape[1]
-    dout = _flash_view(FLASH_BWD_KERNEL, "dout", dout, q.shape, q)
+    Tk, Dv = k.shape[1], v.shape[-1]
+    dout = _flash_view(FLASH_BWD_KERNEL, "dout", dout, (B, Tq, H, Dv), q)
     for what, x in (("lse", lse), ("delta", delta)):
         if (x.shape != (B, H, Tq) or x.dtype != torch.float32 or x.device != q.device
                 or not x.is_contiguous()):
@@ -663,13 +683,13 @@ def _launch_flash_bwd(q, k, v, dout, lse, delta, causal: bool, csrc: Path = _bui
                              f"{Tq}) float32 tensor on {q.device}")
     dq = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Tk, H, D), dtype=q.dtype, device=q.device)
-    dv = torch.empty_like(dk)
+    dv = torch.empty((B, Tk, H, Dv), dtype=q.dtype, device=q.device)
     if B * H * Tq * Tk == 0:
         return dq, dk.zero_(), dv.zero_()
     with torch.cuda.device(q.device):
         err = _flash_bwd_kernel(csrc)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Tq, Tk, D,
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Tq, Tk, D, Dv,
             _DTYPES[q.dtype], int(causal), *_strides(q, k, v, dout), _flash_scale(D, q.dtype),
             1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
     _build.check(_build.load(FLASH_BWD_KERNEL, csrc), err, FLASH_BWD_KERNEL)
@@ -681,7 +701,7 @@ def _launch_flash_bwd(q, k, v, dout, lse, delta, causal: bool, csrc: Path = _bui
                          device_types="cpu")
 def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
               want_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out (B, Tq, H, D), lse (B, H, Tq) f32, or an empty tensor when not
+    """(out (B, Tq, H, Dv), lse (B, H, Tq) f32, or an empty tensor when not
     wanted); on the CPU the plain version."""
     out, lse = flash_attention_reference(q, k, v, causal)
     return out, lse if want_lse else lse.new_empty((0,))
@@ -696,8 +716,8 @@ def _(q, k, v, causal, want_lse):
 @_flash_op.register_fake
 def _(q, k, v, causal, want_lse):
     B, Tq, H, _ = q.shape
-    return q.new_empty(q.shape), q.new_empty((B, H, Tq) if want_lse else (0,),
-                                             dtype=torch.float32)
+    return q.new_empty((B, Tq, H, v.shape[-1])), q.new_empty((B, H, Tq) if want_lse else (0,),
+                                                             dtype=torch.float32)
 
 
 @torch.library.custom_op(f"{NAMESPACE}::flash_attention_bwd", mutates_args=(),
@@ -716,7 +736,7 @@ def _(q, k, v, dout, out, lse, causal):
 
 @_flash_bwd_op.register_fake
 def _(q, k, v, dout, out, lse, causal):
-    return q.new_empty(q.shape), q.new_empty(k.shape), q.new_empty(k.shape)
+    return q.new_empty(q.shape), q.new_empty(k.shape), q.new_empty(v.shape)
 
 
 def _flash_setup(ctx, inputs, output):
@@ -740,9 +760,9 @@ _flash_op.register_autograd(_flash_backward, setup_context=_flash_setup)
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
 ) -> torch.Tensor:
-    """Flash attention over (B, T, H, D) with scale 1/sqrt(D); returns (B, Tq,
-    H, D). Differentiable (the recompute backward); the logsumexp is only
-    written when autograd will need it."""
+    """Flash attention over (B, T, H, D) q and k and (B, T, H, Dv) v with
+    scale 1/sqrt(D); returns (B, Tq, H, Dv). Differentiable (the recompute
+    backward); the logsumexp is only written when autograd will need it."""
     _check_device(FLASH_KERNEL, q)
     want_lse = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                             or v.requires_grad)

@@ -17,10 +17,18 @@ to it as to an operator.
 Names are stable, `avt.<layer>.<phase>`, never with a step number or a
 shape in them; a phase is a child of its step or request. An export runs
 with no profiler, so no range enters an exported program.
+
+`count(name, value)` is the counters' one entry, under the same check:
+while a profiler runs it adds `value` (a device tensor, added on the device
+with no host read, or a Python number, added on the host) into the
+accumulator `name`; otherwise it does nothing. `counters()` reads every
+accumulator (one sync for all of them) and resets them: a reader calls it
+once, after the profiled pass.
 """
 from __future__ import annotations
 
 import functools
+from typing import Dict, Union
 
 import torch
 
@@ -47,6 +55,53 @@ def span(name: str):
     if not _profiler_enabled():
         return OFF
     return torch._C._profiler._RecordFunctionFast(name)
+
+
+def tracing() -> bool:
+    """Whether a torch profiler runs: the check of `span` and `count`, for a
+    caller that would compute a counter's value only to count it."""
+    return _profiler_enabled()
+
+
+class _Counters:
+    """The accumulators of `count`: device tensors (f64) and host numbers."""
+
+    def __init__(self):
+        self.device: Dict[str, torch.Tensor] = {}
+        self.host: Dict[str, float] = {}
+
+    def add(self, name: str, value: Union[torch.Tensor, int, float]) -> None:
+        if isinstance(value, torch.Tensor):
+            value = value.detach().to(torch.float64)
+            if name in self.device:
+                self.device[name].add_(value)
+            else:
+                self.device[name] = value.clone()
+        else:
+            self.host[name] = self.host.get(name, 0.0) + float(value)
+
+    def read(self) -> Dict[str, float]:
+        out = dict(self.host)
+        if self.device:
+            names = list(self.device)
+            values = torch.stack([self.device[n].reshape(()) for n in names]).tolist()
+            out.update(zip(names, values))
+        self.device, self.host = {}, {}
+        return out
+
+
+_COUNTERS = _Counters()
+
+
+def count(name: str, value: Union[torch.Tensor, int, float]) -> None:
+    """Adds `value` into the counter `name` while a torch profiler runs."""
+    if _profiler_enabled():
+        _COUNTERS.add(name, value)
+
+
+def counters() -> Dict[str, float]:
+    """{name: total} of every counter since the last call, which resets them."""
+    return _COUNTERS.read()
 
 
 def spanned(name: str):

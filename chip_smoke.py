@@ -826,19 +826,25 @@ def time_fused(N, T, H, dtype, csrc=_build.CSRC, yardsticks=True):
     return res
 
 
-def flash_inputs(B, T, H, D, dtype, seed, Tk=None):
-    """q, dout (B, T, H, D) and k, v (B, Tk, H, D) (Tk = T by default) in the
-    storage type."""
-    return [x.to(dtype) for x in card_normal(seed, *((B, n, H, D) for n in (T, Tk or T,
-                                                                           Tk or T, T)))]
+def flash_inputs(B, T, H, D, dtype, seed, Tk=None, Dv=None):
+    """q (B, T, H, D), k (B, Tk, H, D), v (B, Tk, H, Dv) and dout (B, T, H,
+    Dv) (Tk = T, Dv = D by default) in the storage type."""
+    Tk, Dv = Tk or T, Dv or D
+    return [x.to(dtype) for x in card_normal(seed, (B, T, H, D), (B, Tk, H, D), (B, Tk, H, Dv),
+                                             (B, T, H, Dv))]
 
 
-def check_flash(B, T, H, D, dtype, causal, seed, Tk=None):
+def flash_label(B, T, H, D, dtype, causal, Tk=None, Dv=None):
+    return (f"B={B} T={T}{'' if Tk is None else f' Tk={Tk}'} H={H} D={D}"
+            f"{'' if Dv is None else f' Dv={Dv}'} {str(dtype)[6:]} causal={causal}")
+
+
+def check_flash(B, T, H, D, dtype, causal, seed, Tk=None, Dv=None):
     """The flash forward (out, lse) and backward (dq, dk, dv) kernels against
-    their plain versions, T queries over Tk keys (T by default), and the
-    bits of both on a repeat; returns the forward's and the backward's max
-    |err|."""
-    q, k, v, do = flash_inputs(B, T, H, D, dtype, seed, Tk)
+    their plain versions, T queries over Tk keys (T by default), q and k D
+    wide and v Dv (D by default), and the bits of both on a repeat; returns
+    the forward's and the backward's max |err|."""
+    q, k, v, do = flash_inputs(B, T, H, D, dtype, seed, Tk, Dv)
     out, lse = fa._launch_flash(q, k, v, causal, want_lse=True)
     delta = fa._delta(do, out)
     grads = fa._launch_flash_bwd(q, k, v, do, lse, delta, causal)
@@ -850,8 +856,7 @@ def check_flash(B, T, H, D, dtype, causal, seed, Tk=None):
     errs = [rel_err(g, r) for g, r in zip(grads, refs)]
     fwd_err = (out.float() - ref.float()).abs().max().item()
     bwd_err = max((g.float() - r.float()).abs().max().item() for g, r in zip(grads, refs))
-    msg = (f"flash_attention B={B} T={T}{'' if Tk is None else f' Tk={Tk}'} H={H} D={D} "
-           f"{str(dtype)[6:]} causal={causal}: out "
+    msg = (f"flash_attention {flash_label(B, T, H, D, dtype, causal, Tk, Dv)}: out "
            f"max_abs_err={fwd_err:.3g}, lse {(lse - ref_lse).abs().max().item():.3g}; dq, dk, dv "
            + ", ".join(f"{e:.3g} of max|ref| {r.float().abs().max().item():.3g}"
                        for e, r in zip(errs, refs)) + f" (tolerance {TOL[dtype]})")
@@ -876,33 +881,39 @@ def causal_pairs(T, causal, Tk=None):
     return n * (n + 1) // 2 + (T - n) * Tk
 
 
-def flash_work(B, T, H, D, dtype, causal, backward, Tk=None):
-    """(bytes, operations). Forward: q, k, v in, out and lse out,
-    4*B*H*pairs*D; backward: q, k, v, dout, lse, delta in, dq, dk, dv out,
-    10*B*H*pairs*D (s, dp, dq, dk, dv); pairs counts only the unmasked
+def flash_work(B, T, H, D, dtype, causal, backward, Tk=None, Dv=None):
+    """(bytes, operations), q and k D wide, v Dv (D by default). Forward: q,
+    k, v in, out and lse out, 2*B*H*pairs*(D + Dv) (s, pv); backward: q, k,
+    v, dout, lse, delta in, dq, dk, dv out, 2*B*H*pairs*(3*D + 2*Dv) (s, dp,
+    dq, dk, dv), 10*B*H*pairs*D at one width; pairs counts only the unmasked
     (query, key) pairs; T queries over Tk keys (T by default)."""
-    s = torch.finfo(dtype).bits // 8
-    q_rows, k_rows = B * T * H * D, B * (Tk or T) * H * D
-    pairs = B * H * causal_pairs(T, causal, Tk) * D
+    s, Dv = torch.finfo(dtype).bits // 8, Dv or D
+    q_rows, k_rows = B * T * H, B * (Tk or T) * H
+    pairs = B * H * causal_pairs(T, causal, Tk)
     if backward:  # q, dout, dq; k, v, dk, dv; lse, delta
-        return (3 * q_rows + 4 * k_rows) * s + 2 * B * H * T * 4, 10 * pairs
-    return (2 * q_rows + 2 * k_rows) * s + B * H * T * 4, 4 * pairs  # q, out; k, v; lse
+        return ((q_rows * (2 * D + Dv) + k_rows * 2 * (D + Dv)) * s + 2 * B * H * T * 4,
+                2 * pairs * (3 * D + 2 * Dv))
+    # q, out; k, v; lse
+    return (q_rows + k_rows) * (D + Dv) * s + B * H * T * 4, 2 * pairs * (D + Dv)
 
 
-def flash_bound_ms(B, T, H, D, dtype, causal, backward, Tk=None):
-    return roofline_ms(*flash_work(B, T, H, D, dtype, causal, backward, Tk), PEAK_FLOPS[dtype])
+def flash_bound_ms(B, T, H, D, dtype, causal, backward, Tk=None, Dv=None):
+    return roofline_ms(*flash_work(B, T, H, D, dtype, causal, backward, Tk, Dv),
+                       PEAK_FLOPS[dtype])
 
 
-def flash_side_bound_ms(B, T, H, D, dtype, causal, side, Tk=None):
-    """One side of the backward: dq reads q, k, v, dout, lse, delta and
-    writes dq, 3 products (s, dp, dq); dk/dv reads the same and writes dk
-    and dv, 4 products (s, dp, dk, dv)."""
-    s = torch.finfo(dtype).bits // 8
-    q_rows, k_rows = B * T * H * D, B * (Tk or T) * H * D
-    pairs = B * H * causal_pairs(T, causal, Tk) * D
-    rows = 3 * q_rows + 2 * k_rows if side == "dq" else 2 * q_rows + 4 * k_rows
-    products = 3 if side == "dq" else 4
-    nbytes, flops = rows * s + 2 * B * H * T * 4, 2 * products * pairs
+def flash_side_bound_ms(B, T, H, D, dtype, causal, side, Tk=None, Dv=None):
+    """One side of the backward, q and k D wide, v Dv (D by default): dq
+    reads q, k, v, dout, lse, delta and writes dq, 3 products (s, dp, dq);
+    dk/dv reads the same and writes dk and dv, 4 products (s, dp, dk, dv)."""
+    s, Dv = torch.finfo(dtype).bits // 8, Dv or D
+    q_rows, k_rows = B * T * H, B * (Tk or T) * H
+    pairs = B * H * causal_pairs(T, causal, Tk)
+    if side == "dq":  # q, dout, dq; k, v
+        rows, width = q_rows * (2 * D + Dv) + k_rows * (D + Dv), 2 * D + Dv
+    else:  # q, dout; k, v, dk, dv
+        rows, width = q_rows * (D + Dv) + k_rows * 2 * (D + Dv), 2 * D + 2 * Dv
+    nbytes, flops = rows * s + 2 * B * H * T * 4, 2 * pairs * width
     return roofline_ms(nbytes, flops, PEAK_FLOPS[dtype])
 
 
@@ -938,12 +949,13 @@ def sdpa_backend(q, k, v, causal):
         return f"unknown ({type(e).__name__})"
 
 
-def time_flash(B, T, H, D, dtype, causal, Tk=None):
+def time_flash(B, T, H, D, dtype, causal, Tk=None, Dv=None):
     """Forward (with lse, as the train step calls it) and backward kernels,
     their plain versions, and SDPA on the same (B, H, T, D) views (backward:
     (forward + backward) - forward); T queries over Tk keys (T by default;
-    SDPA's is_causal keeps the same top-left pairs)."""
-    q, k, v, do = flash_inputs(B, T, H, D, dtype, seed=21, Tk=Tk)
+    SDPA's is_causal keeps the same top-left pairs), v Dv wide (D by
+    default; SDPA takes a v width unequal to q's, scale 1/sqrt(D))."""
+    q, k, v, do = flash_inputs(B, T, H, D, dtype, seed=21, Tk=Tk, Dv=Dv)
     out, lse = fa._launch_flash(q, k, v, causal, want_lse=True)
     delta = fa._delta(do, out)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -954,10 +966,10 @@ def time_flash(B, T, H, D, dtype, causal, Tk=None):
 
     fwd_ms = cuda_ms(sdpa)
     fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa(), x, do.transpose(1, 2)))
-    fwd_bound, fwd_by = flash_bound_ms(B, T, H, D, dtype, causal, backward=False, Tk=Tk)
-    bwd_bound, bwd_by = flash_bound_ms(B, T, H, D, dtype, causal, backward=True, Tk=Tk)
+    fwd_bound, fwd_by = flash_bound_ms(B, T, H, D, dtype, causal, backward=False, Tk=Tk, Dv=Dv)
+    bwd_bound, bwd_by = flash_bound_ms(B, T, H, D, dtype, causal, backward=True, Tk=Tk, Dv=Dv)
     sides = flash_side_ms(lambda: fa._launch_flash_bwd(q, k, v, do, lse, delta, causal))
-    side_bounds = {side: flash_side_bound_ms(B, T, H, D, dtype, causal, side, Tk)[0]
+    side_bounds = {side: flash_side_bound_ms(B, T, H, D, dtype, causal, side, Tk, Dv)[0]
                    for side in sides}
     res = {
         "fwd": dict(kernel_ms=cuda_ms(lambda: fa._launch_flash(q, k, v, causal, True)),
@@ -977,9 +989,8 @@ def time_flash(B, T, H, D, dtype, causal, Tk=None):
     if dtype == torch.float32:  # both kernels' products run as three TF32 products
         for side in ("fwd", "bwd"):
             res[side].update(tf32_floor(*flash_work(B, T, H, D, dtype, causal, side == "bwd",
-                                                    Tk)))
-    log(f"flash_attention timing B={B} T={T}{'' if Tk is None else f' Tk={Tk}'} H={H} D={D} "
-        f"{str(dtype)[6:]} causal={causal}, "
+                                                    Tk, Dv)))
+    log(f"flash_attention timing {flash_label(B, T, H, D, dtype, causal, Tk, Dv)}, "
         f"SDPA backend {res['sdpa_backend']}: forward " + fmt(res["fwd"]) + "; backward "
         + fmt(res["bwd"]))
     return res
@@ -1219,8 +1230,11 @@ def log_registers(name, text):
 
 # the packed kernels' f32 templates at the ViT's head dim, which must not spill
 F32_TEMPLATES = ("short_attn_fwd_tf32<64>", "bwd_query_tf32<64>", "bwd_key_tf32<64>")
-# nor the flash kernels' f32 templates at the paths' head dims
+# nor the flash kernels' f32 templates at the paths' head dims, nor their
+# templates at MLA's two widths (192, 128), named by the first
 FLASH_F32_TEMPLATES = tuple(f"{kernel}<f32, {D}>" for D in (64, 512, 1024)
+                            for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+FLASH_MLA_TEMPLATES = tuple(f"{kernel}<{dt}, 192>" for dt in ("f32", "bf16")
                             for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
 
 
@@ -1256,7 +1270,7 @@ def main():
     registers = {}
     for name, text in build_logs.items():
         registers.update(log_registers(name, text))
-    for template in F32_TEMPLATES + FLASH_F32_TEMPLATES:
+    for template in F32_TEMPLATES + FLASH_F32_TEMPLATES + FLASH_MLA_TEMPLATES:
         info = registers.get(template)
         check(info is not None and info.get("spill_bytes") == 0,
               f"{template}: ptxas reported {info} (want no spill)")
@@ -1382,6 +1396,10 @@ def main():
                         for causal in (True, False)}
     flash_timing_383 = time_flash(RO_LONG_B, RO_LONG_T, AVTH_HEADS, AVTH_DIM // AVTH_HEADS,
                                   torch.float32, True)
+    # the latent attention of the Moonlight head at the moonlight cell's
+    # shape (q and k 192 wide, v 128, causal), both types: held to the plain
+    # versions and timed beside the bound the benchmark reads
+    mla_errs, mla_timing = check_mla_flash()
     flash_turns = time_flash_fwd_turns(flash_parent) if flash_parent is not None else None
     flash_bwd_bits = check_flash_bwd_bits(flash_parent) if flash_parent is not None else None
     fused_timing_257 = time_fused(160, 257, 12, torch.bfloat16)
@@ -1419,6 +1437,10 @@ def main():
     # 6b. expts/04's AVT-h (head dim 1024) at 128 observed features -------
     d1024_launches = feature_d1024_phase()
     mark("feature_d1024_phase")
+
+    # 6c. expts/02 with the Moonlight-16B-A3B decoder as AVT-h's core ------
+    mla_launches = mla_moe_phase()
+    mark("mla_moe_phase")
 
     # 7. expts/08 with Adam at full width -----------------------------------
     ek55_launches = ek55_adam_phase()
@@ -1591,6 +1613,13 @@ def main():
             **({"turns": flash_turns} if side == "fwd" else {"bits_vs_parent": flash_bwd_bits}),
             f32_registers={t: registers.get(t) for t in FLASH_F32_TEMPLATES
                            if t.startswith(f"flash_{side}")},
+            mla={"shape": list(MLA_FLASH), "dv": MLA_DV, "causal": True,
+                 "launches": mla_launches[name],
+                 **{dt: {"max_abs_err": mla_errs[dt][side == "bwd"],
+                         "sdpa_backend": mla_timing[dt]["sdpa_backend"], **mla_timing[dt][side]}
+                    for dt in mla_errs},
+                 "registers": {t: registers.get(t) for t in FLASH_MLA_TEMPLATES
+                               if t.startswith(f"flash_{side}")}},
             adafactor_plateau=ap_summary["adafactor"], zoo_cloze=cloze_summary,
             ssl_checks={k: v[side] for k, v in ssl_errs.items()},
             rollout=rollout_summary,
@@ -2430,6 +2459,96 @@ def feature_phase():
             f"{scale:.3g} (limit {GRAD_TOL} of the scale)")
         check(scale > 0 and diff <= GRAD_TOL * scale, f"grad {name} differs by {diff}")
     return counts
+
+
+# the Moonlight-16B-A3B decoder as AVT-h's core (conf/model/future_predictor/
+# avth_mla_moe.yaml): 13 layers of 16 heads, whose latent attention runs
+# the flash kernels with q and k 192 wide and v 128, one forward and one
+# backward a layer; the moonlight cell's 64 clips x 256 features
+MLA_LAYERS, MLA_HEADS, MLA_DQ, MLA_DV = 13, 16, 192, 128
+MLA_FLASH = (FEAT_BATCH, LONG_T, MLA_HEADS, MLA_DQ)  # (B, T, H, D of q and k)
+MLA_STEP_CLIPS = 8  # the counted train step's batch: the launches do not depend on it
+
+
+def check_mla_flash():
+    """The flash kernels at MLA's two widths and the moonlight cell's shape,
+    causal, bf16 and f32: held to the plain versions (`check_flash`), the
+    bound's bytes and operations equal to portbench/work/mla_attention.py's
+    (what `mla_attn_roofline.train` reads), timed beside that bound, the
+    plain versions and SDPA. Returns ({dtype: (fwd, bwd max |err|)},
+    {dtype: timing})."""
+    from portbench.work import mla_attention
+
+    errs, timing = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype)[6:]
+        for backward, work in ((False, mla_attention.forward_work),
+                               (True, mla_attention.backward_work)):
+            mine = flash_work(*MLA_FLASH, dtype, True, backward, Dv=MLA_DV)
+            theirs = work(*MLA_FLASH, MLA_DV, torch.finfo(dtype).bits // 8, True)
+            check(mine == theirs, f"MLA flash {'backward' if backward else 'forward'} {dt}: "
+                  f"bytes, operations {mine} here, {theirs} in work/mla_attention.py")
+        errs[dt] = check_flash(*MLA_FLASH, dtype, True, seed=49, Dv=MLA_DV)
+        timing[dt] = time_flash(*MLA_FLASH, dtype, True, Dv=MLA_DV)
+    return errs, timing
+
+
+def mla_moe_phase():
+    """expts/02 with model/future_predictor=avth_mla_moe at full width,
+    composed from the files and built by config/build.py, trained by
+    make_train_step: one train step at 256 observed features with the
+    launch counts reset just before it makes 13 flash forwards and 13
+    backwards and no other attention kernel, its losses and its MLA and
+    expert gradients finite. Returns the step's launch counts."""
+    from avt_tpu_torch import train_net
+    from avt_tpu_torch.config import Composer, parse_override, parse_overrides_file
+    from avt_tpu_torch.config.build import build_model
+
+    expt = parse_overrides_file(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                             "expts", "02_ek100_avt_tsn.txt"))
+    cfg = Composer(train_net.CONF_DIR).compose(
+        "config", expt + [parse_override("model/future_predictor=avth_mla_moe")])
+    num_classes = {"action": NUM_ACTIONS}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    model = build_model(cfg, num_classes, {}, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0))
+    core = model.future_predictor.core()
+    check(type(core).__name__ == "MLAMoECore" and len(core.layers) == MLA_LAYERS,
+          f"avth_mla_moe built {type(core).__name__} of {len(getattr(core, 'layers', ()))} layers")
+    opt, _ = build_optimizer(
+        model, lr_wd=[["__all__", 1e-3, 1e-6]], optimizer_name="sgd", scheduler_name="cosine",
+        iters_per_epoch=1000, num_epochs=50, warmup_epochs=20, bias_bn_wd_scale=1.0,
+        optimizer_kwargs={"nesterov": True})
+    step = make_train_step(model, opt, LOSS_WTS, num_classes)
+    step_gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = feature_batch(MLA_STEP_CLIPS, LONG_T, 50)
+    step(batch, step_gen)  # first-call costs, outside the counted step
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    _build.reset_launch_counts()
+    t0 = time.time()
+    metrics = step(batch, step_gen)
+    torch.cuda.synchronize()
+    step_ms = (time.time() - t0) * 1e3
+    launches = attention_launches()
+    dense = _build.launch_counts[DENSE_KERNEL]
+    want = flash_launches(MLA_LAYERS, MLA_LAYERS)
+    check(launches == want, f"MLA-MoE train step: launches {launches}, want {want}")
+    values = {key: v.item() for key, v in metrics.items()}
+    check(all(np.isfinite(v) for v in values.values()), f"MLA-MoE train step: {values}")
+    params = dict(model.named_parameters())
+    watched = [n for n in params if ".self_attn." in n or ".mlp.experts." in n
+               or ".mlp.gate." in n]
+    bad = [n for n in watched if params[n].grad is None or not torch.isfinite(params[n].grad).all()]
+    check(watched and not bad, f"MLA-MoE train step: missing or non-finite gradient for {bad[:4]}")
+    log(f"MLA-MoE train step ({MLA_STEP_CLIPS} clips x {LONG_T} features, "
+        f"{sum(p.numel() for p in params.values()) / 1e9:.3f} B parameters; built and first "
+        f"step {build_s:.1f} s): {step_ms:.1f} ms; "
+        + ", ".join(f"{key} {v:.4f}" for key, v in values.items())
+        + f"; launches {launches}, {DENSE_KERNEL} {dense}; {len(watched)} MLA and expert "
+        f"gradients finite; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return launches
 
 
 def feature_d1024_phase():

@@ -110,7 +110,7 @@ def test_yaml_reader_matches_pyyaml_on_conf(path):
 
 
 def test_conf_files_are_all_compared():
-    assert len(CONF_FILES) == 54
+    assert len(CONF_FILES) == 55
 
 
 YAML_CASES = [

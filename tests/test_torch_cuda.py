@@ -807,3 +807,112 @@ def test_cuda_dense_f32_routes_agree(cuda_device, in_out):
         assert _build.launch_counts[tdense.KERNEL] == 3
         results.append((y.detach(), xs.grad, ws.grad, bs.grad))
     assert all(torch.equal(p, q) for p, q in zip(*results))
+
+
+def _two_widths(B, T, H, dtype, device):
+    """q and k 192 wide (128 + 64 rotary), v and dO 128 wide, v a strided
+    view as MLA's kv projection gives it (k_nope and v of one tensor)."""
+    q, k, do = (_heads(B, T, H, D, dtype, device, seed)
+                for seed, D in ((20, 192), (21, 192), (22, 128)))
+    kv = _heads(B, T, H, 256, dtype, device, 23)
+    return q, k, kv[..., 128:], do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("H,T,causal", [(16, 256, True), (2, 130, False), (3, 300, True),
+                                        (2, 17, False), (1, 5, True)])
+def test_cuda_flash_at_two_widths_matches_plain_version(cuda_device, dtype, H, T, causal):
+    """The (192, 128) kernels of MLA against their plain versions, forward
+    and backward, with the same bits on a repeat."""
+    q, k, v, do = _two_widths(3, T, H, dtype, cuda_device)
+    _build.reset_launch_counts()
+    out, lse = tfa._launch_flash(q, k, v, causal, want_lse=True)
+    delta = tfa._delta(do, out)
+    grads = tfa._launch_flash_bwd(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[tfa.FLASH_KERNEL] == _build.launch_counts[tfa.FLASH_BWD_KERNEL] == 1
+    assert out.shape == do.shape and [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    ref, ref_lse = tfa.flash_attention_reference(q, k, v, causal)
+    torch.testing.assert_close(out, ref, atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(lse, ref_lse, atol=TOL[dtype], rtol=TOL[dtype])
+    refs = tfa.flash_attention_bwd_reference(q, k, v, do, out, lse, causal)
+    for got, want in zip(grads, refs):
+        assert _rel_err(got, want) <= TOL[dtype]
+    again = tfa._launch_flash_bwd(q, k, v, do, lse, delta, causal)
+    assert all(torch.equal(a, b) for a, b in zip(again, grads))
+    assert torch.equal(tfa._launch_flash(q, k, v, causal, want_lse=False)[0], out)
+
+
+def _spills(log: str, mangled_part: str):
+    """(entry, spill bytes) of each kernel entry whose mangled name holds
+    `mangled_part`, from ptxas's -v output."""
+    import re
+
+    out, entry = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1) if mangled_part in m.group(1) else None
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill and entry is not None:
+            out.append((entry, int(spill.group(1)) + int(spill.group(2))))
+            entry = None
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_flash_two_widths_templates_do_not_spill(cuda_device):
+    """ptxas's report of the (192, 128) templates, bf16 and f32: the forward,
+    the dq side and the dk/dv side, none spilling."""
+    logs = _build.build([tfa.FLASH_KERNEL, tfa.FLASH_BWD_KERNEL])
+    found = _spills(logs[tfa.FLASH_KERNEL] + logs[tfa.FLASH_BWD_KERNEL], "Li192ELi128E")
+    assert len(found) == 6 and all(bytes_ == 0 for _, bytes_ in found), found
+
+
+def _experts(N, k, E, C, hidden, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    slot = torch.randint(0, E + 1, (N, k), generator=g)
+    slot[slot == 2] = 0  # expert 2 receives nothing
+    leaves = [torch.randn(N, C, generator=g), torch.rand(N, k, generator=g),
+              0.05 * torch.randn(E, hidden, C, generator=g),
+              0.05 * torch.randn(E, hidden, C, generator=g),
+              0.05 * torch.randn(E, C, hidden, generator=g)]
+    dtypes = [torch.bfloat16, torch.float32] + [torch.bfloat16] * 3
+    return slot.to(device), [x.to(device, dt).requires_grad_() for x, dt in zip(leaves, dtypes)]
+
+
+def _dense_experts(a, w, slot, wg, wu, wd):
+    """Each expert over every token in f32, weighted by its routing weight."""
+    out = torch.zeros(a.shape, dtype=torch.float32, device=a.device)
+    a32 = a.float()
+    for j in range(slot.shape[1]):
+        for e in range(wg.shape[0]):
+            h = torch.nn.functional.silu(a32 @ wg[e].float().t()) * (a32 @ wu[e].float().t())
+            y = w[:, j, None] * (h @ wd[e].float().t())
+            out = out + torch.where((slot[:, j] == e)[:, None], y, 0.0)
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_experts_match_dense_experts(cuda_device):
+    """The held experts' dispatch and grouped products (torch._grouped_mm,
+    bf16) against each expert dense over every token in f32, with uneven
+    groups, an empty expert and choices held elsewhere: the forward, every
+    gradient (the empty expert's zero) and a repeat's bits."""
+    from avt_tpu_torch.models.mla_moe import _HeldExperts
+
+    slot, leaves = _experts(3000, 6, 8, 256, 128, cuda_device, 0)
+    r = torch.randn(3000, 256, device=cuda_device)
+    outs = []
+    for _ in range(2):
+        out = _HeldExperts.apply(leaves[0], leaves[1], slot, *leaves[2:])
+        outs.append((out, torch.autograd.grad((out.float() * r).sum(), leaves)))
+    (out, grads), (out2, grads2) = outs
+    assert torch.equal(out, out2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    ref = _dense_experts(*leaves[:2], slot, *leaves[2:])
+    want = torch.autograd.grad((ref * r).sum(), leaves)
+    assert _rel_err(out.float(), ref) <= TOL["bfloat16"]
+    for got, w in zip(grads, want):
+        assert _rel_err(got.float(), w.float()) <= TOL["bfloat16"]
+    assert all(g[2].abs().max() == 0 for g in grads[2:])

@@ -276,3 +276,54 @@ def test_the_port_opens_ranges_through_trace_alone():
     offenders = [str(f.relative_to(ROOT)) for f in (ROOT / "avt_tpu_torch").rglob("*.py")
                  if opener.search(f.read_text()) and f.name != "trace.py"]
     assert offenders == []
+
+
+def test_count_is_a_no_op_without_a_profiler():
+    trace.count("avt.test.n", torch.tensor(3))
+    trace.count("avt.test.m", 2)
+    assert trace.counters() == {}
+
+
+def test_count_accumulates_under_a_profiler_with_no_host_read(monkeypatch):
+    """Device values add on the device, numbers on the host; nothing is read
+    back until `counters()`, which resets them."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a counter read a tensor back inside the pass")
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        with monkeypatch.context() as m:
+            for name in ("item", "tolist", "__float__", "__int__", "cpu"):
+                m.setattr(torch.Tensor, name, refuse)
+            for v in (3, 4):
+                trace.count("avt.test.n", torch.tensor(v))
+                trace.count("avt.test.m", v)
+    assert trace.counters() == {"avt.test.n": 7.0, "avt.test.m": 7.0}
+    assert trace.counters() == {}
+
+
+def _mla_moe_head():
+    from avt_tpu_torch.models import MLAMoECore
+    from avt_tpu_torch.models.mla_moe import init_mla_moe_
+
+    core = MLAMoECore(hidden_size=16, num_hidden_layers=3, num_attention_heads=2,
+                      kv_lora_rank=8, qk_nope_head_dim=8, qk_rope_head_dim=4, v_head_dim=8,
+                      intermediate_size=32, moe_intermediate_size=8, n_router_experts=8,
+                      experts_held=4, expert_rank=1, num_experts_per_tok=2)
+    init_mla_moe_(core, 0.2, torch.Generator().manual_seed(0))
+    return AVTh(in_features=C, inter_dim=16, output_len=1, avg_last_n=1, return_past_too=True,
+                core=core)
+
+
+def test_moe_and_mla_spans_and_counters():
+    """Each layer's attention opens avt.mla and each MoE FFN avt.moe (the
+    dense first layer none); the MoE layers count their tokens, the pairs
+    routed to the held experts and the largest expert's pairs."""
+    head = _mla_moe_head()
+    feats = torch.randn(B, 5, C, generator=torch.Generator().manual_seed(1))
+    found, _ = _spans(lambda: head(feats))
+    assert found == Counter({("avt.mla", None): 3, ("avt.moe", None): 2})
+    counted = trace.counters()
+    assert counted["avt.moe.tokens"] == 2 * B * 5
+    assert 0 < counted["avt.moe.pairs_max"] <= counted["avt.moe.pairs_held"] <= 2 * B * 5 * 2
+    head(feats)  # no profiler: nothing counted
+    assert trace.counters() == {}
